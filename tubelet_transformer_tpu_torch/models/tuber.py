@@ -1,0 +1,235 @@
+"""TubeR: tubelet-query DETR for spatio-temporal action detection (AVA
+mode, eval).
+
+Port of ``tubelet_transformer_tpu/models/tuber.py``: irCSN backbone ->
+temporal pooling (avg / max / learned decode / middle) -> DETR
+encoder-decoder over the (t, H', W') tokens -> per-layer box, actorness and
+class heads, the classes read out by a cross-attention over the un-pooled
+features through a one-layer factorised space/time encoder.
+
+Submodules are named after the reference's key scheme, which
+``train.torch_convert.tuber_torch_state_from_params`` emits; ``convert.py``
+loads the JAX package's variables through it with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tubelet_transformer_tpu_torch.config import Config
+from tubelet_transformer_tpu_torch.models.csn import (
+    FoldableBN, PointwiseConv, build_csn)
+from tubelet_transformer_tpu_torch.models.layers import (
+    MLP, FactorizedSTEncoderLayer, LayerStack, LSTRDecoderLayer,
+    MultiHeadAttention, layer_norm)
+from tubelet_transformer_tpu_torch.models.transformer import Transformer
+from tubelet_transformer_tpu_torch.ops.position_encoding import (
+    position_embedding_sine_3d)
+
+POOL_DIM = 2048     # CSN output channels, the width of the pooling decoder
+STRATEGIES = ("avg", "max", "decode", "middle")
+
+
+def nearest_resize_mask(x: torch.Tensor, out_h: int, out_w: int
+                        ) -> torch.Tensor:
+    """Nearest resize of axes (1, 2): out[i] = in[floor(i * H / out_h)], as
+    ``F.interpolate(mode='nearest')`` and the JAX version, in float32."""
+    h, w = x.shape[1], x.shape[2]
+    dev = x.device
+    rows = torch.floor(torch.arange(out_h, dtype=torch.float32, device=dev)
+                       * (h / out_h)).long()
+    cols = torch.floor(torch.arange(out_w, dtype=torch.float32, device=dev)
+                       * (w / out_w)).long()
+    return x[:, rows][:, :, cols]
+
+
+class Backbone(nn.Module):
+    """The CSN trunk (``body``) and, for the learned temporal pooling, its
+    query (``query_pool``) and LSTR decoder (``pool_decoder``)."""
+
+    def __init__(self, body: nn.Module, decode: bool):
+        super().__init__()
+        self.body = body
+        if decode:
+            self.query_pool = nn.Embedding(1, POOL_DIM)
+            self.pool_decoder = LayerStack(
+                [LSTRDecoderLayer(POOL_DIM, 8, 2048)],
+                norm=layer_norm(POOL_DIM))
+
+
+class TubeR(nn.Module):
+    """Clips (B,T,H,W,3) normalised RGB + pad mask (B,H,W) -> detections."""
+
+    def __init__(self, num_classes: int = 80, num_queries: int = 15,
+                 hidden_dim: int = 256, nhead: int = 8, enc_layers: int = 6,
+                 dec_layers: int = 6, dim_feedforward: int = 2048,
+                 backbone_name: str = "CSN-152", last_stride: bool = False,
+                 single_frame: bool = True,
+                 temporal_ds_strategy: str = "decode",
+                 stem_kernel: bool = True):
+        super().__init__()
+        if temporal_ds_strategy not in STRATEGIES:
+            raise ValueError(f"unknown temporal_ds_strategy "
+                             f"{temporal_ds_strategy!r}")
+        self.hidden_dim = hidden_dim
+        self.enc_layers, self.dec_layers = enc_layers, dec_layers
+        self.single_frame = single_frame
+        self.temporal_ds_strategy = temporal_ds_strategy
+        self.backbone = Backbone(
+            build_csn(backbone_name, last_stride, stem_kernel),
+            decode=single_frame and temporal_ds_strategy == "decode")
+        self.transformer = Transformer(hidden_dim, nhead, enc_layers,
+                                       dec_layers, dim_feedforward)
+        self.query_embed = nn.Embedding(num_queries, hidden_dim)
+        self.input_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
+        self.class_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
+        self.encoder = LayerStack(
+            [FactorizedSTEncoderLayer(hidden_dim, 8, 2048)])
+        self.cross_attn = MultiHeadAttention(hidden_dim, 8)
+        self.class_embed_b = nn.Linear(hidden_dim, 3)
+        self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
+        self.class_fc = nn.Linear(hidden_dim, num_classes)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.query_embed.weight.dtype
+
+    def _temporal_pool(self, xs: torch.Tensor) -> torch.Tensor:
+        """(B,T',H',W',C) -> (B,1,H',W',C) when single_frame."""
+        if not self.single_frame:
+            return xs
+        b, t, h, w, c = xs.shape
+        strategy = self.temporal_ds_strategy
+        if strategy == "avg":
+            return xs.mean(dim=1, keepdim=True)
+        if strategy == "max":
+            return xs.amax(dim=1, keepdim=True)
+        if strategy == "decode":
+            # one query cross-attends over time at each spatial location
+            mem = xs.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+            tgt = self.backbone.query_pool.weight.to(mem.dtype)[None].expand(
+                b * h * w, 1, c)
+            dec = self.backbone.pool_decoder
+            out = dec.norm(dec.layers[0](tgt, mem))
+            return out.reshape(b, h, w, 1, c).permute(0, 3, 1, 2, 4)
+        return xs[:, t // 2: t // 2 + 1]
+
+    def forward(self, clips: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None,
+                return_features: bool = False) -> dict:
+        if self.training:
+            raise NotImplementedError("TubeR runs in eval mode only; the "
+                                      "train slice is not ported yet")
+        b, _, h_in, w_in, _ = clips.shape
+        if pad_mask is None:
+            pad_mask = torch.zeros((b, h_in, w_in), dtype=torch.bool,
+                                   device=clips.device)
+        e = self.hidden_dim
+
+        xt = self.backbone.body(clips)                   # (B,T',H',W',2048)
+        xs = self._temporal_pool(xt)                     # (B,t,H',W',2048)
+        _, t, h, w, _ = xs.shape
+
+        feat_mask = nearest_resize_mask(pad_mask, h, w)
+        feat_mask_t = feat_mask[:, None].expand(b, t, h, w)
+        pos = position_embedding_sine_3d(~feat_mask_t, e, dtype=xs.dtype)
+        src = self.input_proj(xs)
+        hs = self.transformer(src.reshape(b, t * h * w, e),
+                              feat_mask_t.reshape(b, t * h * w),
+                              self.query_embed.weight,
+                              pos.reshape(b, t * h * w, e))  # (L,B,Q,E)
+        lay_n, _, nq, _ = hs.shape
+        outputs_class_b = self.class_embed_b(hs)          # (L,B,Q,3)
+
+        # class branch over the un-pooled features
+        tc = xt.shape[1]
+        enc = self.encoder.layers[0](
+            self.class_proj(xt).reshape(b, tc, h * w, e))
+        enc_rep = enc.reshape(b, tc * h * w, e)[None].expand(
+            lay_n, -1, -1, -1).reshape(lay_n * b, tc * h * w, e)
+        q_class = self.cross_attn(hs.reshape(lay_n * b, nq, e), enc_rep,
+                                  enc_rep).reshape(lay_n, b, nq, e)
+
+        outputs_class = self.class_fc(q_class)            # (L,B,Q,C)
+        outputs_coord = torch.sigmoid(self.bbox_embed(hs).float())
+        out = {
+            "pred_logits": outputs_class[-1].float(),
+            "pred_boxes": outputs_coord[-1],
+            "pred_logits_b": outputs_class_b[-1].float(),
+            "aux_logits": outputs_class.float(),
+            "aux_boxes": outputs_coord,
+            "aux_logits_b": outputs_class_b.float(),
+        }
+        if return_features:
+            out["lfb_features"] = q_class[-1].float()
+        return out
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    # flax lecun_normal: truncated normal at 2 std, rescaled to unit variance
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn like the JAX package's initialisers: LeCun
+    normal for convs and plain dense layers, Xavier uniform for attention
+    and transformer FFNs, N(0, 1) query embeddings, identity norms and BN."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv3d)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, (nn.LayerNorm, FoldableBN)):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
+            nn.init.xavier_uniform_(m.out_proj.weight, generator=generator)
+            m.in_proj_bias.zero_()
+        for ffn in ("linear1", "linear2"):
+            if isinstance(getattr(m, ffn, None), nn.Linear):
+                nn.init.xavier_uniform_(getattr(m, ffn).weight,
+                                        generator=generator)
+
+
+def build_model(cfg: Config, device: torch.device | str = "cpu",
+                seed: int = 0) -> TubeR:
+    """TubeR for ``cfg`` in eval mode on ``device``, with random weights
+    from ``seed`` (drawn on the CPU, so equal on every device). Parameters
+    are in ``MODEL.COMPUTE_DTYPE``, BatchNorm statistics stay float32."""
+    m = cfg.model
+    unsupported = {
+        "DATA.DATASET_NAME jhmdb/ucf": cfg.data.dataset_name in ("jhmdb",
+                                                                 "ucf"),
+        "CONFIG.USE_LFB": cfg.use_lfb,
+        "MODEL.GENERATE_LFB": m.generate_lfb,
+        "MODEL.MOE_EXPERTS": m.moe_experts > 0,
+        "MODEL.NORMALIZE_BEFORE": m.normalize_before,
+        "MESH.PIPE > 1": cfg.mesh.pipe > 1,
+    }
+    for name, asked in unsupported.items():
+        if asked:
+            raise NotImplementedError(f"{name} is not ported yet")
+    model = TubeR(num_classes=cfg.data.num_classes, num_queries=m.query_num,
+                  hidden_dim=m.d_model, nhead=m.nhead,
+                  enc_layers=m.enc_layers, dec_layers=m.dec_layers,
+                  dim_feedforward=m.dim_feedforward,
+                  backbone_name=m.backbone_name, last_stride=m.last_stride,
+                  single_frame=m.single_frame,
+                  temporal_ds_strategy=m.temporal_ds_strategy,
+                  stem_kernel=m.stem_kernel)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
+    for mod in model.modules():
+        if not isinstance(mod, FoldableBN):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return model.to(device).eval()
