@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX: every module of the package, its
-serving loop and its CLI load in a fresh interpreter that then holds no
-jax, flax, optax or orbax module."""
+serving loop, its trainer and its CLIs load in a fresh interpreter that
+then holds no jax, flax, optax or orbax module."""
 
 import pkgutil
 import subprocess
@@ -16,7 +16,9 @@ def test_port_imports_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         port.__path__, prefix="tubelet_transformer_tpu_torch."))
     assert {"tubelet_transformer_tpu_torch.serving",
-            "tubelet_transformer_tpu_torch.cli.serve"} <= set(modules)
+            "tubelet_transformer_tpu_torch.cli.serve",
+            "tubelet_transformer_tpu_torch.cli.train_ava",
+            "tubelet_transformer_tpu_torch.train.engine"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -162,3 +162,31 @@ def test_fully_masked_row_stays_finite_and_uniform():
                 1, keepdim=True)).expand_as(masked)
     assert torch.isfinite(masked).all()
     torch.testing.assert_close(masked, mean_v, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["mha_qkv", "mha_mask", "encoder",
+                                  "decoder", "factorized"])
+def test_train_mode_invariants(name):
+    """The train-mode invariants of the JAX layers (tests/test_layers.py):
+    at dropout 0 train mode equals eval mode (float32: the train-time
+    compute-dtype scores are float32 here); with dropout the output
+    changes, and the same generator seed replays the same masks."""
+    _, _, tmod, targs, _ = _case(name)
+    for m in tmod.modules():
+        if isinstance(m, tl.MultiHeadAttention):    # torch.empty otherwise
+            torch.nn.init.normal_(m.in_proj_weight, std=0.2)
+    with torch.no_grad():
+        want = tmod.eval()(*targs)
+        torch.testing.assert_close(tmod.train()(*targs), want, rtol=1e-6,
+                                   atol=1e-6)
+        for m in tmod.modules():
+            if isinstance(m, tl.Dropout):
+                m.p = 0.3
+                m.generator = torch.Generator().manual_seed(0)
+        first = tmod(*targs)
+        for m in tmod.modules():
+            if isinstance(m, tl.Dropout):
+                m.generator.manual_seed(0)
+        again = tmod(*targs)
+    assert not torch.allclose(first, want)
+    torch.testing.assert_close(first, again, rtol=0, atol=0)

@@ -133,3 +133,21 @@ def test_kernel_matches_plain_on_cuda(cuda, shape, dtype):
     err = (got.float() - want.float()).abs().max().item()
     span = want.float().abs().max().item()
     assert err <= (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * span
+
+
+@pytest.mark.cuda
+def test_pooled_kernel_gradient_on_cuda(cuda):
+    """stem_forward on tensors that need gradients runs the kernel forward
+    and the plain version's backward (the JAX package's custom VJP);
+    float32 with TF32 off: the gradients equal the plain version's up to
+    summation order."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, scale, bias = (torch.from_numpy(a).to(cuda)
+                         for a in _inputs((1, 4, 32, 48, 3)))
+    grads = []
+    for fn in (stem.stem_forward, stem.stem_reference):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xg, wg, scale, bias).square().sum().backward()
+        grads.append((xg.grad, wg.grad))
+    for got, want in zip(*grads):
+        assert (got - want).norm() <= 1e-5 * want.norm()

@@ -79,14 +79,29 @@ def test_temporal_pool(strategy):
 
 
 def test_return_features_and_eval_only():
+    """The eval build is in eval mode and returns the query features on
+    request; the train build is in train mode, keeps float32 parameters and
+    computes in the compute dtype (bf16 here), with finite outputs and
+    gradients that stop at the frozen stages."""
     model = build_model(small_cfg("avg"), seed=3)
+    assert not model.training
     clip = torch.zeros(1, 8, 64, 64, 3)
     with torch.inference_mode():
         out = model(clip, return_features=True)
     assert out["lfb_features"].shape == (1, 5, 64)
     assert out["pred_boxes"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        model.train()(clip)
+    cfg = small_cfg("avg")
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.model.pretrained = True                  # tune_point 4: layer1-2
+    train = build_model(cfg, seed=3, train=True)
+    assert train.training and train.dtype == torch.bfloat16
+    assert train.query_embed.weight.dtype == torch.float32
+    out = train(clip)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    out["pred_logits"].sum().backward()
+    body = train.backbone.body
+    assert body.layer3[0].conv1.weight.grad is not None
+    assert body.layer2[0].conv1.weight.grad is None
 
 
 def test_build_model_is_seeded_and_casts():

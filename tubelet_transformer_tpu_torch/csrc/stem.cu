@@ -29,33 +29,19 @@
 // Tensor cores (wgmma on an implicit-GEMM layout, K = 441 padded to 448), TMA
 // loads and a persistent schedule are the way to the tensor-core bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "stem_conv.cuh"
 
 namespace {
 
-constexpr int kCout = 64;
-constexpr int kFrameTaps = 7 * 7 * 3;        // (kh, kw, c) taps of one frame
+using namespace tuber_stem;
+
 constexpr int kPT = 8;                        // pooled tile edge
 constexpr int kCT = 2 * kPT + 1;              // conv tile edge: 17
-constexpr int kIT = 2 * (kCT - 1) + 7;        // input tile edge: 39
 constexpr int kConvPix = kCT * kCT;           // 289
-constexpr int kThreads = 256;
-constexpr int kChanGroups = 8;                // 8 channels per thread
-constexpr int kPixGroups = kThreads / kChanGroups;                      // 32
-constexpr int kPixPerThread = (kConvPix + kPixGroups - 1) / kPixGroups;  // 10
-constexpr int kInElems = kIT * kIT * 3;       // 4563
-constexpr int kWElems = kFrameTaps * kCout;   // 9408
+constexpr int kPixPerThread = pix_per_thread(kCT);                      // 10
 constexpr int kConvElems = kConvPix * kCout;  // 18496
-constexpr int kSmemFloats =
-    kWElems + kInElems > kConvElems ? kWElems + kInElems : kConvElems;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kSmemFloats = conv_smem_floats(kCT) > kConvElems
+                                ? conv_smem_floats(kCT) : kConvElems;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -69,9 +55,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-// Thread (cg, pg) owns channels {4cg..4cg+3} and {32+4cg..32+4cg+3}, so the
-// eight threads of a quarter warp read 128 contiguous bytes of weights, and
-// conv pixels pg, pg+32, ..., pg+288 of the 17x17 tile.
+// Conv pixels pg, pg+32, ..., pg+288 of the 17x17 tile (stem_conv.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -80,8 +64,6 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  int frames, int H, int W, int Hc, int Wc, int Hp, int Wp,
                  int tiles_x) {
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;               // [kFrameTaps][64], one input frame
-  float* in_s = smem + kWElems;    // [kIT][kIT][3]
   float* conv_s = smem;            // [kConvPix][64], after the accumulation
 
   const int tid = threadIdx.x;
@@ -91,77 +73,17 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int px0 = (blockIdx.x % tiles_x) * kPT;
   const int cy0 = 2 * py0 - 1;     // first conv row of the tile
   const int cx0 = 2 * px0 - 1;
-  const int iy0 = 2 * cy0 - 3;     // first input row of the halo
-  const int ix0 = 2 * cx0 - 3;
-
   const int cg = tid % kChanGroups;
   const int pg = tid / kChanGroups;
 
-  int off[kPixPerThread];          // halo offset of each owned conv pixel
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    int p = pg + k * kPixGroups;
-    p = p < kConvPix ? p : 0;      // the spare slot computes pixel 0, unused
-    off[k] = (2 * (p / kCT) * kIT + 2 * (p % kCT)) * 3;
-  }
-
   float acc[kPixPerThread][8];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
-
-  for (int kt = 0; kt < 3; ++kt) {
-    const int tt = t + kt - 1;
-    if (tt < 0 || tt >= frames) continue;  // zero temporal padding
-    __syncthreads();               // the previous frame's reads are done
-    const T* wk = w + kt * kWElems;
-    for (int i = tid; i < kWElems; i += kThreads) w_s[i] = to_f32(wk[i]);
-    const T* xf = x + static_cast<size_t>(bt + kt - 1) * H * W * 3;
-    for (int i = tid; i < kInElems; i += kThreads) {
-      const int r = i / (kIT * 3);
-      const int rem = i - r * (kIT * 3);
-      const int s = rem / 3;
-      const int c = rem - s * 3;
-      const int iy = iy0 + r;
-      const int ix = ix0 + s;
-      float v = 0.f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = to_f32(xf[(static_cast<size_t>(iy) * W + ix) * 3 + c]);
-      in_s[i] = v;
-    }
-    __syncthreads();
-
-    for (int kh = 0; kh < 7; ++kh) {
-      const float* in_row = in_s + kh * kIT * 3;
-      const float* w_row = w_s + kh * 7 * 3 * kCout + cg * 4;
-#pragma unroll
-      for (int kwc = 0; kwc < 21; ++kwc) {       // (kw, c), kw*3 + c
-        const float4 wa = *reinterpret_cast<const float4*>(w_row + kwc * kCout);
-        const float4 wb =
-            *reinterpret_cast<const float4*>(w_row + kwc * kCout + 32);
-#pragma unroll
-        for (int k = 0; k < kPixPerThread; ++k) {
-          const float v = in_row[off[k] + kwc];
-          acc[k][0] = fmaf(v, wa.x, acc[k][0]);
-          acc[k][1] = fmaf(v, wa.y, acc[k][1]);
-          acc[k][2] = fmaf(v, wa.z, acc[k][2]);
-          acc[k][3] = fmaf(v, wa.w, acc[k][3]);
-          acc[k][4] = fmaf(v, wb.x, acc[k][4]);
-          acc[k][5] = fmaf(v, wb.y, acc[k][5]);
-          acc[k][6] = fmaf(v, wb.z, acc[k][6]);
-          acc[k][7] = fmaf(v, wb.w, acc[k][7]);
-        }
-      }
-    }
-  }
+  conv_tile<kCT>(x, w, smem, bt, t, frames, H, W, cy0, cx0, acc);
 
   float sc[8], bi[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int ch = (j < 4 ? 0 : 32) + cg * 4 + (j & 3);
-    sc[j] = scale[ch];
-    bi[j] = bias[ch];
+    sc[j] = scale[channel_of(cg, j)];
+    bi[j] = bias[channel_of(cg, j)];
   }
   __syncthreads();                 // halo and weights are no longer read
 #pragma unroll

@@ -1,32 +1,44 @@
-"""irCSN-50/152 backbone, eval mode, channels-last (B, T, H, W, C).
+"""irCSN-50/152 backbone, channels-last (B, T, H, W, C).
 
 Port of ``tubelet_transformer_tpu/models/csn.py``. Module names follow the
 reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
 ``down_sample.{0,1}``) and parameters keep torch's conv layouts, so
 ``train.torch_convert`` state dicts load with ``strict=True``.
 
-* BatchNorm runs folded, ``x * mul + shift`` from the running statistics,
-  with the reference's epsilon of 1e-3; its statistics stay float32 when
-  the rest of the model runs in bfloat16.
+* BatchNorm is ``x * mul + shift`` with the reference's epsilon of 1e-3: in
+  eval mode from the running statistics, in train mode from the batch's
+  mean and biased variance (f32), whose EMA (flax momentum 0.9) updates the
+  running statistics, as the JAX package's BN does. The statistics stay
+  float32 when the rest of the model runs in bfloat16.
 * Pointwise 1x1x1 convs are channel matmuls on the channels-last tensor.
 * The depthwise 3x3x3 conv is ``F.conv3d(groups=C)`` on a channels-first
   copy, as the JAX package leaves it to XLA by default.
-* The stem takes the fused CUDA kernel (``ops/cuda/stem.py``) on a CUDA
-  tensor when ``stem_kernel`` is on, and the plain conv + BN + ReLU +
-  max-pool otherwise.
+* Weights are cast to the input's dtype at use, so a model whose parameters
+  are float32 (the train build) computes in the dtype of its input.
+* ``stop_grad_stage`` (``train.optimizer.stop_grad_stage``) freezes the stem
+  and the stages before that boundary in training: they run without
+  autograd, their BN still in train mode.
+* The stem takes the fused CUDA kernels (``ops/cuda/stem.py``) when
+  ``stem_kernel`` is on: in eval mode the pooled kernel with the folded BN
+  on a CUDA tensor; in training with a frozen stem the two-phase path
+  (batch statistics kernel, then the pooled kernel with the batch affine)
+  on any device, the wrappers taking their plain versions on the CPU.
+  Otherwise the plain conv + BN + ReLU + max-pool.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tubelet_transformer_tpu_torch.ops.cuda.stem import stem_forward
+from tubelet_transformer_tpu_torch.ops.cuda.stem import (
+    stem_batch_stats, stem_forward)
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.1   # torch convention; flax momentum 0.9
 
 BLOCK_NUMS = {
     "CSN-152": (3, 8, 36, 3),
@@ -45,19 +57,43 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+def cast(t: Optional[torch.Tensor], x: torch.Tensor
+         ) -> Optional[torch.Tensor]:
+    """``t`` in x's dtype; no op (and no aten call) when it already is."""
+    return t if t is None or t.dtype == x.dtype else t.to(x.dtype)
+
+
 class FoldableBN(nn.BatchNorm3d):
-    """BatchNorm over the last axis in its folded inference form."""
+    """BatchNorm over the last axis as ``x * mul + shift``."""
 
     def __init__(self, features: int):
-        super().__init__(features, eps=BN_EPS)
+        super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def folded(self):
         """float32 (mul, shift) with the running statistics folded in."""
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         return mul, self.bias - self.running_mean * mul
 
+    def batch_affine(self, mean: torch.Tensor, var: torch.Tensor):
+        """float32 (mul, shift) from batch statistics (mean, biased var);
+        updates the running statistics with them, as the train-mode
+        forward does (csn.py:86-96 of the JAX package)."""
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        return mul, self.bias - mean * mul
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul, shift = self.folded()
+        if self.training:
+            # mean and biased variance over every axis but the channels, in
+            # float32 (or wider); the gradient flows through both
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
+                                       correction=0)
+            mul, shift = self.batch_affine(mean, var)
+        else:
+            mul, shift = self.folded()
         return torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
 
 
@@ -72,7 +108,8 @@ class PointwiseConv(nn.Conv3d):
         st, sh, sw = self.stride
         if (st, sh, sw) != (1, 1, 1):
             x = x[:, ::st, ::sh, ::sw]
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return F.linear(x, cast(self.weight, x).flatten(1),
+                        cast(self.bias, x))
 
 
 class DepthwiseConv3d(nn.Conv3d):
@@ -89,7 +126,8 @@ class DepthwiseConv3d(nn.Conv3d):
                          groups=features, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(channels_first(x).contiguous())
+        y = self._conv_forward(channels_first(x).contiguous(),
+                               cast(self.weight, x), None)
         return channels_last(y).contiguous()
 
 
@@ -122,13 +160,17 @@ class CSNBottleneck(nn.Module):
 class CSN(nn.Module):
     """irCSN trunk: (B,T,H,W,3) -> (B,T/8,H/16 or H/32,W/..,2048).
 
-    ``last_stride=False`` keeps stage 4 at spatial stride 1."""
+    ``last_stride=False`` keeps stage 4 at spatial stride 1.
+    ``stop_grad_stage``: -1 trains everything; s >= 0 freezes the stem and
+    stages 1..s in training (5: the whole trunk)."""
 
     def __init__(self, block_nums: Sequence[int] = (3, 8, 36, 3),
-                 last_stride: bool = True, stem_kernel: bool = True):
+                 last_stride: bool = True, stem_kernel: bool = True,
+                 stop_grad_stage: int = -1):
         super().__init__()
         self.block_nums = tuple(block_nums)
         self.stem_kernel = stem_kernel
+        self.stop_grad_stage = stop_grad_stage
         self.conv1 = nn.Conv3d(3, 64, (3, 7, 7), stride=(1, 2, 2),
                                padding=(1, 3, 3), bias=False)
         self.bn1 = FoldableBN(64)
@@ -151,35 +193,55 @@ class CSN(nn.Module):
         self._kernel_w = None
         self._kernel_w_key = None
 
-    def kernel_weight(self) -> torch.Tensor:
-        """The stem weight in the kernel's (3,7,7,3,64) layout, permuted once
-        per change of ``conv1.weight`` (load, cast or move), not per call."""
+    def kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The stem weight in the kernels' (3,7,7,3,64) layout and ``dtype``,
+        made once per change of ``conv1.weight`` (load, cast, move or
+        optimizer step), not per call."""
         w = self.conv1.weight
-        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        key = (w.data_ptr(), w._version, w.dtype, w.device, dtype)
         if key != self._kernel_w_key:
-            self._kernel_w = w.detach().permute(2, 3, 4, 1, 0).contiguous()
+            self._kernel_w = w.detach().permute(2, 3, 4, 1, 0).to(
+                dtype).contiguous()
             self._kernel_w_key = key
         return self._kernel_w
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        if self.stem_kernel and x.is_cuda:
+        if self.stem_kernel and not self.training and x.is_cuda:
             mul, shift = self.bn1.folded()
-            return stem_forward(x, self.kernel_weight(), mul, shift)
-        x = channels_last(self.conv1(channels_first(x)))
+            return stem_forward(x, self.kernel_weight(x.dtype), mul, shift)
+        if self.stem_kernel and self.training and self.stop_grad_stage >= 0:
+            # frozen stem in training (csn.py:339-370 of the JAX package):
+            # phase 1 the batch statistics of the bare conv, phase 2 the
+            # pooled kernel with the batch affine; nothing differentiates
+            w = self.kernel_weight(x.dtype)
+            x = x.detach()
+            mean, var = stem_batch_stats(x, w)
+            mul, shift = self.bn1.batch_affine(mean, var)
+            return stem_forward(x, w, mul.detach(), shift.detach())
+        x = channels_last(self.conv1._conv_forward(
+            channels_first(x), cast(self.conv1.weight, x), None))
         x = F.relu(self.bn1(x))
         return channels_last(F.max_pool3d(channels_first(x), (1, 3, 3),
                                           (1, 2, 2), (0, 1, 1)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem(x)
+        frozen = self.stop_grad_stage if self.training else -1
+        # the frozen prefix (stem + stages 1..frozen) runs without autograd:
+        # the JAX package's stop_gradient at that boundary (csn.py:375-378,
+        # 427-428)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and frozen < 0):
+            x = self.stem(x)
         for s in range(len(self.block_nums)):
-            x = getattr(self, f"layer{s + 1}")(x)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and s + 1 > frozen):
+                x = getattr(self, f"layer{s + 1}")(x)
         return x
 
 
 def build_csn(backbone_name: str, last_stride: bool,
-              stem_kernel: bool = True) -> CSN:
+              stem_kernel: bool = True, stop_grad_stage: int = -1) -> CSN:
     if backbone_name not in BLOCK_NUMS:
         raise ValueError(f"unknown backbone {backbone_name!r}; "
                          f"supported: {sorted(BLOCK_NUMS)}")
-    return CSN(BLOCK_NUMS[backbone_name], last_stride, stem_kernel)
+    return CSN(BLOCK_NUMS[backbone_name], last_stride, stem_kernel,
+               stop_grad_stage)

@@ -20,13 +20,13 @@ class Transformer(nn.Module):
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
-                 dim_feedforward: int = 2048):
+                 dim_feedforward: int = 2048, dropout: float = 0.0):
         super().__init__()
         self.encoder = LayerStack(
-            EncoderLayer(d_model, nhead, dim_feedforward)
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout)
             for _ in range(num_encoder_layers))
         self.decoder = LayerStack(
-            (DecoderLayer(d_model, nhead, dim_feedforward)
+            (DecoderLayer(d_model, nhead, dim_feedforward, dropout)
              for _ in range(num_decoder_layers)), norm=layer_norm(d_model))
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],

@@ -1,11 +1,15 @@
 """TubeR: tubelet-query DETR for spatio-temporal action detection (AVA
-mode, eval).
+mode).
 
 Port of ``tubelet_transformer_tpu/models/tuber.py``: irCSN backbone ->
 temporal pooling (avg / max / learned decode / middle) -> DETR
 encoder-decoder over the (t, H', W') tokens -> per-layer box, actorness and
 class heads, the classes read out by a cross-attention over the un-pooled
 features through a one-layer factorised space/time encoder.
+
+In training, dropout sits where the JAX model puts it: the transformer at
+``MODEL.DROPOUT``, the pooling decoder, the class-branch encoder and its
+cross-attention at 0.1, and the class head at 0.5 (tuber.py:133-155 there).
 
 Submodules are named after the reference's key scheme, which
 ``train.torch_convert.tuber_torch_state_from_params`` emits; ``convert.py``
@@ -24,11 +28,12 @@ from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.models.csn import (
     FoldableBN, PointwiseConv, build_csn)
 from tubelet_transformer_tpu_torch.models.layers import (
-    MLP, FactorizedSTEncoderLayer, LayerStack, LSTRDecoderLayer,
-    MultiHeadAttention, layer_norm)
+    MLP, Dropout, FactorizedSTEncoderLayer, LayerStack, Linear,
+    LSTRDecoderLayer, MultiHeadAttention, layer_norm)
 from tubelet_transformer_tpu_torch.models.transformer import Transformer
 from tubelet_transformer_tpu_torch.ops.position_encoding import (
     position_embedding_sine_3d)
+from tubelet_transformer_tpu_torch.train.optimizer import stop_grad_stage
 
 POOL_DIM = 2048     # CSN output channels, the width of the pooling decoder
 STRATEGIES = ("avg", "max", "decode", "middle")
@@ -57,7 +62,7 @@ class Backbone(nn.Module):
         if decode:
             self.query_pool = nn.Embedding(1, POOL_DIM)
             self.pool_decoder = LayerStack(
-                [LSTRDecoderLayer(POOL_DIM, 8, 2048)],
+                [LSTRDecoderLayer(POOL_DIM, 8, 2048, dropout=0.1)],
                 norm=layer_norm(POOL_DIM))
 
 
@@ -70,7 +75,9 @@ class TubeR(nn.Module):
                  backbone_name: str = "CSN-152", last_stride: bool = False,
                  single_frame: bool = True,
                  temporal_ds_strategy: str = "decode",
-                 stem_kernel: bool = True):
+                 stem_kernel: bool = True, dropout: float = 0.1,
+                 stop_grad_stage: int = -1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if temporal_ds_strategy not in STRATEGIES:
             raise ValueError(f"unknown temporal_ds_strategy "
@@ -79,24 +86,31 @@ class TubeR(nn.Module):
         self.enc_layers, self.dec_layers = enc_layers, dec_layers
         self.single_frame = single_frame
         self.temporal_ds_strategy = temporal_ds_strategy
+        # the dtype the model computes in; its parameters may be float32
+        self.dtype = compute_dtype
         self.backbone = Backbone(
-            build_csn(backbone_name, last_stride, stem_kernel),
+            build_csn(backbone_name, last_stride, stem_kernel,
+                      stop_grad_stage),
             decode=single_frame and temporal_ds_strategy == "decode")
         self.transformer = Transformer(hidden_dim, nhead, enc_layers,
-                                       dec_layers, dim_feedforward)
+                                       dec_layers, dim_feedforward, dropout)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.input_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
         self.class_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
         self.encoder = LayerStack(
-            [FactorizedSTEncoderLayer(hidden_dim, 8, 2048)])
-        self.cross_attn = MultiHeadAttention(hidden_dim, 8)
-        self.class_embed_b = nn.Linear(hidden_dim, 3)
+            [FactorizedSTEncoderLayer(hidden_dim, 8, 2048, dropout=0.1)])
+        self.cross_attn = MultiHeadAttention(hidden_dim, 8, dropout=0.1)
+        self.class_embed_b = Linear(hidden_dim, 3)
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
-        self.class_fc = nn.Linear(hidden_dim, num_classes)
+        self.head_dropout = Dropout(0.5)
+        self.class_fc = Linear(hidden_dim, num_classes)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.query_embed.weight.dtype
+    def set_dropout_generator(self, generator: Optional[torch.Generator]
+                              ) -> None:
+        """Every dropout of the model draws its masks from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def _temporal_pool(self, xs: torch.Tensor) -> torch.Tensor:
         """(B,T',H',W',C) -> (B,1,H',W',C) when single_frame."""
@@ -121,10 +135,9 @@ class TubeR(nn.Module):
     def forward(self, clips: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
                 return_features: bool = False) -> dict:
-        if self.training:
-            raise NotImplementedError("TubeR runs in eval mode only; the "
-                                      "train slice is not ported yet")
         b, _, h_in, w_in, _ = clips.shape
+        if clips.dtype != self.dtype:
+            clips = clips.to(self.dtype)
         if pad_mask is None:
             pad_mask = torch.zeros((b, h_in, w_in), dtype=torch.bool,
                                    device=clips.device)
@@ -153,6 +166,7 @@ class TubeR(nn.Module):
             lay_n, -1, -1, -1).reshape(lay_n * b, tc * h * w, e)
         q_class = self.cross_attn(hs.reshape(lay_n * b, nq, e), enc_rep,
                                   enc_rep).reshape(lay_n, b, nq, e)
+        q_class = self.head_dropout(q_class)
 
         outputs_class = self.class_fc(q_class)            # (L,B,Q,C)
         outputs_coord = torch.sigmoid(self.bbox_embed(hs).float())
@@ -201,10 +215,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device: torch.device | str = "cpu",
-                seed: int = 0) -> TubeR:
-    """TubeR for ``cfg`` in eval mode on ``device``, with random weights
-    from ``seed`` (drawn on the CPU, so equal on every device). Parameters
-    are in ``MODEL.COMPUTE_DTYPE``, BatchNorm statistics stay float32."""
+                seed: int = 0, train: bool = False) -> TubeR:
+    """TubeR for ``cfg`` on ``device``, with random weights from ``seed``
+    (drawn on the CPU, so equal on every device); it computes in
+    ``MODEL.COMPUTE_DTYPE``. The eval build (``train=False``) is in eval mode
+    with its parameters cast once to the compute dtype. The train build is in
+    train mode with float32 parameters, cast to the compute dtype at use as
+    the JAX package keeps them. BatchNorm statistics stay float32."""
     m = cfg.model
     unsupported = {
         "DATA.DATASET_NAME jhmdb/ucf": cfg.data.dataset_name in ("jhmdb",
@@ -214,10 +231,13 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
         "MODEL.MOE_EXPERTS": m.moe_experts > 0,
         "MODEL.NORMALIZE_BEFORE": m.normalize_before,
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
+        "TRAIN.FROZEN_CHUNK": train and cfg.train.frozen_chunk > 0,
+        "TRAIN.REMAT_BACKBONE": train and cfg.train.remat_backbone,
     }
     for name, asked in unsupported.items():
         if asked:
             raise NotImplementedError(f"{name} is not ported yet")
+    dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
     model = TubeR(num_classes=cfg.data.num_classes, num_queries=m.query_num,
                   hidden_dim=m.d_model, nhead=m.nhead,
                   enc_layers=m.enc_layers, dec_layers=m.dec_layers,
@@ -225,9 +245,12 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                   backbone_name=m.backbone_name, last_stride=m.last_stride,
                   single_frame=m.single_frame,
                   temporal_ds_strategy=m.temporal_ds_strategy,
-                  stem_kernel=m.stem_kernel)
+                  stem_kernel=m.stem_kernel, dropout=m.dropout,
+                  stop_grad_stage=stop_grad_stage(cfg), compute_dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
-    dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
+    if train:
+        return model.to(device).train()
+    # one cast here, not one per use: the serving path is host-bound
     for mod in model.modules():
         if not isinstance(mod, FoldableBN):
             for p in mod.parameters(recurse=False):

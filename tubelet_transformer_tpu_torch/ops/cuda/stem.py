@@ -1,13 +1,19 @@
-"""The fused irCSN stem: conv 3x7x7 / (1,2,2) + folded BN + ReLU + 1x3x3 /
-(1,2,2) max-pool, channels-last in and out.
+"""The irCSN stem's two hand-written kernels, channels-last in:
 
-``stem_forward`` launches the hand-written kernel of ``csrc/stem.cu`` on a
-CUDA tensor and takes ``stem_reference``, the plain PyTorch version, on a CPU
-tensor. It replaces ``stem_forward`` of
-``tubelet_transformer_tpu/ops/pallas/stem.py`` (its kernels ``_deinterleave``
-and ``_stem_matmul(pool=True)``) and keeps that function's layouts:
-x (B,T,H,W,3), w (3,7,7,3,64) as (kt, kh, kw, c_in, c_out), scale and bias
-(64,), output (B,T,Hp,Wp,64).
+* ``stem_forward``: conv 3x7x7 / (1,2,2) + per-channel affine (folded BN, or
+  the batch affine in training) + ReLU + 1x3x3 / (1,2,2) max-pool, the
+  kernel of ``csrc/stem.cu``. Replaces ``stem_forward`` / ``stem_from_xd`` of
+  ``tubelet_transformer_tpu/ops/pallas/stem.py`` (its kernels
+  ``_deinterleave`` and ``_stem_matmul(pool=True)``).
+* ``stem_batch_stats``: the per-channel mean and biased variance of the bare
+  conv, the kernel of ``csrc/stem_stats.cu``. Replaces ``stem_batch_stats``
+  (its kernel ``_stem_stats_matmul``), phase 1 of the frozen-stem train path.
+
+Each wrapper launches its kernel on a CUDA tensor and takes its plain
+PyTorch version (``stem_reference``, ``stem_batch_stats_reference``) on a
+CPU tensor. Layouts are the JAX functions': x (B,T,H,W,3), w (3,7,7,3,64) as
+(kt, kh, kw, c_in, c_out), scale and bias (64,), pooled output
+(B,T,Hp,Wp,64).
 """
 
 from __future__ import annotations
@@ -19,16 +25,19 @@ import torch.nn.functional as F
 
 from tubelet_transformer_tpu_torch.ops.cuda.build import load_library
 
-# kernel launches made by stem_forward in this process
+# kernel launches made by stem_forward and stem_batch_stats in this process
 LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 W_SHAPE = (3, 7, 7, 3, 64)
 _ENTRY = {torch.bfloat16: "tuber_stem_pool_bf16",
           torch.float32: "tuber_stem_pool_f32"}
+_STATS_ENTRY = {torch.bfloat16: "tuber_stem_stats_bf16",
+                torch.float32: "tuber_stem_stats_f32"}
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the stem kernel library."""
+    """Build (at first use) and load the pooled stem kernel's library."""
     lib = load_library("tuber_stem", ["stem.cu"], verbose=verbose)
     for entry in _ENTRY.values():
         fn = getattr(lib, entry)
@@ -40,27 +49,62 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
+def stats_library(verbose: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the stem statistics kernel's library."""
+    lib = load_library("tuber_stem_stats", ["stem_stats.cu"],
+                       verbose=verbose)
+    if lib.tuber_stem_stats_partials.argtypes is None:
+        lib.tuber_stem_stats_partials.argtypes = [ctypes.c_int] * 4
+        lib.tuber_stem_stats_partials.restype = ctypes.c_int
+    for entry in _STATS_ENTRY.values():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            # x, w, partial, stats; batch, frames, H, W; stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def pooled_hw(h: int, w: int) -> tuple[int, int]:
     """Output height and width of the stem for an (h, w) input."""
     hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     return (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bare stem conv in x's dtype, channels-first (B,64,T,Hc,Wc)."""
+    return F.conv3d(x.permute(0, 4, 1, 2, 3),
+                    w.permute(4, 3, 0, 1, 2).to(x.dtype),
+                    stride=(1, 2, 2), padding=(1, 3, 3))
+
+
 def stem_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: the conv in x's dtype, then affine, ReLU and
     max-pool in float32, and the result in x's dtype."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).to(x.dtype),
-                 stride=(1, 2, 2), padding=(1, 3, 3))
-    y = y.float() * scale.float()[:, None, None, None] \
+    y = _conv(x, w).float() * scale.float()[:, None, None, None] \
         + bias.float()[:, None, None, None]
     y = F.max_pool3d(F.relu(y), (1, 3, 3), (1, 2, 2), (0, 1, 1))
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def check_inputs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                 bias: torch.Tensor) -> None:
-    """Raise ValueError unless the kernel takes these tensors as they are."""
+def stem_batch_stats_reference(x: torch.Tensor, w: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the conv in x's dtype, then the float32 (for
+    a float64 x, float64) mean and biased variance per channel,
+    E[y^2] - E[y]^2 as the JAX function takes it."""
+    y = _conv(x, w)
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    dims = (0, 2, 3, 4)
+    mean = y.mean(dims)
+    return mean, y.square().mean(dims) - mean.square()
+
+
+def check_inputs(x: torch.Tensor, w: torch.Tensor,
+                 *affine: torch.Tensor) -> None:
+    """Raise ValueError unless the kernels take these tensors as they are;
+    ``affine`` is the pooled kernel's (scale, bias)."""
     if x.dim() != 5 or x.shape[-1] != 3:
         raise ValueError(f"x must be (B,T,H,W,3), got {tuple(x.shape)}")
     if x.dtype not in _ENTRY:
@@ -68,11 +112,11 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if tuple(w.shape) != W_SHAPE or w.dtype != x.dtype:
         raise ValueError(f"w must be {W_SHAPE} in {x.dtype}, got "
                          f"{tuple(w.shape)} in {w.dtype}")
-    for name, t in (("scale", scale), ("bias", bias)):
+    for name, t in zip(("scale", "bias"), affine):
         if tuple(t.shape) != (64,) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be (64,) float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    for name, t in (("x", x), ("w", w), ("scale", scale), ("bias", bias)):
+    for name, t in zip(("x", "w", "scale", "bias"), (x, w, *affine)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -81,16 +125,14 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"B*T must be <= 65535, got {x.shape[0] * x.shape[1]}")
 
 
-def stem_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
-    """The fused stem: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor. Raises for any other device or an input the kernel
-    does not take."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return stem_reference(x, w, scale, bias)
+def _check_device(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"stem_forward runs on CPU or CUDA, not {x.device}")
+        raise ValueError(f"{name} runs on CPU or CUDA, not {x.device}")
+
+
+def _launch_pool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
     check_inputs(x, w, scale, bias)
     b, t, h, wd, _ = x.shape
     hp, wp = pooled_hw(h, wd)
@@ -106,3 +148,65 @@ def stem_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"stem kernel launch failed with cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+class _PooledStem(torch.autograd.Function):
+    """The pooled kernel forward, and the backward through the plain
+    version, as the JAX package's ``custom_vjp`` does (stem.py:604-625)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        ctx.save_for_backward(x, w, scale, bias)
+        return _launch_pool(x, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = stem_reference(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def stem_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """The fused stem: the CUDA kernel for a CUDA tensor (differentiable
+    through the plain version), the plain version for a CPU tensor. Raises
+    for any other device or an input the kernel does not take."""
+    if x.device.type == "cpu":
+        return stem_reference(x, w, scale, bias)
+    _check_device(x, "stem_forward")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, bias)):
+        return _PooledStem.apply(x, w, scale, bias)
+    return _launch_pool(x, w, scale, bias)
+
+
+def stem_batch_stats(x: torch.Tensor, w: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float32 (mean, biased var) per channel of the bare stem conv: the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. Not
+    differentiable (the JAX package stops gradients at both its inputs).
+    Raises for any other device or an input the kernel does not take."""
+    global STATS_LAUNCHES
+    if x.device.type == "cpu":
+        return stem_batch_stats_reference(x, w)
+    _check_device(x, "stem_batch_stats")
+    check_inputs(x, w)
+    b, t, h, wd, _ = x.shape
+    lib = stats_library()
+    partial = torch.empty(lib.tuber_stem_stats_partials(b, t, h, wd),
+                          dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, 64), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = getattr(lib, _STATS_ENTRY[x.dtype])(
+            x.data_ptr(), w.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+            b, t, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem stats kernel launch failed with "
+                           f"cudaError {err}")
+    STATS_LAUNCHES += 1
+    return stats[0], stats[1]

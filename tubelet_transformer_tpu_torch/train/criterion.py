@@ -1,0 +1,175 @@
+"""Hungarian-matched DETR set losses, AVA mode, with static shapes.
+
+Port of the AVA half of ``tubelet_transformer_tpu/train/criterion.py``:
+3-way actorness CE with class weights [1, 1, eos_coef]; multi-label sigmoid
+BCE with weight ``weight`` on matched queries; L1 + GIoU box losses over the
+target count. Targets are padded: boxes (B, M, 4) normalised cxcywh, labels
+(B, M, C) multi-hot, valid (B, M) bool. The aux (per-decoder-layer) losses
+fold the layer axis into the batch and share one matcher call. Reductions
+follow torch: the weighted CE divides by the sum of the applied weights, the
+weighted BCE is a plain mean of w * elem.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from tubelet_transformer_tpu_torch.ops import box_ops, matcher
+
+
+class TargetsAVA(NamedTuple):
+    boxes: torch.Tensor   # (B, M, 4) cxcywh normalised
+    labels: torch.Tensor  # (B, M, C) multi-hot float
+    valid: torch.Tensor   # (B, M) bool
+
+
+def _stable_bce_from_logits(logits: torch.Tensor, targets: torch.Tensor
+                            ) -> torch.Tensor:
+    """binary_cross_entropy(sigmoid(x), t) without the sigmoid."""
+    return logits.clamp(min=0) - logits * targets + torch.log1p(
+        torch.exp(-logits.abs()))
+
+
+def _weighted_ce(logits: torch.Tensor, target_idx: torch.Tensor,
+                 class_weights: torch.Tensor, dims=None) -> torch.Tensor:
+    """torch F.cross_entropy with per-class weights, sum(w*nll)/sum(w),
+    reduced over ``dims`` of target_idx (all of them by default)."""
+    dims = tuple(range(target_idx.dim())) if dims is None else dims
+    nll = -logits.log_softmax(-1).gather(-1, target_idx[..., None])[..., 0]
+    w = class_weights[target_idx]
+    return (w * nll).sum(dims) / w.sum(dims).clamp(min=1e-12)
+
+
+def match_ava(pred_boxes: torch.Tensor, pred_logits_b: torch.Tensor,
+              targets: TargetsAVA, cost_class: float, cost_bbox: float,
+              cost_giou: float):
+    """AVA matching: class cost = -P(actor) from the binary head. Runs
+    without gradients, as the reference's matcher does."""
+    with torch.no_grad():
+        p_actor = pred_logits_b.softmax(-1)[..., 1]                 # (B, Q)
+        class_cost = -p_actor[..., None].expand(
+            -1, -1, targets.boxes.shape[1])
+        cost = matcher.compute_cost_matrix(
+            pred_boxes, class_cost, targets.boxes, targets.valid,
+            cost_class, cost_bbox, cost_giou)
+        return matcher.match(cost, targets.valid)
+
+
+def _gather_matched(arr: torch.Tensor, tgt_for_query: torch.Tensor
+                    ) -> torch.Tensor:
+    """arr (N, M, ...) gathered by tgt_for_query (N, Q) (clipped at 0);
+    pair with the mask tgt_for_query >= 0."""
+    idx = tgt_for_query.clamp(min=0)
+    idx = idx.reshape(idx.shape + (1,) * (arr.dim() - 2)).expand(
+        idx.shape + arr.shape[2:])
+    return arr.gather(1, idx)
+
+
+def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+                     pred_logits_b: torch.Tensor, targets: TargetsAVA,
+                     tgt_for_query: torch.Tensor, num_boxes: torch.Tensor, *,
+                     weight: float, eos_coef: float,
+                     evaluation: bool = False) -> Dict[str, torch.Tensor]:
+    """Losses of the layers stacked on a leading axis (L, B, Q, .): each
+    returned value is (L,). ``tgt_for_query`` is (L, B, Q)."""
+    matched = tgt_for_query >= 0                                  # (L,B,Q)
+    lay_n = pred_logits.shape[0]
+    mf = matched.float()
+    red = tuple(range(1, matched.dim()))                         # (B, Q)
+
+    # actorness CE: target 1 matched / 2 unmatched, weights [1, 1, eos]
+    cw = torch.tensor([1.0, 1.0, eos_coef], device=pred_logits.device)
+    loss_ce_b = _weighted_ce(pred_logits_b, torch.where(matched, 1, 2), cw,
+                             red)
+
+    # multi-label BCE, weight on the matched queries
+    def per_layer(x):                    # (L,B,M,.) -> (L*B,M,.)
+        return x.flatten(0, 1)
+
+    tfq = per_layer(tgt_for_query)
+    labels = targets.labels.repeat(lay_n, 1, 1)
+    tgt_cls = _gather_matched(labels, tfq).reshape(pred_logits.shape)
+    tgt_cls = torch.where(matched[..., None], tgt_cls, 0.0)
+    bce = _stable_bce_from_logits(pred_logits, tgt_cls)
+    if evaluation:
+        loss_ce = bce.mean(red + (3,))
+    else:
+        wq = torch.where(matched, weight, 1.0)[..., None]
+        loss_ce = (wq * bce).mean(red + (3,))
+
+    # box L1 + GIoU over the matched pairs, over the total target count
+    tgt_box = _gather_matched(targets.boxes.repeat(lay_n, 1, 1),
+                              tfq).reshape(pred_boxes.shape)
+    l1 = (pred_boxes - tgt_box).abs().sum(-1)
+    giou = box_ops.elementwise_giou(box_ops.box_cxcywh_to_xyxy(pred_boxes),
+                                    box_ops.box_cxcywh_to_xyxy(tgt_box))
+    loss_bbox = (l1 * mf).sum(red) / num_boxes
+    loss_giou = ((1.0 - giou) * mf).sum(red) / num_boxes
+
+    # class_error (logging only): a matched query counts as correct when its
+    # top-k logits are exactly its k positive labels
+    with torch.no_grad():
+        pos = tgt_cls > 0.5
+        k_pos = pos.sum(-1)
+        rank = pred_logits.argsort(-1, descending=True).argsort(-1)
+        correct = ((pos == (rank < k_pos[..., None])).all(-1)
+                   & (k_pos > 0)).float()
+        n_match = mf.sum(red).clamp(min=1.0)
+        class_error = 100.0 * (1.0 - (correct * mf).sum(red) / n_match)
+
+    return {"loss_ce": loss_ce, "loss_ce_b": loss_ce_b,
+            "loss_bbox": loss_bbox, "loss_giou": loss_giou,
+            "class_error": class_error}
+
+
+def criterion_ava(outputs: Dict[str, torch.Tensor], targets: TargetsAVA, *,
+                  cost_class: float, cost_bbox: float, cost_giou: float,
+                  weight: float, eos_coef: float, aux_loss: bool = True,
+                  evaluation: bool = False) -> Dict[str, torch.Tensor]:
+    """The AVA criterion over the last layer (and the stacked aux layers):
+    loss_ce / loss_ce_b / loss_bbox / loss_giou / class_error, plus
+    ``_<i>``-suffixed aux entries."""
+    num_boxes = targets.valid.float().sum().clamp(min=1.0)
+    if aux_loss:
+        logits = outputs["aux_logits"]                 # (L, B, Q, C)
+        boxes = outputs["aux_boxes"]
+        logits_b = outputs["aux_logits_b"]
+    else:
+        logits = outputs["pred_logits"][None]
+        boxes = outputs["pred_boxes"][None]
+        logits_b = outputs["pred_logits_b"][None]
+    lay_n, b, q, _ = logits.shape
+
+    # one matcher call for every layer
+    reps = TargetsAVA(boxes=targets.boxes.repeat(lay_n, 1, 1),
+                      labels=targets.labels.repeat(lay_n, 1, 1),
+                      valid=targets.valid.repeat(lay_n, 1))
+    tfq, _ = match_ava(boxes.flatten(0, 1), logits_b.flatten(0, 1), reps,
+                       cost_class, cost_bbox, cost_giou)
+    per_layer = ava_layer_losses(
+        logits, boxes, logits_b, targets, tfq.reshape(lay_n, b, q),
+        num_boxes, weight=weight, eos_coef=eos_coef, evaluation=evaluation)
+
+    losses = {k: v[-1] for k, v in per_layer.items()}
+    if aux_loss:
+        for i in range(lay_n - 1):
+            for k in ("loss_ce", "loss_ce_b", "loss_bbox", "loss_giou"):
+                losses[f"{k}_{i}"] = per_layer[k][i]
+    return losses
+
+
+def build_weight_dict(cfg, epoch: int = 0) -> Dict[str, float]:
+    """Loss weights, with the post-WEIGHT_CHANGE swap of the last layer's
+    loss_ce weight (the aux layers keep theirs)."""
+    wd = {"loss_ce": cfg.loss.dice_cof, "loss_bbox": cfg.loss.bbox_cof,
+          "loss_giou": cfg.loss.giou_cof, "loss_ce_b": 1.0}
+    if cfg.train.aux_loss:
+        base = list(wd)
+        for i in range(cfg.model.dec_layers - 1):
+            for k in base:
+                wd[f"{k}_{i}"] = wd[k]
+    if epoch > cfg.loss.weight_change:
+        wd["loss_ce"] = cfg.loss.loss_change_cof
+    return wd
