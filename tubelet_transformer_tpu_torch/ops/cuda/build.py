@@ -4,9 +4,9 @@
 ``build/kernels/lib<name>-<hash>.so`` at the repository root; the library
 exports ``extern "C"`` functions that Python calls through ``ctypes``. The
 hash in the file name covers the sources, the shared ``csrc/*.cuh`` headers
-and the flags, so a library is
-rebuilt exactly when one of them changes. Nothing is built at import time:
-the first call of a kernel's wrapper on a CUDA tensor builds and loads.
+and the flags, so a library is rebuilt exactly when one of them changes.
+Nothing is built at import time: the first call of a kernel's wrapper on a
+CUDA tensor builds and loads.
 """
 
 from __future__ import annotations
@@ -27,8 +27,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-# one lock per library, so that two libraries build at the same time
-_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds that nvcc took, for each library built by this process
 BUILD_SECONDS: dict[str, float] = {}
@@ -49,11 +47,8 @@ def load_library(name: str, sources: list[str],
                  verbose: bool = False) -> ctypes.CDLL:
     """Build ``lib<name>`` from ``csrc/<sources>`` unless the build for these
     sources exists, and load it. ``verbose`` prints nvcc's resource report
-    (registers, shared memory, spills) when it builds. Threads that load
-    different libraries build them in parallel."""
+    (registers, shared memory, spills) when it builds."""
     with _lock:
-        name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]

@@ -37,8 +37,9 @@ _STATS_ENTRY = {torch.bfloat16: "tuber_stem_stats_bf16",
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the pooled stem kernel's library."""
-    lib = load_library("tuber_stem", ["stem.cu"], verbose=verbose)
+    """Build (at first use) and load the library of both stem kernels."""
+    lib = load_library("tuber_stem", ["stem.cu", "stem_stats.cu"],
+                       verbose=verbose)
     for entry in _ENTRY.values():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
@@ -46,13 +47,6 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-    return lib
-
-
-def stats_library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the stem statistics kernel's library."""
-    lib = load_library("tuber_stem_stats", ["stem_stats.cu"],
-                       verbose=verbose)
     if lib.tuber_stem_stats_partials.argtypes is None:
         lib.tuber_stem_stats_partials.argtypes = [ctypes.c_int] * 4
         lib.tuber_stem_stats_partials.restype = ctypes.c_int
@@ -197,7 +191,7 @@ def stem_batch_stats(x: torch.Tensor, w: torch.Tensor
     _check_device(x, "stem_batch_stats")
     check_inputs(x, w)
     b, t, h, wd, _ = x.shape
-    lib = stats_library()
+    lib = library()
     partial = torch.empty(lib.tuber_stem_stats_partials(b, t, h, wd),
                           dtype=torch.float32, device=x.device)
     stats = torch.empty((2, 64), dtype=torch.float32, device=x.device)
