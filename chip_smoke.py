@@ -5,10 +5,14 @@ NVIDIA GPU.
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. environment: torch, CUDA, the card, its power limit, nvcc;
-2. build of the hand-written CUDA kernels from ``csrc/`` into one library;
+2. build of the hand-written CUDA kernels from ``csrc/`` into one library,
+   one nvcc for each source, all started together;
 3. each kernel against its plain PyTorch version at the shapes the main
-   paths give it (the statistics kernel also in float32 at a shape its
-   tiles do not divide), with CUDA-event times of both;
+   paths give it (the statistics and depthwise kernels also in float32 at
+   shapes their tiles do not divide; the bottleneck also at two clips of
+   five frames), with CUDA-event times of both, of the one PyTorch call
+   that computes the same function where there is one, and the least time
+   the card could take (``bound``);
 4. small-input references: the port on the card against the port on the
    CPU (which the tests hold against the JAX package), float32, CSN-TINY:
    the forward, and one train step;
@@ -17,7 +21,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    synthetic 240x320 frames, >= 3 keyframe detections, counting the kernel
    launches that path makes;
 6. in situ: one flagship clip with the stem kernel on and off;
-7. where the device time of one flagship forward goes (torch.profiler);
+7. the kernel path: the flagship streaming detector again, with
+   ``MODEL.PALLAS_KERNELS`` and ``MODEL.FUSED_BLOCKS`` on
+   (``build/chip_smoke_kernels.yaml``): 3 depthwise launches (layer1) and 7
+   fused bottlenecks (layer2 blocks 1-7) per keyframe; in situ with those
+   two kernels on and off, and the forward's host time both ways in
+   alternating order; then where the device time of one forward of each
+   detector goes (torch.profiler), and the serving CLI through the kernel
+   path's YAML;
 8. the train path: the flagship fine-tune recipe (TUNE_POINT 4: stem and
    layer1-2 frozen, their BN in train mode) through the ``train_ava``
    entry point on the synthetic set, 4 steps at batch 2, one validation
@@ -25,7 +36,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. in situ, train: one flagship train forward with both stem kernels on
    and off;
 10. one train step on uint8 clips, so that the HSV jitter runs on the card,
-    and where the device time of a train step goes.
+    and where the device time of a train step goes;
+11. one flagship train step with ``MODEL.PALLAS_KERNELS`` on: layer1 is
+    frozen (TUNE_POINT 4), so its 3 depthwise convs take the kernel under
+    no_grad.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -90,14 +104,44 @@ TRAIN_IN_SITU_TOL = 0.02
 TRAIN_STEPS = 4        # SYNTHETIC_SIZE 8 at BATCH_SIZE 2
 VAL_FORWARDS = 8       # SYNTHETIC_SIZE 8 at VAL.BATCH_SIZE 1
 FRAMES = 88            # 64-frame window + 3 x 8: four keyframe detections
+# Depthwise kernel (x, w, optional scale and bias: shape, dtype, epilogue):
+# layer1 of CSN-152 at 256 px, bare and with the affine + ReLU epilogue, and
+# a shape its 8x8x4 tiles do not divide in float32.
+DW_CASES = {"layer1_256px": ((1, 32, 64, 64, 64), "bfloat16", False),
+            "layer1_256px_affine_relu": ((1, 32, 64, 64, 64), "bfloat16",
+                                         True),
+            "ragged_f32": ((2, 5, 7, 9, 64), "float32", False)}
+# Depthwise against plain: both round once to the output type, the 27-tap
+# sums in another order; bf16: 2^-6 of the output's maximum (2-4 bf16 ulps
+# there; the plain version with the epilogue rounds twice); float32 with
+# TF32 off: summation order only.
+DW_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+# Bottleneck (B, T, H, W), Ci 512, C_mid 128: layer2 of CSN-152 at 256 px,
+# and two clips of five frames, whose first and last frames test the reset
+# of the depthwise's frame window at each clip's edges.
+BN_CASES = {"layer2_256px": (1, 16, 32, 32), "two_clips_t5": (2, 5, 32, 32)}
+# Bottleneck kernels against the plain version in float32 on the same bf16
+# operands: the kernels round mid and the depthwise output to bf16, as the
+# TPU kernel does; 5e-3 of max|ref| in every clip, the limit of the JAX
+# package's test (tests/test_pallas_bottleneck.py).
+BN_TOL = 5e-3
+# Published NVIDIA H100 SXM peaks (data sheet, dense, 700 W): device memory
+# and the rates for each input type (bf16 on the tensor cores, float32 on
+# the CUDA cores, TF32 off).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, warmup: int = 5, runs: int = 25) -> float:
-    """Median over ``runs`` of one call's CUDA-event time, after warm-up."""
+def time_ms(torch, fn, warmup: int = 5, runs: int = 25,
+            calls: int = 10) -> float:
+    """Median over ``runs`` of the CUDA-event time of ``calls`` calls in a
+    row, per call, after warm-up: a run of calls keeps the device's queue
+    full where one call's host work (checks, allocation, the ctypes call)
+    outlasts its kernel. Inputs stay in L2 between calls where they fit."""
     for _ in range(warmup):
         fn()
     times = []
@@ -105,10 +149,11 @@ def time_ms(torch, fn, warmup: int = 5, runs: int = 25) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -129,12 +174,26 @@ def phase_environment(torch) -> str:
     return smi.splitlines()[0]
 
 
-def phase_build(stem) -> None:
-    """One nvcc for both kernels' library; a failure raises."""
+def bound(nbytes: float, ops: float, dtype_name: str) -> tuple[float, str]:
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    ``ops`` operations on inputs of ``dtype_name``, and which bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def phase_build() -> None:
+    """One nvcc for each source, all started together, then one link; a
+    failure raises."""
     from tubelet_transformer_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    stem.library(verbose=True)
+    build.kernels(verbose=True)
     wall = time.perf_counter() - t0
     built = {k: round(v, 2) for k, v in build.BUILD_SECONDS.items()}
     log(f"[build] kernel library: nvcc seconds {built or 'already built'}"
@@ -167,14 +226,18 @@ def phase_kernels(torch, stem) -> dict:
                            lambda: stem.stem_reference(x, w, scale, bias))
         b, t, h, wd, _ = shape
         gflop = 2 * b * t * ((h + 1) // 2) * ((wd + 1) // 2) * 64 * 441 / 1e9
+        bound_ms, bound_by = bound(nbytes(x, w, scale, bias, got),
+                                   gflop * 1e9, "bfloat16")
         log(f"[kernel] stem_pool {name} {shape} bf16: max_abs_err {err:.6g} "
             f"(rel to max|ref| {err / span:.3g}, tol {STEM_TOL:.3g}); "
             f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s), "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not err <= STEM_TOL * span:
             raise AssertionError(f"stem {name}: kernel disagrees with plain "
                                  f"({err} > {STEM_TOL} * {span})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
     return results
 
 
@@ -216,6 +279,8 @@ def phase_stats_kernel(torch, stem) -> dict:
                            lambda: stem.stem_batch_stats_reference(x, w))
         b, t, h, wd, _ = shape
         gflop = 2 * b * t * ((h + 1) // 2) * ((wd + 1) // 2) * 64 * 441 / 1e9
+        bound_ms, bound_by = bound(nbytes(x, w, mean, var), gflop * 1e9,
+                                   dtype_name)
         mean_tol = STATS_MEAN_TOL[dtype_name]
         var_tol = STATS_VAR_TOL[dtype_name]
         log(f"[kernel] stem_stats {name} {shape} {dtype_name}: mean "
@@ -223,12 +288,126 @@ def phase_stats_kernel(torch, stem) -> dict:
             f" tol {mean_tol:.3g}); var max_abs_err {var_err:.4g} (max rel "
             f"{var_rel:.3g}, tol {var_tol:.3g}); repeat bit-equal {bits}; "
             f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (mean_err <= mean_tol * std and var_rel <= var_tol and bits):
             raise AssertionError(f"stem_stats {name}: kernel disagrees with "
                                  "plain, or repeats differ")
         results[name] = {"max_abs_err": max(mean_err, var_err), "ms": ms,
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+    return results
+
+
+def phase_depthwise_kernel(torch) -> dict:
+    """The depthwise kernel against depthwise_reference (DW_CASES), with the
+    times of the kernel, the plain version and cuDNN's grouped conv
+    (``F.conv3d(groups=C)``) on a contiguous channels-first copy, without
+    and with the two layout copies around it."""
+    import torch.nn.functional as F
+
+    from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
+
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for name, (shape, dtype_name, epilogue) in DW_CASES.items():
+        dtype = getattr(torch, dtype_name)
+        rng = np.random.default_rng(4)
+        c = shape[-1]
+        x = _dev(torch, rng.normal(size=shape), dtype)
+        w = _dev(torch, rng.normal(0, 0.2, (3, 3, 3, c)), dtype)
+        scale = bias = None
+        if epilogue:
+            scale = _dev(torch, rng.uniform(0.5, 1.5, c), torch.float32)
+            bias = _dev(torch, rng.normal(0, 0.5, c), torch.float32)
+
+        def kernel():
+            return D.depthwise_conv3x3x3(x, w, scale, bias, relu=epilogue)
+
+        def plain():
+            return D.depthwise_reference(x, w, scale, bias, relu=epilogue)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        if got.shape != ref.shape or got.dtype != dtype:
+            raise AssertionError(f"depthwise {name}: {tuple(got.shape)} "
+                                 f"{got.dtype}, want {tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        span = ref.float().abs().max().item()
+        w_cf = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+        x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain)
+        library_ms = time_ms(torch, lambda: F.conv3d(x_cf, w_cf, padding=1,
+                                                     groups=c))
+        copies_ms = time_ms(torch, lambda: F.conv3d(
+            x.permute(0, 4, 1, 2, 3).contiguous(), w_cf, padding=1,
+            groups=c).permute(0, 2, 3, 4, 1).contiguous())
+        ops = (2 * 27 + (3 if epilogue else 0)) * x.numel()
+        bound_ms, bound_by = bound(nbytes(x, w, scale, bias, got), ops,
+                                   dtype_name)
+        tol = DW_TOL[dtype_name]
+        log(f"[kernel] depthwise {name} {shape} {dtype_name}"
+            f"{' +affine+relu' if epilogue else ''}: max_abs_err {err:.4g} "
+            f"(rel to max|ref| {err / span:.3g}, tol {tol:.3g}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN grouped conv "
+            f"{library_ms:.4f} ms ({copies_ms:.4f} ms with the two layout "
+            f"copies), bound {bound_ms:.4f} ms ({bound_by})")
+        if not err <= tol * span:
+            raise AssertionError(f"depthwise {name}: kernel disagrees with "
+                                 f"plain ({err} > {tol} * {span})")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms,
+                         "library_with_copies_ms": copies_ms}
+    return results
+
+
+def phase_bottleneck_kernel(torch) -> dict:
+    """The fused bottleneck against bottleneck_reference (BN_CASES): the
+    error against the plain version in float32 on the kernel's bf16
+    operands, in every clip; times of the kernel and of the plain version
+    in bf16 (no single PyTorch call computes the block)."""
+    from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    ci, cm = 512, 128
+    for name, (b, t, h, w) in BN_CASES.items():
+        rng = np.random.default_rng(5)
+
+        def mk(*shape, scale=1.0, mean=0.0):
+            return _dev(torch, rng.normal(mean, scale, shape),
+                        torch.bfloat16 if len(shape) > 1 else torch.float32)
+
+        args = (mk(b, t, h, w, ci), mk(ci, cm, scale=.05),
+                mk(3, 3, 3, cm, scale=.2), mk(cm, ci, scale=.05),
+                mk(cm, scale=.3, mean=1.0), mk(cm, scale=.3),
+                mk(cm, scale=.3, mean=1.0), mk(cm, scale=.3),
+                mk(ci, scale=.3, mean=1.0), mk(ci, scale=.3))
+        got = B.bottleneck_fused(*args)
+        torch.cuda.synchronize()
+        ref = B.bottleneck_reference(*(a.float() for a in args))
+        span = ref.abs().max().item()
+        errs = [(got[i].float() - ref[i]).abs().max().item()
+                for i in range(b)]
+        ms = time_ms(torch, lambda: B.bottleneck_fused(*args))
+        plain_ms = time_ms(torch, lambda: B.bottleneck_reference(*args))
+        pixels = b * t * h * w
+        ops = 2 * pixels * (2 * ci * cm + 27 * cm)
+        bound_ms, bound_by = bound(nbytes(*args, got), ops, "bfloat16")
+        log(f"[kernel] bottleneck {name} ({b},{t},{h},{w},{ci}) Cm={cm} bf16: "
+            f"max_abs_err per clip {[round(e, 5) for e in errs]} (rel to "
+            f"max|ref| {max(errs) / span:.3g}, tol {BN_TOL}); kernel "
+            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not (got.shape == ref.shape and max(errs) <= BN_TOL * span):
+            raise AssertionError(f"bottleneck {name}: kernel disagrees with "
+                                 f"plain ({errs} vs {BN_TOL} * {span})")
+        results[name] = {"max_abs_err": max(errs), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
     return results
 
 
@@ -278,28 +457,67 @@ def phase_small_reference(torch, stem) -> None:
             raise AssertionError(f"small model {k}: card and CPU disagree")
 
 
-def phase_main_path(torch, stem):
+def launch_counts() -> dict:
+    """Launches of each kernel of the port in this process, by name."""
+    from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
+                                                        depthwise, stem)
+
+    return {"stem_pool": stem.LAUNCHES, "stem_stats": stem.STATS_LAUNCHES,
+            "depthwise": depthwise.LAUNCHES,
+            "bottleneck": bottleneck.LAUNCHES}
+
+
+def zero_counts() -> None:
+    from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
+                                                        depthwise, stem)
+
+    stem.LAUNCHES = stem.STATS_LAUNCHES = 0
+    depthwise.LAUNCHES = bottleneck.LAUNCHES = 0
+
+
+def write_config(name: str, edit) -> Path:
+    """The flagship YAML with ``edit`` applied to its CONFIG tree, written
+    to build/<name>."""
+    import yaml
+
+    with open(FLAGSHIP_CONFIG) as f:
+        tree = yaml.safe_load(f)
+    edit(tree["CONFIG"])
+    BUILD_DIR.mkdir(exist_ok=True)
+    path = BUILD_DIR / name
+    with open(path, "w") as f:
+        yaml.safe_dump(tree, f)
+    return path
+
+
+def phase_main_path(torch, cfg_path: Path, tag: str, per_keyframe: dict):
+    """The streaming detector of ``cfg_path`` on synthetic frames; each
+    keyframe must launch each kernel of ``per_keyframe`` that many times
+    (every other kernel none). Returns the detector, the launches and the
+    steady median latency."""
     from tubelet_transformer_tpu_torch.config import load_config
     from tubelet_transformer_tpu_torch.serving import StreamingDetector
 
-    cfg = load_config(str(FLAGSHIP_CONFIG))
+    cfg = load_config(str(cfg_path))
     t0 = time.perf_counter()
     # actor_threshold -1 admits every query, so every output is checked
     det = StreamingDetector(cfg, fps=8.0, detect_every=8, rng_seed=0,
                             actor_threshold=-1.0, device="cuda")
-    log(f"[main] {cfg.model.backbone_name} {cfg.data.img_size}px "
-        f"T={cfg.data.temp_len} d={cfg.model.d_model} "
+    log(f"[{tag}] {cfg_path.name}: {cfg.model.backbone_name} "
+        f"{cfg.data.img_size}px T={cfg.data.temp_len} d={cfg.model.d_model} "
         f"{cfg.model.enc_layers}+{cfg.model.dec_layers} "
-        f"{cfg.model.temporal_ds_strategy} {cfg.model.compute_dtype}: "
-        f"built with random weights in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.model.temporal_ds_strategy} {cfg.model.compute_dtype}, "
+        f"PALLAS_KERNELS {cfg.model.pallas_kernels}, FUSED_BLOCKS "
+        f"{cfg.model.fused_blocks}: built with random weights in "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
               for _ in range(FRAMES)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stem.LAUNCHES = 0
+    zero_counts()
     results = [r for f in frames if (r := det.push_frame(f)) is not None]
-    launches = stem.LAUNCHES
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_q, n_cls = cfg.model.query_num, cfg.data.num_classes
     if len(results) < 3:
@@ -313,11 +531,12 @@ def phase_main_path(torch, stem):
             if not (np.isfinite(d.box).all() and np.isfinite(d.scores).all()
                     and np.isfinite(d.actor_prob)):
                 raise AssertionError("non-finite detection output")
-    if launches != len(results):
-        raise AssertionError(f"stem kernel launched {launches} times for "
-                             f"{len(results)} detections")
+    want = {k: per_keyframe.get(k, 0) * len(results) for k in launches}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} for "
+                             f"{len(results)} detections, want {want}")
     lat = [r.latency_ms for r in results]
-    log(f"[main] keyframes {[r.frame_index for r in results]}; stem kernel "
+    log(f"[{tag}] keyframes {[r.frame_index for r in results]}; kernel "
         f"launches {launches}; latency ms per keyframe "
         f"{[round(v, 3) for v in lat]}; steady (excluding the first) mean "
         f"{statistics.mean(lat[1:]):.3f} median "
@@ -326,27 +545,49 @@ def phase_main_path(torch, stem):
     return det, launches, statistics.median(lat[1:])
 
 
-def phase_in_situ(torch, det) -> None:
+def stem_switch(model):
+    def switch(on: bool) -> None:
+        model.backbone.body.stem_kernel = on
+    return switch
+
+
+def backbone_kernels_switch(model):
+    """Turns the depthwise kernel (MODEL.PALLAS_KERNELS) and the fused
+    bottleneck (MODEL.FUSED_BLOCKS) of ``model`` on or off."""
+    from tubelet_transformer_tpu_torch.models.csn import (CSNBottleneck,
+                                                          DepthwiseConv3d)
+
+    def switch(on: bool) -> None:
+        for m in model.modules():
+            if isinstance(m, DepthwiseConv3d):
+                m.use_pallas = on
+            elif isinstance(m, CSNBottleneck):
+                m.fused_blocks = on
+    return switch
+
+
+def phase_in_situ(torch, det, switch, what: str) -> None:
+    """One flagship clip through the detector's model with the kernels that
+    ``switch`` turns on, and off."""
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
         device_preprocess)
 
     model = det.model
-    body = model.backbone.body
     rng = np.random.default_rng(2)
     clip = torch.from_numpy(rng.integers(
         0, 256, (1, 32, 256, 256, 3), dtype=np.uint8)).cuda()
     with torch.inference_mode():
         x = device_preprocess(clip, dtype=model.dtype)
         on = model(x)
-        body.stem_kernel = False
+        switch(False)
         try:
             off = model(x)
         finally:
-            body.stem_kernel = True
+            switch(True)
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         diff = (on[k] - off[k]).abs().max().item()
         span = max(1.0, off[k].abs().max().item())
-        log(f"[in situ] flagship stem kernel on vs off {k}: max_abs_diff "
+        log(f"[in situ] flagship {what} on vs off {k}: max_abs_diff "
             f"{diff:.4g} (max|off| {off[k].abs().max().item():.4g}, tol "
             f"{IN_SITU_TOL} x {span:.4g})")
         if not (torch.isfinite(on[k]).all() and diff <= IN_SITU_TOL * span):
@@ -384,7 +625,41 @@ def _report_device_time(torch, prof, tag: str, what: str, wall_ms: float,
     log(f"[{tag}] device time outside aten ops: {total - attributed:.3f} ms")
 
 
-def phase_breakdown(torch, det, steady_ms: float) -> None:
+def phase_switch_latency(torch, det, switch, what: str,
+                         pairs: int = 10) -> None:
+    """Host wall time of one flagship forward (ending in a sync) with the
+    kernels that ``switch`` turns on, and off, in alternating order in one
+    process: what the switch does to the latency, apart from the spread
+    between processes."""
+    from tubelet_transformer_tpu_torch.data.device_preprocess import (
+        device_preprocess)
+
+    model = det.model
+    clip = torch.zeros((1, 32, 256, 256, 3), dtype=torch.uint8, device="cuda")
+    times = {True: [], False: []}
+    with torch.inference_mode():
+        x = device_preprocess(clip, dtype=model.dtype)
+        try:
+            for i in range(2 * pairs + 2):
+                on = (i % 4) in (0, 3)        # on, off, off, on, ...
+                switch(on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                if i >= 2:                    # the first pair warms up
+                    times[on].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            switch(True)
+    log(f"[switch latency] flagship forward, {what} on vs off, {pairs} "
+        f"alternating pairs: median {statistics.median(times[True]):.3f} vs "
+        f"{statistics.median(times[False]):.3f} ms (on: min "
+        f"{min(times[True]):.3f} max {max(times[True]):.3f}; off: min "
+        f"{min(times[False]):.3f} max {max(times[False]):.3f})")
+
+
+def phase_breakdown(torch, det, steady_ms: float, tag: str,
+                    kernels) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
@@ -400,9 +675,36 @@ def phase_breakdown(torch, det, steady_ms: float) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             model(x)
             torch.cuda.synchronize()
-    _report_device_time(torch, prof, "breakdown", "one flagship forward "
+    _report_device_time(torch, prof, tag, "one flagship forward "
                         "(against the steady keyframe latency)", steady_ms,
-                        ("stem_pool_kernel",))
+                        kernels)
+
+
+def phase_serve_cli(cfg_path: Path) -> None:
+    """The serving CLI through ``cfg_path`` on 88 synthetic frames at 8 fps
+    (4 keyframes), in its own process."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "tubelet_transformer_tpu_torch.cli.serve",
+         "--config-file", str(cfg_path), "--num-frames", str(FRAMES),
+         "--fps", "8"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    if res.returncode != 0:
+        raise AssertionError(f"serve CLI exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    lines = [json.loads(line) for line in res.stdout.splitlines()
+             if line.startswith("{")]
+    keyframes = [d for d in lines if "keyframe" in d]
+    summary = lines[-1].get("summary", {})
+    if len(keyframes) < 3 or summary.get("keyframes") != len(keyframes):
+        raise AssertionError(f"serve CLI: {len(keyframes)} keyframes, "
+                             f"summary {summary}")
+    log(f"[serve cli] {cfg_path.name}: keyframes "
+        f"{[d['keyframe'] for d in keyframes]}, latency ms "
+        f"{[d['latency_ms'] for d in keyframes]}; summary {summary}; "
+        f"process wall {time.perf_counter() - t0:.1f} s")
 
 
 def _train_batch(torch, cfg, uint8_seed: int | None = None) -> dict:
@@ -483,8 +785,6 @@ def phase_small_train_reference(torch, stem) -> None:
 def phase_train_path(torch, stem) -> dict:
     """The flagship fine-tune recipe through the train_ava entry point,
     on the synthetic set; returns the config and the measurements."""
-    import yaml
-
     from tubelet_transformer_tpu_torch.cli import train_ava
     from tubelet_transformer_tpu_torch.config import load_config
     from tubelet_transformer_tpu_torch.models.tuber import build_model
@@ -492,19 +792,16 @@ def phase_train_path(torch, stem) -> dict:
     from tubelet_transformer_tpu_torch.train import engine
     from tubelet_transformer_tpu_torch.train.optimizer import param_label
 
-    with open(FLAGSHIP_CONFIG) as f:
-        tree = yaml.safe_load(f)
-    c = tree["CONFIG"]
-    c["DATA"].update(DATASET_NAME="synthetic", SYNTHETIC_SIZE=8,
-                     LABEL_PATH="")
-    c["TRAIN"]["EPOCH_NUM"] = 1
-    c["MODEL"].update(PRETRAIN_BACKBONE_DIR="", LOAD_DETR=False)
     base = BUILD_DIR / "chip_smoke_runs"
-    c["LOG"]["BASE_PATH"] = str(base)
-    BUILD_DIR.mkdir(exist_ok=True)
-    cfg_path = BUILD_DIR / "chip_smoke_train.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(tree, f)
+
+    def edit(c):
+        c["DATA"].update(DATASET_NAME="synthetic", SYNTHETIC_SIZE=8,
+                         LABEL_PATH="")
+        c["TRAIN"]["EPOCH_NUM"] = 1
+        c["MODEL"].update(PRETRAIN_BACKBONE_DIR="", LOAD_DETR=False)
+        c["LOG"]["BASE_PATH"] = str(base)
+
+    cfg_path = write_config("chip_smoke_train.yaml", edit)
     cfg = load_config(str(cfg_path))
 
     # per-step wall time (each step ends in a host sync) and the host time
@@ -539,7 +836,7 @@ def phase_train_path(torch, stem) -> dict:
                 "cuda", "--seed", "0"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stem.LAUNCHES = stem.STATS_LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     try:
         train_ava.main()
@@ -548,7 +845,7 @@ def phase_train_path(torch, stem) -> dict:
         engine.make_train_step, matcher.linear_sum_assignment = (
             make_train_step, lsa)
     wall = time.perf_counter() - t0
-    launches = {"stem_pool": stem.LAUNCHES, "stem_stats": stem.STATS_LAUNCHES}
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if len(steps) != TRAIN_STEPS or not all(
@@ -556,7 +853,8 @@ def phase_train_path(torch, stem) -> dict:
         raise AssertionError(f"train steps {steps}: want {TRAIN_STEPS} "
                              "finite ones")
     if launches != {"stem_pool": TRAIN_STEPS + VAL_FORWARDS,
-                    "stem_stats": TRAIN_STEPS}:
+                    "stem_stats": TRAIN_STEPS, "depthwise": 0,
+                    "bottleneck": 0}:
         raise AssertionError(f"kernel launches {launches}, want "
                              f"{TRAIN_STEPS + VAL_FORWARDS} pooled and "
                              f"{TRAIN_STEPS} statistics")
@@ -718,6 +1016,42 @@ def phase_jitter_and_train_breakdown(torch, stem, cfg, model,
                          "stem_stats_finalize_kernel"), top=14)
 
 
+def phase_train_kernels(torch, cfg) -> dict:
+    """One flagship train step with MODEL.PALLAS_KERNELS on: layer1 is
+    frozen (TUNE_POINT 4), so its 3 depthwise convs run the kernel under
+    no_grad; the loss must be finite."""
+    import copy
+
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+
+    cfg = copy.deepcopy(cfg)
+    cfg.model.pallas_kernels = True
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    step = engine.make_train_step(
+        cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+    batch = _train_batch(torch, cfg)
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = step(batch, cfg.loss.dice_cof)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    want = {"stem_pool": 1, "stem_stats": 1, "depthwise": 3, "bottleneck": 0}
+    log(f"[train kernels] flagship train step, PALLAS_KERNELS on, TUNE_POINT "
+        f"{cfg.model.tune_point}: total loss "
+        f"{float(metrics['total_loss']):.5f}, finite "
+        f"{float(metrics['finite'])}; launches {launches}; step "
+        f"{wall_ms:.2f} ms (the first of this model)")
+    if not (metrics["finite"] == 1.0
+            and np.isfinite(float(metrics["total_loss"]))
+            and launches == want):
+        raise AssertionError(f"train step with PALLAS_KERNELS: launches "
+                             f"{launches}, want {want}, or a loss that is "
+                             "not finite")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -728,43 +1062,77 @@ def main() -> int:
     from tubelet_transformer_tpu_torch.ops.cuda import stem
 
     smi = phase_environment(torch)
-    phase_build(stem)
+    phase_build()
     pool = phase_kernels(torch, stem)["ava_256px_train"]
     stats = phase_stats_kernel(torch, stem)["ava_256px_train"]
+    dw = phase_depthwise_kernel(torch)["layer1_256px"]
+    bn = phase_bottleneck_kernel(torch)["layer2_256px"]
     phase_small_reference(torch, stem)
     phase_small_train_reference(torch, stem)
-    det, stream_launches, steady_ms = phase_main_path(torch, stem)
-    phase_in_situ(torch, det)
-    phase_breakdown(torch, det, steady_ms)
-    del det
+    det, stream_launches, steady_ms = phase_main_path(
+        torch, FLAGSHIP_CONFIG, "main", {"stem_pool": 1})
+    phase_in_situ(torch, det, stem_switch(det.model), "stem kernel")
+
+    # the kernel path, its latencies taken before any profiled window
+    kernels_cfg = write_config("chip_smoke_kernels.yaml", lambda c: c[
+        "MODEL"].update(PALLAS_KERNELS=True, FUSED_BLOCKS=True))
+    kdet, kernel_launches, kernel_steady_ms = phase_main_path(
+        torch, kernels_cfg, "kernels",
+        {"stem_pool": 1, "depthwise": 3, "bottleneck": 7})
+    phase_in_situ(torch, kdet, backbone_kernels_switch(kdet.model),
+                  "depthwise + bottleneck kernels")
+    phase_switch_latency(torch, kdet, backbone_kernels_switch(kdet.model),
+                         "depthwise + bottleneck kernels")
+    phase_breakdown(torch, det, steady_ms, "breakdown",
+                    ("stem_pool_kernel",))
+    phase_breakdown(torch, kdet, kernel_steady_ms, "kernels breakdown",
+                    ("stem_pool_kernel", "depthwise_kernel", "conv1_kernel",
+                     "dw_conv4_kernel"))
+    del det, kdet
     torch.cuda.empty_cache()
+    phase_serve_cli(kernels_cfg)
+
     train = phase_train_path(torch, stem)
     torch.cuda.empty_cache()
     model = phase_train_in_situ(torch, stem, train["cfg"])
     phase_jitter_and_train_breakdown(torch, stem, train["cfg"], model,
                                      train["steady_ms"])
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "optax", "orbax"))
+    del model
+    torch.cuda.empty_cache()
+    train_kernel_launches = phase_train_kernels(torch, train["cfg"])
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "flax", "optax", "orbax", "tubelet_transformer_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # launches: the train path's run (counts set to 0 just before it);
-    # the streaming path's own count of the pooled kernel beside it
+    # launches: each kernel's count on the path that runs it, set to 0 just
+    # before that path: the stem kernels on the train path (the streaming
+    # paths' count of the pooled kernel beside it), the depthwise and the
+    # bottleneck on the kernel path (the train step's depthwise beside it)
+    def entry(name, source, replaces, launches, measured, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        return {"name": name, "route": "cuda",
+                "source": f"tubelet_transformer_tpu_torch/csrc/{source}",
+                "replaces": f"tubelet_transformer_tpu/ops/pallas/{replaces}",
+                "launches": launches, **{k: measured[k] for k in keys},
+                **extra}
+
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": "stem_pool", "route": "cuda",
-         "source": "tubelet_transformer_tpu_torch/csrc/stem.cu",
-         "replaces": "tubelet_transformer_tpu/ops/pallas/stem.py:134",
-         "launches": train["launches"]["stem_pool"],
-         "launches_streaming": stream_launches,
-         "max_abs_err": pool["max_abs_err"], "ms": pool["ms"],
-         "plain_ms": pool["plain_ms"]},
-        {"name": "stem_stats", "route": "cuda",
-         "source": "tubelet_transformer_tpu_torch/csrc/stem_stats.cu",
-         "replaces": "tubelet_transformer_tpu/ops/pallas/stem.py:388",
-         "launches": train["launches"]["stem_stats"],
-         "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-         "plain_ms": stats["plain_ms"]}]}))
+        entry("stem_pool", "stem.cu", "stem.py:134",
+              train["launches"]["stem_pool"], pool,
+              launches_streaming=stream_launches["stem_pool"]),
+        entry("stem_stats", "stem_stats.cu", "stem.py:388",
+              train["launches"]["stem_stats"], stats),
+        entry("depthwise", "depthwise.cu", "depthwise.py:66",
+              kernel_launches["depthwise"], dw,
+              also_replaces="tubelet_transformer_tpu/ops/pallas/"
+                            "depthwise.py:184",
+              launches_train_step=train_kernel_launches["depthwise"],
+              library_with_copies_ms=dw["library_with_copies_ms"]),
+        entry("bottleneck", "bottleneck.cu", "bottleneck.py:57",
+              kernel_launches["bottleneck"], bn)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

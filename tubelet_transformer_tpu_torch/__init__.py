@@ -6,6 +6,9 @@ module; public functions keep its channels-last (B, T, H, W, C) layout.
 Hand-written CUDA kernels live under ``csrc/`` and build at first use into
 ``build/kernels/`` at the repository root (``ops/cuda/build.py``).
 
-Nothing here imports JAX: the only modules shared with the JAX package are
-its jax-free ``config``, ``data.transforms`` and ``train.torch_convert``.
+Nothing here imports JAX or the JAX package. What the port needs of the
+JAX package's jax-free modules it keeps as its own copies, under the same
+module names: ``config``, ``utils`` (meters, log dirs), ``data.{transforms,
+loader,synthetic,ava,native,packed}``, ``eval.{labelmap,map_eval,ava_eval}``
+and the export half of ``train/torch_convert.py`` in ``convert``.
 """

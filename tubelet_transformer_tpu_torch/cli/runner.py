@@ -1,7 +1,7 @@
 """The training runner behind ``cli/train_ava``.
 
 Port of ``tubelet_transformer_tpu/cli/runner.py`` for one device: loaders
-from the shared ``data/loader.py`` and datasets, the train build of the
+from ``data/loader.py`` and the datasets, the train build of the
 model with its optimizer, resume from the newest checkpoint
 (``MODEL.LOAD`` without ``PRETRAINED_PATH``), the epoch loop with
 checkpoints and validation, and SIGTERM/SIGINT handling: a signal asks for a
@@ -16,8 +16,8 @@ import time
 
 import torch
 
-from tubelet_transformer_tpu.data.loader import DataLoader
-from tubelet_transformer_tpu.utils import MetricsWriter, build_log_dir
+from tubelet_transformer_tpu_torch.data.loader import DataLoader
+from tubelet_transformer_tpu_torch.utils import MetricsWriter, build_log_dir
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
@@ -29,14 +29,14 @@ def build_dataset(cfg: Config, split: str):
     name = cfg.data.dataset_name
     if name == "ava":
         if cfg.data.packed_path:
-            from tubelet_transformer_tpu.data.packed import PackedAVADataset
+            from tubelet_transformer_tpu_torch.data.packed import PackedAVADataset
 
             return PackedAVADataset(cfg, split)
-        from tubelet_transformer_tpu.data.ava import AVADataset
+        from tubelet_transformer_tpu_torch.data.ava import AVADataset
 
         return AVADataset(cfg, split)
     if name == "synthetic":
-        from tubelet_transformer_tpu.data.synthetic import SyntheticAVADataset
+        from tubelet_transformer_tpu_torch.data.synthetic import SyntheticAVADataset
 
         return SyntheticAVADataset(cfg, size=cfg.data.synthetic_size)
     if name in ("jhmdb", "ucf"):

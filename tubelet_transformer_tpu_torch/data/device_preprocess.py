@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from tubelet_transformer_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from tubelet_transformer_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
 def rgb_to_hsv_cv(rgb: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,16 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
   float32 when the rest of the model runs in bfloat16.
 * Pointwise 1x1x1 convs are channel matmuls on the channels-last tensor.
 * The depthwise 3x3x3 conv is ``F.conv3d(groups=C)`` on a channels-first
-  copy, as the JAX package leaves it to XLA by default.
+  copy, as the JAX package leaves it to XLA by default. With
+  ``MODEL.PALLAS_KERNELS`` (``use_pallas``) a stride-1 conv of fewer than
+  128 channels (layer1) takes the hand-written kernel
+  (``ops/cuda/depthwise.py``), in eval and in training.
+* With ``MODEL.FUSED_BLOCKS`` (``fused_blocks``) a stride-1 identity block
+  whose frames hold >= 1024 pixels and whose C_mid >= 128 (layer2 at 256
+  px) runs in eval as one fused call (``ops/cuda/bottleneck.py``) with its
+  BNs folded (``CSNBottleneck.fused_params``).
+* ``MODEL.FUSED_STAGES`` (the stage-chain kernel) is not ported:
+  ``models.tuber.build_model`` refuses it.
 * Weights are cast to the input's dtype at use, so a model whose parameters
   are float32 (the train build) computes in the dtype of its input.
 * ``stop_grad_stage`` (``train.optimizer.stop_grad_stage``) freezes the stem
@@ -34,6 +43,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tubelet_transformer_tpu_torch.ops.cuda.bottleneck import (
+    bottleneck_fused, bottleneck_supported)
+from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
+    depthwise_conv3x3x3, depthwise_supported)
 from tubelet_transformer_tpu_torch.ops.cuda.stem import (
     stem_batch_stats, stem_forward)
 
@@ -115,17 +128,30 @@ class PointwiseConv(nn.Conv3d):
 class DepthwiseConv3d(nn.Conv3d):
     """Depthwise 3x3x3 conv, zero padding 1, on a channels-last tensor.
 
-    The conv runs on a channels-first copy: cuDNN's grouped 3-D conv on
-    the channels_last_3d view of the tensor takes ~29x longer than on a
-    contiguous channels-first tensor, the two copies included (121 ms
-    against 4.2 ms over CSN-152's 50 depthwise convs, bf16, on an NVIDIA
-    H100 80GB HBM3 at a 700 W power limit)."""
+    With ``use_pallas``, where ``depthwise_supported`` (stride 1, C < 128)
+    the conv goes through ``depthwise_conv3x3x3``: the kernel on a CUDA
+    tensor, its plain version on the CPU. Otherwise it runs on a
+    channels-first copy: cuDNN's grouped 3-D conv on the channels_last_3d
+    view of the tensor takes ~29x longer than on a contiguous channels-first
+    tensor, the two copies included (121 ms against 4.2 ms over CSN-152's
+    50 depthwise convs, bf16, on an NVIDIA H100 80GB HBM3 at a 700 W power
+    limit)."""
 
-    def __init__(self, features: int, stride=(1, 1, 1)):
+    def __init__(self, features: int, stride=(1, 1, 1),
+                 use_pallas: bool = False):
         super().__init__(features, features, 3, stride=stride, padding=1,
                          groups=features, bias=False)
+        self.use_pallas = use_pallas
+
+    def kernel_weight(self) -> torch.Tensor:
+        """The weight as (3,3,3,C), the JAX layout."""
+        c = self.out_channels
+        return self.weight.reshape(c, 27).t().reshape(3, 3, 3, c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas and depthwise_supported(x.shape, self.stride):
+            return depthwise_conv3x3x3(
+                x.contiguous(), cast(self.kernel_weight(), x).contiguous())
         y = self._conv_forward(channels_first(x).contiguous(),
                                cast(self.weight, x), None)
         return channels_last(y).contiguous()
@@ -133,15 +159,20 @@ class DepthwiseConv3d(nn.Conv3d):
 
 class CSNBottleneck(nn.Module):
     """ir-bottleneck: 1x1x1 -> depthwise 3x3x3 -> 1x1x1, each + BN (+ReLU),
-    with a projection shortcut on the first block of a stage."""
+    with a projection shortcut on the first block of a stage; in eval with
+    ``fused_blocks``, one fused call where ``bottleneck_supported``."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 temporal_stride: int = 1, has_downsample: bool = False):
+                 temporal_stride: int = 1, has_downsample: bool = False,
+                 use_pallas: bool = False, fused_blocks: bool = False):
         super().__init__()
         st = (temporal_stride, stride, stride)
+        self.planes, self.stride, self.temporal_stride = (planes, stride,
+                                                          temporal_stride)
+        self.fused_blocks = fused_blocks
         self.conv1 = PointwiseConv(in_planes, planes)
         self.bn1 = FoldableBN(planes)
-        self.conv3 = DepthwiseConv3d(planes, stride=st)
+        self.conv3 = DepthwiseConv3d(planes, stride=st, use_pallas=use_pallas)
         self.bn3 = FoldableBN(planes)
         self.conv4 = PointwiseConv(planes, planes * 4)
         self.bn4 = FoldableBN(planes * 4)
@@ -149,7 +180,23 @@ class CSNBottleneck(nn.Module):
             PointwiseConv(in_planes, planes * 4, stride=st),
             FoldableBN(planes * 4)) if has_downsample else None)
 
+    def fused_params(self):
+        """(w1, wd, w4, a1, b1, a3, b3, a4, b4): the weights in the JAX
+        layouts (Ci,Cm), (3,3,3,Cm), (Cm,Ci) and the float32 BN affines
+        folded from the running statistics (csn.py:215-223 of the JAX
+        package)."""
+        a1, b1 = self.bn1.folded()
+        a3, b3 = self.bn3.folded()
+        a4, b4 = self.bn4.folded()
+        return (self.conv1.weight.flatten(1).t(),
+                self.conv3.kernel_weight(),
+                self.conv4.weight.flatten(1).t(), a1, b1, a3, b3, a4, b4)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.fused_blocks and not self.training and bottleneck_supported(
+                x.shape, self.planes, self.stride, self.temporal_stride,
+                self.down_sample is not None)):
+            return bottleneck_fused(x, *self.fused_params())
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn3(self.conv3(out)))
         out = self.bn4(self.conv4(out))
@@ -162,11 +209,14 @@ class CSN(nn.Module):
 
     ``last_stride=False`` keeps stage 4 at spatial stride 1.
     ``stop_grad_stage``: -1 trains everything; s >= 0 freezes the stem and
-    stages 1..s in training (5: the whole trunk)."""
+    stages 1..s in training (5: the whole trunk). ``use_pallas`` and
+    ``fused_blocks`` reach every block (``MODEL.PALLAS_KERNELS``,
+    ``MODEL.FUSED_BLOCKS``)."""
 
     def __init__(self, block_nums: Sequence[int] = (3, 8, 36, 3),
                  last_stride: bool = True, stem_kernel: bool = True,
-                 stop_grad_stage: int = -1):
+                 stop_grad_stage: int = -1, use_pallas: bool = False,
+                 fused_blocks: bool = False):
         super().__init__()
         self.block_nums = tuple(block_nums)
         self.stem_kernel = stem_kernel
@@ -186,7 +236,9 @@ class CSN(nn.Module):
             self.add_module(f"layer{s + 1}", nn.Sequential(*(
                 CSNBottleneck(in_planes if b == 0 else planes * 4, planes,
                               stride if b == 0 else 1,
-                              tstride if b == 0 else 1, has_downsample=b == 0)
+                              tstride if b == 0 else 1, has_downsample=b == 0,
+                              use_pallas=use_pallas,
+                              fused_blocks=fused_blocks)
                 for b in range(blocks))))
             if blocks:
                 in_planes = planes * 4
@@ -239,9 +291,10 @@ class CSN(nn.Module):
 
 
 def build_csn(backbone_name: str, last_stride: bool,
-              stem_kernel: bool = True, stop_grad_stage: int = -1) -> CSN:
+              stem_kernel: bool = True, stop_grad_stage: int = -1,
+              use_pallas: bool = False, fused_blocks: bool = False) -> CSN:
     if backbone_name not in BLOCK_NUMS:
         raise ValueError(f"unknown backbone {backbone_name!r}; "
                          f"supported: {sorted(BLOCK_NUMS)}")
     return CSN(BLOCK_NUMS[backbone_name], last_stride, stem_kernel,
-               stop_grad_stage)
+               stop_grad_stage, use_pallas, fused_blocks)

@@ -1,12 +1,13 @@
 """Build the port's CUDA sources into plain-C shared libraries and load them.
 
 ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into
-``build/kernels/lib<name>-<hash>.so`` at the repository root; the library
+``build/kernels/lib<name>-<hash>.so`` at the repository root, one ``nvcc``
+process for each source, all started together, then one link; the library
 exports ``extern "C"`` functions that Python calls through ``ctypes``. The
 hash in the file name covers the sources, the shared ``csrc/*.cuh`` headers
 and the flags, so a library is rebuilt exactly when one of them changes.
 Nothing is built at import time: the first call of a kernel's wrapper on a
-CUDA tensor builds and loads.
+CUDA tensor builds and loads ``kernels()``, the one library of every kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+# the port's one kernel library and its sources
+LIBRARY = "tuber_kernels"
+SOURCES = ("stem.cu", "stem_stats.cu", "depthwise.cu", "bottleneck.cu")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -61,19 +65,38 @@ def load_library(name: str, sources: list[str],
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS,
-                   *(("-Xptxas", "-v") if verbose else ()),
-                   "-o", str(tmp), *map(str, paths)]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {res.returncode}: {' '.join(cmd)}"
-                    f"\n{res.stdout}{res.stderr}")
+            objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in paths]
+            ptxas = ("-Xptxas", "-v") if verbose else ()
+            cmds = [[nvcc_path(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+                     str(p)] for p, o in zip(paths, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]
+            outputs = [(cmd, proc.communicate()[0], proc.returncode)
+                       for cmd, proc in zip(cmds, procs)]
+            link = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                    *map(str, objs)]
+            if all(code == 0 for _, _, code in outputs):
+                res = subprocess.run(link, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                outputs.append((link, res.stdout, res.returncode))
+            for o in objs:
+                o.unlink(missing_ok=True)
+            for cmd, text, code in outputs:
+                if code != 0:
+                    raise RuntimeError(f"nvcc failed with code {code}: "
+                                       f"{' '.join(cmd)}\n{text}")
             BUILD_SECONDS[name] = time.perf_counter() - t0
             if verbose:
-                print(res.stdout + res.stderr, end="", flush=True)
+                print("".join(text for _, text, _ in outputs), end="",
+                      flush=True)
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
         return lib
+
+
+def kernels(verbose: bool = False) -> ctypes.CDLL:
+    """The library of every kernel of the port, built at first use."""
+    return load_library(LIBRARY, list(SOURCES), verbose=verbose)

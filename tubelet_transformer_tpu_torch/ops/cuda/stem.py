@@ -23,7 +23,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from tubelet_transformer_tpu_torch.ops.cuda.build import load_library
+from tubelet_transformer_tpu_torch.ops.cuda import build
 
 # kernel launches made by stem_forward and stem_batch_stats in this process
 LAUNCHES = 0
@@ -37,9 +37,9 @@ _STATS_ENTRY = {torch.bfloat16: "tuber_stem_stats_bf16",
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the library of both stem kernels."""
-    lib = load_library("tuber_stem", ["stem.cu", "stem_stats.cu"],
-                       verbose=verbose)
+    """The kernel library (``build.kernels``), with the stem kernels'
+    argument types set."""
+    lib = build.kernels(verbose)
     for entry in _ENTRY.values():
         fn = getattr(lib, entry)
         if fn.argtypes is None:

@@ -2,7 +2,7 @@
 
 Port of ``tubelet_transformer_tpu/train/loop.py`` for one process: the
 per-iteration body is one train step (train/engine.py); validation feeds the
-shared numpy evaluators of ``tubelet_transformer_tpu/eval/ava_eval.py``.
+numpy evaluators of ``eval/ava_eval.py``.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from tubelet_transformer_tpu.eval.ava_eval import (
+from tubelet_transformer_tpu_torch.eval.ava_eval import (
     AVADetectionEvaluator, PersonDetectionEvaluator, load_excluded_keys)
-from tubelet_transformer_tpu.utils import AverageMeter, MetricsWriter
+from tubelet_transformer_tpu_torch.utils import AverageMeter, MetricsWriter
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.train.engine import TrainState, device_batch
 
