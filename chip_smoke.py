@@ -10,9 +10,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. each kernel against its plain PyTorch version at the shapes the main
    paths give it (the statistics and depthwise kernels also in float32 at
    shapes their tiles do not divide; the bottleneck also at two clips of
-   five frames), with CUDA-event times of both, of the one PyTorch call
-   that computes the same function where there is one, and the least time
-   the card could take (``bound``);
+   five frames; the stage chain at the flagship's three identity tails with
+   the K that ``max_chain`` gives, at two clips of five frames and in
+   float32 at a ragged shape; the unpooled stem, which no model path runs,
+   at 256 and 224 px and in float32 at a ragged shape), with CUDA-event
+   times of both, of the one PyTorch call that computes the same function
+   where there is one, and the least time the card could take
+   (``bound``);
 4. small-input references: the port on the card against the port on the
    CPU (which the tests hold against the JAX package), float32, CSN-TINY:
    the forward, and one train step;
@@ -26,9 +30,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (``build/chip_smoke_kernels.yaml``): 3 depthwise launches (layer1) and 7
    fused bottlenecks (layer2 blocks 1-7) per keyframe; in situ with those
    two kernels on and off, and the forward's host time both ways in
-   alternating order; then where the device time of one forward of each
-   detector goes (torch.profiler), and the serving CLI through the kernel
-   path's YAML;
+   alternating order; then the stage path: the detector with
+   ``MODEL.FUSED_STAGES`` on as well (``build/chip_smoke_stages.yaml``): the
+   identity tails of layers 2-4 as stage chains (3 launches per keyframe,
+   no fused bottleneck), in situ and the host time with the chains on and
+   off; then where the device time of one forward of each detector goes
+   (torch.profiler), and the serving CLI through the stage path's YAML;
 8. the train path: the flagship fine-tune recipe (TUNE_POINT 4: stem and
    layer1-2 frozen, their BN in train mode) through the ``train_ava``
    entry point on the synthetic set, 4 steps at batch 2, one validation
@@ -125,6 +132,42 @@ BN_CASES = {"layer2_256px": (1, 16, 32, 32), "two_clips_t5": (2, 5, 32, 32)}
 # TPU kernel does; 5e-3 of max|ref| in every clip, the limit of the JAX
 # package's test (tests/test_pallas_bottleneck.py).
 BN_TOL = 5e-3
+# Stage chain: the identity tails of the flagship (CSN-152, 256 px, batch
+# 1) after each stage's block 0: x shape, C_mid and the tail's blocks; a
+# chain takes at most max_chain of them.
+FLAGSHIP_TAILS = {"layer2": ((1, 16, 32, 32, 512), 128, 7),
+                  "layer3": ((1, 8, 16, 16, 1024), 256, 35),
+                  "layer4": ((1, 4, 16, 16, 2048), 512, 2)}
+# the chain's checks: those three, two clips of five frames at layer2 (the
+# reset of the depthwise's frame window at each clip's edges), and float32
+# at a shape the 8x8 tiles do not divide
+CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
+                  FLAGSHIP_TAILS.items()},
+               "two_clips_t5": (((2, 5, 32, 32, 512), 128, 7), "bfloat16"),
+               "ragged_f32": (((1, 4, 13, 21, 512), 128, 3), "float32")}
+# Chain against the plain version. The kernel must equal the fused
+# bottleneck kernel run block by block (the same tile bodies, bf16 between
+# blocks): bit for bit. Against the plain version that rounds where the
+# kernel rounds, computed in float64: a bf16 rounding that summation order
+# flips is 1 ulp, 0.4-0.8% of an element near max|ref|, and flips cascade
+# through the blocks that follow (the float32 and float64 rounded plain
+# versions differ by ~1.2% of max|ref| over layer3's 35 blocks on the CPU),
+# so no fixed limit holds for every K. Each clip's error must stay within
+# CHAIN_TOL of max|ref| or twice the float32 plain version's own error
+# against the float64 one, whichever is larger: the kernel is no further
+# from the exact sums than the plain version, with 2x margin.
+CHAIN_TOL = 5e-3
+# Unpooled stem (x shape, dtype, relu): 256 and 224 px in bf16 with and
+# without the ReLU, and float32 at a shape the 16x16 tiles do not divide.
+STEM_CONV_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16", True),
+                   "ava_256px_no_relu": ((1, 32, 256, 256, 3), "bfloat16",
+                                         False),
+                   "jhmdb_224px": ((1, 32, 224, 224, 3), "bfloat16", True),
+                   "ragged_f32": ((2, 3, 37, 45, 3), "float32", True)}
+# Unpooled stem against plain: bf16 as STEM_TOL (the plain version rounds
+# the conv output before the affine); float32 with TF32 off: summation
+# order only.
+STEM_CONV_TOL = {"bfloat16": STEM_TOL, "float32": 1e-5}
 # Published NVIDIA H100 SXM peaks (data sheet, dense, 700 W): device memory
 # and the rates for each input type (bf16 on the tensor cores, float32 on
 # the CUDA cores, TF32 off).
@@ -411,6 +454,160 @@ def phase_bottleneck_kernel(torch) -> dict:
     return results
 
 
+def _chain_args(torch, shape, cm, k, dtype_name, seed):
+    """x and the stacked weights of a K-block chain on the card, whose
+    residual stream stays O(1) over 35 blocks: conv weights at 1/sqrt(fan
+    in), the depthwise at 0.2, affines near 1 with conv4's near 0.2 (on the
+    CPU, layer3's 35 blocks then keep ~90% of the stream positive, mean
+    ~0.8, max ~7). x and the weights are bf16 values."""
+    ci = shape[-1]
+    rng = np.random.default_rng(seed)
+
+    def mk(*s, scale=1.0, mean=0.0):
+        return rng.normal(mean, scale, s)
+
+    x = _dev(torch, mk(*shape), torch.bfloat16).to(getattr(torch,
+                                                           dtype_name))
+    weights = (mk(k, ci, cm, scale=ci ** -.5), mk(k, 3, 3, 3, cm, scale=.2),
+               mk(k, cm, ci, scale=cm ** -.5))
+    affines = (mk(k, cm, scale=.1, mean=1.), mk(k, cm, scale=.3),
+               mk(k, cm, scale=.1, mean=1.), mk(k, cm, scale=.3),
+               mk(k, ci, scale=.05, mean=.2), mk(k, ci, scale=.1))
+    return (x, *(_dev(torch, w, torch.bfloat16) for w in weights),
+            *(_dev(torch, a, torch.float32) for a in affines))
+
+
+def phase_stage_kernel(torch) -> dict:
+    """The stage chain against the fused bottleneck run block by block and
+    against the plain version (CHAIN_CASES, CHAIN_TOL), with the times of
+    the kernel and of the plain version (chain_reference in the working
+    type; no single PyTorch call computes a chain) and its bound."""
+    from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for name, ((shape, cm, tail), dtype_name) in CHAIN_CASES.items():
+        b, t, h, w, ci = shape
+        k = min(tail, S.max_chain(h * w, ci, cm))
+        args = _chain_args(torch, shape, cm, k, dtype_name, seed=6)
+        got = S.bottleneck_chain(*args)
+        torch.cuda.synchronize()
+        blocks = args[0]
+        for i in range(k):
+            blocks = B.bottleneck_fused(blocks, *(a[i] for a in args[1:]))
+            if i + 1 < k:
+                blocks = blocks.to(torch.bfloat16).to(got.dtype)
+        exact = got.shape == blocks.shape and torch.equal(got, blocks)
+        ref64 = S.chain_reference_rounded(args[0], args[1:], torch.float64)
+        ref32 = S.chain_reference_rounded(args[0], args[1:])
+        unrounded = S.chain_reference(args[0].float(),
+                                      [a.float() for a in args[1:]])
+        errs, limits, plain_errs, unrounded_errs = [], [], [], []
+        for i in range(b):
+            span = ref64[i].abs().max().item()
+            errs.append((got[i].double() - ref64[i]).abs().max().item())
+            plain_errs.append((ref32[i].double() - ref64[i]).abs().max()
+                              .item())
+            unrounded_errs.append((got[i].float() - unrounded[i]).abs()
+                                  .max().item() / span)
+            limits.append(max(CHAIN_TOL * span, 2 * plain_errs[-1]))
+        finite = bool(torch.isfinite(got).all())
+        span = ref64.abs().max().item()
+        ms = time_ms(torch, lambda: S.bottleneck_chain(*args))
+        plain_ms = time_ms(torch, lambda: S.chain_reference(args[0],
+                                                            args[1:]),
+                           runs=5, calls=2)
+        ops = 2 * b * t * h * w * k * (2 * ci * cm + 27 * cm)
+        bound_ms, bound_by = bound(nbytes(*args, got), ops, "bfloat16")
+        log(f"[kernel] stage_chain {name} {shape} Cm={cm} K={k} {dtype_name}"
+            f": a grid of {S.grid_blocks(args[0], cm)} resident blocks; "
+            f"bit-equal to "
+            f"{k} fused-bottleneck launches {exact}; max_abs_err per clip "
+            f"vs the float64 rounded plain version "
+            f"{[round(e, 5) for e in errs]} (limits "
+            f"{[round(v, 5) for v in limits]}; the float32 rounded plain "
+            f"version's {[round(e, 5) for e in plain_errs]}; max|ref| "
+            f"{span:.4g}), vs the unrounded plain version "
+            f"{[round(e, 4) for e in unrounded_errs]} of max|ref|; kernel "
+            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not (exact and finite and all(
+                e <= v for e, v in zip(errs, limits))):
+            raise AssertionError(f"stage_chain {name}: the kernel disagrees "
+                                 f"with the fused blocks ({exact}) or the "
+                                 f"plain version ({errs} vs {limits})")
+        results[name] = {"max_abs_err": max(errs), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None, "k": k}
+    return results
+
+
+def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
+    """The unpooled stem kernel (stem_conv_bn_relu) against
+    stem_conv_reference (STEM_CONV_CASES), with the times of the kernel, the
+    plain version and ``F.conv3d`` alone (the conv only: no single PyTorch
+    call adds the affine and the ReLU) and its bound. No model path runs
+    this kernel: returns its launches in the checks."""
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    stem.CONV_LAUNCHES = 0
+    results, inputs = {}, {}
+    rng = np.random.default_rng(8)
+    for name, (shape, dtype_name, relu) in STEM_CONV_CASES.items():
+        dtype = getattr(torch, dtype_name)
+        x = _dev(torch, rng.normal(size=shape), dtype)
+        w = _dev(torch, rng.normal(size=stem.W_SHAPE) * 0.05, dtype)
+        scale = _dev(torch, rng.uniform(0.5, 2.0, 64), torch.float32)
+        bias = _dev(torch, rng.normal(size=64), torch.float32)
+        inputs[name] = x, w, scale, bias
+        got = stem.stem_conv_bn_relu(x, w, scale, bias, relu)
+        torch.cuda.synchronize()
+        ref = stem.stem_conv_reference(x, w, scale, bias, relu)
+        b, t, h, wd, _ = shape
+        if got.shape != ref.shape or got.shape != (
+                b, t, 64, (h + 1) // 2, (wd + 1) // 2) or got.dtype != dtype:
+            raise AssertionError(f"stem_conv {name}: {tuple(got.shape)} "
+                                 f"{got.dtype}, want {tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        span = ref.float().abs().max().item()
+        results[name] = {"max_abs_err": err, "span": span}
+        tol = STEM_CONV_TOL[dtype_name]
+        if not err <= tol * span:
+            raise AssertionError(f"stem_conv {name}: kernel disagrees with "
+                                 f"plain ({err} > {tol} * {span})")
+    launches = stem.CONV_LAUNCHES
+    for name, (shape, dtype_name, relu) in STEM_CONV_CASES.items():
+        x, w, scale, bias = inputs[name]
+        x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
+        w_cf = w.permute(4, 3, 0, 1, 2).contiguous()
+        ms = time_ms(torch, lambda: stem.stem_conv_bn_relu(x, w, scale, bias,
+                                                           relu))
+        plain_ms = time_ms(torch, lambda: stem.stem_conv_reference(
+            x, w, scale, bias, relu))
+        library_ms = time_ms(torch, lambda: F.conv3d(
+            x_cf, w_cf, stride=(1, 2, 2), padding=(1, 3, 3)))
+        b, t, h, wd, _ = shape
+        out_elems = b * t * 64 * ((h + 1) // 2) * ((wd + 1) // 2)
+        ops = 2 * out_elems * 441
+        bound_ms, bound_by = bound(
+            nbytes(x, w, scale, bias) + out_elems * x.element_size(), ops,
+            dtype_name)
+        res = results[name]
+        tol = STEM_CONV_TOL[dtype_name]
+        log(f"[kernel] stem_conv {name} {shape} {dtype_name} relu {relu}: "
+            f"max_abs_err {res['max_abs_err']:.6g} (rel to max|ref| "
+            f"{res['max_abs_err'] / res['span']:.3g}, tol {tol:.3g}); "
+            f"kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, F.conv3d (conv only) {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+    return results, launches
+
+
 def small_config():
     from tubelet_transformer_tpu_torch.config import Config
 
@@ -460,19 +657,21 @@ def phase_small_reference(torch, stem) -> None:
 def launch_counts() -> dict:
     """Launches of each kernel of the port in this process, by name."""
     from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
-                                                        depthwise, stem)
+                                                        depthwise, stage,
+                                                        stem)
 
     return {"stem_pool": stem.LAUNCHES, "stem_stats": stem.STATS_LAUNCHES,
-            "depthwise": depthwise.LAUNCHES,
-            "bottleneck": bottleneck.LAUNCHES}
+            "stem_conv": stem.CONV_LAUNCHES, "depthwise": depthwise.LAUNCHES,
+            "bottleneck": bottleneck.LAUNCHES, "chain": stage.LAUNCHES}
 
 
 def zero_counts() -> None:
     from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
-                                                        depthwise, stem)
+                                                        depthwise, stage,
+                                                        stem)
 
-    stem.LAUNCHES = stem.STATS_LAUNCHES = 0
-    depthwise.LAUNCHES = bottleneck.LAUNCHES = 0
+    stem.LAUNCHES = stem.STATS_LAUNCHES = stem.CONV_LAUNCHES = 0
+    depthwise.LAUNCHES = bottleneck.LAUNCHES = stage.LAUNCHES = 0
 
 
 def write_config(name: str, edit) -> Path:
@@ -508,7 +707,8 @@ def phase_main_path(torch, cfg_path: Path, tag: str, per_keyframe: dict):
         f"{cfg.model.enc_layers}+{cfg.model.dec_layers} "
         f"{cfg.model.temporal_ds_strategy} {cfg.model.compute_dtype}, "
         f"PALLAS_KERNELS {cfg.model.pallas_kernels}, FUSED_BLOCKS "
-        f"{cfg.model.fused_blocks}: built with random weights in "
+        f"{cfg.model.fused_blocks}, FUSED_STAGES {cfg.model.fused_stages}: "
+        f"built with random weights in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
@@ -564,6 +764,36 @@ def backbone_kernels_switch(model):
             elif isinstance(m, CSNBottleneck):
                 m.fused_blocks = on
     return switch
+
+
+def chain_totals(chains: dict) -> dict:
+    """The chain's numbers for one flagship forward: the times and bounds of
+    its three tails added (one launch each, in turn), the largest error, the
+    bound's kind of the largest bound."""
+    tails = [chains[f"{k}_256px"] for k in FLAGSHIP_TAILS]
+    return {"max_abs_err": max(c["max_abs_err"] for c in tails),
+            **{k: sum(c[k] for c in tails) for k in ("ms", "plain_ms",
+                                                     "bound_ms")},
+            "bound_by": max(tails, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None}
+
+
+def stages_switch(model):
+    """Turns the stage chains (MODEL.FUSED_STAGES) of ``model`` on or
+    off."""
+    def switch(on: bool) -> None:
+        model.backbone.body.fused_stages = on
+    return switch
+
+
+def flagship_chains() -> int:
+    """Chain launches per flagship forward: each identity tail that
+    chain_supported takes, in chains of at most max_chain blocks."""
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+    return sum(-(-tail // S.max_chain(shape[2] * shape[3], shape[4], cm))
+               for shape, cm, tail in FLAGSHIP_TAILS.values()
+               if S.chain_supported(shape, cm))
 
 
 def phase_in_situ(torch, det, switch, what: str) -> None:
@@ -853,8 +1083,8 @@ def phase_train_path(torch, stem) -> dict:
         raise AssertionError(f"train steps {steps}: want {TRAIN_STEPS} "
                              "finite ones")
     if launches != {"stem_pool": TRAIN_STEPS + VAL_FORWARDS,
-                    "stem_stats": TRAIN_STEPS, "depthwise": 0,
-                    "bottleneck": 0}:
+                    "stem_stats": TRAIN_STEPS, "stem_conv": 0,
+                    "depthwise": 0, "bottleneck": 0, "chain": 0}:
         raise AssertionError(f"kernel launches {launches}, want "
                              f"{TRAIN_STEPS + VAL_FORWARDS} pooled and "
                              f"{TRAIN_STEPS} statistics")
@@ -1037,7 +1267,8 @@ def phase_train_kernels(torch, cfg) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
-    want = {"stem_pool": 1, "stem_stats": 1, "depthwise": 3, "bottleneck": 0}
+    want = {"stem_pool": 1, "stem_stats": 1, "stem_conv": 0, "depthwise": 3,
+            "bottleneck": 0, "chain": 0}
     log(f"[train kernels] flagship train step, PALLAS_KERNELS on, TUNE_POINT "
         f"{cfg.model.tune_point}: total loss "
         f"{float(metrics['total_loss']):.5f}, finite "
@@ -1067,6 +1298,8 @@ def main() -> int:
     stats = phase_stats_kernel(torch, stem)["ava_256px_train"]
     dw = phase_depthwise_kernel(torch)["layer1_256px"]
     bn = phase_bottleneck_kernel(torch)["layer2_256px"]
+    chains = phase_stage_kernel(torch)
+    stem_conv, stem_conv_launches = phase_stem_conv_kernel(torch, stem)
     phase_small_reference(torch, stem)
     phase_small_train_reference(torch, stem)
     det, stream_launches, steady_ms = phase_main_path(
@@ -1083,14 +1316,28 @@ def main() -> int:
                   "depthwise + bottleneck kernels")
     phase_switch_latency(torch, kdet, backbone_kernels_switch(kdet.model),
                          "depthwise + bottleneck kernels")
+
+    # the stage path, its latencies too before any profiled window
+    stages_cfg = write_config("chip_smoke_stages.yaml", lambda c: c[
+        "MODEL"].update(PALLAS_KERNELS=True, FUSED_BLOCKS=True,
+                        FUSED_STAGES=True))
+    sdet, stage_launches, stage_steady_ms = phase_main_path(
+        torch, stages_cfg, "stages",
+        {"stem_pool": 1, "depthwise": 3, "chain": flagship_chains()})
+    phase_in_situ(torch, sdet, stages_switch(sdet.model), "stage chains")
+    phase_switch_latency(torch, sdet, stages_switch(sdet.model),
+                         "stage chains")
+
     phase_breakdown(torch, det, steady_ms, "breakdown",
                     ("stem_pool_kernel",))
     phase_breakdown(torch, kdet, kernel_steady_ms, "kernels breakdown",
                     ("stem_pool_kernel", "depthwise_kernel", "conv1_kernel",
                      "dw_conv4_kernel"))
-    del det, kdet
+    phase_breakdown(torch, sdet, stage_steady_ms, "stages breakdown",
+                    ("stem_pool_kernel", "depthwise_kernel", "chain_kernel"))
+    del det, kdet, sdet
     torch.cuda.empty_cache()
-    phase_serve_cli(kernels_cfg)
+    phase_serve_cli(stages_cfg)
 
     train = phase_train_path(torch, stem)
     torch.cuda.empty_cache()
@@ -1108,7 +1355,9 @@ def main() -> int:
     # launches: each kernel's count on the path that runs it, set to 0 just
     # before that path: the stem kernels on the train path (the streaming
     # paths' count of the pooled kernel beside it), the depthwise and the
-    # bottleneck on the kernel path (the train step's depthwise beside it)
+    # bottleneck on the kernel path (the train step's depthwise beside it),
+    # the chain on the stage path; the unpooled stem, which no model path
+    # runs, in its checks of phase 3
     def entry(name, source, replaces, launches, measured, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -1132,7 +1381,18 @@ def main() -> int:
               launches_train_step=train_kernel_launches["depthwise"],
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "bottleneck.cu", "bottleneck.py:57",
-              kernel_launches["bottleneck"], bn)]}))
+              kernel_launches["bottleneck"], bn),
+        entry("stage_chain", "stage.cu", "stage.py:69",
+              stage_launches["chain"], chain_totals(chains),
+              per_forward="the sum of the flagship's three tails (one "
+                          "launch each)",
+              cases=chains),
+        entry("stem_conv", "stem.cu", "stem.py:134",
+              stem_conv_launches, stem_conv["ava_256px"],
+              reached_by="no model path (nor in the JAX package): the "
+                         "launches are phase 3's checks",
+              variant="pool=False, via stem_conv_bn_relu (stem.py:580)",
+              library_call="F.conv3d, conv only")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

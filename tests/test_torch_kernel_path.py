@@ -1,6 +1,7 @@
 """The slice as a whole: TubeR with ``MODEL.PALLAS_KERNELS`` and
 ``MODEL.FUSED_BLOCKS`` on, the port against the JAX package, float32 in
-eval on the CPU.
+eval on the CPU; and that ``MODEL.FUSED_STAGES`` builds
+(tests/test_torch_stage_path.py holds that path against the JAX package).
 
 CSN-50 (its layer2 has three identity blocks; CSN-TINY's has none) at
 256 px and T=4, so that layer2's frames hold 32x32 = 1024 pixels and the
@@ -11,7 +12,6 @@ blocks 1-3). Off the TPU the JAX model takes its composite at both places.
 
 import jax
 import numpy as np
-import pytest
 import torch
 from test_torch_csn import randomize_bn
 from test_torch_tuber import HEADS, small_cfg
@@ -19,7 +19,8 @@ from test_torch_tuber import HEADS, small_cfg
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
 from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
-from tubelet_transformer_tpu_torch.ops.cuda import bottleneck, depthwise
+from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
+                                                    depthwise, stage)
 
 
 def _kernel_cfg(cfg):
@@ -62,8 +63,25 @@ def test_kernel_path_matches_jax():
                                    err_msg=k)
 
 
-def test_build_model_refuses_fused_stages():
+def test_build_model_accepts_fused_stages():
+    """MODEL.FUSED_STAGES builds and dispatches: CSN-50 at 128 px and T=4
+    chains layer2's identity tail (T 2, 16x16), one chain call on the CPU
+    (its plain version), and the outputs equal those of the same weights
+    block by block."""
     cfg = small_cfg()
+    cfg.data.img_size = 128
+    cfg.data.temp_len = cfg.model.temp_len = 4
+    cfg.model.backbone_name = "CSN-50"
     cfg.model.fused_stages = True
-    with pytest.raises(NotImplementedError, match="FUSED_STAGES"):
-        build_model(cfg)
+    model = build_model(cfg)
+    assert model.backbone.body.fused_stages
+    clip = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 4, 128, 128, 3)).astype(np.float32))
+    calls = stage.CALLS
+    with torch.inference_mode():
+        got = model(clip)
+        model.backbone.body.fused_stages = False
+        want = model(clip)
+    assert stage.CALLS == calls + 1
+    for k in HEADS:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)

@@ -22,6 +22,11 @@ def _inputs(shape, seed=0):
     return x, w, scale, bias
 
 
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16 values, kept in float32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
 def _torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
@@ -102,6 +107,61 @@ def test_check_inputs_rejects(bad):
     stem.check_inputs(*_torch(*_inputs((1, 2, 16, 16, 3))))
 
 
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 32, 48, 3), (2, 3, 37, 45, 3)])
+def test_plain_conv_matches_jax_xla(jax_stem, shape, relu):
+    """stem_conv_reference and the CPU stem_conv_bn_relu against the JAX
+    composite ``_stem_xla(pool=False)``, float32, in its channels-mid
+    (B,T,64,Hc,Wc) layout: summation order only, so 1e-5."""
+    x, w, scale, bias = _inputs(shape)
+    want = np.asarray(jax_stem._stem_xla(x, w, scale, bias, relu=relu))
+    b, t, h, wd, _ = shape
+    assert want.shape == (b, t, 64, (h + 1) // 2, (wd + 1) // 2)
+    launches = stem.CONV_LAUNCHES
+    for got in (stem.stem_conv_reference(*_torch(x, w, scale, bias), relu),
+                stem.stem_conv_bn_relu(*_torch(x, w, scale, bias), relu)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert stem.CONV_LAUNCHES == launches   # a CPU tensor launches nothing
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_plain_conv_matches_pallas_kernel(interpret, relu):
+    """The CPU stem_conv_bn_relu against the TPU kernel (K1 + K2 with
+    pool=False, interpret mode) at the smallest shape it takes (W/2 = 128),
+    with the unit affine of tests/test_pallas_stem.py:109. On bf16-rounded
+    x and w, the kernel differs by the rounding of its sum to bf16: 5e-3 of
+    max|ref|, the limit of tests/test_pallas_stem.py:112."""
+    x, w, _, _ = _inputs((1, 2, 32, 256, 3))
+    x, w = _bf16(x), _bf16(w)
+    scale, bias = np.ones(64, np.float32), np.zeros(64, np.float32)
+    want = np.asarray(interpret.stem_conv_bn_relu(x, w, scale, bias, relu),
+                      np.float32)
+    got = stem.stem_conv_bn_relu(*_torch(x, w, scale, bias), relu).numpy()
+    assert got.shape == want.shape == (1, 2, 64, 16, 128)
+    assert np.abs(got - want).max() < 5e-3 * np.abs(want).max()
+
+
+def test_conv_backward_is_plain_vjp(jax_stem):
+    """The unpooled stem's autograd Function backward (plain_vjp through
+    stem_conv_reference) against the VJP of ``_stem_xla(pool=False)``, the
+    JAX custom VJP's backward, float32."""
+    import jax
+
+    x, w, scale, bias = _inputs((1, 2, 16, 20, 3))
+    g = np.random.default_rng(3).normal(size=(1, 2, 64, 8, 10)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda *a: jax_stem._stem_xla(*a, relu=True),
+                     x, w, scale, bias)
+    want = vjp(g)
+    got = stem.plain_vjp(stem.stem_conv_reference,
+                         _torch(x, w, scale, bias), (True,) * 4,
+                         torch.from_numpy(g), relu=True)
+    for gw, ww in zip(got, want):
+        ww = np.asarray(ww)
+        assert np.abs(gw.numpy() - ww).max() <= 1e-4 * np.abs(ww).max()
+
+
 def test_pooled_hw_matches_reference():
     for h, w in [(256, 256), (224, 224), (37, 45), (1, 2)]:
         x, wt, scale, bias = _torch(*_inputs((1, 1, h, w, 3)))
@@ -151,3 +211,29 @@ def test_pooled_kernel_gradient_on_cuda(cuda):
         grads.append((xg.grad, wg.grad))
     for got, want in zip(*grads):
         assert (got - want).norm() <= 1e-5 * want.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,relu", [
+    ((1, 32, 256, 256, 3), torch.bfloat16, True),
+    ((1, 32, 224, 224, 3), torch.bfloat16, False),
+    ((2, 3, 37, 45, 3), torch.float32, True),
+])
+def test_conv_kernel_matches_plain_on_cuda(cuda, shape, dtype, relu):
+    """The unpooled CUDA kernel against stem_conv_reference on the card, in
+    the channels-mid layout. bf16: the plain version rounds its conv output
+    to bf16 before the f32 affine, the kernel rounds once, so 2^-6 of the
+    output range; float32 (TF32 off): summation order only."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, scale, bias = _inputs(shape)
+    x, w = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    scale, bias = (torch.from_numpy(a).to(cuda) for a in (scale, bias))
+    launches = stem.CONV_LAUNCHES
+    got = stem.stem_conv_bn_relu(x, w, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert stem.CONV_LAUNCHES == launches + 1
+    want = stem.stem_conv_reference(x, w, scale, bias, relu)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    span = want.float().abs().max().item()
+    assert err <= (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * span

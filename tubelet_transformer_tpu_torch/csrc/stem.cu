@@ -28,6 +28,20 @@
 // is max-pooled there, and the result is rounded once to the output type.
 // Tensor cores (wgmma on an implicit-GEMM layout, K = 441 padded to 448), TMA
 // loads and a persistent schedule are the way to the tensor-core bound.
+//
+// The second kernel here, stem_conv_kernel, is the same conv with the
+// affine (and the ReLU when asked) and no pool, channels-mid out:
+// x (B,T,H,W,3) -> out (B,T,64,Hc,Wc). It replaces `_stem_matmul(pool=False)`
+// of tubelet_transformer_tpu/ops/pallas/stem.py, which `stem_conv_bn_relu`
+// runs there; no model path of either package calls it. It is the
+// statistics kernel's 16x16 conv tile (stem_stats.cu), stored instead of
+// reduced: the f32 tile goes through shared memory as [channel][pixel]
+// (rows of 257 floats, so the eight channel groups of a warp hit distinct
+// banks), and each channel's rows of 16 pixels are written contiguously,
+// rounded once to the output type. At
+// (1,32,256,256,3) it must write 67 MB of bf16 (22 us at 3.35 TB/s) for
+// 29.6 GFLOP (30 us at the bf16 tensor-core peak): the operations bound it,
+// and this kernel runs them on the CUDA cores in f32, as the pooled one does.
 
 #include "stem_conv.cuh"
 
@@ -157,6 +171,93 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kCTc = 16;                      // unpooled conv tile edge
+constexpr int kCPix = kCTc * kCTc;            // 256
+constexpr int kLdC = kCPix + 1;               // [channel][pixel] row stride
+constexpr int kSmemFloatsC = conv_smem_floats(kCTc) > kCout * kLdC
+                                 ? conv_smem_floats(kCTc) : kCout * kLdC;
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Conv pixels pg, pg+32, ..., pg+224 of the 16x16 tile (stem_conv.cuh).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+stem_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ out,
+                 int frames, int H, int W, int Hc, int Wc, int tiles_x,
+                 int relu) {
+  extern __shared__ __align__(16) float smem[];
+  float* conv_s = smem;            // [64][kLdC], after the accumulation
+
+  const int tid = threadIdx.x;
+  const int bt = blockIdx.y;       // b * frames + t
+  const int t = bt % frames;
+  const int cy0 = (blockIdx.x / tiles_x) * kCTc;
+  const int cx0 = (blockIdx.x % tiles_x) * kCTc;
+  const int cg = tid % kChanGroups;
+  const int pg = tid / kChanGroups;
+
+  float acc[pix_per_thread(kCTc)][8];
+  conv_tile<kCTc>(x, w, smem, bt, t, frames, H, W, cy0, cx0, acc);
+
+  float sc[8], bi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[j] = scale[channel_of(cg, j)];
+    bi[j] = bias[channel_of(cg, j)];
+  }
+  __syncthreads();                 // halo and weights are no longer read
+#pragma unroll
+  for (int k = 0; k < pix_per_thread(kCTc); ++k) {
+    const int p = pg + k * kPixGroups;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y = fmaf(acc[k][j], sc[j], bi[j]);
+      conv_s[channel_of(cg, j) * kLdC + p] =
+          relu ? (y < 0.f ? 0.f : y) : y;          // ReLU that keeps a NaN
+    }
+  }
+  __syncthreads();
+
+  // a warp stores two 16-pixel rows of one channel
+  T* dst = out + static_cast<size_t>(bt) * kCout * Hc * Wc;
+  for (int idx = tid; idx < kCout * kCPix; idx += kThreads) {
+    const int c = idx / kCPix;
+    const int p = idx % kCPix;
+    const int cy = cy0 + p / kCTc;
+    const int cx = cx0 + p % kCTc;
+    if (cy >= Hc || cx >= Wc) continue;
+    store1(dst + (static_cast<size_t>(c) * Hc + cy) * Wc + cx,
+           conv_s[c * kLdC + p]);
+  }
+}
+
+template <typename T>
+int launch_conv(const void* x, const void* w, const void* scale,
+                const void* bias, void* out, int batch, int frames, int H,
+                int W, int relu, void* stream) {
+  const int Hc = (H - 1) / 2 + 1;   // conv 7 / stride 2 / pad 3
+  const int Wc = (W - 1) / 2 + 1;
+  const int tiles_y = (Hc + kCTc - 1) / kCTc;
+  const int tiles_x = (Wc + kCTc - 1) / kCTc;
+  const size_t smem = kSmemFloatsC * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(tiles_y * tiles_x, batch * frames);
+  stem_conv_kernel<T><<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<T*>(out), frames, H, W, Hc, Wc, tiles_x, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. x and w have the element type in the
@@ -175,4 +276,21 @@ extern "C" int tuber_stem_pool_f32(const void* x, const void* w,
                                    void* out, int batch, int frames, int H,
                                    int W, void* stream) {
   return launch<float>(x, w, scale, bias, out, batch, frames, H, W, stream);
+}
+
+// The unpooled kernel: out (B,T,64,Hc,Wc) in x's type; relu 0 or 1.
+extern "C" int tuber_stem_conv_bf16(const void* x, const void* w,
+                                    const void* scale, const void* bias,
+                                    void* out, int batch, int frames, int H,
+                                    int W, int relu, void* stream) {
+  return launch_conv<__nv_bfloat16>(x, w, scale, bias, out, batch, frames, H,
+                                    W, relu, stream);
+}
+
+extern "C" int tuber_stem_conv_f32(const void* x, const void* w,
+                                   const void* scale, const void* bias,
+                                   void* out, int batch, int frames, int H,
+                                   int W, int relu, void* stream) {
+  return launch_conv<float>(x, w, scale, bias, out, batch, frames, H, W, relu,
+                            stream);
 }

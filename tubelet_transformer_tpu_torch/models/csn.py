@@ -20,8 +20,13 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
   whose frames hold >= 1024 pixels and whose C_mid >= 128 (layer2 at 256
   px) runs in eval as one fused call (``ops/cuda/bottleneck.py``) with its
   BNs folded (``CSNBottleneck.fused_params``).
-* ``MODEL.FUSED_STAGES`` (the stage-chain kernel) is not ported:
-  ``models.tuber.build_model`` refuses it.
+* With ``MODEL.FUSED_STAGES`` (``fused_stages``), in eval, the identity
+  tail of every stage whose shape passes ``chain_supported`` (layers 2-4 of
+  CSN-152 at 256 px) runs as ``bottleneck_chain`` calls of at most
+  ``max_chain`` blocks each (``ops/cuda/stage.py``), its block 0 as a
+  module: the dispatch of the JAX package's ``CSN._stage_fwd``. The stacked
+  weights and folded affines are made once per change of the tail's
+  parameters and BN statistics (``CSN.chain_params``).
 * Weights are cast to the input's dtype at use, so a model whose parameters
   are float32 (the train build) computes in the dtype of its input.
 * ``stop_grad_stage`` (``train.optimizer.stop_grad_stage``) freezes the stem
@@ -47,6 +52,8 @@ from tubelet_transformer_tpu_torch.ops.cuda.bottleneck import (
     bottleneck_fused, bottleneck_supported)
 from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
     depthwise_conv3x3x3, depthwise_supported)
+from tubelet_transformer_tpu_torch.ops.cuda.stage import (
+    bottleneck_chain, chain_supported, max_chain)
 from tubelet_transformer_tpu_torch.ops.cuda.stem import (
     stem_batch_stats, stem_forward)
 
@@ -180,6 +187,12 @@ class CSNBottleneck(nn.Module):
             PointwiseConv(in_planes, planes * 4, stride=st),
             FoldableBN(planes * 4)) if has_downsample else None)
 
+    def fused_tensors(self) -> tuple:
+        """The parameters and BN statistics that ``fused_params`` reads."""
+        return (self.conv1.weight, self.conv3.weight, self.conv4.weight,
+                *(t for bn in (self.bn1, self.bn3, self.bn4) for t in (
+                    bn.weight, bn.bias, bn.running_mean, bn.running_var)))
+
     def fused_params(self):
         """(w1, wd, w4, a1, b1, a3, b3, a4, b4): the weights in the JAX
         layouts (Ci,Cm), (3,3,3,Cm), (Cm,Ci) and the float32 BN affines
@@ -211,16 +224,18 @@ class CSN(nn.Module):
     ``stop_grad_stage``: -1 trains everything; s >= 0 freezes the stem and
     stages 1..s in training (5: the whole trunk). ``use_pallas`` and
     ``fused_blocks`` reach every block (``MODEL.PALLAS_KERNELS``,
-    ``MODEL.FUSED_BLOCKS``)."""
+    ``MODEL.FUSED_BLOCKS``); ``fused_stages`` (``MODEL.FUSED_STAGES``) runs
+    the stages' identity tails as chains in eval."""
 
     def __init__(self, block_nums: Sequence[int] = (3, 8, 36, 3),
                  last_stride: bool = True, stem_kernel: bool = True,
                  stop_grad_stage: int = -1, use_pallas: bool = False,
-                 fused_blocks: bool = False):
+                 fused_blocks: bool = False, fused_stages: bool = False):
         super().__init__()
         self.block_nums = tuple(block_nums)
         self.stem_kernel = stem_kernel
         self.stop_grad_stage = stop_grad_stage
+        self.fused_stages = fused_stages
         self.conv1 = nn.Conv3d(3, 64, (3, 7, 7), stride=(1, 2, 2),
                                padding=(1, 3, 3), bias=False)
         self.bn1 = FoldableBN(64)
@@ -244,6 +259,8 @@ class CSN(nn.Module):
                 in_planes = planes * 4
         self._kernel_w = None
         self._kernel_w_key = None
+        # stage index -> (key, the stacked parameters of each chain)
+        self._chains: dict = {}
 
     def kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The stem weight in the kernels' (3,7,7,3,64) layout and ``dtype``,
@@ -256,6 +273,46 @@ class CSN(nn.Module):
                 dtype).contiguous()
             self._kernel_w_key = key
         return self._kernel_w
+
+    def chain_params(self, s: int, kmax: int) -> list:
+        """The stacked (w1, wd, w4, a1, b1, a3, b3, a4, b4) of each chain
+        of stage ``s``'s identity tail, in chains of at most ``kmax`` blocks.
+        Without autograd they are made once per change of the tail's
+        parameters and BN statistics (load, cast, move, optimizer step or
+        train-mode update: each tensor's storage, version, dtype and
+        device), not per call; with gradients enabled, anew and
+        differentiable."""
+        tail = list(getattr(self, f"layer{s + 1}"))[1:]
+
+        def build():
+            return [[torch.stack(p) for p in zip(
+                *(blk.fused_params() for blk in tail[i:i + kmax]))]
+                for i in range(0, len(tail), kmax)]
+
+        if torch.is_grad_enabled():
+            return build()
+        key = (kmax, *((t.data_ptr(), t._version, t.dtype, t.device)
+                       for blk in tail for t in blk.fused_tensors()))
+        cached = self._chains.get(s)
+        if cached is None or cached[0] != key:
+            cached = self._chains[s] = (key, build())
+        return cached[1]
+
+    def stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage ``s`` (0-based): in eval with ``fused_stages``, block 0 as a
+        module and the identity tail as chains where ``chain_supported``
+        (csn.py:410-426 of the JAX package); otherwise block by block."""
+        layer = getattr(self, f"layer{s + 1}")
+        if not (self.fused_stages and not self.training and len(layer) > 1):
+            return layer(x)
+        x = layer[0](x)
+        planes = layer[0].planes
+        if not chain_supported(x.shape, planes):
+            return layer[1:](x)
+        kmax = max_chain(x.shape[2] * x.shape[3], planes * 4, planes)
+        for stacked in self.chain_params(s, kmax):
+            x = bottleneck_chain(x, *stacked)
+        return x
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if self.stem_kernel and not self.training and x.is_cuda:
@@ -286,15 +343,16 @@ class CSN(nn.Module):
         for s in range(len(self.block_nums)):
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and s + 1 > frozen):
-                x = getattr(self, f"layer{s + 1}")(x)
+                x = self.stage(s, x)
         return x
 
 
 def build_csn(backbone_name: str, last_stride: bool,
               stem_kernel: bool = True, stop_grad_stage: int = -1,
-              use_pallas: bool = False, fused_blocks: bool = False) -> CSN:
+              use_pallas: bool = False, fused_blocks: bool = False,
+              fused_stages: bool = False) -> CSN:
     if backbone_name not in BLOCK_NUMS:
         raise ValueError(f"unknown backbone {backbone_name!r}; "
                          f"supported: {sorted(BLOCK_NUMS)}")
     return CSN(BLOCK_NUMS[backbone_name], last_stride, stem_kernel,
-               stop_grad_stage, use_pallas, fused_blocks)
+               stop_grad_stage, use_pallas, fused_blocks, fused_stages)

@@ -78,7 +78,8 @@ class TubeR(nn.Module):
                  stem_kernel: bool = True, dropout: float = 0.1,
                  stop_grad_stage: int = -1,
                  compute_dtype: torch.dtype = torch.float32,
-                 pallas_kernels: bool = False, fused_blocks: bool = False):
+                 pallas_kernels: bool = False, fused_blocks: bool = False,
+                 fused_stages: bool = False):
         super().__init__()
         if temporal_ds_strategy not in STRATEGIES:
             raise ValueError(f"unknown temporal_ds_strategy "
@@ -91,7 +92,8 @@ class TubeR(nn.Module):
         self.dtype = compute_dtype
         self.backbone = Backbone(
             build_csn(backbone_name, last_stride, stem_kernel,
-                      stop_grad_stage, pallas_kernels, fused_blocks),
+                      stop_grad_stage, pallas_kernels, fused_blocks,
+                      fused_stages),
             decode=single_frame and temporal_ds_strategy == "decode")
         self.transformer = Transformer(hidden_dim, nhead, enc_layers,
                                        dec_layers, dim_feedforward, dropout)
@@ -234,7 +236,6 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
         "TRAIN.FROZEN_CHUNK": train and cfg.train.frozen_chunk > 0,
         "TRAIN.REMAT_BACKBONE": train and cfg.train.remat_backbone,
-        "MODEL.FUSED_STAGES": m.fused_stages,
     }
     for name, asked in unsupported.items():
         if asked:
@@ -250,7 +251,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                   stem_kernel=m.stem_kernel, dropout=m.dropout,
                   stop_grad_stage=stop_grad_stage(cfg), compute_dtype=dtype,
                   pallas_kernels=m.pallas_kernels,
-                  fused_blocks=m.fused_blocks)
+                  fused_blocks=m.fused_blocks,
+                  fused_stages=m.fused_stages)
     init_weights(model, torch.Generator().manual_seed(seed))
     if train:
         return model.to(device).train()

@@ -8,12 +8,16 @@
 * ``stem_batch_stats``: the per-channel mean and biased variance of the bare
   conv, the kernel of ``csrc/stem_stats.cu``. Replaces ``stem_batch_stats``
   (its kernel ``_stem_stats_matmul``), phase 1 of the frozen-stem train path.
+* ``stem_conv_bn_relu``: the conv + affine (+ ReLU) without the pool,
+  channels-mid out, the second kernel of ``csrc/stem.cu``. Replaces
+  ``stem_conv_bn_relu`` (its kernel ``_stem_matmul(pool=False)``); no model
+  path calls it, in the JAX package or here.
 
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
-PyTorch version (``stem_reference``, ``stem_batch_stats_reference``) on a
-CPU tensor. Layouts are the JAX functions': x (B,T,H,W,3), w (3,7,7,3,64) as
-(kt, kh, kw, c_in, c_out), scale and bias (64,), pooled output
-(B,T,Hp,Wp,64).
+PyTorch version (``stem_reference``, ``stem_batch_stats_reference``,
+``stem_conv_reference``) on a CPU tensor. Layouts are the JAX functions':
+x (B,T,H,W,3), w (3,7,7,3,64) as (kt, kh, kw, c_in, c_out), scale and bias
+(64,), pooled output (B,T,Hp,Wp,64), unpooled output (B,T,64,Hc,Wc).
 """
 
 from __future__ import annotations
@@ -24,16 +28,21 @@ import torch
 import torch.nn.functional as F
 
 from tubelet_transformer_tpu_torch.ops.cuda import build
+from tubelet_transformer_tpu_torch.ops.cuda.depthwise import plain_vjp
 
-# kernel launches made by stem_forward and stem_batch_stats in this process
+# kernel launches made by stem_forward, stem_batch_stats and
+# stem_conv_bn_relu in this process
 LAUNCHES = 0
 STATS_LAUNCHES = 0
+CONV_LAUNCHES = 0
 
 W_SHAPE = (3, 7, 7, 3, 64)
 _ENTRY = {torch.bfloat16: "tuber_stem_pool_bf16",
           torch.float32: "tuber_stem_pool_f32"}
 _STATS_ENTRY = {torch.bfloat16: "tuber_stem_stats_bf16",
                 torch.float32: "tuber_stem_stats_f32"}
+_CONV_ENTRY = {torch.bfloat16: "tuber_stem_conv_bf16",
+               torch.float32: "tuber_stem_conv_f32"}
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
@@ -45,6 +54,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         if fn.argtypes is None:
             # x, w, scale, bias, out; batch, frames, H, W; stream
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    for entry in _CONV_ENTRY.values():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            # x, w, scale, bias, out; batch, frames, H, W, relu; stream
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     if lib.tuber_stem_stats_partials.argtypes is None:
@@ -81,6 +97,19 @@ def stem_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         + bias.float()[:, None, None, None]
     y = F.max_pool3d(F.relu(y), (1, 3, 3), (1, 2, 2), (0, 1, 1))
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+
+
+def stem_conv_reference(x: torch.Tensor, w: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor,
+                        relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of ``_stem_xla(pool=False)``: the conv in x's
+    dtype, then affine (and ReLU) in float32, and the result in x's dtype,
+    channels-mid (B,T,64,Hc,Wc)."""
+    y = _conv(x, w).float() * scale.float()[:, None, None, None] \
+        + bias.float()[:, None, None, None]
+    if relu:
+        y = F.relu(y)
+    return y.permute(0, 2, 1, 3, 4).to(x.dtype).contiguous()
 
 
 def stem_batch_stats_reference(x: torch.Tensor, w: torch.Tensor
@@ -155,14 +184,8 @@ class _PooledStem(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = stem_reference(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs)
+        return plain_vjp(stem_reference, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad)
 
 
 def stem_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -177,6 +200,60 @@ def stem_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             t.requires_grad for t in (x, w, scale, bias)):
         return _PooledStem.apply(x, w, scale, bias)
     return _launch_pool(x, w, scale, bias)
+
+
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, relu: bool) -> torch.Tensor:
+    global CONV_LAUNCHES
+    check_inputs(x, w, scale, bias)
+    b, t, h, wd, _ = x.shape
+    out = torch.empty((b, t, 64, (h - 1) // 2 + 1, (wd - 1) // 2 + 1),
+                      dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = getattr(library(), _CONV_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), b, t, h, wd, int(relu),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem conv kernel launch failed with cudaError "
+                           f"{err}")
+    CONV_LAUNCHES += 1
+    return out
+
+
+class _ConvStem(torch.autograd.Function):
+    """The unpooled kernel forward, and the backward through the plain
+    version, as the JAX package's ``custom_vjp`` does (stem.py:579-601)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, relu):
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, scale, bias)
+        return _launch_conv(x, w, scale, bias, relu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*plain_vjp(stem_conv_reference, ctx.saved_tensors,
+                           ctx.needs_input_grad[:4], grad, relu=ctx.relu),
+                None)
+
+
+def stem_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """The stem conv + affine (+ ReLU), no pool, channels-mid
+    (B,T,64,Hc,Wc) in x's dtype: the CUDA kernel for a CUDA tensor
+    (differentiable through the plain version), the plain version for a CPU
+    tensor. Raises for any other device or an input the kernel does not
+    take."""
+    if x.device.type == "cpu":
+        return stem_conv_reference(x, w, scale, bias, relu)
+    _check_device(x, "stem_conv_bn_relu")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, bias)):
+        return _ConvStem.apply(x, w, scale, bias, relu)
+    return _launch_conv(x, w, scale, bias, relu)
 
 
 def stem_batch_stats(x: torch.Tensor, w: torch.Tensor
