@@ -12,7 +12,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    shapes their tiles do not divide; the bottleneck also at two clips of
    five frames; the stage chain at the flagship's three identity tails with
    the K that ``max_chain`` gives, at two clips of five frames and in
-   float32 at a ragged shape; the unpooled stem, which no model path runs,
+   float32 at a ragged shape, bit for bit against K launches of itself
+   with K = 1 and a repeat launch; the pooled stem also at a ragged shape
+   in bf16 and float32; the unpooled stem, which no model path runs,
    at 256 and 224 px and in float32 at a ragged shape), with CUDA-event
    times of both, of the one PyTorch call that computes the same function
    where there is one, and the least time the card could take
@@ -69,9 +71,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_CONFIG = ROOT / "configuration" / "tuber_csn152_ava22.yaml"
-STEM_SHAPES = {"ava_256px": (1, 32, 256, 256, 3),
-               "jhmdb_224px": (1, 32, 224, 224, 3),
-               "ava_256px_train": (2, 32, 256, 256, 3)}
+# Pooled stem (x shape, dtype): the streaming paths' 256 and 224 px, the
+# train path's batch of 2, and a shape the 8x8 pooled tiles do not divide,
+# in bf16 (the tensor-core kernel's edge masking) and float32 (the CUDA-core
+# kernel).
+STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
+              "jhmdb_224px": ((1, 32, 224, 224, 3), "bfloat16"),
+              "ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
+              "ragged_bf16": ((2, 3, 37, 45, 3), "bfloat16"),
+              "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
 STATS_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
                "jhmdb_224px_train": ((2, 32, 224, 224, 3), "bfloat16"),
                "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
@@ -79,7 +87,9 @@ BUILD_DIR = ROOT / "build"
 # Kernel against plain, bf16: the plain version rounds the conv output to
 # bf16 before the f32 epilogue, the kernel rounds once at the end; each
 # rounding is <= 2^-9 relative, so 2^-6 of the output's range is 4x margin.
+# float32 (TF32 off): summation order only.
 STEM_TOL = 2.0 ** -6
+STEM_POOL_TOL = {"bfloat16": STEM_TOL, "float32": 1e-5}
 # Flagship model, stem kernel on against off, bf16: the two stems differ by
 # ~1 bf16 ulp on some elements; 50 bottlenecks and 12 transformer layers of
 # bf16 arithmetic carry that on. 0.05 of each output's range (~13 ulp)
@@ -145,9 +155,10 @@ CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
                   FLAGSHIP_TAILS.items()},
                "two_clips_t5": (((2, 5, 32, 32, 512), 128, 7), "bfloat16"),
                "ragged_f32": (((1, 4, 13, 21, 512), 128, 3), "float32")}
-# Chain against the plain version. The kernel must equal the fused
-# bottleneck kernel run block by block (the same tile bodies, bf16 between
-# blocks): bit for bit. Against the plain version that rounds where the
+# Chain against the plain version. The kernel must equal K launches of
+# itself with K = 1, bf16 between them (the same tile bodies and summation
+# order: a difference is a race or a missing barrier), and a repeat launch:
+# bit for bit. Against the plain version that rounds where the
 # kernel rounds, computed in float64: a bf16 rounding that summation order
 # flips is 1 ulp, 0.4-0.8% of an element near max|ref|, and flips cascade
 # through the blocks that follow (the float32 and float64 rounded plain
@@ -248,20 +259,25 @@ def _dev(torch, a, dtype):
 
 
 def phase_kernels(torch, stem) -> dict:
+    """The pooled stem against stem_reference (STEM_CASES), a repeat launch
+    bit for bit, and the times of the kernel and the plain version."""
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     results = {}
-    for name, shape in STEM_SHAPES.items():
-        x = _dev(torch, rng.normal(size=shape), torch.bfloat16)
-        w = _dev(torch, rng.normal(size=stem.W_SHAPE) * 0.05, torch.bfloat16)
+    for name, (shape, dtype_name) in STEM_CASES.items():
+        dtype = getattr(torch, dtype_name)
+        x = _dev(torch, rng.normal(size=shape), dtype)
+        w = _dev(torch, rng.normal(size=stem.W_SHAPE) * 0.05, dtype)
         scale = _dev(torch, rng.uniform(0.5, 2.0, 64), torch.float32)
         bias = _dev(torch, rng.normal(size=64), torch.float32)
         got = stem.stem_forward(x, w, scale, bias)
+        again = stem.stem_forward(x, w, scale, bias)
         torch.cuda.synchronize()
         ref = stem.stem_reference(x, w, scale, bias)
-        if got.shape != ref.shape:
-            raise AssertionError(f"stem {name}: shape {tuple(got.shape)} "
-                                 f"!= {tuple(ref.shape)}")
+        if got.shape != ref.shape or got.dtype != dtype:
+            raise AssertionError(f"stem {name}: {tuple(got.shape)} "
+                                 f"{got.dtype}, want {tuple(ref.shape)}")
+        bits = torch.equal(got, again)
         err = (got.float() - ref.float()).abs().max().item()
         span = ref.float().abs().max().item()
         ms = time_ms(torch, lambda: stem.stem_forward(x, w, scale, bias))
@@ -270,14 +286,17 @@ def phase_kernels(torch, stem) -> dict:
         b, t, h, wd, _ = shape
         gflop = 2 * b * t * ((h + 1) // 2) * ((wd + 1) // 2) * 64 * 441 / 1e9
         bound_ms, bound_by = bound(nbytes(x, w, scale, bias, got),
-                                   gflop * 1e9, "bfloat16")
-        log(f"[kernel] stem_pool {name} {shape} bf16: max_abs_err {err:.6g} "
-            f"(rel to max|ref| {err / span:.3g}, tol {STEM_TOL:.3g}); "
-            f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s), "
+                                   gflop * 1e9, dtype_name)
+        tol = STEM_POOL_TOL[dtype_name]
+        log(f"[kernel] stem_pool {name} {shape} {dtype_name}: max_abs_err "
+            f"{err:.6g} (rel to max|ref| {err / span:.3g}, tol {tol:.3g}); "
+            f"repeat bit-equal {bits}; kernel {ms:.4f} ms "
+            f"({gflop / ms:.2f} TFLOP/s, {bound_ms / ms:.3f} of the bound), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not err <= STEM_TOL * span:
+        if not (err <= tol * span and bits):
             raise AssertionError(f"stem {name}: kernel disagrees with plain "
-                                 f"({err} > {STEM_TOL} * {span})")
+                                 f"({err} > {tol} * {span}) or repeats "
+                                 f"differ ({bits})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
@@ -478,11 +497,11 @@ def _chain_args(torch, shape, cm, k, dtype_name, seed):
 
 
 def phase_stage_kernel(torch) -> dict:
-    """The stage chain against the fused bottleneck run block by block and
-    against the plain version (CHAIN_CASES, CHAIN_TOL), with the times of
-    the kernel and of the plain version (chain_reference in the working
-    type; no single PyTorch call computes a chain) and its bound."""
-    from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
+    """The stage chain against K launches of itself with K = 1, a repeat
+    launch and the plain version (CHAIN_CASES, CHAIN_TOL), with its grid,
+    the work items of each phase, the times of the kernel and of the plain
+    version (chain_reference in the working type; no single PyTorch call
+    computes a chain) and its bound."""
     from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -493,13 +512,16 @@ def phase_stage_kernel(torch) -> dict:
         k = min(tail, S.max_chain(h * w, ci, cm))
         args = _chain_args(torch, shape, cm, k, dtype_name, seed=6)
         got = S.bottleneck_chain(*args)
-        torch.cuda.synchronize()
+        again = S.bottleneck_chain(*args)
         blocks = args[0]
         for i in range(k):
-            blocks = B.bottleneck_fused(blocks, *(a[i] for a in args[1:]))
+            blocks = S.bottleneck_chain(blocks,
+                                        *(a[i:i + 1] for a in args[1:]))
             if i + 1 < k:
                 blocks = blocks.to(torch.bfloat16).to(got.dtype)
+        torch.cuda.synchronize()
         exact = got.shape == blocks.shape and torch.equal(got, blocks)
+        repeat = torch.equal(got, again)
         ref64 = S.chain_reference_rounded(args[0], args[1:], torch.float64)
         ref32 = S.chain_reference_rounded(args[0], args[1:])
         unrounded = S.chain_reference(args[0].float(),
@@ -522,22 +544,24 @@ def phase_stage_kernel(torch) -> dict:
         ops = 2 * b * t * h * w * k * (2 * ci * cm + 27 * cm)
         bound_ms, bound_by = bound(nbytes(*args, got), ops, "bfloat16")
         log(f"[kernel] stage_chain {name} {shape} Cm={cm} K={k} {dtype_name}"
-            f": a grid of {S.grid_blocks(args[0], cm)} resident blocks; "
-            f"bit-equal to "
-            f"{k} fused-bottleneck launches {exact}; max_abs_err per clip "
-            f"vs the float64 rounded plain version "
-            f"{[round(e, 5) for e in errs]} (limits "
+            f": a grid of {S.grid_blocks(args[0])} resident blocks; work "
+            f"items per block of the chain {S.phase_tiles(shape, cm)}; "
+            f"bit-equal to {k} launches with K = 1 {exact}, to a repeat "
+            f"launch {repeat}; max_abs_err per clip vs the float64 rounded "
+            f"plain version {[round(e, 5) for e in errs]} (limits "
             f"{[round(v, 5) for v in limits]}; the float32 rounded plain "
             f"version's {[round(e, 5) for e in plain_errs]}; max|ref| "
             f"{span:.4g}), vs the unrounded plain version "
             f"{[round(e, 4) for e in unrounded_errs]} of max|ref|; kernel "
-            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (exact and finite and all(
+            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.3f} "
+            f"of the bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by})")
+        if not (exact and repeat and finite and all(
                 e <= v for e, v in zip(errs, limits))):
             raise AssertionError(f"stage_chain {name}: the kernel disagrees "
-                                 f"with the fused blocks ({exact}) or the "
-                                 f"plain version ({errs} vs {limits})")
+                                 f"with its one-block launches ({exact}), a "
+                                 f"repeat ({repeat}) or the plain version "
+                                 f"({errs} vs {limits})")
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None, "k": k}
@@ -1242,7 +1266,7 @@ def phase_jitter_and_train_breakdown(torch, stem, cfg, model,
     _report_device_time(torch, prof, "train breakdown",
                         f"one flagship train step (steady step "
                         f"{steady_ms:.2f} ms)", steady_ms,
-                        ("stem_pool_kernel", "stem_stats_partial_kernel",
+                        ("stem_pool_tc_kernel", "stem_stats_partial_kernel",
                          "stem_stats_finalize_kernel"), top=14)
 
 
@@ -1329,12 +1353,12 @@ def main() -> int:
                          "stage chains")
 
     phase_breakdown(torch, det, steady_ms, "breakdown",
-                    ("stem_pool_kernel",))
+                    ("stem_pool_tc_kernel",))
     phase_breakdown(torch, kdet, kernel_steady_ms, "kernels breakdown",
-                    ("stem_pool_kernel", "depthwise_kernel", "conv1_kernel",
+                    ("stem_pool_tc_kernel", "depthwise_kernel", "conv1_kernel",
                      "dw_conv4_kernel"))
     phase_breakdown(torch, sdet, stage_steady_ms, "stages breakdown",
-                    ("stem_pool_kernel", "depthwise_kernel", "chain_kernel"))
+                    ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
     del det, kdet, sdet
     torch.cuda.empty_cache()
     phase_serve_cli(stages_cfg)

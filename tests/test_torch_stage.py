@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
 from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 
 
@@ -212,6 +211,36 @@ def _stream_on(device, k, shape, cm, dtype):
     return args
 
 
+def test_rounded_chain_equals_one_block_chains():
+    """``chain_reference_rounded`` over K blocks, in float64, equals K calls
+    of it with one block each and bf16 rounding between them: the identity
+    behind the kernel's bit-for-bit check against K launches of itself with
+    K = 1 (the kernel rounds where this plain version does)."""
+    args = [torch.from_numpy(a).double()
+            for a in _stream_args(4, 1, 3, 4, 4, 128, 64)]
+    for i in range(4):
+        args[i] = args[i].to(torch.bfloat16).double()
+    whole = S.chain_reference_rounded(args[0], args[1:], torch.float64)
+    y = args[0]
+    for i in range(4):
+        y = S.chain_reference_rounded(y, [a[i:i + 1] for a in args[1:]],
+                                      torch.float64)
+        if i < 3:
+            y = y.to(torch.bfloat16).double()
+    assert torch.equal(whole, y)
+
+
+def _one_block_launches(args, k):
+    """The chain of ``args`` as k launches of the kernel with K = 1, each
+    output but the last rounded to bf16 (in the input's dtype)."""
+    y = args[0]
+    for i in range(k):
+        y = S.bottleneck_chain(y, *(a[i:i + 1] for a in args[1:]))
+        if i + 1 < k:
+            y = y.to(torch.bfloat16).to(args[0].dtype)
+    return y
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cm,shape,dtype", [
     (128, (2, 5, 16, 16, 512), torch.bfloat16),
@@ -220,11 +249,11 @@ def _stream_on(device, k, shape, cm, dtype):
     (128, (1, 4, 13, 21, 512), torch.float32),
 ])
 def test_kernel_matches_blocks_and_plain_on_cuda(cuda, cm, shape, dtype):
-    """The chain kernel with K = 3: bit-equal to the fused bottleneck kernel
-    run block by block with the same bf16 roundings between blocks (the
-    same tile bodies and summation order), and against the plain version
-    that rounds where the kernel does, in float32 with TF32 off, 5e-3 of
-    max|ref| in every clip."""
+    """The chain kernel with K = 3: bit-equal to three launches of itself
+    with K = 1 and the same bf16 roundings between them (the same tile
+    bodies and summation order: a difference is a race or a missing
+    barrier), and against the plain version that rounds where the kernel
+    does, in float32 with TF32 off, 5e-3 of max|ref| in every clip."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = _stream_on(cuda, 3, shape, cm, dtype)
@@ -232,16 +261,33 @@ def test_kernel_matches_blocks_and_plain_on_cuda(cuda, cm, shape, dtype):
     got = S.bottleneck_chain(*args)
     torch.cuda.synchronize()
     assert S.LAUNCHES == launches + 1 and got.dtype == dtype
-    blocks = args[0]
-    for i in range(3):
-        blocks = B.bottleneck_fused(blocks, *(a[i] for a in args[1:]))
-        if i < 2:
-            blocks = blocks.to(torch.bfloat16).to(dtype)
-    assert torch.equal(got, blocks)
+    assert torch.equal(got, _one_block_launches(args, 3))
     want = S.chain_reference_rounded(args[0], args[1:])
     scale = want.abs().max()
     for bi in range(shape[0]):
         assert (got[bi].float() - want[bi]).abs().max() < 5e-3 * scale, bi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cm,shape", [(128, (1, 4, 32, 32, 512)),
+                                      (512, (1, 4, 16, 16, 2048))])
+def test_kernel_repeat_launch_bit_equal_on_cuda(cuda, cm, shape):
+    """Two launches of the chain on the same input give the same bits: no
+    atomics, every tile summed in a fixed order whatever the grid."""
+    args = _stream_on(cuda, 2, shape, cm, torch.bfloat16)
+    first = S.bottleneck_chain(*args)
+    again = S.bottleneck_chain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all()
+    assert torch.equal(first, again)
+
+
+def test_phase_tiles_cover_the_card_at_flagship_tails():
+    """Every phase of the kernel has at least 128 work items for one block
+    at each of the flagship's chained tails (layers 2-4 at 256 px)."""
+    for name, shape, cm in _flagship_tails(256)[1:]:
+        tiles = S.phase_tiles(shape, cm)
+        assert min(tiles.values()) >= 128, (name, tiles)
 
 
 @pytest.mark.cuda

@@ -169,25 +169,57 @@ def test_pooled_hw_matches_reference():
             stem.pooled_hw(h, w)
 
 
+def test_round_then_pool_equals_pool_then_round():
+    """The identity the bf16 pooled kernel relies on: rounding each value to
+    bf16 and then max-pooling (1x3x3 / (1,2,2) / pad (0,1,1), as
+    stem_reference pools) equals max-pooling in float32 and rounding once,
+    on values that bf16 does not represent, values it does, ties halfway
+    between two bf16 values, negatives, zeros and a NaN."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 64, 3, 17, 19)).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[::7] = _bf16(flat[::7])                       # representable
+    # halfway between two bf16 values: the low 16 bits of the float32 0x8000
+    flat[1::11] = (_bf16(flat[1::11]).view(np.uint32) | 0x8000).view(
+        np.float32)
+    flat[2::13] = 0.0
+    flat[3::17] = -np.abs(flat[3::17])
+    flat[100] = np.nan
+    t = torch.from_numpy(x)
+
+    def pool(v):
+        return F.max_pool3d(v, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+
+    first = pool(t.to(torch.bfloat16).float())
+    last = pool(t).to(torch.bfloat16).float()
+    assert torch.isnan(first).any()
+    torch.testing.assert_close(first, last, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((1, 32, 256, 256, 3), torch.bfloat16),
     ((1, 32, 224, 224, 3), torch.bfloat16),
+    ((2, 3, 37, 45, 3), torch.bfloat16),
     ((2, 3, 37, 45, 3), torch.float32),
 ])
 def test_kernel_matches_plain_on_cuda(cuda, shape, dtype):
-    """The CUDA kernel against stem_reference on the card. bf16: the plain
-    version rounds its conv output to bf16 before the f32 epilogue, the
-    kernel rounds once, so 2^-6 of the output range. float32 (TF32 off):
-    summation order only."""
+    """The CUDA kernel against stem_reference on the card, and a repeat
+    launch bit for bit. bf16 (the tensor-core kernel; the ragged shape
+    checks its edge masking): the plain version rounds its conv output to
+    bf16 before the f32 epilogue, the kernel rounds once, so 2^-6 of the
+    output range. float32 (TF32 off): summation order only."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, scale, bias = _inputs(shape)
     x, w = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
     scale, bias = (torch.from_numpy(a).to(cuda) for a in (scale, bias))
     launches = stem.LAUNCHES
     got = stem.stem_forward(x, w, scale, bias)
+    again = stem.stem_forward(x, w, scale, bias)
     torch.cuda.synchronize()
-    assert stem.LAUNCHES == launches + 1
+    assert stem.LAUNCHES == launches + 2 and torch.equal(got, again)
     want = stem.stem_reference(x, w, scale, bias)
     assert got.shape == want.shape and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()

@@ -24,8 +24,8 @@
 // over to save mid's 4.2 MB write and read; writing mid once is simpler
 // and moves fewer bytes.
 // Both products are bf16 WMMA tiles (16x16x16, float32 accumulators) in the
-// tile bodies of bottleneck_tile.cuh, which the stage chain (stage.cu)
-// shares: conv1 stages x and w1 in shared memory 64 channels at a time;
+// tile bodies of bottleneck_tile.cuh (the stage chain, stage.cu, has its
+// own): conv1 stages x and w1 in shared memory 64 channels at a time;
 // conv4 reads its A tiles from the block's mdw in shared memory and its B
 // tiles of w4 (128 KB, shared by every block) through L1 and L2.
 //

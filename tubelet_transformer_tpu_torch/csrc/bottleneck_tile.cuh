@@ -1,6 +1,6 @@
 // The two tile bodies of a stride-1 identity ir-bottleneck of irCSN, as the
-// fused-bottleneck kernels (bottleneck.cu) and the stage-chain kernel
-// (stage.cu) share them:
+// fused-bottleneck kernels (bottleneck.cu) run them (the stage chain,
+// stage.cu, has tile bodies of its own):
 //   conv1_tile:    mid = relu((x @ w1) * a1 + b1) of a block of pixel rows
 //                  and 64 columns of C_mid, rounded to bf16;
 //   dw_conv4_tile: for one (b, t, 8x8 pixel tile), the depthwise 3x3x3 over
@@ -9,12 +9,10 @@
 //                  then out = relu((mdw @ w4) * a4 + b4 + x), written once.
 // Both products are bf16 WMMA tiles (16x16x16, float32 accumulators).
 //
-// Activations (x, mid, out) are read through L2 (ld.global.cg), never L1:
-// the chain kernel reads in one launch what other blocks wrote before a grid
-// barrier, and L1 is not coherent across SMs. x and out carry no
-// __restrict__ here, because the chain runs dw_conv4_tile in place (x ==
-// out): every element of the residual is read by the thread that then
-// writes it, so the in-place update is safe.
+// Activations (x, mid, out) are read through L2 (ld.global.cg), never L1.
+// x and out carry no __restrict__ here, so that dw_conv4_tile may run in
+// place (x == out): every element of the residual is read by the thread that
+// then writes it, so an in-place update is safe.
 
 #pragma once
 

@@ -46,13 +46,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     for entry in _ENTRY.values():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
-            # x, w1, wd, w4, a1, b1, a3, b3, a4, b4, mid, out;
+            # x, w1, wd, w4, a1, b1, a3, b3, a4, b4, mid, mdw, out;
             # batch, frames, H, W, Ci, Cm, K; stream
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     if lib.tuber_chain_blocks.argtypes is None:
-        lib.tuber_chain_blocks.argtypes = [ctypes.c_int] * 6
+        lib.tuber_chain_blocks.argtypes = [ctypes.c_int]
         lib.tuber_chain_blocks.restype = ctypes.c_int
     return lib
 
@@ -69,7 +69,8 @@ def chain_supported(x_shape: Sequence[int], cm: int) -> bool:
 def max_chain(hw: int, ci: int, cm: int) -> int:
     """The most blocks one chain may take. The JAX package sizes K from the
     TPU kernel's VMEM rings, which grow with K. This kernel keeps one output
-    and one mid buffer whatever K is (phase B updates the output in place),
+    and two bf16 scratch buffers whatever K is (phase C updates the output
+    in place),
     and reads each block's weights from device memory in its turn, so no
     on-chip resource grows with K: a chain takes a stage's whole identity
     tail. The only limit left is the kernel's 32-bit K argument."""
@@ -133,12 +134,12 @@ def _launch(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
         return out
     b, t, h, w, ci = x.shape
     k, _, cm = w1.shape
-    mid = torch.empty((b, t, h, w, cm), dtype=torch.bfloat16,
-                      device=x.device)
+    mid, mdw = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
+                           device=x.device)
     fn = getattr(library(), _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(*(p.data_ptr() for p in (x, w1, wd, w4, a1, b1, a3, b3, a4,
-                                          b4, mid, out)),
+                                          b4, mid, mdw, out)),
                  b, t, h, w, ci, cm, k,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -147,18 +148,27 @@ def _launch(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
     return out
 
 
-def grid_blocks(x: torch.Tensor, cm: int) -> int:
+def grid_blocks(x: torch.Tensor) -> int:
     """Blocks of the cooperative grid that the kernel launches for x (a CUDA
-    tensor) and C_mid ``cm``: the resident blocks of every SM, no more than
-    a phase has tiles."""
-    b, t, h, w, _ = x.shape
+    tensor): the resident blocks of every SM, whatever the shape."""
     with torch.cuda.device(x.device):
-        n = library().tuber_chain_blocks(int(x.dtype == torch.float32), b, t,
-                                         h, w, cm)
+        n = library().tuber_chain_blocks(int(x.dtype == torch.float32))
     if n <= 0:
         raise RuntimeError(f"the chain kernel cannot launch here: cudaError "
                            f"{-n}")
     return n
+
+
+def phase_tiles(x_shape: Sequence[int], cm: int) -> dict[str, int]:
+    """Work items of each of the kernel's three phases for one block of the
+    chain (``csrc/stage.cu:work``): conv1's 64x64 GEMM tiles, the
+    depthwise's (b, t, 8x8 pixels, 64 channels) items, conv4's 64x128 GEMM
+    tiles."""
+    b, t, h, w, ci = x_shape
+    row_tiles = -(-(b * t * h * w) // 64)
+    return {"conv1": row_tiles * (cm // 64),
+            "depthwise": b * t * -(-h // 8) * -(-w // 8) * (cm // 64),
+            "conv4": row_tiles * (ci // 128)}
 
 
 def _chain_plain(x, *stacked):
