@@ -8,15 +8,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build of the hand-written CUDA kernels from ``csrc/`` into one library,
    one nvcc for each source, all started together;
 3. each kernel against its plain PyTorch version at the shapes the main
-   paths give it (the statistics and depthwise kernels also in float32 at
-   shapes their tiles do not divide; the bottleneck also at two clips of
-   five frames; the stage chain at the flagship's three identity tails with
-   the K that ``max_chain`` gives, at two clips of five frames and in
-   float32 at a ragged shape, bit for bit against K launches of itself
-   with K = 1 and a repeat launch; the pooled stem also at a ragged shape
-   in bf16 and float32; the unpooled stem, which no model path runs,
-   at 256 and 224 px and in float32 at a ragged shape), with CUDA-event
-   times of both, of the one PyTorch call that computes the same function
+   paths give it (the statistics kernel also at shapes its tiles do not
+   divide, in bf16 and float32; the depthwise also in float32 at a shape
+   its tiles do not divide; the bottleneck also at two clips of five
+   frames, one frame and 56x56 frames, and bit for bit against the stage
+   chain with K = 1, whose kernel it launches; the stage chain at the
+   flagship's three identity tails with the K that ``max_chain`` gives,
+   at two clips of five frames and in float32 at a ragged shape, bit for
+   bit against K launches of itself with K = 1 and a repeat launch; the
+   pooled stem also at a ragged shape in bf16 and float32; the unpooled
+   stem, which no model path runs, at 256 and 224 px and in float32 at a
+   ragged shape), with CUDA-event times of the device alone for both, of
+   the one PyTorch call that computes the same function
    where there is one, and the least time the card could take
    (``bound``);
 4. small-input references: the port on the card against the port on the
@@ -80,8 +83,14 @@ STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
               "ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
               "ragged_bf16": ((2, 3, 37, 45, 3), "bfloat16"),
               "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
+# Statistics kernel (x shape, dtype): the train path's batch of 2 at 256
+# and 224 px, and shapes its 16x16 conv tiles do not divide: in bf16 (the
+# tensor-core kernel's edge mask; ~1e6 conv pixels, as at the train shape,
+# since the plain version's bf16 rounding noise shrinks as 1/sqrt(pixels))
+# and in float32 (the CUDA-core kernel).
 STATS_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
                "jhmdb_224px_train": ((2, 32, 224, 224, 3), "bfloat16"),
+               "ragged_bf16": ((2, 32, 250, 230, 3), "bfloat16"),
                "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
 BUILD_DIR = ROOT / "build"
 # Kernel against plain, bf16: the plain version rounds the conv output to
@@ -133,10 +142,13 @@ DW_CASES = {"layer1_256px": ((1, 32, 64, 64, 64), "bfloat16", False),
 # there; the plain version with the epilogue rounds twice); float32 with
 # TF32 off: summation order only.
 DW_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
-# Bottleneck (B, T, H, W), Ci 512, C_mid 128: layer2 of CSN-152 at 256 px,
-# and two clips of five frames, whose first and last frames test the reset
-# of the depthwise's frame window at each clip's edges.
-BN_CASES = {"layer2_256px": (1, 16, 32, 32), "two_clips_t5": (2, 5, 32, 32)}
+# Bottleneck (B, T, H, W), Ci 512, C_mid 128: layer2 of CSN-152 at 256 px;
+# two clips of five frames, whose first and last frames test the reset of
+# the depthwise's frame window at each clip's edges; and two shapes that
+# bottleneck_supported admits beyond the chain's predicate: one frame, and
+# 56x56 frames (448 px), past its 2 MiB cap.
+BN_CASES = {"layer2_256px": (1, 16, 32, 32), "two_clips_t5": (2, 5, 32, 32),
+            "one_frame": (1, 1, 32, 32), "frame_56": (1, 4, 56, 56)}
 # Bottleneck kernels against the plain version in float32 on the same bf16
 # operands: the kernels round mid and the depthwise output to bf16, as the
 # TPU kernel does; 5e-3 of max|ref| in every clip, the limit of the JAX
@@ -179,6 +191,11 @@ STEM_CONV_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16", True),
 # the conv output before the affine); float32 with TF32 off: summation
 # order only.
 STEM_CONV_TOL = {"bfloat16": STEM_TOL, "float32": 1e-5}
+# The aten ops of train-mode BN's batch statistics (models/csn.py:
+# batch_stats: a float32 sum and vector norm of a bf16 x; var_mean was the
+# form before), named in the train breakdown wherever they rank; sum also
+# serves the losses.
+BN_STATS_OPS = ("aten::sum", "aten::linalg_vector_norm", "aten::var_mean")
 # Published NVIDIA H100 SXM peaks (data sheet, dense, 700 W): device memory
 # and the rates for each input type (bf16 on the tensor cores, float32 on
 # the CUDA cores, TF32 off).
@@ -190,25 +207,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, warmup: int = 5, runs: int = 25,
-            calls: int = 10) -> float:
-    """Median over ``runs`` of the CUDA-event time of ``calls`` calls in a
-    row, per call, after warm-up: a run of calls keeps the device's queue
-    full where one call's host work (checks, allocation, the ctypes call)
-    outlasts its kernel. Inputs stay in L2 between calls where they fit."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+def time_ms(torch, fn, **kw) -> float:
+    """CUDA-event time of one call of ``fn`` (tools/ab_kernels.py:time_ms):
+    by default the device's alone, each run of calls queued behind a spin
+    kernel that outlasts their host work; with ``queued=False`` back to
+    back, host work included."""
+    from tubelet_transformer_tpu_torch.tools.ab_kernels import time_ms as t
+
+    return t(torch, fn, **kw)
 
 
 def phase_environment(torch) -> str:
@@ -428,9 +434,14 @@ def phase_depthwise_kernel(torch) -> dict:
 def phase_bottleneck_kernel(torch) -> dict:
     """The fused bottleneck against bottleneck_reference (BN_CASES): the
     error against the plain version in float32 on the kernel's bf16
-    operands, in every clip; times of the kernel and of the plain version
-    in bf16 (no single PyTorch call computes the block)."""
+    operands, in every clip, and bit for bit against bottleneck_chain with
+    K = 1 (the kernel it launches: a difference is a fault of the wrapper);
+    times of the kernel and of the plain version in bf16 (no single PyTorch
+    call computes the block). The other launch of one block, three ordinary
+    launches of the chain's phase bodies, is not built into the library:
+    tools/kernel_probe.py times it."""
     from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,27 +460,36 @@ def phase_bottleneck_kernel(torch) -> dict:
                 mk(cm, scale=.3, mean=1.0), mk(cm, scale=.3),
                 mk(ci, scale=.3, mean=1.0), mk(ci, scale=.3))
         got = B.bottleneck_fused(*args)
+        chain = S.bottleneck_chain(args[0], *(a[None] for a in args[1:]))
         torch.cuda.synchronize()
+        exact = torch.equal(got, chain)
         ref = B.bottleneck_reference(*(a.float() for a in args))
         span = ref.abs().max().item()
         errs = [(got[i].float() - ref[i]).abs().max().item()
                 for i in range(b)]
         ms = time_ms(torch, lambda: B.bottleneck_fused(*args))
+        call_ms = time_ms(torch, lambda: B.bottleneck_fused(*args),
+                          queued=False)
         plain_ms = time_ms(torch, lambda: B.bottleneck_reference(*args))
         pixels = b * t * h * w
         ops = 2 * pixels * (2 * ci * cm + 27 * cm)
         bound_ms, bound_by = bound(nbytes(*args, got), ops, "bfloat16")
         log(f"[kernel] bottleneck {name} ({b},{t},{h},{w},{ci}) Cm={cm} bf16: "
-            f"max_abs_err per clip {[round(e, 5) for e in errs]} (rel to "
-            f"max|ref| {max(errs) / span:.3g}, tol {BN_TOL}); kernel "
-            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (got.shape == ref.shape and max(errs) <= BN_TOL * span):
+            f"bit-equal to the chain with K = 1 {exact}; max_abs_err per "
+            f"clip {[round(e, 5) for e in errs]} (rel to max|ref| "
+            f"{max(errs) / span:.3g}, tol {BN_TOL}); kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.2f} TFLOP/s; a call with its host work "
+            f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        if not (exact and got.shape == ref.shape
+                and max(errs) <= BN_TOL * span):
             raise AssertionError(f"bottleneck {name}: kernel disagrees with "
-                                 f"plain ({errs} vs {BN_TOL} * {span})")
+                                 f"the chain ({exact}) or with plain "
+                                 f"({errs} vs {BN_TOL} * {span})")
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None}
+                         "bound_by": bound_by, "library_ms": None,
+                         "call_ms": call_ms}
     return results
 
 
@@ -538,6 +558,8 @@ def phase_stage_kernel(torch) -> dict:
         finite = bool(torch.isfinite(got).all())
         span = ref64.abs().max().item()
         ms = time_ms(torch, lambda: S.bottleneck_chain(*args))
+        call_ms = time_ms(torch, lambda: S.bottleneck_chain(*args),
+                          queued=False)
         plain_ms = time_ms(torch, lambda: S.chain_reference(args[0],
                                                             args[1:]),
                            runs=5, calls=2)
@@ -554,7 +576,8 @@ def phase_stage_kernel(torch) -> dict:
             f"{span:.4g}), vs the unrounded plain version "
             f"{[round(e, 4) for e in unrounded_errs]} of max|ref|; kernel "
             f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.3f} "
-            f"of the bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"of the bound; a call with its host work {call_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
             f"ms ({bound_by})")
         if not (exact and repeat and finite and all(
                 e <= v for e, v in zip(errs, limits))):
@@ -564,7 +587,8 @@ def phase_stage_kernel(torch) -> dict:
                                  f"({errs} vs {limits})")
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None, "k": k}
+                         "bound_by": bound_by, "library_ms": None, "k": k,
+                         "call_ms": call_ms}
     return results
 
 
@@ -850,9 +874,10 @@ def phase_in_situ(torch, det, switch, what: str) -> None:
 
 
 def _report_device_time(torch, prof, tag: str, what: str, wall_ms: float,
-                        kernels, top: int = 10) -> None:
+                        kernels, top: int = 10, ops=()) -> None:
     """Device time of a profiled window: the total, the top aten ops by
-    self device time, and the named hand-written kernels."""
+    self device time, the aten ops named in ``ops`` wherever they rank, and
+    the named hand-written kernels."""
     cuda = torch.autograd.DeviceType.CUDA
     total = sum(ev.device_time_total for ev in prof.events()
                 if ev.device_type == cuda) / 1e3
@@ -861,14 +886,16 @@ def _report_device_time(torch, prof, tag: str, what: str, wall_ms: float,
         return
     # device time of the kernels each aten op launched itself; kernels
     # launched outside aten (the ctypes stem kernels) are listed by name
-    ops = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-           for ev in prof.key_averages()
-           if ev.device_type != cuda and ev.self_device_time_total > 0]
-    attributed = sum(ms for _, ms, _ in ops)
+    ops_ms = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+              for ev in prof.key_averages()
+              if ev.device_type != cuda and ev.self_device_time_total > 0]
+    attributed = sum(ms for _, ms, _ in ops_ms)
     log(f"[{tag}] {what}: device kernel time {total:.3f} ms "
         f"({100 * total / wall_ms:.1f}% of {wall_ms:.2f} ms); by aten op "
         f"(self device time):")
-    for name, ms, count in sorted(ops, key=lambda o: -o[1])[:top]:
+    ranked = sorted(ops_ms, key=lambda o: -o[1])
+    for name, ms, count in ranked[:top] + [o for o in ranked[top:]
+                                           if o[0] in ops]:
         log(f"[{tag}]   {ms:8.3f} ms {100 * ms / total:5.1f}%  "
             f"{name} x{count}")
     for ev in prof.key_averages():
@@ -1266,8 +1293,9 @@ def phase_jitter_and_train_breakdown(torch, stem, cfg, model,
     _report_device_time(torch, prof, "train breakdown",
                         f"one flagship train step (steady step "
                         f"{steady_ms:.2f} ms)", steady_ms,
-                        ("stem_pool_tc_kernel", "stem_stats_partial_kernel",
-                         "stem_stats_finalize_kernel"), top=14)
+                        ("stem_pool_tc_kernel", "stem_stats_tc_kernel",
+                         "stem_stats_finalize_kernel"), top=14,
+                        ops=BN_STATS_OPS)
 
 
 def phase_train_kernels(torch, cfg) -> dict:
@@ -1355,8 +1383,7 @@ def main() -> int:
     phase_breakdown(torch, det, steady_ms, "breakdown",
                     ("stem_pool_tc_kernel",))
     phase_breakdown(torch, kdet, kernel_steady_ms, "kernels breakdown",
-                    ("stem_pool_tc_kernel", "depthwise_kernel", "conv1_kernel",
-                     "dw_conv4_kernel"))
+                    ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
     phase_breakdown(torch, sdet, stage_steady_ms, "stages breakdown",
                     ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
     del det, kdet, sdet
@@ -1404,8 +1431,10 @@ def main() -> int:
                             "depthwise.py:184",
               launches_train_step=train_kernel_launches["depthwise"],
               library_with_copies_ms=dw["library_with_copies_ms"]),
-        entry("bottleneck", "bottleneck.cu", "bottleneck.py:57",
-              kernel_launches["bottleneck"], bn),
+        entry("bottleneck", "stage.cu", "bottleneck.py:57",
+              kernel_launches["bottleneck"], bn,
+              kernel="the stage chain's kernel with K = 1",
+              call_ms=bn["call_ms"]),
         entry("stage_chain", "stage.cu", "stage.py:69",
               stage_launches["chain"], chain_totals(chains),
               per_forward="the sum of the flagship's three tails (one "

@@ -148,7 +148,7 @@ def test_dispatch_predicate_matches_jax(jax_bn, monkeypatch, img, bs):
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "cm", "w_dtype",
-                                 "affine_dtype", "strided"])
+                                 "affine_dtype", "strided", "misaligned"])
 def test_check_inputs_rejects(bad):
     args = [torch.from_numpy(a).clone() for a in _args(1, 2, 4, 4)]
     for i in (1, 2, 3):
@@ -164,11 +164,35 @@ def test_check_inputs_rejects(bad):
         args[3] = args[3].float()
     elif bad == "affine_dtype":
         args[4] = args[4].to(torch.bfloat16)
+    elif bad == "misaligned":
+        # the kernel copies every operand in 16-byte pieces
+        args[4] = torch.zeros(args[4].numel() + 1)[1:]
     else:
         args[0] = torch.zeros(1, 2, 4, 8, 512)[:, :, :, ::2]
     with pytest.raises(ValueError):
         B.check_inputs(*args)
     B.check_inputs(*good)
+
+
+# shapes bottleneck_supported admits that the stage chain's predicate does
+# not: one frame, and frames past its 2 MiB cap (448 px: 56x56x512)
+_SUPPORTED_ONLY = [(1, 1, 32, 32), (2, 1, 32, 32), (1, 4, 56, 56)]
+
+
+@pytest.mark.parametrize("shape", _SUPPORTED_ONLY)
+def test_check_inputs_takes_every_supported_shape(shape):
+    """check_inputs (and the stage chain's, through which the kernel
+    launches with K = 1) accepts the shapes bottleneck_supported admits
+    beyond chain_supported."""
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+    args = [torch.from_numpy(a) for a in _args(*shape)]
+    for i in (1, 2, 3):
+        args[i] = args[i].to(torch.bfloat16)
+    assert B.bottleneck_supported(args[0].shape, 128, 1, 1, False)
+    assert not S.chain_supported(args[0].shape, 128)
+    B.check_inputs(*args)
+    S.check_inputs(args[0], *(a.unsqueeze(0) for a in args[1:]))
 
 
 @pytest.mark.cuda
@@ -177,12 +201,14 @@ def test_check_inputs_rejects(bad):
     ((2, 5, 32, 32), torch.bfloat16),
     ((2, 3, 13, 21), torch.bfloat16),
     ((1, 4, 13, 21), torch.float32),
+    *((s, torch.bfloat16) for s in _SUPPORTED_ONLY),
 ])
 def test_kernel_matches_plain_on_cuda(cuda, shape, dtype):
-    """The CUDA kernels against the plain version in float32 on the same
-    bf16 operands (x rounded to bf16 too). The kernels round mid and mdw to
+    """The CUDA kernel against the plain version in float32 on the same
+    bf16 operands (x rounded to bf16 too). The kernel rounds mid and mdw to
     bf16, as the Pallas kernel does: 5e-3 of max|ref|, the JAX test's limit,
-    in every batch row (the per-clip reset at t = 0 and t = T-1)."""
+    in every batch row (the per-clip reset at t = 0 and t = T-1), at T = 1
+    and at 56x56 frames too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = [torch.from_numpy(a).to(cuda) for a in _args(*shape)]
@@ -196,6 +222,32 @@ def test_kernel_matches_plain_on_cuda(cuda, shape, dtype):
     scale = want.abs().max()
     for bi in range(shape[0]):
         assert (got[bi].float() - want[bi]).abs().max() < 5e-3 * scale, bi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 16, 32, 32), torch.bfloat16),
+    ((2, 5, 32, 32), torch.bfloat16),
+    ((1, 1, 32, 32), torch.bfloat16),
+    ((1, 4, 13, 21), torch.float32),
+])
+def test_kernel_equals_one_block_chain_on_cuda(cuda, shape, dtype):
+    """bottleneck_fused is the stage chain's kernel with K = 1: bit-equal to
+    bottleneck_chain on the stacked weights, and counted apart from the
+    chain's launches."""
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+    args = [torch.from_numpy(a).to(cuda) for a in _args(*shape)]
+    for i in range(4):
+        args[i] = args[i].to(torch.bfloat16)
+    args[0] = args[0].to(dtype)
+    launches, chains = B.LAUNCHES, S.LAUNCHES
+    got = B.bottleneck_fused(*args)
+    assert (B.LAUNCHES, S.LAUNCHES) == (launches + 1, chains)
+    stacked = [a.unsqueeze(0) for a in args[1:]]
+    chain = S.bottleneck_chain(args[0], *stacked)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == chains + 1 and torch.equal(got, chain)
 
 
 @pytest.mark.cuda

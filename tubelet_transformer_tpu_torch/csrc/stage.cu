@@ -56,7 +56,9 @@
 // registers, converted to bf16 on the way; the residual stays in x's type.
 // Every tile and item is computed by one block in a fixed order whatever
 // the grid: a repeat launch, and K launches of one block each with bf16
-// between them, give the same bits.
+// between them, give the same bits. The fused bottleneck
+// (ops/cuda/bottleneck.py, the TPU's `_bottleneck_pallas`) is this kernel
+// with K = 1: it reads x and writes out, with no rounding between blocks.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

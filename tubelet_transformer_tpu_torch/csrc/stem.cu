@@ -17,25 +17,14 @@
 // (67 MB in bf16) never goes to device memory: each block keeps its conv
 // tile in shared memory and pools it there.
 //
-// bf16 (stem_pool_tc_kernel, every model path): an implicit GEMM on the
-// tensor cores (mma.sync.m16n8k16, bf16 in, float32 sums). A work item is one
-// (b, t) and an 8x8 tile of pooled outputs, so a 17x17 conv tile: M = 289
-// conv pixels (19 row tiles of 16), N = 64 channels, K = 3 frames x 7 rows x
-// 21 (kw, c) inputs, each run of 21 padded to 22 and each frame to 160: 480.
-// For a fixed (frame, kernel row) the 21 inputs of a conv pixel are
-// contiguous in a channels-last halo row, so the A fragments are gathered
-// straight from the halo in shared memory (a pixel's base offset plus a
-// table of k offsets; the pad slot of each run is masked to zero), with no
-// im2col buffer. The grid is persistent, one block of 16 warps per SM (the
-// warps hide each other's shared-load latency): the weights (480 x 64 bf16)
-// go into shared memory once per block by cp.async, and the halo of the
-// next (tile, frame) is loaded into registers while the current frame is
-// multiplied, then stored to its own buffer (three frame buffers).
-// Input rows start at any 2-byte offset, so the halo cannot be copied in
-// 16-byte pieces. Scale, bias and ReLU run on the float32 accumulators; the
-// conv tile is kept in shared memory in bf16 and max-pooled there: rounding
-// is monotone, so the max of bf16-rounded values equals the bf16 rounding of
-// the max.
+// bf16 (stem_pool_tc_kernel, every model path): the implicit GEMM of
+// stem_tc.cuh on the tensor cores, shared with the statistics kernel
+// (stem_stats.cu). A work item is one (b, t) and an 8x8 tile of pooled
+// outputs, so a 17x17 conv tile: M = 289 conv pixels (19 row tiles of 16),
+// N = 64, K = 480. The grid is persistent, one block of 16 warps per SM.
+// Scale, bias and ReLU run on the float32 accumulators; the conv tile is
+// kept in shared memory in bf16 and max-pooled there: rounding is monotone,
+// so the max of bf16-rounded values equals the bf16 rounding of the max.
 //
 // float32 (stem_pool_kernel, tests only): the direct conv on the CUDA cores
 // in f32 (stem_conv.cuh), a 17x17 conv tile per block.
@@ -45,19 +34,19 @@
 // x (B,T,H,W,3) -> out (B,T,64,Hc,Wc). It replaces `_stem_matmul(pool=False)`
 // of tubelet_transformer_tpu/ops/pallas/stem.py, which `stem_conv_bn_relu`
 // runs there; no model path of either package calls it. It is the
-// statistics kernel's 16x16 conv tile (stem_stats.cu), stored instead of
-// reduced: the f32 tile goes through shared memory as [channel][pixel]
-// (rows of 257 floats, so the eight channel groups of a warp hit distinct
-// banks), and each channel's rows of 16 pixels are written contiguously,
-// rounded once to the output type. At
+// CUDA-core statistics kernel's 16x16 conv tile (stem_stats.cu), stored
+// instead of reduced: the f32 tile goes through shared memory as
+// [channel][pixel] (rows of 257 floats, so the eight channel groups of a
+// warp hit distinct banks), and each channel's rows of 16 pixels are
+// written contiguously, rounded once to the output type. At
 // (1,32,256,256,3) it must write 67 MB of bf16 (22 us at 3.35 TB/s) for
 // 29.6 GFLOP (30 us at the bf16 tensor-core peak): the operations bound it,
 // and this kernel runs them on the CUDA cores in f32.
 
 #include <cstdint>
 
-#include "mma.cuh"
 #include "stem_conv.cuh"
+#include "stem_tc.cuh"
 
 namespace {
 
@@ -185,70 +174,32 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 on the tensor cores: the implicit GEMM of the 17x17 conv tile.
+// bf16 on the tensor cores: the implicit GEMM (stem_tc.cuh) of the 17x17
+// conv tile of an 8x8 pooled tile.
 using bf16 = __nv_bfloat16;
-using namespace tuber_mma;
-constexpr int kIT = halo_edge(kCT);             // 39 halo rows and columns
-constexpr int kRowElems = kIT * 3;              // 117 bf16 of a halo row
-constexpr int kLdH = 120;                       // halo row stride (even)
-constexpr int kFrameElems = kIT * kLdH;         // one frame's halo buffer
-constexpr int kHaloElems = kIT * kRowElems;     // 4563 inputs of a frame
-constexpr int kThreadsTc = 512;                 // 16 warps: 4 (rows) x 4 (cols)
-constexpr int kPerThread = (kHaloElems + kThreadsTc - 1) / kThreadsTc;   // 9
-constexpr int kRun = 22;                        // a (kt, kh) run of 21, padded
-constexpr int kSlotsF = 160;                    // k of a frame: 7 x 22 + 6
-constexpr int kStepsF = kSlotsF / 16;           // k16 steps of a frame
-constexpr int kPairsF = kSlotsF / 2;            // k pairs of a frame
-constexpr int kPairsUsed = 7 * kRun / 2;        // 77: the rest are zero
-constexpr int kKRows = 3 * kSlotsF;             // 480
-constexpr int kLdW = kCout + 8;                 // weight row stride
+using namespace tuber_stem_tc;
+using HaloP = Halo<kCT>;                        // 39 rows of 117, stride 120
 constexpr int kLdConv = kCout + 8;              // conv tile row stride
 constexpr int kMTiles = (kConvPix + 15) / 16;   // 19 row tiles of 16
 constexpr int kWarpTiles = 5;                   // row tiles of a warp: 5 or 4
-constexpr size_t kWBytes = static_cast<size_t>(kKRows) * kLdW * 2;
-constexpr size_t kHBytes = 3 * static_cast<size_t>(kFrameElems) * 2;
 constexpr size_t kConvBytes = static_cast<size_t>(kConvPix) * kLdConv * 2;
-constexpr size_t kSmemTc = kWBytes + kHBytes + kConvBytes + kPairsF * 8;
-static_assert(kWBytes % 16 == 0 && kHBytes % 16 == 0 && kConvBytes % 16 == 0,
-              "shared sub-buffers stay 16-byte aligned");
+constexpr size_t kSmemTc = kWBytes + HaloP::kBytes + kConvBytes + kTabBytes;
+static_assert(kConvBytes % 16 == 0, "shared sub-buffers stay 16-byte aligned");
 static_assert(4 * kWarpTiles >= kMTiles, "four warp rows cover the tile");
 
-// One frame (kt = 0, 1, 2 for t-1, t, t+1) of the input halo of `tile` into
-// registers, as bf16 bits; zeros outside the clip and the frame. Thread i
-// holds halo elements i, i + 512, ... (row-major, 117 to a row).
-__device__ __forceinline__ void fetch_halo(
-    unsigned short (&r)[kPerThread], const unsigned short* __restrict__ x,
-    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
-  const int bt = tile / tiles_hw;
-  const int rem = tile - bt * tiles_hw;
-  const int tt = bt % frames + kt - 1;
-  const int iy0 = 4 * ((rem / tiles_x) * kPT) - 5;   // 2 * (first conv row) - 3
-  const int ix0 = 4 * ((rem % tiles_x) * kPT) - 5;
-  const bool frame_ok = tt >= 0 && tt < frames;
-  const unsigned short* xf =
-      x + (frame_ok ? static_cast<size_t>(bt + kt - 1) * H * W * 3 : 0);
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int e = threadIdx.x + j * kThreadsTc;
-    const int row = e / kRowElems;
-    const int q = e - row * kRowElems;              // 3 * column + channel
-    const int iy = iy0 + row;
-    const int ix = ix0 + q / 3;
-    unsigned short v = 0;
-    if (frame_ok && e < kHaloElems && iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = __ldg(xf + static_cast<size_t>(iy) * W * 3 + ix0 * 3 + q);
-    r[j] = v;
-  }
+// First input row and column of pooled tile `rem` of a frame: 2 * (first
+// conv row 2 py0 - 1) - 3.
+__device__ __forceinline__ int2 pool_halo_origin(int rem, int tiles_x) {
+  return make_int2(4 * ((rem / tiles_x) * kPT) - 5,
+                   4 * ((rem % tiles_x) * kPT) - 5);
 }
 
-__device__ __forceinline__ void stash_halo(
-    const unsigned short (&r)[kPerThread], unsigned short* hb) {
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int e = threadIdx.x + j * kThreadsTc;
-    const int row = e / kRowElems;
-    if (e < kHaloElems) hb[row * kLdH + e - row * kRowElems] = r[j];
-  }
+__device__ __forceinline__ void fetch_pool_halo(
+    unsigned short (&r)[HaloP::kPerThread], const unsigned short* x,
+    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
+  const int bt = tile / tiles_hw;
+  const int2 o = pool_halo_origin(tile - bt * tiles_hw, tiles_x);
+  fetch_halo<kCT>(r, x, bt, kt, o.x, o.y, frames, H, W);
 }
 
 // Persistent: block i takes tiles i, i + gridDim.x, ... of the B*T*tiles_hw
@@ -264,9 +215,10 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   bf16* w_s = reinterpret_cast<bf16*>(smem_tc);                     // [480][72]
   unsigned short* halo =
       reinterpret_cast<unsigned short*>(smem_tc + kWBytes);          // [3][39][120]
-  bf16* conv_s = reinterpret_cast<bf16*>(smem_tc + kWBytes + kHBytes);  // [289][72]
-  int* tab_off =
-      reinterpret_cast<int*>(smem_tc + kWBytes + kHBytes + kConvBytes);  // [80]
+  bf16* conv_s =
+      reinterpret_cast<bf16*>(smem_tc + kWBytes + HaloP::kBytes);    // [289][72]
+  int* tab_off = reinterpret_cast<int*>(smem_tc + kWBytes + HaloP::kBytes +
+                                        kConvBytes);                 // [80]
   uint32_t* tab_mask = reinterpret_cast<uint32_t*>(tab_off + kPairsF);
   const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
 
@@ -277,39 +229,9 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int ng = (tid >> 5) & 3;
   const int mg = (tid >> 5) >> 2;
 
-  // B: k row (kt, kh, j) is w's row (kt, kh, kw, c) for j = 3 kw + c < 21,
-  // zero for the pad slots; once per block
-  for (int i = tid; i < kKRows * 8; i += kThreadsTc) {
-    const int row = i >> 3;
-    const int c = i & 7;
-    const int kt = row / kSlotsF;
-    const int kh = (row - kt * kSlotsF) / kRun;
-    const int j = row - kt * kSlotsF - kh * kRun;
-    bf16* dst = w_s + row * kLdW + c * 8;
-    if (kh < 7 && j < 21)
-      cp_async16(dst, w + static_cast<size_t>(kt * kFrameTaps + kh * 21 + j) *
-                              kCout + c * 8, true);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-  cp_async_commit();
-  // A: k pair P of a frame is halo offset kh * kLdH + 2 j (P = 11 kh + j);
-  // its second half is the pad slot where j = 10, and both are zero past 77
-  for (int i = tid; i < kPairsF; i += kThreadsTc) {
-    const int kh = i / 11;
-    const int j = i - kh * 11;
-    tab_off[i] = i < kPairsUsed ? kh * kLdH + 2 * j : 0;
-    tab_mask[i] = i < kPairsUsed ? (j == 10 ? 0xFFFFu : 0xFFFFFFFFu) : 0u;
-  }
+  load_weights_and_tables(w_s, w, tab_off, tab_mask, HaloP::kLd);
   int poff[kWarpTiles][2];          // halo offset of the rows g, g+8 owned
-#pragma unroll
-  for (int i = 0; i < kWarpTiles; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int p = (mg * kWarpTiles + i) * 16 + g + 8 * h;
-      p = p < kConvPix ? p : 0;
-      poff[i][h] = 2 * (p / kCT) * kLdH + 6 * (p % kCT);
-    }
+  pixel_offsets<kCT>(poff, mg, g);
   float sc[2][2], bi[2][2];
 #pragma unroll
   for (int ni = 0; ni < 2; ++ni)
@@ -319,9 +241,9 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       bi[ni][j] = bias[ng * 16 + ni * 8 + 2 * t4 + j];
     }
 
-  unsigned short pre[kPerThread];
-  fetch_halo(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H, W);
-  stash_halo(pre, halo);
+  unsigned short pre[HaloP::kPerThread];
+  fetch_pool_halo(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H, W);
+  stash_halo<kCT>(pre, halo);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kWarpTiles][2][4];
 #pragma unroll
@@ -336,35 +258,14 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nt = kt < 2 ? tile : tile + gridDim.x;
       const int nkt = kt < 2 ? kt + 1 : 0;
       if (nt < tiles)
-        fetch_halo(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H, W);
-      cp_async_wait<0>();
+        fetch_pool_halo(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H, W);
+      tuber_mma::cp_async_wait<0>();
       __syncthreads();              // frame kt's halo (and the weights) are in
-      const unsigned short* hb = halo + kt * kFrameElems;
-      const bf16* wb = w_s + kt * kSlotsF * kLdW;
-#pragma unroll 2
-      for (int s = 0; s < kStepsF; ++s) {
-        const int p0 = s * 8 + t4;
-        const int o0 = tab_off[p0];
-        const int o1 = tab_off[p0 + 4];
-        const uint32_t m0 = tab_mask[p0];
-        const uint32_t m1 = tab_mask[p0 + 4];
-        uint32_t bfr[4];
-        ldsm_x4_t(bfr, wb + (s * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLdW +
-                           ng * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < kWarpTiles; ++i) {
-          if (mg * kWarpTiles + i >= kMTiles) continue;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(hb + poff[i][0] + o0) & m0;
-          a[1] = *reinterpret_cast<const uint32_t*>(hb + poff[i][1] + o0) & m0;
-          a[2] = *reinterpret_cast<const uint32_t*>(hb + poff[i][0] + o1) & m1;
-          a[3] = *reinterpret_cast<const uint32_t*>(hb + poff[i][1] + o1) & m1;
-          mma_bf16(acc[i][0], a, bfr[0], bfr[1]);
-          mma_bf16(acc[i][1], a, bfr[2], bfr[3]);
-        }
-      }
+      frame_products<kWarpTiles, kMTiles>(
+          acc, halo + kt * HaloP::kFrameElems, w_s + kt * kSlotsF * kLdW,
+          tab_off, tab_mask, poff, lane, mg, ng);
       // the buffer of frame nkt was last read two barriers ago
-      if (nt < tiles) stash_halo(pre, halo + nkt * kFrameElems);
+      if (nt < tiles) stash_halo<kCT>(pre, halo + nkt * HaloP::kFrameElems);
     }
 
     // affine + ReLU on the f32 sums, 0 outside the image (every pool window

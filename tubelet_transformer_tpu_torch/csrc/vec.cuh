@@ -1,5 +1,5 @@
 // 16-byte vectors of a channels-last tensor, as the backbone kernels
-// (depthwise.cu, bottleneck.cu) load and store them: 8 bf16 or 4 float
+// (depthwise.cu, stage.cu) load and store them: 8 bf16 or 4 float
 // channels in one uint4, unpacked to float for the arithmetic and packed
 // back with one rounding.
 

@@ -7,9 +7,11 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
 
 * BatchNorm is ``x * mul + shift`` with the reference's epsilon of 1e-3: in
   eval mode from the running statistics, in train mode from the batch's
-  mean and biased variance (f32), whose EMA (flax momentum 0.9) updates the
-  running statistics, as the JAX package's BN does. The statistics stay
-  float32 when the rest of the model runs in bfloat16.
+  mean and biased variance ``E[x^2] - E[x]^2`` from float32 sums, whose EMA
+  (flax momentum 0.9) updates the running statistics, as the JAX package's
+  ``_FoldableBN`` does. The projection shortcut's BN (``ShortcutBN``) is
+  flax's ``nn.BatchNorm``, as there. The statistics stay float32 when the
+  rest of the model runs in bfloat16.
 * Pointwise 1x1x1 convs are channel matmuls on the channels-last tensor.
 * The depthwise 3x3x3 conv is ``F.conv3d(groups=C)`` on a channels-first
   copy, as the JAX package leaves it to XLA by default. With
@@ -83,8 +85,31 @@ def cast(t: Optional[torch.Tensor], x: torch.Tensor
     return t if t is None or t.dtype == x.dtype else t.to(x.dtype)
 
 
+def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over every axis but the last, as the JAX
+    package takes them (csn.py:100-103): ``E[x]`` and ``E[x^2] - E[x]^2``
+    from float32 (for a float64 x, float64) sums, not clamped; the gradient
+    flows through both. A float32 or float64 x is squared and reduced as
+    it is, in the JAX order of operations. A bf16 or float16 x is read once
+    by each reduction, which accumulates in float32 without a float32 copy
+    of x: ``E[x^2]`` is the float32 sum of squares of
+    ``torch.linalg.vector_norm``, squared back, within 2 float32 ulps of
+    the sum itself and far inside the error of the sum's order."""
+    dims = tuple(range(x.dim() - 1))
+    acc = torch.promote_types(x.dtype, torch.float32)
+    if x.dtype == acc:
+        mean = x.mean(dims)
+        msq = x.square().mean(dims)
+    else:
+        n = x.numel() // x.shape[-1]
+        mean = x.sum(dims, dtype=acc) / n
+        msq = torch.linalg.vector_norm(x, 2, dims, dtype=acc).square() / n
+    return mean, msq - mean.square()
+
+
 class FoldableBN(nn.BatchNorm3d):
-    """BatchNorm over the last axis as ``x * mul + shift``."""
+    """BatchNorm over the last axis as ``x * mul + shift`` (the JAX
+    package's ``_FoldableBN``)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -94,27 +119,44 @@ class FoldableBN(nn.BatchNorm3d):
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         return mul, self.bias - self.running_mean * mul
 
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The EMA of the running statistics (flax momentum 0.9)."""
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+
     def batch_affine(self, mean: torch.Tensor, var: torch.Tensor):
         """float32 (mul, shift) from batch statistics (mean, biased var);
         updates the running statistics with them, as the train-mode
         forward does (csn.py:86-96 of the JAX package)."""
-        with torch.no_grad():
-            self.running_mean.lerp_(mean.detach(), self.momentum)
-            self.running_var.lerp_(var.detach(), self.momentum)
+        self.update_running(mean, var)
         mul = self.weight * torch.rsqrt(var + self.eps)
         return mul, self.bias - mean * mul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            # mean and biased variance over every axis but the channels, in
-            # float32 (or wider); the gradient flows through both
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
-                                       correction=0)
-            mul, shift = self.batch_affine(mean, var)
+            mul, shift = self.batch_affine(*batch_stats(x))
         else:
             mul, shift = self.folded()
         return torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
+
+
+class ShortcutBN(FoldableBN):
+    """The projection shortcut's BN, flax's ``nn.BatchNorm`` in the JAX
+    package (csn.py:211-213): in training the fast variance clamped at 0
+    (``use_fast_variance``); in both modes ``(x - mean) * (weight *
+    rsqrt(var + eps)) + bias`` in float32, rounded once to x's dtype. No
+    kernel folds it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = batch_stats(x)
+            var = var.clamp_min(0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean) * mul + self.bias).to(x.dtype)
 
 
 class PointwiseConv(nn.Conv3d):
@@ -185,7 +227,7 @@ class CSNBottleneck(nn.Module):
         self.bn4 = FoldableBN(planes * 4)
         self.down_sample = (nn.Sequential(
             PointwiseConv(in_planes, planes * 4, stride=st),
-            FoldableBN(planes * 4)) if has_downsample else None)
+            ShortcutBN(planes * 4)) if has_downsample else None)
 
     def fused_tensors(self) -> tuple:
         """The parameters and BN statistics that ``fused_params`` reads."""

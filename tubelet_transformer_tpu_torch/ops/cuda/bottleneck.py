@@ -1,6 +1,9 @@
 """One stride-1 identity ir-bottleneck of irCSN in one call, inference:
 conv1x1 + affine + ReLU -> depthwise 3x3x3 + affine + ReLU -> conv1x1 +
-affine -> + x -> ReLU, the kernels of ``csrc/bottleneck.cu``.
+affine -> + x -> ReLU: the stage chain's kernel (``csrc/stage.cu``) with
+K = 1, launched through ``stage.run``. At K = 1 the chain reads x and
+writes out with no intermediate rounding: mid and the depthwise output in
+bf16, out rounded once to x's type, the function of the TPU kernel.
 
 Replaces ``bottleneck_fused`` (its kernel ``_bottleneck_pallas``) of
 ``tubelet_transformer_tpu/ops/pallas/bottleneck.py``, with the same
@@ -17,38 +20,20 @@ goes through ``bottleneck_xla``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from tubelet_transformer_tpu_torch.ops.cuda import build
 from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
     depthwise_reference, plain_vjp)
 
-# kernel launches (one per call, its two kernels together), and calls of
-# bottleneck_fused on any device, in this process
+# kernel launches (one per call), apart from the chain's own count, and
+# calls of bottleneck_fused on any device, in this process
 LAUNCHES = 0
 CALLS = 0
 
-_ENTRY = {torch.bfloat16: "tuber_bottleneck_bf16",
-          torch.float32: "tuber_bottleneck_f32"}
-
-
-def library(verbose: bool = False) -> ctypes.CDLL:
-    """The kernel library (``build.kernels``), with the bottleneck kernel's
-    argument types set."""
-    lib = build.kernels(verbose)
-    for entry in _ENTRY.values():
-        fn = getattr(lib, entry)
-        if fn.argtypes is None:
-            # x, w1, wd, w4, a1, b1, a3, b3, a4, b4, mid, out;
-            # batch, frames, H, W, Ci, Cm; stream
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def bottleneck_supported(x_shape: Sequence[int], cm: int, stride: int,
@@ -71,63 +56,56 @@ def bottleneck_reference(x, w1, wd, w4, a1, b1, a3, b3, a4, b4):
     return F.relu(y + x)
 
 
-def check_inputs(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> None:
+_NAMES = ("w1", "wd", "w4", "a1", "b1", "a3", "b3", "a4", "b4")
+
+
+def check_inputs(x, *params) -> None:
     """Raise ValueError unless the kernel takes these tensors as they are:
-    x bf16 or float32, weights bf16, affines float32, all contiguous on
-    x's device, C_mid a multiple of 64, Ci of 128."""
-    if x.dim() != 5:
-        raise ValueError(f"x must be (B,T,H,W,Ci), got {tuple(x.shape)}")
-    if x.dtype not in _ENTRY:
+    x (B,T,H,W,Ci) and ``params`` = (w1, wd, w4, a1, b1, a3, b3, a4, b4); x
+    bf16 or float32, weights bf16, affines float32, all contiguous on x's
+    device and 16-byte aligned (the kernel copies every operand in 16-byte
+    pieces), C_mid a multiple of 64, Ci of 128, work counts of 32 bits.
+    Kept lean: it runs on every launch of a host-bound path."""
+    if x.dim() != 5 or len(params) != 9:
+        raise ValueError(f"want x (B,T,H,W,Ci) and 9 parameters, got "
+                         f"{tuple(x.shape)} and {len(params)}")
+    if x.dtype not in DTYPES:
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    ci, cm = x.shape[-1], w1.shape[-1]
+    b, t, h, w, ci = x.shape
+    cm = params[0].shape[-1]
     if cm % 64 or ci % 128:
         raise ValueError(f"C_mid must be a multiple of 64 and Ci of 128, "
                          f"got {cm} and {ci}")
-    want = {"w1": ((ci, cm), torch.bfloat16),
-            "wd": ((3, 3, 3, cm), torch.bfloat16),
-            "w4": ((cm, ci), torch.bfloat16),
-            "a1": ((cm,), torch.float32), "b1": ((cm,), torch.float32),
-            "a3": ((cm,), torch.float32), "b3": ((cm,), torch.float32),
-            "a4": ((ci,), torch.float32), "b4": ((ci,), torch.float32)}
-    tensors = dict(zip(want, (w1, wd, w4, a1, b1, a3, b3, a4, b4)))
-    for name, (shape, dtype) in want.items():
-        t = tensors[name]
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    # 16-byte vector loads of x and w1, WMMA tiles of w4 in place
-    align = {"x": 16, "w1": 16, "w4": 32}
-    for name, t in {"x": x, **tensors}.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % align.get(name, 4):
-            raise ValueError(f"{name} must be contiguous and "
-                             f"{align.get(name, 4)}-byte aligned")
-    b, t = x.shape[:2]
-    if b > 65535 or t > 65535:
-        raise ValueError(f"B and T must be <= 65535, got {tuple(x.shape)}")
+    shapes = ((ci, cm), (3, 3, 3, cm), (cm, ci), (cm,), (cm,), (cm,), (cm,),
+              (ci,), (ci,))
+    for i, (p, shape) in enumerate(zip(params, shapes)):
+        dtype = torch.bfloat16 if i < 3 else torch.float32
+        if p.shape != shape or p.dtype != dtype:
+            raise ValueError(f"{_NAMES[i]} must be {shape} {dtype}, got "
+                             f"{tuple(p.shape)} {p.dtype}")
+    dev = x.device
+    for i, p in enumerate((x, *params)):
+        if p.device != dev:
+            raise ValueError(f"{('x', *_NAMES)[i]} is on {p.device}, x on "
+                             f"{dev}")
+        if not p.is_contiguous() or p.data_ptr() % 16:
+            raise ValueError(f"{('x', *_NAMES)[i]} must be contiguous and "
+                             f"16-byte aligned")
+    row_tiles = -(-(b * t * h * w) // 64)
+    items = b * t * -(-h // 8) * -(-w // 8) * (cm // 64)
+    if max(row_tiles * cm // 64, row_tiles * ci // 128, items) >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} needs 2^31 or more tiles")
 
 
-def _launch(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
+def _launch(x, *params) -> torch.Tensor:
     global LAUNCHES
-    check_inputs(x, w1, wd, w4, a1, b1, a3, b3, a4, b4)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    b, t, h, w, ci = x.shape
-    cm = w1.shape[1]
-    mid = torch.empty((b, t, h, w, cm), dtype=torch.bfloat16,
-                      device=x.device)
-    fn = getattr(library(), _ENTRY[x.dtype])
-    with torch.cuda.device(x.device):
-        err = fn(*(p.data_ptr() for p in (x, w1, wd, w4, a1, b1, a3, b3, a4,
-                                          b4, mid, out)),
-                 b, t, h, w, ci, cm,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bottleneck kernel launch failed with cudaError "
-                           f"{err}")
-    LAUNCHES += 1
+    # stage imports this module at load time, so it is imported here
+    from tubelet_transformer_tpu_torch.ops.cuda import stage
+
+    check_inputs(x, *params)
+    # the K = 1 stacks pass stage's checks when these pass this one
+    out = stage.run(x, *(p.unsqueeze(0) for p in params))
+    LAUNCHES += out.numel() > 0
     return out
 
 
@@ -146,7 +124,7 @@ class _Bottleneck(torch.autograd.Function):
 
 
 def bottleneck_fused(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
-    """The fused stride-1 identity ir-bottleneck: the CUDA kernels for a
+    """The fused stride-1 identity ir-bottleneck: the CUDA kernel for a
     CUDA tensor, with the weights cast to bf16 and the affines to float32
     (differentiable through the plain version), the plain version for a
     CPU tensor. Raises for any other device or an input the kernel does not

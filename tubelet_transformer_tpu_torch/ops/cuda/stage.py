@@ -13,7 +13,9 @@ as the TPU kernel keeps them.
 ``bottleneck_chain`` launches the kernel on a CUDA tensor and takes the
 plain PyTorch version (``chain_reference``) on a CPU tensor. Its gradient
 goes through the plain version, as the JAX package's custom VJP goes through
-``chain_xla``.
+``chain_xla``. ``run`` is the kernel's launch without the checks and the
+count, which ``bottleneck.bottleneck_fused`` also takes for one block
+(K = 1) after its own checks.
 """
 
 from __future__ import annotations
@@ -123,12 +125,14 @@ def check_inputs(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> None:
                          f"{[tuple(s.shape) for s in stacked]}")
     if any(not s.is_contiguous() for s in stacked):
         raise ValueError("the stacked weights must be contiguous")
+    # block 0's slices stand for every block's: block k's lie k slices
+    # further, and every slice's size is a multiple of 16 bytes
     check_block_inputs(x, *(s[0] for s in stacked))
 
 
-def _launch(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
-    global LAUNCHES
-    check_inputs(x, w1, wd, w4, a1, b1, a3, b3, a4, b4)
+def run(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
+    """The kernel on inputs that ``check_inputs`` passed, counted
+    nowhere."""
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -136,15 +140,22 @@ def _launch(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
     k, _, cm = w1.shape
     mid, mdw = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
                            device=x.device)
-    fn = getattr(library(), _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
-        err = fn(*(p.data_ptr() for p in (x, w1, wd, w4, a1, b1, a3, b3, a4,
-                                          b4, mid, mdw, out)),
-                 b, t, h, w, ci, cm, k,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = getattr(library(), _ENTRY[x.dtype])(
+            *(p.data_ptr() for p in (x, w1, wd, w4, a1, b1, a3, b3, a4, b4,
+                                     mid, mdw, out)),
+            b, t, h, w, ci, cm, k,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chain kernel launch failed with cudaError {err}")
-    LAUNCHES += 1
+    return out
+
+
+def _launch(*args) -> torch.Tensor:
+    global LAUNCHES
+    check_inputs(*args)
+    out = run(*args)
+    LAUNCHES += out.numel() > 0
     return out
 
 

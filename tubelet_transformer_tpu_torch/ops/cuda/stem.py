@@ -6,8 +6,9 @@
   ``tubelet_transformer_tpu/ops/pallas/stem.py`` (its kernels
   ``_deinterleave`` and ``_stem_matmul(pool=True)``).
 * ``stem_batch_stats``: the per-channel mean and biased variance of the bare
-  conv, the kernel of ``csrc/stem_stats.cu``. Replaces ``stem_batch_stats``
-  (its kernel ``_stem_stats_matmul``), phase 1 of the frozen-stem train path.
+  conv, the kernel of ``csrc/stem_stats.cu`` (bf16 on the tensor cores).
+  Replaces ``stem_batch_stats`` (its kernel ``_stem_stats_matmul``), phase
+  1 of the frozen-stem train path.
 * ``stem_conv_bn_relu``: the conv + affine (+ ReLU) without the pool,
   channels-mid out, the second kernel of ``csrc/stem.cu``. Replaces
   ``stem_conv_bn_relu`` (its kernel ``_stem_matmul(pool=False)``); no model
@@ -64,7 +65,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     if lib.tuber_stem_stats_partials.argtypes is None:
-        lib.tuber_stem_stats_partials.argtypes = [ctypes.c_int] * 4
+        # batch, frames, H, W, is_f32
+        lib.tuber_stem_stats_partials.argtypes = [ctypes.c_int] * 5
         lib.tuber_stem_stats_partials.restype = ctypes.c_int
     for entry in _STATS_ENTRY.values():
         fn = getattr(lib, entry)
@@ -144,6 +146,9 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned (the tensor-core "
+                         "kernels copy it in 16-byte pieces)")
     if x.shape[0] * x.shape[1] > 65535:
         raise ValueError(f"B*T must be <= 65535, got {x.shape[0] * x.shape[1]}")
 
@@ -269,10 +274,14 @@ def stem_batch_stats(x: torch.Tensor, w: torch.Tensor
     check_inputs(x, w)
     b, t, h, wd, _ = x.shape
     lib = library()
-    partial = torch.empty(lib.tuber_stem_stats_partials(b, t, h, wd),
-                          dtype=torch.float32, device=x.device)
     stats = torch.empty((2, 64), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        n = lib.tuber_stem_stats_partials(b, t, h, wd,
+                                          int(x.dtype == torch.float32))
+        if n < 0:
+            raise RuntimeError(f"stem stats kernel cannot launch here: "
+                               f"cudaError {-n}")
+        partial = torch.empty(n, dtype=torch.float32, device=x.device)
         err = getattr(lib, _STATS_ENTRY[x.dtype])(
             x.data_ptr(), w.data_ptr(), partial.data_ptr(), stats.data_ptr(),
             b, t, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
