@@ -18,10 +18,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit against K launches of itself with K = 1 and a repeat launch; the
    pooled stem also at a ragged shape in bf16 and float32; the unpooled
    stem, which no model path runs, at 256 and 224 px and in float32 at a
-   ragged shape), with CUDA-event times of the device alone for both, of
-   the one PyTorch call that computes the same function
-   where there is one, and the least time the card could take
-   (``bound``);
+   ragged shape), with CUDA-event times (``tools/timing.py``) of calls
+   back to back for both (``ms``, host work included) and of the kernel
+   on the device alone (``device_ms``), of the one PyTorch call that
+   computes the same function where there is one, and the least time the
+   card could take (``bound``);
 4. small-input references: the port on the card against the port on the
    CPU (which the tests hold against the JAX package), float32, CSN-TINY:
    the forward, and one train step;
@@ -208,13 +209,15 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, **kw) -> float:
-    """CUDA-event time of one call of ``fn`` (tools/ab_kernels.py:time_ms):
-    by default the device's alone, each run of calls queued behind a spin
-    kernel that outlasts their host work; with ``queued=False`` back to
-    back, host work included."""
-    from tubelet_transformer_tpu_torch.tools.ab_kernels import time_ms as t
+    """CUDA-event time of one call of ``fn`` (tools/timing.py:time_ms): by
+    default calls back to back, host work included (the ``ms`` of every
+    kernel and plain version); with ``queued=True`` the device's alone,
+    each run of calls queued behind a spin kernel that outlasts their host
+    work (``device_ms``)."""
+    del torch
+    from tubelet_transformer_tpu_torch.tools.timing import time_ms as t
 
-    return t(torch, fn, **kw)
+    return t(fn, **kw)
 
 
 def phase_environment(torch) -> str:
@@ -287,6 +290,9 @@ def phase_kernels(torch, stem) -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         span = ref.float().abs().max().item()
         ms = time_ms(torch, lambda: stem.stem_forward(x, w, scale, bias))
+        device_ms = time_ms(torch, lambda: stem.stem_forward(x, w, scale,
+                                                             bias),
+                            queued=True)
         plain_ms = time_ms(torch,
                            lambda: stem.stem_reference(x, w, scale, bias))
         b, t, h, wd, _ = shape
@@ -296,16 +302,17 @@ def phase_kernels(torch, stem) -> dict:
         tol = STEM_POOL_TOL[dtype_name]
         log(f"[kernel] stem_pool {name} {shape} {dtype_name}: max_abs_err "
             f"{err:.6g} (rel to max|ref| {err / span:.3g}, tol {tol:.3g}); "
-            f"repeat bit-equal {bits}; kernel {ms:.4f} ms "
-            f"({gflop / ms:.2f} TFLOP/s, {bound_ms / ms:.3f} of the bound), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"repeat bit-equal {bits}; kernel {ms:.4f} ms (the device alone "
+            f"{device_ms:.4f} ms, {gflop / device_ms:.2f} TFLOP/s, "
+            f"{bound_ms / device_ms:.3f} of the bound), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err <= tol * span and bits):
             raise AssertionError(f"stem {name}: kernel disagrees with plain "
                                  f"({err} > {tol} * {span}) or repeats "
                                  f"differ ({bits})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
+                         "library_ms": None, "device_ms": device_ms}
     return results
 
 
@@ -343,6 +350,8 @@ def phase_stats_kernel(torch, stem) -> dict:
         std = ref_var.sqrt().max().item()
         bits = torch.equal(mean, again[0]) and torch.equal(var, again[1])
         ms = time_ms(torch, lambda: stem.stem_batch_stats(x, w))
+        device_ms = time_ms(torch, lambda: stem.stem_batch_stats(x, w),
+                            queued=True)
         plain_ms = time_ms(torch,
                            lambda: stem.stem_batch_stats_reference(x, w))
         b, t, h, wd, _ = shape
@@ -355,14 +364,16 @@ def phase_stats_kernel(torch, stem) -> dict:
             f"max_abs_err {mean_err:.4g} (rel to max std {mean_err / std:.3g},"
             f" tol {mean_tol:.3g}); var max_abs_err {var_err:.4g} (max rel "
             f"{var_rel:.3g}, tol {var_tol:.3g}); repeat bit-equal {bits}; "
-            f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"kernel {ms:.4f} ms (the device alone {device_ms:.4f} ms, "
+            f"{gflop / device_ms:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if not (mean_err <= mean_tol * std and var_rel <= var_tol and bits):
             raise AssertionError(f"stem_stats {name}: kernel disagrees with "
                                  "plain, or repeats differ")
         results[name] = {"max_abs_err": max(mean_err, var_err), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None}
+                         "bound_by": bound_by, "library_ms": None,
+                         "device_ms": device_ms}
     return results
 
 
@@ -405,6 +416,7 @@ def phase_depthwise_kernel(torch) -> dict:
         w_cf = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
         x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
         ms = time_ms(torch, kernel)
+        device_ms = time_ms(torch, kernel, queued=True)
         plain_ms = time_ms(torch, plain)
         library_ms = time_ms(torch, lambda: F.conv3d(x_cf, w_cf, padding=1,
                                                      groups=c))
@@ -418,7 +430,8 @@ def phase_depthwise_kernel(torch) -> dict:
         log(f"[kernel] depthwise {name} {shape} {dtype_name}"
             f"{' +affine+relu' if epilogue else ''}: max_abs_err {err:.4g} "
             f"(rel to max|ref| {err / span:.3g}, tol {tol:.3g}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN grouped conv "
+            f"{ms:.4f} ms (the device alone {device_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, cuDNN grouped conv "
             f"{library_ms:.4f} ms ({copies_ms:.4f} ms with the two layout "
             f"copies), bound {bound_ms:.4f} ms ({bound_by})")
         if not err <= tol * span:
@@ -427,7 +440,8 @@ def phase_depthwise_kernel(torch) -> dict:
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms,
-                         "library_with_copies_ms": copies_ms}
+                         "library_with_copies_ms": copies_ms,
+                         "device_ms": device_ms}
     return results
 
 
@@ -468,8 +482,8 @@ def phase_bottleneck_kernel(torch) -> dict:
         errs = [(got[i].float() - ref[i]).abs().max().item()
                 for i in range(b)]
         ms = time_ms(torch, lambda: B.bottleneck_fused(*args))
-        call_ms = time_ms(torch, lambda: B.bottleneck_fused(*args),
-                          queued=False)
+        device_ms = time_ms(torch, lambda: B.bottleneck_fused(*args),
+                            queued=True)
         plain_ms = time_ms(torch, lambda: B.bottleneck_reference(*args))
         pixels = b * t * h * w
         ops = 2 * pixels * (2 * ci * cm + 27 * cm)
@@ -478,9 +492,9 @@ def phase_bottleneck_kernel(torch) -> dict:
             f"bit-equal to the chain with K = 1 {exact}; max_abs_err per "
             f"clip {[round(e, 5) for e in errs]} (rel to max|ref| "
             f"{max(errs) / span:.3g}, tol {BN_TOL}); kernel {ms:.4f} ms "
-            f"({ops / ms / 1e9:.2f} TFLOP/s; a call with its host work "
-            f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"(the device alone {device_ms:.4f} ms, "
+            f"{ops / device_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if not (exact and got.shape == ref.shape
                 and max(errs) <= BN_TOL * span):
             raise AssertionError(f"bottleneck {name}: kernel disagrees with "
@@ -489,7 +503,7 @@ def phase_bottleneck_kernel(torch) -> dict:
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None,
-                         "call_ms": call_ms}
+                         "device_ms": device_ms}
     return results
 
 
@@ -558,8 +572,8 @@ def phase_stage_kernel(torch) -> dict:
         finite = bool(torch.isfinite(got).all())
         span = ref64.abs().max().item()
         ms = time_ms(torch, lambda: S.bottleneck_chain(*args))
-        call_ms = time_ms(torch, lambda: S.bottleneck_chain(*args),
-                          queued=False)
+        device_ms = time_ms(torch, lambda: S.bottleneck_chain(*args),
+                            queued=True)
         plain_ms = time_ms(torch, lambda: S.chain_reference(args[0],
                                                             args[1:]),
                            runs=5, calls=2)
@@ -575,10 +589,10 @@ def phase_stage_kernel(torch) -> dict:
             f"version's {[round(e, 5) for e in plain_errs]}; max|ref| "
             f"{span:.4g}), vs the unrounded plain version "
             f"{[round(e, 4) for e in unrounded_errs]} of max|ref|; kernel "
-            f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.3f} "
-            f"of the bound; a call with its host work {call_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-            f"ms ({bound_by})")
+            f"{ms:.4f} ms (the device alone {device_ms:.4f} ms, "
+            f"{ops / device_ms / 1e9:.2f} TFLOP/s, "
+            f"{bound_ms / device_ms:.3f} of the bound), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (exact and repeat and finite and all(
                 e <= v for e, v in zip(errs, limits))):
             raise AssertionError(f"stage_chain {name}: the kernel disagrees "
@@ -588,7 +602,7 @@ def phase_stage_kernel(torch) -> dict:
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None, "k": k,
-                         "call_ms": call_ms}
+                         "device_ms": device_ms}
     return results
 
 
@@ -633,6 +647,8 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
         w_cf = w.permute(4, 3, 0, 1, 2).contiguous()
         ms = time_ms(torch, lambda: stem.stem_conv_bn_relu(x, w, scale, bias,
                                                            relu))
+        device_ms = time_ms(torch, lambda: stem.stem_conv_bn_relu(
+            x, w, scale, bias, relu), queued=True)
         plain_ms = time_ms(torch, lambda: stem.stem_conv_reference(
             x, w, scale, bias, relu))
         library_ms = time_ms(torch, lambda: F.conv3d(
@@ -648,11 +664,13 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
         log(f"[kernel] stem_conv {name} {shape} {dtype_name} relu {relu}: "
             f"max_abs_err {res['max_abs_err']:.6g} (rel to max|ref| "
             f"{res['max_abs_err'] / res['span']:.3g}, tol {tol:.3g}); "
-            f"kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, F.conv3d (conv only) {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"kernel {ms:.4f} ms (the device alone {device_ms:.4f} ms, "
+            f"{ops / device_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"F.conv3d (conv only) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms)
+                   bound_by=bound_by, library_ms=library_ms,
+                   device_ms=device_ms)
     return results, launches
 
 
@@ -821,7 +839,8 @@ def chain_totals(chains: dict) -> dict:
     tails = [chains[f"{k}_256px"] for k in FLAGSHIP_TAILS]
     return {"max_abs_err": max(c["max_abs_err"] for c in tails),
             **{k: sum(c[k] for c in tails) for k in ("ms", "plain_ms",
-                                                     "bound_ms")},
+                                                     "bound_ms",
+                                                     "device_ms")},
             "bound_by": max(tails, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None}
 
@@ -1411,7 +1430,7 @@ def main() -> int:
     # runs, in its checks of phase 3
     def entry(name, source, replaces, launches, measured, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
+                "library_ms", "device_ms")
         return {"name": name, "route": "cuda",
                 "source": f"tubelet_transformer_tpu_torch/csrc/{source}",
                 "replaces": f"tubelet_transformer_tpu/ops/pallas/{replaces}",
@@ -1433,8 +1452,7 @@ def main() -> int:
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
               kernel_launches["bottleneck"], bn,
-              kernel="the stage chain's kernel with K = 1",
-              call_ms=bn["call_ms"]),
+              kernel="the stage chain's kernel with K = 1"),
         entry("stage_chain", "stage.cu", "stage.py:69",
               stage_launches["chain"], chain_totals(chains),
               per_forward="the sum of the flagship's three tails (one "

@@ -139,6 +139,64 @@ def test_train_bn_matches_jax_at_large_mean(jax_bn, kind, cls):
                                rtol=4 * EPS32, atol=4 * EPS32)
 
 
+def _largest_ratio_bf16(c=64, seed=5):
+    """x (1, 4, 1, 1, c) bf16 values (as float32) at |mean| / std up to
+    ~509, the most that bf16 holds: channel j's four values lie on the bf16
+    grid just below 2^e (e 8 or 12, grid step u = 2^(e-8)), at b + k u
+    with integer k in [0, kmax], b = 2^e - (kmax + 1) u; kmax = 1 gives
+    two neighbouring values, std u / 2. Every square, sum and difference
+    of the JAX formula is exact in float32 here."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((4, c), np.float32)
+    for j in range(c):
+        e = (8, 12)[j % 2]
+        u = 2.0 ** (e - 8)
+        kmax = (1, 2, 4, 16, 64)[(j // 2) % 5]
+        k = rng.integers(0, kmax + 1, 4)
+        k[:2] = 0, kmax
+        x[:, j] = 2.0 ** e - (kmax + 1) * u + k * u
+    assert np.array_equal(torch.from_numpy(x).bfloat16().float().numpy(), x)
+    return x.reshape(1, 4, 1, 1, c)
+
+
+@pytest.mark.parametrize("kind,cls", [("foldable", C.FoldableBN),
+                                      ("shortcut", C.ShortcutBN)])
+def test_train_bn_matches_jax_at_large_mean_bf16(jax_bn, kind, cls):
+    """The bf16 case of the test above: the same bf16 x into the JAX module
+    (float32 statistics of the bf16 values) and into the port, whose
+    ``batch_stats`` reads a bf16 x by a float32 sum and a float32 vector
+    norm. The mean is equal bit for bit. E[x^2] is the norm squared: its
+    square root and its square, the division by n and the subtraction each
+    round within 2^-24 of E[x^2], so the variance is within 3 * eps32 *
+    E[x^2] of JAX's (exact here). At |mean| / std ~ 509 that bound is
+    ~12% of the variance; the JAX formula's own float32 error over a real
+    batch's sum (10^5 and more elements a channel) is larger. A bf16
+    square (x * x before the sum) misses by ~10^4 eps32 * E[x^2]."""
+    import jax.numpy as jnp
+
+    x = _largest_ratio_bf16()
+    c = x.shape[-1]
+    rng = np.random.default_rng(6)
+    weight = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = rng.normal(size=c).astype(np.float32)
+    _, want_mean, want_var = map(np.asarray, jax_bn(
+        kind, jnp.asarray(x, jnp.bfloat16), weight, bias, momentum=0.0))
+    xt = torch.from_numpy(x).bfloat16()
+    mean, var = C.batch_stats(xt)
+    bn = _port_bn(cls, weight, bias, momentum=1.0)
+    with torch.no_grad():
+        bn(xt)
+    np.testing.assert_array_equal(mean.numpy(), want_mean)
+    np.testing.assert_array_equal(bn.running_mean.numpy(), want_mean)
+    np.testing.assert_array_equal(bn.running_var.numpy(),
+                                  var.clamp_min(0).numpy() if kind ==
+                                  "shortcut" else var.numpy())
+    msq = want_var.astype(np.float64) + want_mean.astype(np.float64) ** 2
+    ratio = np.abs(want_mean) / np.sqrt(want_var)
+    assert ratio.max() > 500
+    assert (np.abs(var.numpy() - want_var) <= 3 * EPS32 * msq).all()
+
+
 def test_shortcut_bn_eval_matches_flax(jax_bn):
     """Eval mode: flax's normalisation from the running statistics,
     (x - mean) * (scale * rsqrt(var + eps)) + bias in float32, at the same

@@ -63,6 +63,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
+#include <atomic>
 #include <cstddef>
 
 #include "mma.cuh"
@@ -492,15 +493,24 @@ chain_kernel(const T* x, const bf16* __restrict__ w1,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 // Blocks of the cooperative grid: every SM's share of resident blocks. 0
-// with an error where the device cannot launch it.
+// with an error where the device cannot launch it. The count of each device
+// is queried once (with the kernel's shared-memory attribute set there) and
+// kept: the queries cost more host time than a short chain's kernel.
 template <typename T>
 cudaError_t grid_blocks(int* blocks) {
+  static std::atomic<int> cached[kMaxDevices];  // zero: not queried yet
   *blocks = 0;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    *blocks = cached[dev].load(std::memory_order_relaxed);
+    if (*blocks > 0) return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -515,6 +525,8 @@ cudaError_t grid_blocks(int* blocks) {
     err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return err;
   *blocks = per_sm * sms;
+  // every thread that races here stores the same value
+  if (dev < kMaxDevices) cached[dev].store(*blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 

@@ -56,7 +56,9 @@ def bottleneck_reference(x, w1, wd, w4, a1, b1, a3, b3, a4, b4):
     return F.relu(y + x)
 
 
-_NAMES = ("w1", "wd", "w4", "a1", "b1", "a3", "b3", "a4", "b4")
+_NAMES = ("x", "w1", "wd", "w4", "a1", "b1", "a3", "b3", "a4", "b4")
+# the kernel's types of (w1, wd, w4, a1, b1, a3, b3, a4, b4)
+_DTYPES = (torch.bfloat16,) * 3 + (torch.float32,) * 6
 
 
 def check_inputs(x, *params) -> None:
@@ -76,25 +78,31 @@ def check_inputs(x, *params) -> None:
     if cm % 64 or ci % 128:
         raise ValueError(f"C_mid must be a multiple of 64 and Ci of 128, "
                          f"got {cm} and {ci}")
-    shapes = ((ci, cm), (3, 3, 3, cm), (cm, ci), (cm,), (cm,), (cm,), (cm,),
-              (ci,), (ci,))
-    for i, (p, shape) in enumerate(zip(params, shapes)):
-        dtype = torch.bfloat16 if i < 3 else torch.float32
+    dev = x.device
+    wants = ((x, x.shape, x.dtype), *zip(params, (
+        (ci, cm), (3, 3, 3, cm), (cm, ci), (cm,), (cm,), (cm,), (cm,), (ci,),
+        (ci,)), _DTYPES))
+    for i, (p, shape, dtype) in enumerate(wants):
         if p.shape != shape or p.dtype != dtype:
             raise ValueError(f"{_NAMES[i]} must be {shape} {dtype}, got "
                              f"{tuple(p.shape)} {p.dtype}")
-    dev = x.device
-    for i, p in enumerate((x, *params)):
         if p.device != dev:
-            raise ValueError(f"{('x', *_NAMES)[i]} is on {p.device}, x on "
-                             f"{dev}")
+            raise ValueError(f"{_NAMES[i]} is on {p.device}, x on {dev}")
         if not p.is_contiguous() or p.data_ptr() % 16:
-            raise ValueError(f"{('x', *_NAMES)[i]} must be contiguous and "
-                             f"16-byte aligned")
+            raise ValueError(f"{_NAMES[i]} must be contiguous and 16-byte "
+                             f"aligned")
     row_tiles = -(-(b * t * h * w) // 64)
     items = b * t * -(-h // 8) * -(-w // 8) * (cm // 64)
     if max(row_tiles * cm // 64, row_tiles * ci // 128, items) >= 2 ** 31:
         raise ValueError(f"x {tuple(x.shape)} needs 2^31 or more tiles")
+
+
+def kernel_args(x, *params) -> tuple:
+    """x and ``params`` as the kernels take them: the weights (w1, wd, w4)
+    in bf16 and the affines in float32, contiguous; a tensor already so is
+    passed on with no aten call."""
+    return (x, *((p if p.dtype == dt else p.to(dt)).contiguous()
+                 for p, dt in zip(params, _DTYPES)))
 
 
 def _launch(x, *params) -> torch.Tensor:
@@ -103,8 +111,8 @@ def _launch(x, *params) -> torch.Tensor:
     from tubelet_transformer_tpu_torch.ops.cuda import stage
 
     check_inputs(x, *params)
-    # the K = 1 stacks pass stage's checks when these pass this one
-    out = stage.run(x, *(p.unsqueeze(0) for p in params))
+    # one block's tensors are the memory of stacks with K = 1
+    out = stage.run(x, params, 1)
     LAUNCHES += out.numel() > 0
     return out
 
@@ -136,8 +144,7 @@ def bottleneck_fused(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"bottleneck_fused runs on CPU or CUDA, not "
                          f"{x.device}")
-    args = (x, *(p.to(torch.bfloat16).contiguous() for p in (w1, wd, w4)),
-            *(p.float().contiguous() for p in (a1, b1, a3, b3, a4, b4)))
+    args = kernel_args(x, w1, wd, w4, a1, b1, a3, b3, a4, b4)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _Bottleneck.apply(*args)
     return _launch(*args)

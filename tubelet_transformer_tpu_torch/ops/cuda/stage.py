@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from tubelet_transformer_tpu_torch.ops.cuda import build
 from tubelet_transformer_tpu_torch.ops.cuda.bottleneck import (
-    bottleneck_reference, check_inputs as check_block_inputs)
+    bottleneck_reference, check_inputs as check_block_inputs, kernel_args)
 from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
     depthwise_reference, plain_vjp)
 
@@ -41,22 +41,26 @@ _ENTRY = {torch.bfloat16: "tuber_chain_bf16",
           torch.float32: "tuber_chain_f32"}
 
 
+_LIB: ctypes.CDLL | None = None
+
+
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The kernel library (``build.kernels``), with the chain kernel's
     argument types set."""
-    lib = build.kernels(verbose)
-    for entry in _ENTRY.values():
-        fn = getattr(lib, entry)
-        if fn.argtypes is None:
+    global _LIB
+    if _LIB is None:
+        lib = build.kernels(verbose)
+        for entry in _ENTRY.values():
+            fn = getattr(lib, entry)
             # x, w1, wd, w4, a1, b1, a3, b3, a4, b4, mid, mdw, out;
             # batch, frames, H, W, Ci, Cm, K; stream
             fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-    if lib.tuber_chain_blocks.argtypes is None:
         lib.tuber_chain_blocks.argtypes = [ctypes.c_int]
         lib.tuber_chain_blocks.restype = ctypes.c_int
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def chain_supported(x_shape: Sequence[int], cm: int) -> bool:
@@ -130,31 +134,33 @@ def check_inputs(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> None:
     check_block_inputs(x, *(s[0] for s in stacked))
 
 
-def run(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
-    """The kernel on inputs that ``check_inputs`` passed, counted
-    nowhere."""
+def run(x, params, k: int) -> torch.Tensor:
+    """The kernel on inputs that ``check_inputs`` passed, counted nowhere:
+    ``params`` the nine stacks of K blocks, or for K = 1 the nine tensors
+    of one block, the same memory without the leading axis."""
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     b, t, h, w, ci = x.shape
-    k, _, cm = w1.shape
-    mid, mdw = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
-                           device=x.device)
+    cm = params[0].shape[-1]
+    # mid and mdw, one after the other
+    scratch = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
+                          device=x.device)
+    mid = scratch.data_ptr()
     with torch.cuda.device(x.device):
         err = getattr(library(), _ENTRY[x.dtype])(
-            *(p.data_ptr() for p in (x, w1, wd, w4, a1, b1, a3, b3, a4, b4,
-                                     mid, mdw, out)),
-            b, t, h, w, ci, cm, k,
+            x.data_ptr(), *(p.data_ptr() for p in params), mid,
+            mid + scratch.nbytes // 2, out.data_ptr(), b, t, h, w, ci, cm, k,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chain kernel launch failed with cudaError {err}")
     return out
 
 
-def _launch(*args) -> torch.Tensor:
+def _launch(x, *stacked) -> torch.Tensor:
     global LAUNCHES
-    check_inputs(*args)
-    out = run(*args)
+    check_inputs(x, *stacked)
+    out = run(x, stacked, stacked[0].shape[0])
     LAUNCHES += out.numel() > 0
     return out
 
@@ -213,8 +219,7 @@ def bottleneck_chain(x, w1, wd, w4, a1, b1, a3, b3, a4, b4) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"bottleneck_chain runs on CPU or CUDA, not "
                          f"{x.device}")
-    args = (x, *(p.to(torch.bfloat16).contiguous() for p in (w1, wd, w4)),
-            *(p.float().contiguous() for p in (a1, b1, a3, b3, a4, b4)))
+    args = kernel_args(x, w1, wd, w4, a1, b1, a3, b3, a4, b4)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _Chain.apply(*args)
     return _launch(*args)

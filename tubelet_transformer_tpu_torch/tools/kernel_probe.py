@@ -26,13 +26,15 @@ Usage: python -m tubelet_transformer_tpu_torch.tools.kernel_probe
 from __future__ import annotations
 
 import ctypes
-import statistics
+import hashlib
+import os
 import subprocess
 import sys
 
 import torch
 
-from tubelet_transformer_tpu_torch.ops.cuda import build
+from tubelet_transformer_tpu_torch.ops.cuda import bottleneck, build
+from tubelet_transformer_tpu_torch.tools import timing
 
 OUT = build.BUILD_DIR.parent / "kernel_probe"
 # the flagship's identity tails (CSN-152, 256 px, batch 1): x shape, C_mid, K
@@ -98,14 +100,20 @@ int launch_block(const void* x, const void* w1, const void* wd,
   const long long M = static_cast<long long>(batch) * frames * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem1 = gemm_smem(kBN1), smem4 = gemm_smem(kBN4);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_conv1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem1));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(block_conv4_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem4));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // set once, as the cooperative launch queries once (one device here)
+  static bool attributes_set = false;
+  cudaError_t err = cudaSuccess;
+  if (!attributes_set) {
+    err = cudaFuncSetAttribute(
+        block_conv1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem1));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(block_conv4_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem4));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attributes_set = true;
+  }
   block_conv1_kernel<T><<<g.tiles_a, kThreads, smem1, s>>>(
       static_cast<const T*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(a1), static_cast<const float*>(b1),
@@ -162,11 +170,21 @@ extern "C" int mma_peak(void* out, int blocks, int accs, int iters) {
 
 
 def _compile(name: str, source: str) -> ctypes.CDLL:
+    """``source`` built under ``build/kernel_probe/`` and loaded; a build of
+    the same source and headers is reused."""
+    digest = hashlib.sha256(source.encode())
+    for header in sorted(build.CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     OUT.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-    cu.write_text(source)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I",
-                    str(build.CSRC), "-o", str(so), str(cu)], check=True)
+    tag = digest.hexdigest()[:16]
+    cu, so = OUT / f"{name}-{tag}.cu", OUT / f"lib{name}-{tag}.so"
+    if not so.exists():
+        cu.write_text(source)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                        "-I", str(build.CSRC), "-o", str(tmp), str(cu)],
+                       check=True)
+        os.replace(tmp, so)
     return ctypes.CDLL(str(so))
 
 
@@ -190,20 +208,9 @@ def chain_variants() -> dict[str, str]:
                for p in _LOOPS}}
 
 
-def time_ms(fn, warmup: int = 5, runs: int = 15, calls: int = 10) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+def time_ms(fn, **kw) -> float:
+    """``tools/timing.py:time_ms`` back to back, 15 runs by default."""
+    return timing.time_ms(fn, **{"runs": 15, **kw})
 
 
 def _chain_args(shape, cm, k, gen):
@@ -286,6 +293,39 @@ def probe_block() -> None:
           + f"; the same bits {same}", flush=True)
     if not same:
         raise AssertionError("the two launches of one block differ")
+
+
+_BLOCK: list = []
+
+
+def block_b(x, *params) -> torch.Tensor:
+    """Variant (b) of one block, on the host path of ``bottleneck_fused``:
+    the same conversions, checks, output and scratch, then the three
+    ordinary launches in place of the cooperative one."""
+    if not _BLOCK:
+        lib = _compile("stage_block", (build.CSRC / "stage.cu").read_text()
+                       + _BLOCK_LAUNCHES)
+        fn = lib.tuber_block_bf16
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BLOCK.append(fn)
+    x, *params = bottleneck.kernel_args(x, *params)
+    bottleneck.check_inputs(x, *params)
+    out = torch.empty_like(x)
+    b, t, h, w, ci = x.shape
+    cm = params[0].shape[-1]
+    scratch = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
+                          device=x.device)
+    mid = scratch.data_ptr()
+    with torch.cuda.device(x.device):
+        err = _BLOCK[0](x.data_ptr(), *(p.data_ptr() for p in params), mid,
+                        mid + scratch.nbytes // 2, out.data_ptr(), b, t, h,
+                        w, ci, cm,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"(b) launch failed with cudaError {err}")
+    return out
 
 
 def probe_mma() -> None:
