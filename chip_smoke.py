@@ -451,9 +451,9 @@ def phase_bottleneck_kernel(torch) -> dict:
     operands, in every clip, and bit for bit against bottleneck_chain with
     K = 1 (the kernel it launches: a difference is a fault of the wrapper);
     times of the kernel and of the plain version in bf16 (no single PyTorch
-    call computes the block). The other launch of one block, three ordinary
-    launches of the chain's phase bodies, is not built into the library:
-    tools/kernel_probe.py times it."""
+    call computes the block). Only the cooperative launch is built: three
+    ordinary launches of the chain's phase bodies lost to it on the card
+    (PERF.md, section 6)."""
     from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
     from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 

@@ -81,14 +81,3 @@ def stage_chain() -> dict:
     args = _block(np.random.default_rng(0), (1, 8, 16, 16, 1024), 256, 35)
     return {"stage_chain": lambda: S.bottleneck_chain(*args)}
 
-
-def bottleneck_b() -> dict:
-    """One layer2 block as three ordinary launches of the chain's phase
-    bodies (``tools/kernel_probe.py:block_b``), behind the fused
-    bottleneck's own host work; none where the tree has no such variant."""
-    from tubelet_transformer_tpu_torch.tools import kernel_probe as P
-
-    if not hasattr(P, "block_b"):
-        return {}
-    args = _block(np.random.default_rng(0), (1, 16, 32, 32, 512), 128)
-    return {"bottleneck (b)": lambda: P.block_b(*args)}

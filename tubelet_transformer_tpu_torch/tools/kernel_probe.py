@@ -1,5 +1,5 @@
 """Where the stage chain's time goes, and what ``mma.sync`` gives on the
-card: three measurements that ``chip_smoke.py`` does not make.
+card: two measurements that ``chip_smoke.py`` does not make.
 
 1. Chain phases. ``csrc/stage.cu`` is compiled again with some of its three
    phases emptied (copies under ``build/kernel_probe/``; the work loops of
@@ -7,12 +7,7 @@ card: three measurements that ``chip_smoke.py`` does not make.
    is timed at the flagship's three identity tails and at one block of
    layer2 (K = 1, the fused bottleneck), bf16: all phases, the barriers
    alone, conv1 alone, the depthwise alone, conv4 alone.
-2. One block two ways: the fused bottleneck's launch, the cooperative chain
-   kernel with K = 1 (a), against the same phase bodies as three ordinary
-   launches (b), kernel boundaries in place of the two grid barriers (a copy
-   of stage.cu with ``_BLOCK_LAUNCHES`` appended), at layer2's shape, in
-   turns a, b, b, a; and whether the two give the same bits.
-3. ``mma.sync`` peak. A kernel that only issues ``mma.sync.m16n8k16`` (bf16
+2. ``mma.sync`` peak. A kernel that only issues ``mma.sync.m16n8k16`` (bf16
    in, float32 sums, ``csrc/mma.cuh``) on registers, 8 warps a block, one
    or two blocks an SM, 4 or 8 independent accumulators a warp.
 
@@ -26,14 +21,12 @@ Usage: python -m tubelet_transformer_tpu_torch.tools.kernel_probe
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
 import sys
 
 import torch
 
-from tubelet_transformer_tpu_torch.ops.cuda import bottleneck, build
+from tubelet_transformer_tpu_torch.ops.cuda import build
 from tubelet_transformer_tpu_torch.tools import timing
 
 OUT = build.BUILD_DIR.parent / "kernel_probe"
@@ -46,107 +39,6 @@ _LOOPS = {"conv1": "for (int i = blockIdx.x; i < g.tiles_a; i += gridDim.x)",
           "depthwise": "for (int i = blockIdx.x; i < g.items_b; "
                        "i += gridDim.x)",
           "conv4": "for (int i = blockIdx.x; i < g.tiles_c; i += gridDim.x)"}
-# variant (b) of one block, appended to a copy of stage.cu
-_BLOCK_LAUNCHES = r'''
-namespace {
-// One block of the chain (K = 1) as three ordinary launches, one tile or
-// item a block, kernel boundaries in place of the grid barriers: the
-// phase bodies and the order of every sum are chain_kernel's, so the output
-// is the same bits.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-block_conv1_kernel(const T* x, const bf16* __restrict__ w1,
-                   const float* __restrict__ a1, const float* __restrict__ b1,
-                   bf16* mid, long long M, int Ci, int Cm) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n1 = Cm / kBN1;
-  conv1_tile(x, w1, a1, b1, mid, M, Ci, Cm,
-             static_cast<long long>(blockIdx.x / n1) * kBM,
-             (blockIdx.x % n1) * kBN1, smem);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-block_dw_kernel(const bf16* mid, const bf16* __restrict__ wd,
-                const float* __restrict__ a3, const float* __restrict__ b3,
-                bf16* mdw, int frames, int H, int W, int Cm, Work g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rest = blockIdx.x / g.slices;
-  const int tile = rest % g.tiles_hw;
-  const int bt = rest / g.tiles_hw;
-  dw_item(mid, wd, a3, b3, mdw, bt / frames, bt % frames,
-          (tile / g.tiles_x) * kTile, (tile % g.tiles_x) * kTile,
-          (blockIdx.x % g.slices) * kSlice, frames, H, W, Cm, smem);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-block_conv4_kernel(const T* x, const bf16* mdw, const bf16* __restrict__ w4,
-                   const float* __restrict__ a4, const float* __restrict__ b4,
-                   T* out, long long M, int Ci, int Cm) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n4 = Ci / kBN4;
-  conv4_tile(x, mdw, w4, a4, b4, out, M, Ci, Cm,
-             static_cast<long long>(blockIdx.x / n4) * kBM,
-             (blockIdx.x % n4) * kBN4, false, smem);
-}
-
-template <typename T>
-int launch_block(const void* x, const void* w1, const void* wd,
-                 const void* w4, const void* a1, const void* b1,
-                 const void* a3, const void* b3, const void* a4,
-                 const void* b4, void* mid, void* mdw, void* out, int batch,
-                 int frames, int H, int W, int Ci, int Cm, void* stream) {
-  const Work g = work(batch, frames, H, W, Ci, Cm);
-  const long long M = static_cast<long long>(batch) * frames * H * W;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem1 = gemm_smem(kBN1), smem4 = gemm_smem(kBN4);
-  // set once, as the cooperative launch queries once (one device here)
-  static bool attributes_set = false;
-  cudaError_t err = cudaSuccess;
-  if (!attributes_set) {
-    err = cudaFuncSetAttribute(
-        block_conv1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem1));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(block_conv4_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem4));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attributes_set = true;
-  }
-  block_conv1_kernel<T><<<g.tiles_a, kThreads, smem1, s>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(a1), static_cast<const float*>(b1),
-      static_cast<bf16*>(mid), M, Ci, Cm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_dw_kernel<<<g.items_b, kThreads, kDwSmem, s>>>(
-      static_cast<const bf16*>(mid), static_cast<const bf16*>(wd),
-      static_cast<const float*>(a3), static_cast<const float*>(b3),
-      static_cast<bf16*>(mdw), frames, H, W, Cm, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_conv4_kernel<T><<<g.tiles_c, kThreads, smem4, s>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(mdw),
-      static_cast<const bf16*>(w4), static_cast<const float*>(a4),
-      static_cast<const float*>(b4), static_cast<T*>(out), M, Ci, Cm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// One stride-1 identity ir-bottleneck (the chain with K = 1) as three
-// ordinary launches; arguments as tuber_chain_bf16 without K.
-extern "C" int tuber_block_bf16(
-    const void* x, const void* w1, const void* wd, const void* w4,
-    const void* a1, const void* b1, const void* a3, const void* b3,
-    const void* a4, const void* b4, void* mid, void* mdw, void* out,
-    int batch, int frames, int H, int W, int Ci, int Cm, void* stream) {
-  return launch_block<bf16>(x, w1, wd, w4, a1, b1, a3, b3, a4, b4, mid, mdw,
-                            out, batch, frames, H, W, Ci, Cm, stream);
-}
-
-'''
 _PEAK = r'''
 #include "mma.cuh"
 template <int kAcc>
@@ -170,21 +62,11 @@ extern "C" int mma_peak(void* out, int blocks, int accs, int iters) {
 
 
 def _compile(name: str, source: str) -> ctypes.CDLL:
-    """``source`` built under ``build/kernel_probe/`` and loaded; a build of
-    the same source and headers is reused."""
-    digest = hashlib.sha256(source.encode())
-    for header in sorted(build.CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
     OUT.mkdir(parents=True, exist_ok=True)
-    tag = digest.hexdigest()[:16]
-    cu, so = OUT / f"{name}-{tag}.cu", OUT / f"lib{name}-{tag}.so"
-    if not so.exists():
-        cu.write_text(source)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
-                        "-I", str(build.CSRC), "-o", str(tmp), str(cu)],
-                       check=True)
-        os.replace(tmp, so)
+    cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+    cu.write_text(source)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I",
+                    str(build.CSRC), "-o", str(so), str(cu)], check=True)
     return ctypes.CDLL(str(so))
 
 
@@ -262,72 +144,6 @@ def probe_chain() -> None:
                           for p in _LOOPS), flush=True)
 
 
-def probe_block() -> None:
-    source = (build.CSRC / "stage.cu").read_text() + _BLOCK_LAUNCHES
-    lib = _compile("stage_block", source)
-    fns = {"(a) cooperative": lib.tuber_chain_bf16,
-           "(b) three launches": lib.tuber_block_bf16}
-    for name, fn in fns.items():
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * (
-            7 if name.startswith("(a)") else 6) + [ctypes.c_void_p]
-    shape, cm, _ = TAILS["layer2"]
-    b, t, h, w, ci = shape
-    tensors = _chain_args(shape, cm, 1, torch.Generator().manual_seed(1))
-    outs = {n: torch.empty_like(tensors[0]) for n in fns}
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call(name):
-        ptrs = [p.data_ptr() for p in tensors[:-1]] + [outs[name].data_ptr()]
-        k = (1,) if name.startswith("(a)") else ()
-        if fns[name](*ptrs, b, t, h, w, ci, cm, *k, stream):
-            raise RuntimeError(f"{name}: launch failed")
-
-    times = {n: [] for n in fns}
-    for name in (*fns, *reversed(fns)):
-        times[name].append(time_ms(lambda: call(name)))
-    torch.cuda.synchronize()
-    same = torch.equal(*outs.values())
-    print(f"[one block] {shape} Cm={cm} bf16, in turns a, b, b, a: "
-          + "; ".join(f"{n} {', '.join(f'{v:.4f}' for v in ms)} ms"
-                      for n, ms in times.items())
-          + f"; the same bits {same}", flush=True)
-    if not same:
-        raise AssertionError("the two launches of one block differ")
-
-
-_BLOCK: list = []
-
-
-def block_b(x, *params) -> torch.Tensor:
-    """Variant (b) of one block, on the host path of ``bottleneck_fused``:
-    the same conversions, checks, output and scratch, then the three
-    ordinary launches in place of the cooperative one."""
-    if not _BLOCK:
-        lib = _compile("stage_block", (build.CSRC / "stage.cu").read_text()
-                       + _BLOCK_LAUNCHES)
-        fn = lib.tuber_block_bf16
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BLOCK.append(fn)
-    x, *params = bottleneck.kernel_args(x, *params)
-    bottleneck.check_inputs(x, *params)
-    out = torch.empty_like(x)
-    b, t, h, w, ci = x.shape
-    cm = params[0].shape[-1]
-    scratch = torch.empty((2, b, t, h, w, cm), dtype=torch.bfloat16,
-                          device=x.device)
-    mid = scratch.data_ptr()
-    with torch.cuda.device(x.device):
-        err = _BLOCK[0](x.data_ptr(), *(p.data_ptr() for p in params), mid,
-                        mid + scratch.nbytes // 2, out.data_ptr(), b, t, h,
-                        w, ci, cm,
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"(b) launch failed with cudaError {err}")
-    return out
-
-
 def probe_mma() -> None:
     lib = _compile("mma_peak", _PEAK)
     lib.mma_peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
@@ -355,7 +171,6 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     probe_chain()
-    probe_block()
     probe_mma()
     return 0
 
