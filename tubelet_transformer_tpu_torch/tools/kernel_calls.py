@@ -1,10 +1,10 @@
 """Calls of the wrapper of each kernel that a model path runs, at a shape
-that path gives it, bf16, random inputs from seed 0, for the A/B driver
+that path gives it, bf16, random inputs from seed 0, for the A/B tool
 (``tools/ab.py --calls``).
 
 Each function takes no argument and returns ``{name: call}``; the calls
 import the port from wherever ``tubelet_transformer_tpu_torch`` is found,
-so the driver, which loads this file by path, runs the same calls against
+so the A/B tool, which loads this file by path, runs the same calls against
 either tree. Shapes are the flagship's (CSN-152, 256 px, one clip; the
 train step's two clips for the statistics kernel).
 """

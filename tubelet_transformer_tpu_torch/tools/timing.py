@@ -1,7 +1,7 @@
 """CUDA-event time of one call, the one measure that ``chip_smoke.py`` and
 the tools under ``tools/`` give every kernel and plain version.
 
-Imports torch and nothing of the port, so the A/B driver (``tools/ab.py``)
+Imports torch and nothing of the port, so the A/B tool (``tools/ab.py``)
 can load it by path beside a tree that lacks it.
 """
 
