@@ -9,20 +9,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    one nvcc for each source, all started together;
 3. each kernel against its plain PyTorch version at the shapes the main
    paths give it (the statistics kernel also at shapes its tiles do not
-   divide, in bf16 and float32; the depthwise also in float32 at a shape
-   its tiles do not divide; the bottleneck also at two clips of five
+   divide, in bf16 and float32; the depthwise also at shapes its blocks do
+   not divide, in bf16 with its epilogue and in float32, and bit for bit
+   against a repeat launch; the bottleneck also at two clips of five
    frames, one frame and 56x56 frames, and bit for bit against the stage
    chain with K = 1, whose kernel it launches; the stage chain at the
    flagship's three identity tails with the K that ``max_chain`` gives,
    at two clips of five frames and in float32 at a ragged shape, bit for
    bit against K launches of itself with K = 1 and a repeat launch; the
    pooled stem also at a ragged shape in bf16 and float32; the unpooled
-   stem, which no model path runs, at 256 and 224 px and in float32 at a
-   ragged shape), with CUDA-event times (``tools/timing.py``) of calls
-   back to back for both (``ms``, host work included) and of the kernel
-   on the device alone (``device_ms``), of the one PyTorch call that
-   computes the same function where there is one, and the least time the
-   card could take (``bound``);
+   stem, which no model path runs, at 256 and 224 px and at ragged shapes
+   in bf16 and float32, bit for bit against a repeat launch, and in bf16
+   with the ReLU, max-pooled, bit for bit against the pooled stem), with
+   CUDA-event times (``tools/timing.py``) of calls back to back for both
+   (``ms``, host work included) and of the kernel on the device alone
+   (``device_ms``), of the one PyTorch call that computes the same
+   function where there is one, and the least time the card could take
+   (``bound``);
 4. small-input references: the port on the card against the port on the
    CPU (which the tests hold against the JAX package), float32, CSN-TINY:
    the forward, and one train step;
@@ -132,12 +135,24 @@ TRAIN_STEPS = 4        # SYNTHETIC_SIZE 8 at BATCH_SIZE 2
 VAL_FORWARDS = 8       # SYNTHETIC_SIZE 8 at VAL.BATCH_SIZE 1
 FRAMES = 88            # 64-frame window + 3 x 8: four keyframe detections
 # Depthwise kernel (x, w, optional scale and bias: shape, dtype, epilogue):
-# layer1 of CSN-152 at 256 px, bare and with the affine + ReLU epilogue, and
-# a shape its 8x8x4 tiles do not divide in float32.
+# layer1 of CSN-152 at 256 px, bare and with the affine + ReLU epilogue; a
+# shape smaller than one tile in float32; and shapes its blocks (16x16
+# pixels, 32 bf16 or 16 float channels, runs of 8 frames) do not divide: T
+# not a multiple of the run, H and W not multiples of the tile, C = 8 and
+# C = 72 (a partial channel slice), and two clips of five frames (the frame
+# window's reset at each clip's edges), each in bf16 with the epilogue and
+# in float32 without.
+DW_RAGGED = {"t11": (1, 11, 16, 16, 64), "hw_20x37": (1, 8, 20, 37, 64),
+             "c8": (1, 9, 18, 17, 8), "c72": (1, 9, 18, 17, 72),
+             "two_clips_t5": (2, 5, 16, 16, 64)}
 DW_CASES = {"layer1_256px": ((1, 32, 64, 64, 64), "bfloat16", False),
             "layer1_256px_affine_relu": ((1, 32, 64, 64, 64), "bfloat16",
                                          True),
-            "ragged_f32": ((2, 5, 7, 9, 64), "float32", False)}
+            "ragged_f32": ((2, 5, 7, 9, 64), "float32", False),
+            **{f"{k}_bf16_affine_relu": (v, "bfloat16", True)
+               for k, v in DW_RAGGED.items()},
+            **{f"{k}_f32": (v, "float32", False)
+               for k, v in DW_RAGGED.items()}}
 # Depthwise against plain: both round once to the output type, the 27-tap
 # sums in another order; bf16: 2^-6 of the output's maximum (2-4 bf16 ulps
 # there; the plain version with the epilogue rounds twice); float32 with
@@ -182,11 +197,18 @@ CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
 # from the exact sums than the plain version, with 2x margin.
 CHAIN_TOL = 5e-3
 # Unpooled stem (x shape, dtype, relu): 256 and 224 px in bf16 with and
-# without the ReLU, and float32 at a shape the 16x16 tiles do not divide.
+# without the ReLU, and shapes the 16x16 tiles do not divide: in bf16 (the
+# tensor-core kernel's ragged edge; rows of 23 px, which it stores one
+# element at a time, and rows of 40 px that end mid-tile) and in float32.
+# The bf16 cases with the ReLU are also max-pooled and held bit for bit to
+# the pooled kernel.
 STEM_CONV_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16", True),
                    "ava_256px_no_relu": ((1, 32, 256, 256, 3), "bfloat16",
                                          False),
                    "jhmdb_224px": ((1, 32, 224, 224, 3), "bfloat16", True),
+                   "ragged_bf16": ((2, 3, 37, 45, 3), "bfloat16", True),
+                   "ragged_bf16_w80": ((1, 3, 50, 80, 3), "bfloat16",
+                                       False),
                    "ragged_f32": ((2, 3, 37, 45, 3), "float32", True)}
 # Unpooled stem against plain: bf16 as STEM_TOL (the plain version rounds
 # the conv output before the affine); float32 with TF32 off: summation
@@ -406,7 +428,9 @@ def phase_depthwise_kernel(torch) -> dict:
             return D.depthwise_reference(x, w, scale, bias, relu=epilogue)
 
         got = kernel()
+        again = kernel()
         torch.cuda.synchronize()
+        bits = torch.equal(got, again)
         ref = plain()
         if got.shape != ref.shape or got.dtype != dtype:
             raise AssertionError(f"depthwise {name}: {tuple(got.shape)} "
@@ -429,14 +453,16 @@ def phase_depthwise_kernel(torch) -> dict:
         tol = DW_TOL[dtype_name]
         log(f"[kernel] depthwise {name} {shape} {dtype_name}"
             f"{' +affine+relu' if epilogue else ''}: max_abs_err {err:.4g} "
-            f"(rel to max|ref| {err / span:.3g}, tol {tol:.3g}); kernel "
+            f"(rel to max|ref| {err / span:.3g}, tol {tol:.3g}); repeat "
+            f"bit-equal {bits}; kernel "
             f"{ms:.4f} ms (the device alone {device_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, cuDNN grouped conv "
             f"{library_ms:.4f} ms ({copies_ms:.4f} ms with the two layout "
             f"copies), bound {bound_ms:.4f} ms ({bound_by})")
-        if not err <= tol * span:
+        if not (err <= tol * span and bits):
             raise AssertionError(f"depthwise {name}: kernel disagrees with "
-                                 f"plain ({err} > {tol} * {span})")
+                                 f"plain ({err} > {tol} * {span}) or "
+                                 f"repeats differ ({bits})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms,
@@ -606,9 +632,21 @@ def phase_stage_kernel(torch) -> dict:
     return results
 
 
+def pool_channels_mid(y):
+    """1x3x3 / (1,2,2) / pad (0,1,1) max-pool of a (B,T,64,Hc,Wc) tensor,
+    channels-last out (B,T,Hp,Wp,64), as stem_forward lays it out."""
+    import torch.nn.functional as F
+
+    b, t = y.shape[:2]
+    p = F.max_pool2d(y.flatten(0, 1), 3, 2, 1)
+    return p.unflatten(0, (b, t)).permute(0, 1, 3, 4, 2).contiguous()
+
+
 def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
     """The unpooled stem kernel (stem_conv_bn_relu) against
-    stem_conv_reference (STEM_CONV_CASES), with the times of the kernel, the
+    stem_conv_reference (STEM_CONV_CASES) and a repeat launch; in bf16 with
+    the ReLU, max-pooled, bit for bit against the pooled kernel (its
+    partner: one GEMM body and epilogue); with the times of the kernel, the
     plain version and ``F.conv3d`` alone (the conv only: no single PyTorch
     call adds the affine and the ReLU) and its bound. No model path runs
     this kernel: returns its launches in the checks."""
@@ -626,7 +664,13 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
         bias = _dev(torch, rng.normal(size=64), torch.float32)
         inputs[name] = x, w, scale, bias
         got = stem.stem_conv_bn_relu(x, w, scale, bias, relu)
+        again = stem.stem_conv_bn_relu(x, w, scale, bias, relu)
+        partner = None
+        if dtype_name == "bfloat16" and relu:
+            partner = torch.equal(pool_channels_mid(got),
+                                  stem.stem_forward(x, w, scale, bias))
         torch.cuda.synchronize()
+        bits = torch.equal(got, again)
         ref = stem.stem_conv_reference(x, w, scale, bias, relu)
         b, t, h, wd, _ = shape
         if got.shape != ref.shape or got.shape != (
@@ -635,11 +679,15 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
                                  f"{got.dtype}, want {tuple(ref.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
         span = ref.float().abs().max().item()
-        results[name] = {"max_abs_err": err, "span": span}
+        results[name] = {"max_abs_err": err, "span": span,
+                         "repeat_bit_equal": bits,
+                         "pooled_bit_equal_to_stem_pool": partner}
         tol = STEM_CONV_TOL[dtype_name]
-        if not err <= tol * span:
+        if not (err <= tol * span and bits and partner is not False):
             raise AssertionError(f"stem_conv {name}: kernel disagrees with "
-                                 f"plain ({err} > {tol} * {span})")
+                                 f"plain ({err} > {tol} * {span}), repeats "
+                                 f"differ ({bits}) or its pool differs from "
+                                 f"the pooled kernel ({partner})")
     launches = stem.CONV_LAUNCHES
     for name, (shape, dtype_name, relu) in STEM_CONV_CASES.items():
         x, w, scale, bias = inputs[name]
@@ -664,7 +712,10 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
         log(f"[kernel] stem_conv {name} {shape} {dtype_name} relu {relu}: "
             f"max_abs_err {res['max_abs_err']:.6g} (rel to max|ref| "
             f"{res['max_abs_err'] / res['span']:.3g}, tol {tol:.3g}); "
-            f"kernel {ms:.4f} ms (the device alone {device_ms:.4f} ms, "
+            f"repeat bit-equal {res['repeat_bit_equal']}; max-pooled "
+            f"bit-equal to stem_pool "
+            f"{res['pooled_bit_equal_to_stem_pool']}; kernel {ms:.4f} ms "
+            f"(the device alone {device_ms:.4f} ms, "
             f"{ops / device_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"F.conv3d (conv only) {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")

@@ -16,6 +16,13 @@ import torch
 from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
 
 RAGGED = (2, 5, 7, 9, 64)
+# Shapes that the kernel's blocks (16x16 pixels, 32 bf16 or 16 float
+# channels, runs of 8 frames) do not divide: T not a multiple of the run,
+# H and W not multiples of the tile, C = 8 and C = 72 (a partial channel
+# slice), and two clips of five frames, where the frame window resets at
+# each clip's edges.
+KERNEL_RAGGED = [(1, 11, 16, 16, 64), (1, 8, 20, 37, 64),
+                 (1, 9, 18, 17, 8), (1, 9, 18, 17, 72), (2, 5, 16, 16, 64)]
 
 
 def _inputs(shape, seed=0):
@@ -42,7 +49,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [RAGGED, (2, 5, 7, 9, 8)])
+@pytest.mark.parametrize("shape", [RAGGED, (2, 5, 7, 9, 8), *KERNEL_RAGGED])
 def test_plain_matches_jax_lax(jax_dw, shape):
     """depthwise_reference and the CPU wrapper against ``_dw_lax``, float32:
     summation order only, so 1e-5; a CPU tensor launches nothing."""
@@ -134,6 +141,8 @@ def test_check_inputs_rejects(bad):
     (RAGGED, torch.bfloat16, True),
     (RAGGED, torch.float32, False),
     ((2, 5, 7, 9, 8), torch.float32, True),
+    *((s, torch.bfloat16, True) for s in KERNEL_RAGGED),
+    *((s, torch.float32, False) for s in KERNEL_RAGGED),
 ])
 def test_kernel_matches_plain_on_cuda(cuda, shape, dtype, epilogue):
     """The CUDA kernel against depthwise_reference on the card. bf16: each
@@ -154,6 +163,26 @@ def test_kernel_matches_plain_on_cuda(cuda, shape, dtype, epilogue):
     err = (got.float() - want.float()).abs().max().item()
     span = want.float().abs().max().item()
     assert err <= (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * span
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,epilogue", [
+    ((1, 32, 64, 64, 64), torch.bfloat16, True),
+    ((2, 5, 16, 16, 64), torch.bfloat16, False),
+    ((1, 9, 18, 17, 72), torch.float32, True),
+])
+def test_kernel_repeat_is_bit_equal_on_cuda(cuda, shape, dtype, epilogue):
+    """Each output's 27 taps are summed in one fixed order: a repeat launch
+    gives the same bits."""
+    x, w, scale, bias = (torch.from_numpy(a).to(cuda)
+                         for a in _inputs(shape, seed=3))
+    x, w = x.to(dtype), w.to(dtype)
+    if not epilogue:
+        scale = bias = None
+    got = D.depthwise_conv3x3x3(x, w, scale, bias, relu=epilogue)
+    again = D.depthwise_conv3x3x3(x, w, scale, bias, relu=epilogue)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -249,13 +249,17 @@ def test_pooled_kernel_gradient_on_cuda(cuda):
 @pytest.mark.parametrize("shape,dtype,relu", [
     ((1, 32, 256, 256, 3), torch.bfloat16, True),
     ((1, 32, 224, 224, 3), torch.bfloat16, False),
+    ((2, 3, 37, 45, 3), torch.bfloat16, True),
+    ((1, 3, 50, 80, 3), torch.bfloat16, False),
     ((2, 3, 37, 45, 3), torch.float32, True),
 ])
 def test_conv_kernel_matches_plain_on_cuda(cuda, shape, dtype, relu):
     """The unpooled CUDA kernel against stem_conv_reference on the card, in
-    the channels-mid layout. bf16: the plain version rounds its conv output
-    to bf16 before the f32 affine, the kernel rounds once, so 2^-6 of the
-    output range; float32 (TF32 off): summation order only."""
+    the channels-mid layout. bf16 (the tensor-core kernel; at 37x45 its
+    16x16 tiles' ragged edge and rows of 23 px, at 50x80 rows of 40 px that
+    end mid-tile): the plain version rounds its conv output to bf16 before
+    the f32 affine, the kernel rounds once, so 2^-6 of the output range;
+    float32 (TF32 off): summation order only."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, scale, bias = _inputs(shape)
     x, w = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
@@ -269,3 +273,56 @@ def test_conv_kernel_matches_plain_on_cuda(cuda, shape, dtype, relu):
     err = (got.float() - want.float()).abs().max().item()
     span = want.float().abs().max().item()
     assert err <= (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * span
+
+
+def _pool_channels_mid(y: torch.Tensor) -> torch.Tensor:
+    """1x3x3 / (1,2,2) / pad (0,1,1) max-pool of a (B,T,64,Hc,Wc) tensor,
+    channels-last out (B,T,Hp,Wp,64), as stem_forward lays it out."""
+    import torch.nn.functional as F
+
+    b, t = y.shape[:2]
+    p = F.max_pool2d(y.flatten(0, 1), 3, 2, 1)
+    return p.unflatten(0, (b, t)).permute(0, 1, 3, 4, 2).contiguous()
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 32, 48, 3), (2, 3, 37, 45, 3)])
+def test_pooled_conv_reference_is_stem_reference(shape):
+    """The partner check's pool, on the CPU: the unpooled plain version with
+    the ReLU, max-pooled by _pool_channels_mid, is the pooled plain version,
+    float32, bit for bit."""
+    args = _torch(*_inputs(shape))
+    torch.testing.assert_close(
+        _pool_channels_mid(stem.stem_conv_reference(*args, relu=True)),
+        stem.stem_reference(*args), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32, 256, 256, 3),
+                                   (1, 32, 224, 224, 3)])
+def test_conv_kernel_pools_to_pooled_kernel_on_cuda(cuda, shape):
+    """The unpooled bf16 kernel with the ReLU, max-pooled, equals the pooled
+    kernel bit for bit: one GEMM body, k order and epilogue, and rounding
+    is monotone (test_round_then_pool_equals_pool_then_round)."""
+    x, w, scale, bias = _inputs(shape, seed=4)
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (x, w))
+    scale, bias = (torch.from_numpy(a).to(cuda) for a in (scale, bias))
+    pooled = stem.stem_forward(x, w, scale, bias)
+    conv = stem.stem_conv_bn_relu(x, w, scale, bias, True)
+    torch.cuda.synchronize()
+    assert torch.equal(_pool_channels_mid(conv), pooled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((1, 32, 256, 256, 3),
+                                          torch.bfloat16),
+                                         ((2, 3, 37, 45, 3), torch.float32)])
+def test_conv_kernel_repeat_is_bit_equal_on_cuda(cuda, shape, dtype):
+    """Each conv output is summed in one fixed order: a repeat launch gives
+    the same bits."""
+    x, w, scale, bias = _inputs(shape, seed=5)
+    x, w = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    scale, bias = (torch.from_numpy(a).to(cuda) for a in (scale, bias))
+    got = stem.stem_conv_bn_relu(x, w, scale, bias, False)
+    again = stem.stem_conv_bn_relu(x, w, scale, bias, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)

@@ -5,7 +5,10 @@
 //                a grid barrier); fewer than 16 source bytes zero-fill the rest;
 //   ldsm_x4 / ldsm_x4_t: ldmatrix of four 8x8 bf16 matrices, plain or
 //                transposed, into mma fragments;
-//   mma_bf16:    mma.sync.m16n8k16, bf16 in, float32 accumulators.
+//   mma_bf16:    mma.sync.m16n8k16, bf16 in, float32 accumulators;
+//   mbar_*:      mbarriers in shared memory (init, arrive, parity wait), and
+//                cp_async_arrive, which arrives on one when this thread's
+//                earlier cp.async copies have landed (the depthwise's ring).
 // Fragment layouts (lane = 4 g + t): A (16x16, row-major) a0 = (g, 2t..2t+1),
 // a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B (16x8) b0 = (k
 // 2t..2t+1, n g), b1 = (k 2t+8.., n g); C (16x8 float32) c0,c1 = (g, 2t..2t+1),
@@ -44,6 +47,48 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An mbarrier in shared memory that completes a phase after `count`
+// arrivals; the block syncs before any thread uses it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed (counted in the barrier's `count`: the .noinc form).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival now, with release semantics: this thread's earlier shared
+// reads and writes happen before the phase completes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` (0 for the first, 1 for the
+// second, ...) of `bar` has completed; what the arrivals released is then
+// visible.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // Four 8x8 matrices; lane l gives the address of row l % 8 of matrix l / 8.

@@ -29,19 +29,33 @@
 // float32 (stem_pool_kernel, tests only): the direct conv on the CUDA cores
 // in f32 (stem_conv.cuh), a 17x17 conv tile per block.
 //
-// The second kernel here, stem_conv_kernel, is the same conv with the
-// affine (and the ReLU when asked) and no pool, channels-mid out:
-// x (B,T,H,W,3) -> out (B,T,64,Hc,Wc). It replaces `_stem_matmul(pool=False)`
-// of tubelet_transformer_tpu/ops/pallas/stem.py, which `stem_conv_bn_relu`
-// runs there; no model path of either package calls it. It is the
-// CUDA-core statistics kernel's 16x16 conv tile (stem_stats.cu), stored
-// instead of reduced: the f32 tile goes through shared memory as
+// The unpooled kernels here are the same conv with the affine (and the ReLU
+// when asked) and no pool, channels-mid out: x (B,T,H,W,3) -> out
+// (B,T,64,Hc,Wc). They replace `_stem_matmul(pool=False)` of
+// tubelet_transformer_tpu/ops/pallas/stem.py, which `stem_conv_bn_relu` runs
+// there; no model path of either package calls it. At (1,32,256,256,3) the
+// conv must write 67 MB of bf16 (20 us at 3.35 TB/s) for 29.6 GFLOP (30 us
+// at the bf16 tensor-core peak): the operations bound it.
+//
+// bf16 (stem_conv_tc_kernel): the statistics kernel's implicit GEMM
+// (stem_tc.cuh, stem_stats.cu) on 16x16 conv tiles that do not overlap,
+// 16 row tiles of one conv row each, 4 a warp, in a persistent grid of 16
+// warps a block; stored instead of reduced. The epilogue is the pooled
+// kernel's (affine_relu on the float32 sums, one rounding to bf16), so a
+// 1x3x3 / (1,2,2) max-pool of this output equals stem_pool_tc_kernel's
+// bit for bit: both sum each conv pixel's A row against the same B columns
+// in the same k order, and an mma's result for one element does not depend
+// on the fragment row it sits in. The tile goes through a [64 channels][16
+// rows][16 px] bf16 stage (channel rows 264 elements apart, so the four
+// channel pairs of a fragment store hit distinct banks) and leaves as
+// 16-byte vectors, each channel row of 16 px one whole 32-byte sector; the
+// stores of one tile drain while the next tile's GEMM runs.
+//
+// float32 (stem_conv_kernel, tests only): the direct conv on the CUDA cores
+// (stem_conv.cuh) on 16x16 conv tiles, through shared memory as
 // [channel][pixel] (rows of 257 floats, so the eight channel groups of a
-// warp hit distinct banks), and each channel's rows of 16 pixels are
-// written contiguously, rounded once to the output type. At
-// (1,32,256,256,3) it must write 67 MB of bf16 (22 us at 3.35 TB/s) for
-// 29.6 GFLOP (30 us at the bf16 tensor-core peak): the operations bound it,
-// and this kernel runs them on the CUDA cores in f32.
+// warp hit distinct banks), each channel's rows of 16 pixels written
+// contiguously.
 
 #include <cstdint>
 
@@ -287,12 +301,13 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const bool inside = cy >= 0 && cy < Hc && cx >= 0 && cx < Wc;
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) {
-          const float y0 = fmaf(acc[i][ni][2 * h], sc[ni][0], bi[ni][0]);
-          const float y1 = fmaf(acc[i][ni][2 * h + 1], sc[ni][1], bi[ni][1]);
+          const float y0 = affine_relu(acc[i][ni][2 * h], sc[ni][0],
+                                       bi[ni][0], true);
+          const float y1 = affine_relu(acc[i][ni][2 * h + 1], sc[ni][1],
+                                       bi[ni][1], true);
           *reinterpret_cast<__nv_bfloat162*>(conv_s + p * kLdConv + ng * 16 +
                                              ni * 8 + 2 * t4) =
-              __floats2bfloat162_rn(inside ? (y0 < 0.f ? 0.f : y0) : 0.f,
-                                    inside ? (y1 < 0.f ? 0.f : y1) : 0.f);
+              __floats2bfloat162_rn(inside ? y0 : 0.f, inside ? y1 : 0.f);
         }
       }
     }
@@ -336,19 +351,11 @@ int launch_tc(const void* x, const void* w, const void* scale,
   const int tiles_hw = ((Hp + kPT - 1) / kPT) * tiles_x;
   const long long tiles = static_cast<long long>(batch) * frames * tiles_hw;
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_pool_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemTc));
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stem_pool_tc_kernel, kThreadsTc, kSmemTc);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  static std::atomic<int> cache[kMaxDevices];
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(stem_pool_tc_kernel, kSmemTc, cache, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long resident = static_cast<long long>(per_sm) * sms;
   const int blocks = static_cast<int>(tiles < resident ? tiles : resident);
   stem_pool_tc_kernel<<<blocks, kThreadsTc, kSmemTc,
                         static_cast<cudaStream_t>(stream)>>>(
@@ -359,23 +366,19 @@ int launch_tc(const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kCTc = 16;                     // unpooled conv tile edge
+constexpr int kCTc = 16;                      // unpooled conv tile edge
 constexpr int kCPix = kCTc * kCTc;            // 256
+
+// float32: conv pixels pg, pg+32, ..., pg+224 of the 16x16 tile
+// (stem_conv.cuh), through shared memory as [channel][pixel].
 constexpr int kLdC = kCPix + 1;               // [channel][pixel] row stride
 constexpr int kSmemFloatsC = conv_smem_floats(kCTc) > kCout * kLdC
                                  ? conv_smem_floats(kCTc) : kCout * kLdC;
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Conv pixels pg, pg+32, ..., pg+224 of the 16x16 tile (stem_conv.cuh).
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-stem_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+stem_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ scale,
-                 const float* __restrict__ bias, T* __restrict__ out,
+                 const float* __restrict__ bias, float* __restrict__ out,
                  int frames, int H, int W, int Hc, int Wc, int tiles_x,
                  int relu) {
   extern __shared__ __align__(16) float smem[];
@@ -412,37 +415,186 @@ stem_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   __syncthreads();
 
   // a warp stores two 16-pixel rows of one channel
-  T* dst = out + static_cast<size_t>(bt) * kCout * Hc * Wc;
+  float* dst = out + static_cast<size_t>(bt) * kCout * Hc * Wc;
   for (int idx = tid; idx < kCout * kCPix; idx += kThreads) {
     const int c = idx / kCPix;
     const int p = idx % kCPix;
     const int cy = cy0 + p / kCTc;
     const int cx = cx0 + p % kCTc;
     if (cy >= Hc || cx >= Wc) continue;
-    store1(dst + (static_cast<size_t>(c) * Hc + cy) * Wc + cx,
-           conv_s[c * kLdC + p]);
+    dst[(static_cast<size_t>(c) * Hc + cy) * Wc + cx] = conv_s[c * kLdC + p];
   }
 }
 
-template <typename T>
-int launch_conv(const void* x, const void* w, const void* scale,
-                const void* bias, void* out, int batch, int frames, int H,
-                int W, int relu, void* stream) {
+int launch_conv_f32(const void* x, const void* w, const void* scale,
+                    const void* bias, void* out, int batch, int frames, int H,
+                    int W, int relu, void* stream) {
   const int Hc = (H - 1) / 2 + 1;   // conv 7 / stride 2 / pad 3
   const int Wc = (W - 1) / 2 + 1;
   const int tiles_y = (Hc + kCTc - 1) / kCTc;
   const int tiles_x = (Wc + kCTc - 1) / kCTc;
   const size_t smem = kSmemFloatsC * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      stem_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stem_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(tiles_y * tiles_x, batch * frames);
-  stem_conv_kernel<T><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  stem_conv_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), frames, H, W, Hc, Wc, tiles_x, relu);
+      static_cast<float*>(out), frames, H, W, Hc, Wc, tiles_x, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 on the tensor cores: the implicit GEMM (stem_tc.cuh) of 16x16 conv
+// tiles, as stem_stats_tc_kernel runs it, stored through a bf16 stage.
+using HaloC = Halo<kCTc>;                       // 37 rows of 111, stride 112
+constexpr int kMTilesC = kCPix / 16;            // 16 row tiles: a conv row each
+constexpr int kWarpTilesC = kMTilesC / 4;       // 4 a warp
+constexpr int kLdStage = kCPix + 8;             // [channel] stride of the stage
+constexpr size_t kStageBytes = static_cast<size_t>(kCout) * kLdStage * 2;
+constexpr size_t kSmemConvTc =
+    kWBytes + HaloC::kBytes + kTabBytes + kStageBytes;
+// two channels apart is 2 * kLdStage / 2 words, 8 banks
+static_assert(kLdStage % 32 == 8,
+              "a fragment store's four channel pairs hit distinct banks");
+static_assert((kWBytes + HaloC::kBytes + kTabBytes) % 16 == 0,
+              "the stage is 16-byte aligned");
+
+// Persistent: block i takes tiles i, i + gridDim.x, ... of the B*T*tiles_hw
+// (b, t, 16x16 conv) tiles. Warp w owns channels 16 (w % 4).. and conv rows
+// 4 (w / 4).. of the tile; lane (g, t4) the columns g and g + 8 and the
+// channels 2 t4, 2 t4 + 1 of each n8 half.
+__global__ void __launch_bounds__(kThreadsTc, 1)
+stem_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, bf16* __restrict__ out,
+                    int frames, int H, int W, int Hc, int Wc, int tiles_x,
+                    int tiles_hw, int tiles, int relu) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* w_s = reinterpret_cast<bf16*>(smem_tc);                     // [480][72]
+  unsigned short* halo =
+      reinterpret_cast<unsigned short*>(smem_tc + kWBytes);          // [3][37][112]
+  int* tab_off =
+      reinterpret_cast<int*>(smem_tc + kWBytes + HaloC::kBytes);     // [80]
+  uint32_t* tab_mask = reinterpret_cast<uint32_t*>(tab_off + kPairsF);
+  bf16* stage = reinterpret_cast<bf16*>(smem_tc + kWBytes + HaloC::kBytes +
+                                        kTabBytes);                  // [64][264]
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int ng = (tid >> 5) & 3;
+  const int mg = (tid >> 5) >> 2;
+  const bool vec_ok = (Wc & 7) == 0;  // channel rows 16-byte aligned
+
+  load_weights_and_tables(w_s, w, tab_off, tab_mask, HaloC::kLd);
+  int poff[kWarpTilesC][2];         // halo offset of the columns g, g+8 owned
+  pixel_offsets<kCTc>(poff, mg, g);
+  float sc[2][2], bi[2][2];
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sc[ni][j] = scale[ng * 16 + ni * 8 + 2 * t4 + j];
+      bi[ni][j] = bias[ng * 16 + ni * 8 + 2 * t4 + j];
+    }
+
+  unsigned short pre[HaloC::kPerThread];
+  fetch_tile_halo<kCTc>(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H,
+                        W);
+  stash_halo<kCTc>(pre, halo);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[kWarpTilesC][2][4];
+#pragma unroll
+    for (int i = 0; i < kWarpTilesC; ++i)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][ni][j] = 0.f;
+
+    for (int kt = 0; kt < 3; ++kt) {
+      // the next (tile, frame) goes into registers while this one multiplies
+      const int nt = kt < 2 ? tile : tile + gridDim.x;
+      const int nkt = kt < 2 ? kt + 1 : 0;
+      if (nt < tiles)
+        fetch_tile_halo<kCTc>(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H,
+                              W);
+      tuber_mma::cp_async_wait<0>();
+      // frame kt's halo (and the weights) are in; the previous tile's stage
+      // has been read
+      __syncthreads();
+      frame_products<kWarpTilesC, kMTilesC>(
+          acc, halo + kt * HaloC::kFrameElems, w_s + kt * kSlotsF * kLdW,
+          tab_off, tab_mask, poff, lane, mg, ng);
+      // the buffer of frame nkt was last read two barriers ago
+      if (nt < tiles) stash_halo<kCTc>(pre, halo + nkt * HaloC::kFrameElems);
+    }
+
+    // affine (+ ReLU) on the f32 sums, rounded once, into the stage
+#pragma unroll
+    for (int i = 0; i < kWarpTilesC; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = ng * 16 + ni * 8 + 2 * t4 + j;
+            stage[c * kLdStage + (mg * kWarpTilesC + i) * kCTc + g + 8 * h] =
+                __float2bfloat16_rn(affine_relu(acc[i][ni][2 * h + j],
+                                                sc[ni][j], bi[ni][j], relu));
+          }
+    __syncthreads();
+    // 64 channels x 16 rows x 2 halves of 8 px; a warp stores one channel's
+    // 16 rows, each a 32-byte sector
+    const int bt = tile / tiles_hw;
+    const int rem = tile - bt * tiles_hw;
+    const int cy0 = (rem / tiles_x) * kCTc;
+    const int cx0 = (rem % tiles_x) * kCTc;
+    bf16* dst_bt = out + static_cast<size_t>(bt) * kCout * Hc * Wc;
+    for (int v = tid; v < kCout * kCTc * 2; v += kThreadsTc) {
+      const int half = v & 1;
+      const int r = (v >> 1) & (kCTc - 1);
+      const int c = v >> 5;
+      const int cy = cy0 + r;
+      const int cx = cx0 + 8 * half;
+      if (cy >= Hc || cx >= Wc) continue;
+      const bf16* src = stage + c * kLdStage + r * kCTc + 8 * half;
+      bf16* dst = dst_bt + (static_cast<size_t>(c) * Hc + cy) * Wc + cx;
+      if (vec_ok && cx + 8 <= Wc) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && cx + e < Wc; ++e) dst[e] = src[e];
+      }
+    }
+  }
+}
+
+int launch_conv_tc(const void* x, const void* w, const void* scale,
+                   const void* bias, void* out, int batch, int frames, int H,
+                   int W, int relu, void* stream) {
+  const int Hc = (H - 1) / 2 + 1;   // conv 7 / stride 2 / pad 3
+  const int Wc = (W - 1) / 2 + 1;
+  const int tiles_x = (Wc + kCTc - 1) / kCTc;
+  const int tiles_hw = ((Hc + kCTc - 1) / kCTc) * tiles_x;
+  const long long tiles = static_cast<long long>(batch) * frames * tiles_hw;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<int> cache[kMaxDevices];
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(stem_conv_tc_kernel, kSmemConvTc, cache, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>(tiles < resident ? tiles : resident);
+  stem_conv_tc_kernel<<<blocks, kThreadsTc, kSmemConvTc,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), frames, H, W, Hc, Wc, tiles_x, tiles_hw,
+      static_cast<int>(tiles), relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,19 +619,20 @@ extern "C" int tuber_stem_pool_f32(const void* x, const void* w,
   return launch<float>(x, w, scale, bias, out, batch, frames, H, W, stream);
 }
 
-// The unpooled kernel: out (B,T,64,Hc,Wc) in x's type; relu 0 or 1.
+// The unpooled kernels: out (B,T,64,Hc,Wc) in x's type; relu 0 or 1. bf16
+// on the tensor cores, float32 on the CUDA cores.
 extern "C" int tuber_stem_conv_bf16(const void* x, const void* w,
                                     const void* scale, const void* bias,
                                     void* out, int batch, int frames, int H,
                                     int W, int relu, void* stream) {
-  return launch_conv<__nv_bfloat16>(x, w, scale, bias, out, batch, frames, H,
-                                    W, relu, stream);
+  return launch_conv_tc(x, w, scale, bias, out, batch, frames, H, W, relu,
+                        stream);
 }
 
 extern "C" int tuber_stem_conv_f32(const void* x, const void* w,
                                    const void* scale, const void* bias,
                                    void* out, int batch, int frames, int H,
                                    int W, int relu, void* stream) {
-  return launch_conv<float>(x, w, scale, bias, out, batch, frames, H, W, relu,
-                            stream);
+  return launch_conv_f32(x, w, scale, bias, out, batch, frames, H, W, relu,
+                         stream);
 }

@@ -152,16 +152,6 @@ constexpr size_t kSmemTc =
     tc::kWBytes + HaloS::kBytes + tc::kTabBytes + kRedBytes;
 static_assert(tc::kTabBytes % 8 == 0, "the reduction stays 8-byte aligned");
 
-// First input row and column of conv tile `rem` of a frame: 2 cy0 - 3.
-__device__ __forceinline__ void fetch_stats_halo(
-    unsigned short (&r)[HaloS::kPerThread], const unsigned short* x,
-    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
-  const int bt = tile / tiles_hw;
-  const int rem = tile - bt * tiles_hw;
-  tc::fetch_halo<kCT>(r, x, bt, kt, 2 * kCT * (rem / tiles_x) - 3,
-                      2 * kCT * (rem % tiles_x) - 3, frames, H, W);
-}
-
 // Persistent: block i takes tiles i, i + gridDim.x, ... of the B*T*tiles_hw
 // (b, t, 16x16 conv) tiles. Warp w owns channels 16 (w % 4).. and conv rows
 // 4 (w / 4).. of the tile; lane (g, t4) the columns g and g + 8 and the
@@ -195,7 +185,8 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   double sum[2][2] = {}, sq[2][2] = {};   // [n8 half][channel of the pair]
 
   unsigned short pre[HaloS::kPerThread];
-  fetch_stats_halo(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H, W);
+  tc::fetch_tile_halo<kCT>(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames,
+                           H, W);
   tc::stash_halo<kCT>(pre, halo);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kWarpTilesS][2][4];
@@ -211,7 +202,8 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nt = kt < 2 ? tile : tile + gridDim.x;
       const int nkt = kt < 2 ? kt + 1 : 0;
       if (nt < tiles)
-        fetch_stats_halo(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H, W);
+        tc::fetch_tile_halo<kCT>(pre, xs, nt, nkt, tiles_x, tiles_hw, frames,
+                                 H, W);
       tuber_mma::cp_async_wait<0>();
       __syncthreads();              // frame kt's halo (and the weights) are in
       tc::frame_products<kWarpTilesS, kMTilesS>(
@@ -301,7 +293,8 @@ Geometry geometry(int batch, int frames, int H, int W) {
 }
 
 // The blocks that write a partial: float32, one per tile; bf16, the
-// persistent grid of the tensor-core kernel, min(tiles, resident blocks).
+// persistent grid of the tensor-core kernel, min(tiles, resident blocks),
+// the resident blocks queried once per device.
 cudaError_t partial_blocks(bool f32, const Geometry& g, int* blocks) {
   *blocks = 0;
   if (g.tiles > 0x7fffffff) return cudaErrorInvalidValue;
@@ -309,19 +302,11 @@ cudaError_t partial_blocks(bool f32, const Geometry& g, int* blocks) {
     *blocks = static_cast<int>(g.tiles);
     return cudaSuccess;
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_stats_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemTc));
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stem_stats_tc_kernel, tc::kThreadsTc, kSmemTc);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  static std::atomic<int> cache[tc::kMaxDevices];
+  int resident = 0;
+  const cudaError_t err =
+      tc::resident_blocks(stem_stats_tc_kernel, kSmemTc, cache, &resident);
   if (err != cudaSuccess) return err;
-  const long long resident = static_cast<long long>(per_sm) * sms;
   *blocks = static_cast<int>(g.tiles < resident ? g.tiles : resident);
   return cudaSuccess;
 }

@@ -1,8 +1,8 @@
 // The bf16 tensor-core body of the irCSN stem's conv (3x7x7 / stride (1,2,2)
 // / pad (1,3,3), 3 -> 64 channels) as an implicit GEMM, shared by the pooled
-// kernel (stem.cu: stem_pool_tc_kernel) and the statistics kernel
-// (stem_stats.cu: stem_stats_tc_kernel). mma.sync.m16n8k16 (mma.cuh), bf16
-// in, float32 sums.
+// kernel (stem.cu: stem_pool_tc_kernel), the unpooled one (stem.cu:
+// stem_conv_tc_kernel) and the statistics kernel (stem_stats.cu:
+// stem_stats_tc_kernel). mma.sync.m16n8k16 (mma.cuh), bf16 in, float32 sums.
 //
 // A work item is one (b, t) frame and a CT x CT tile of conv pixels: M = CT^2
 // conv pixels in row tiles of 16, N = 64 channels, K = 3 frames x 7 kernel
@@ -21,6 +21,7 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include "mma.cuh"
@@ -97,6 +98,20 @@ __device__ __forceinline__ void stash_halo(
     const int row = e / Hl::kRowElems;
     if (e < Hl::kElems) hb[row * Hl::kLd + e - row * Hl::kRowElems] = r[j];
   }
+}
+
+// Halo frame kt of work item `tile` of the kernels on CT x CT conv tiles that
+// do not overlap (the unpooled and the statistics kernels): tile = bt *
+// tiles_hw + the tile's index in its frame; its first input row and column
+// are 2 cy0 - 3 and 2 cx0 - 3.
+template <int CT>
+__device__ __forceinline__ void fetch_tile_halo(
+    unsigned short (&r)[Halo<CT>::kPerThread], const unsigned short* x,
+    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
+  const int bt = tile / tiles_hw;
+  const int rem = tile - bt * tiles_hw;
+  fetch_halo<CT>(r, x, bt, kt, 2 * CT * (rem / tiles_x) - 3,
+                 2 * CT * (rem % tiles_x) - 3, frames, H, W);
 }
 
 // B: k row (kt, kh, j) is w's row (kt, kh, kw, c) for j = 3 kw + c < 21,
@@ -180,6 +195,51 @@ __device__ __forceinline__ void frame_products(
       tuber_mma::mma_bf16(acc[i][1], a, bfr[2], bfr[3]);
     }
   }
+}
+
+// The epilogue of the bf16 stems on a float32 conv sum: the affine, then the
+// ReLU (keeping a NaN) when asked. The pooled and the unpooled kernels share
+// it, so a max-pool of the unpooled output equals the pooled output bit for
+// bit.
+__device__ __forceinline__ float affine_relu(float acc, float sc, float bi,
+                                             bool relu) {
+  const float y = fmaf(acc, sc, bi);
+  return relu && y < 0.f ? 0.f : y;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of a persistent grid of `kernel` (kThreadsTc threads, `smem` bytes
+// of dynamic shared memory): every SM's resident blocks on the current
+// device. The attribute is set and the count queried once per device and
+// kept in `cache` (zero: not yet), since those calls cost more host time
+// than the launch.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem,
+                            std::atomic<int> (&cache)[kMaxDevices],
+                            int* blocks) {
+  *blocks = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    *blocks = cache[dev].load(std::memory_order_relaxed);
+    if (*blocks > 0) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreadsTc, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  // every thread that races here stores the same value
+  if (dev < kMaxDevices) cache[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace tuber_stem_tc

@@ -31,8 +31,13 @@ CALLS = 0
 
 _ENTRY = {torch.bfloat16: "tuber_depthwise_bf16",
           torch.float32: "tuber_depthwise_f32"}
-# channels in one 16-byte vector of the kernel
+# channels in one 16-byte vector of the kernel, and in one block's slice
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
+_SLICE = {torch.bfloat16: 32, torch.float32: 16}
+# output frames of one block
+_RUN = 8
+# the bound entry point of each type, once the library is loaded
+_FNS: dict = {}
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
@@ -94,39 +99,41 @@ def plain_vjp(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
 def check_inputs(x: torch.Tensor, w: torch.Tensor,
                  scale: Optional[torch.Tensor],
                  bias: Optional[torch.Tensor]) -> None:
-    """Raise ValueError unless the kernel takes these tensors as they are."""
-    if x.dim() != 5:
-        raise ValueError(f"x must be (B,T,H,W,C), got {tuple(x.shape)}")
-    if x.dtype not in _ENTRY:
-        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    c = x.shape[-1]
-    if c % _VEC[x.dtype]:
-        raise ValueError(f"C must be a multiple of {_VEC[x.dtype]} for "
-                         f"{x.dtype}, got {c}")
-    if tuple(w.shape) != (3, 3, 3, c) or w.dtype != x.dtype:
-        raise ValueError(f"w must be (3,3,3,{c}) in {x.dtype}, got "
+    """Raise ValueError unless the kernel takes these tensors as they are.
+    Every call of the kernel runs it, so it reads each property once."""
+    shape, dtype, device = x.shape, x.dtype, x.device
+    if len(shape) != 5:
+        raise ValueError(f"x must be (B,T,H,W,C), got {tuple(shape)}")
+    vec = _VEC.get(dtype)
+    if vec is None:
+        raise ValueError(f"x must be bfloat16 or float32, got {dtype}")
+    b, t, _, _, c = shape
+    if c % vec:
+        raise ValueError(f"C must be a multiple of {vec} for {dtype}, got "
+                         f"{c}")
+    if w.shape != (3, 3, 3, c) or w.dtype != dtype:
+        raise ValueError(f"w must be (3,3,3,{c}) in {dtype}, got "
                          f"{tuple(w.shape)} in {w.dtype}")
     if (scale is None) != (bias is None):
         raise ValueError("scale and bias come together")
-    tensors = {"x": x, "w": w}
+    tensors = (("x", x), ("w", w))
     if scale is not None:
-        tensors.update(scale=scale, bias=bias)
-        for name in ("scale", "bias"):
-            t = tensors[name]
-            if tuple(t.shape) != (c,) or t.dtype != torch.float32:
+        tensors += (("scale", scale), ("bias", bias))
+        for name, a in tensors[2:]:
+            if a.shape != (c,) or a.dtype != torch.float32:
                 raise ValueError(f"{name} must be ({c},) float32, got "
-                                 f"{tuple(t.shape)} {t.dtype}")
-    for name, t in tensors.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
+                                 f"{tuple(a.shape)} {a.dtype}")
+    for name, a in tensors:
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, x on {device}")
+        if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (vector loads)")
-    b, t = x.shape[:2]
-    if b > 65535 or -(-t // 4) * -(-c // 64) > 65535:
-        raise ValueError(f"B must be <= 65535 and ceil(T/4)*ceil(C/64) too, "
-                         f"got {tuple(x.shape)}")
+    slice_c = _SLICE[dtype]
+    if b > 65535 or -(-t // _RUN) * -(-c // slice_c) > 65535:
+        raise ValueError(f"B must be <= 65535 and ceil(T/{_RUN})*ceil(C/"
+                         f"{slice_c}) too, got {tuple(shape)}")
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
@@ -137,7 +144,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     if out.numel() == 0:
         return out
     b, t, h, wd, c = x.shape
-    fn = getattr(library(), _ENTRY[x.dtype])
+    fn = _FNS.get(x.dtype)
+    if fn is None:
+        fn = _FNS[x.dtype] = getattr(library(), _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(),
                  None if scale is None else scale.data_ptr(),

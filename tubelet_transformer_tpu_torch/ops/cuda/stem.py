@@ -10,7 +10,8 @@
   Replaces ``stem_batch_stats`` (its kernel ``_stem_stats_matmul``), phase
   1 of the frozen-stem train path.
 * ``stem_conv_bn_relu``: the conv + affine (+ ReLU) without the pool,
-  channels-mid out, the second kernel of ``csrc/stem.cu``. Replaces
+  channels-mid out, the unpooled kernels of ``csrc/stem.cu`` (bf16 on the
+  tensor cores, on the statistics kernel's 16x16 tiles). Replaces
   ``stem_conv_bn_relu`` (its kernel ``_stem_matmul(pool=False)``); no model
   path calls it, in the JAX package or here.
 
@@ -44,6 +45,8 @@ _STATS_ENTRY = {torch.bfloat16: "tuber_stem_stats_bf16",
                 torch.float32: "tuber_stem_stats_f32"}
 _CONV_ENTRY = {torch.bfloat16: "tuber_stem_conv_bf16",
                torch.float32: "tuber_stem_conv_f32"}
+# the bound entry points, once the library is loaded
+_FNS: dict = {}
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
@@ -76,6 +79,14 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
+
+
+def _bound(entry: str):
+    """The library's function ``entry``, its argument types set."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        fn = _FNS[entry] = getattr(library(), entry)
+    return fn
 
 
 def pooled_hw(h: int, w: int) -> tuple[int, int]:
@@ -167,7 +178,7 @@ def _launch_pool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((b, t, hp, wp, 64), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = getattr(library(), _ENTRY[x.dtype])
+    fn = _bound(_ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), b, t, h, wd,
@@ -216,7 +227,7 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = getattr(library(), _CONV_ENTRY[x.dtype])
+    fn = _bound(_CONV_ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), b, t, h, wd, int(relu),
@@ -273,16 +284,15 @@ def stem_batch_stats(x: torch.Tensor, w: torch.Tensor
     _check_device(x, "stem_batch_stats")
     check_inputs(x, w)
     b, t, h, wd, _ = x.shape
-    lib = library()
     stats = torch.empty((2, 64), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        n = lib.tuber_stem_stats_partials(b, t, h, wd,
-                                          int(x.dtype == torch.float32))
+        n = _bound("tuber_stem_stats_partials")(
+            b, t, h, wd, int(x.dtype == torch.float32))
         if n < 0:
             raise RuntimeError(f"stem stats kernel cannot launch here: "
                                f"cudaError {-n}")
         partial = torch.empty(n, dtype=torch.float32, device=x.device)
-        err = getattr(lib, _STATS_ENTRY[x.dtype])(
+        err = _bound(_STATS_ENTRY[x.dtype])(
             x.data_ptr(), w.data_ptr(), partial.data_ptr(), stats.data_ptr(),
             b, t, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -45,6 +45,20 @@ def stem_pool() -> dict:
     return {"stem_pool": lambda: stem.stem_forward(x, w, scale, bias)}
 
 
+def stem_conv() -> dict:
+    """The unpooled stem with the ReLU, which no model path runs, at the
+    streaming shape: (1,32,256,256,3)."""
+    from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+    rng = np.random.default_rng(0)
+    x = _dev(rng, (1, 32, 256, 256, 3))
+    w = _dev(rng, stem.W_SHAPE, .05)
+    scale = _dev(rng, 64, .3, 1., torch.float32)
+    bias = _dev(rng, 64, 1., 0., torch.float32)
+    return {"stem_conv": lambda: stem.stem_conv_bn_relu(x, w, scale, bias,
+                                                        True)}
+
+
 def stem_stats() -> dict:
     """The stem statistics, one train step: (2,32,256,256,3)."""
     from tubelet_transformer_tpu_torch.ops.cuda import stem
@@ -63,6 +77,20 @@ def depthwise() -> dict:
     x = _dev(rng, (1, 32, 64, 64, 64))
     w = _dev(rng, (3, 3, 3, 64), .2)
     return {"depthwise": lambda: D.depthwise_conv3x3x3(x, w)}
+
+
+def depthwise_affine() -> dict:
+    """layer1's depthwise with the affine + ReLU epilogue of
+    ``_dw_pallas_v2``: (1,32,64,64,64)."""
+    from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
+
+    rng = np.random.default_rng(0)
+    x = _dev(rng, (1, 32, 64, 64, 64))
+    w = _dev(rng, (3, 3, 3, 64), .2)
+    scale = _dev(rng, 64, .3, 1., torch.float32)
+    bias = _dev(rng, 64, .5, 0., torch.float32)
+    return {"depthwise_affine": lambda: D.depthwise_conv3x3x3(
+        x, w, scale, bias, relu=True)}
 
 
 def bottleneck() -> dict:
