@@ -45,17 +45,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
    no fused bottleneck), in situ and the host time with the chains on and
    off; then where the device time of one forward of each detector goes
    (torch.profiler), and the serving CLI through the stage path's YAML;
-8. the train path: the flagship fine-tune recipe (TUNE_POINT 4: stem and
+8. weights in, at flagship size: a Caffe2 ``.mat`` backbone, a COCO DETR
+   ``detr.pth`` (100 query rows) and a ``module.``-prefixed TubeR ``.pth``
+   written from a seed-1 model (``tools/fixtures.py``), each loaded into a
+   seed-0 build on the card through ``train/checkpoint.py``, bit for bit,
+   with the load times;
+9. the train path: the flagship fine-tune recipe (TUNE_POINT 4: stem and
    layer1-2 frozen, their BN in train mode) through the ``train_ava``
-   entry point on the synthetic set, 4 steps at batch 2, one validation
-   and a checkpoint, counting the kernel launches that path makes;
-9. in situ, train: one flagship train forward with both stem kernels on
-   and off;
-10. one train step on uint8 clips, so that the HSV jitter runs on the card,
+   entry point on the synthetic set with PRETRAINED and LOAD_DETR pointed
+   at phase 8's files, 4 steps at batch 2, one validation and a
+   checkpoint, counting the kernel launches that path makes;
+10. the eval CLI (``eval_ava``) on that checkpoint (MODEL.LOAD with
+    PRETRAINED_PATH): its weights equal the checkpoint's, its frame mAP
+    beside the train run's; then the serving CLI with MODEL.LOAD on it,
+    in this process, its weights equal the checkpoint's too;
+11. in situ, train: one flagship train forward with both stem kernels on
+    and off;
+12. one train step on uint8 clips, so that the HSV jitter runs on the card,
     and where the device time of a train step goes;
-11. one flagship train step with ``MODEL.PALLAS_KERNELS`` on: layer1 is
+13. one flagship train step with ``MODEL.PALLAS_KERNELS`` on: layer1 is
     frozen (TUNE_POINT 4), so its 3 depthwise convs take the kernel under
-    no_grad.
+    no_grad;
+14. the JHMDB path at full width: ``train_jhmdb`` on
+    configuration/tuber_csn152_jhmdb.yaml (CSN-152, 224 px on the 224x400
+    canvas, T=32, 10 x 32 = 320 tubelet queries, bf16, batch 2, aux losses,
+    TUNE_POINT 4 over phase 8's ``.mat``) on an ACT-detector fixture of
+    random 320x240 frames, with its validation (frame and video mAP), then
+    ``eval_jhmdb`` on its checkpoint; the loss finite, the frozen prefix
+    bit-equal across the steps, both stem kernels in situ on the path's own
+    inputs against their plain versions and a repeat launch, the steady
+    step and the eval step, and where the device time of each goes.
+
+The profiled windows of phases 7, 12 and 14 (where the device time goes)
+run last, after every timed phase: a window slows the host work of its
+process after it.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -78,6 +101,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_CONFIG = ROOT / "configuration" / "tuber_csn152_ava22.yaml"
+JHMDB_CONFIG = ROOT / "configuration" / "tuber_csn152_jhmdb.yaml"
 # Pooled stem (x shape, dtype): the streaming paths' 256 and 224 px, the
 # train path's batch of 2, and a shape the 8x8 pooled tiles do not divide,
 # in bf16 (the tensor-core kernel's edge masking) and float32 (the CUDA-core
@@ -85,6 +109,8 @@ FLAGSHIP_CONFIG = ROOT / "configuration" / "tuber_csn152_ava22.yaml"
 STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
               "jhmdb_224px": ((1, 32, 224, 224, 3), "bfloat16"),
               "ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
+              "jhmdb_224x400": ((1, 32, 224, 400, 3), "bfloat16"),
+              "jhmdb_224x400_train": ((2, 32, 224, 400, 3), "bfloat16"),
               "ragged_bf16": ((2, 3, 37, 45, 3), "bfloat16"),
               "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
 # Statistics kernel (x shape, dtype): the train path's batch of 2 at 256
@@ -94,9 +120,20 @@ STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
 # and in float32 (the CUDA-core kernel).
 STATS_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
                "jhmdb_224px_train": ((2, 32, 224, 224, 3), "bfloat16"),
+               "jhmdb_224x400_train": ((2, 32, 224, 400, 3), "bfloat16"),
                "ragged_bf16": ((2, 32, 250, 230, 3), "bfloat16"),
                "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
 BUILD_DIR = ROOT / "build"
+# The weight files the smoke writes in the released formats, and the name
+# of the released IG65M CSN-152 backbone export they stand for.
+WEIGHTS_DIR = BUILD_DIR / "chip_smoke_weights"
+MAT_NAME = "irCSN_152_ft_kinetics_from_ig65m_f126851907.mat"
+# The JHMDB fixture: ACT-detector videos of JHMDB_FRAMES 320x240 frames,
+# every frame a sample (JHMDBDataset): 20 train steps at batch 2 and 40
+# validation forwards at batch 1.
+JHMDB_TRAIN_VIDEOS = ("brush_hair/v0", "catch/v1")
+JHMDB_TEST_VIDEOS = ("pour/v2", "run/v3")
+JHMDB_FRAMES = 20
 # Kernel against plain, bf16: the plain version rounds the conv output to
 # bf16 before the f32 epilogue, the kernel rounds once at the end; each
 # rounding is <= 2^-9 relative, so 2^-6 of the output's range is 4x margin.
@@ -791,12 +828,12 @@ def zero_counts() -> None:
     depthwise.LAUNCHES = bottleneck.LAUNCHES = stage.LAUNCHES = 0
 
 
-def write_config(name: str, edit) -> Path:
-    """The flagship YAML with ``edit`` applied to its CONFIG tree, written
-    to build/<name>."""
+def write_config(name: str, edit, source: Path = FLAGSHIP_CONFIG) -> Path:
+    """The YAML ``source`` (the flagship's by default) with ``edit``
+    applied to its CONFIG tree, written to build/<name>."""
     import yaml
 
-    with open(FLAGSHIP_CONFIG) as f:
+    with open(source) as f:
         tree = yaml.safe_load(f)
     edit(tree["CONFIG"])
     BUILD_DIR.mkdir(exist_ok=True)
@@ -1133,9 +1170,11 @@ def phase_small_train_reference(torch, stem) -> None:
         raise AssertionError("small train step: card and CPU disagree")
 
 
-def phase_train_path(torch, stem) -> dict:
+def phase_train_path(torch, stem, weights: dict) -> dict:
     """The flagship fine-tune recipe through the train_ava entry point,
-    on the synthetic set; returns the config and the measurements."""
+    on the synthetic set, with PRETRAINED and LOAD_DETR pointed at the
+    smoke's ``.mat`` and ``detr.pth`` (``weights``); returns the config, the
+    run's checkpoint and the measurements."""
     from tubelet_transformer_tpu_torch.cli import train_ava
     from tubelet_transformer_tpu_torch.config import load_config
     from tubelet_transformer_tpu_torch.models.tuber import build_model
@@ -1149,7 +1188,10 @@ def phase_train_path(torch, stem) -> dict:
         c["DATA"].update(DATASET_NAME="synthetic", SYNTHETIC_SIZE=8,
                          LABEL_PATH="")
         c["TRAIN"]["EPOCH_NUM"] = 1
-        c["MODEL"].update(PRETRAIN_BACKBONE_DIR="", LOAD_DETR=False)
+        c["MODEL"].update(PRETRAINED=True,
+                          PRETRAIN_BACKBONE_DIR=str(weights["mat"]),
+                          LOAD_DETR=True,
+                          PRETRAIN_TRANSFORMER_DIR=str(weights["detr"]))
         c["LOG"]["BASE_PATH"] = str(base)
 
     cfg_path = write_config("chip_smoke_train.yaml", edit)
@@ -1218,14 +1260,23 @@ def phase_train_path(torch, stem) -> dict:
     if "val/val_mAP_epoch" not in tags or not ckpt.exists():
         raise AssertionError(f"no validation mAP or no checkpoint in {run}")
     final = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
-    start = build_model(cfg, device="cpu", seed=0, train=True).state_dict()
-    frozen_moved, trained_still = [], []
+    start = build_model(cfg, device="cpu", seed=0, train=True,
+                        pretrained=True).state_dict()
+    # the run started from the .mat backbone and the DETR seed
+    seeded = [n for n in weights["sd"] if n.startswith(
+        ("backbone.body.", "transformer.", "bbox_embed."))
+        and not n.endswith("num_batches_tracked")]
+    if not all(torch.equal(start[n], weights["sd"][n]) for n in seeded):
+        raise AssertionError("the train run's start is not the .mat "
+                             "backbone and the DETR seed")
+    frozen_moved, trained_still, frozen = [], [], 0
     for name, value in start.items():
         if name.endswith("num_batches_tracked"):
             continue
         label = (param_label(name, cfg) if not name.endswith(
             ("running_mean", "running_var")) else "stats")
         same = torch.equal(final[name], value)
+        frozen += label == "frozen"
         if label == "frozen" and not same:
             frozen_moved.append(name)
         if label in ("main", "backbone") and same:
@@ -1251,8 +1302,8 @@ def phase_train_path(torch, stem) -> dict:
         f"{cfg.model.compute_dtype} TUNE_POINT {cfg.model.tune_point}: "
         f"{len(steps)} steps, losses {[round(l, 4) for _, l, _ in steps]}; "
         f"validation frame mAP {tags['val/val_mAP_epoch']:.4f}; checkpoint "
-        f"{ckpt.relative_to(ROOT)}; launches {launches}; frozen params "
-        f"bit-equal, trained params moved "
+        f"{ckpt.relative_to(ROOT)}; launches {launches}; the {frozen} frozen "
+        f"params bit-equal to the .mat backbone, trained params moved "
         f"({len(trained_still)} unchanged: {trained_still[:3]}), stem BN "
         f"running stats moved")
     log(f"[train] step ms {[round(v, 2) for v in step_ms]}: first "
@@ -1262,7 +1313,9 @@ def phase_train_path(torch, stem) -> dict:
         f"step, {solve_ms['val'] / VAL_FORWARDS:.3f} ms per eval forward; "
         f"peak device "
         f"memory {peak_gb:.2f} GB; train_ava wall {wall:.1f} s")
-    return {"cfg": cfg, "launches": launches,
+    return {"cfg": cfg, "cfg_path": cfg_path, "launches": launches,
+            "ckpt": ckpt,
+            "val_map": tags["val/val_mAP_epoch"],
             "steady_ms": statistics.median(step_ms[1:])}
 
 
@@ -1292,8 +1345,8 @@ def phase_train_in_situ(torch, stem, cfg):
             for kernel in (True, False):
                 body.stem_kernel = kernel
                 out = model(batch["clips"].to(model.dtype), batch["pad_mask"])
-                losses = engine.compute_losses(cfg, out, engine._targets(
-                    batch))
+                losses = engine.compute_losses(
+                    cfg, out, engine._targets_from_batch(cfg, batch))
                 totals.append(float(engine.weighted_total(
                     cfg, losses, cfg.loss.dice_cof)))
     finally:
@@ -1405,6 +1458,441 @@ def phase_train_kernels(torch, cfg) -> dict:
     return launches
 
 
+def _state_equal(torch, got: dict, want: dict, names) -> list:
+    """The names among ``names`` where ``got`` and ``want`` differ in a
+    bit (on the CPU)."""
+    return [n for n in names if not torch.equal(got[n].cpu(), want[n].cpu())]
+
+
+def phase_weights(torch) -> dict:
+    """Weights in, at flagship size: a Caffe2 ``.mat`` backbone, a COCO DETR
+    ``detr.pth`` (100 query rows) and a ``module.``-prefixed TubeR ``.pth``
+    written from a seed-1 train build (tools/fixtures.py), each loaded into
+    a seed-0 build on the card through train/checkpoint.py; each must bring
+    over exactly its tensors, bit for bit, and leave the rest as they
+    were."""
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.tools import fixtures
+    from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    out = WEIGHTS_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    sd1 = {k: v.clone() for k, v in build_model(
+        cfg, device="cpu", seed=1, train=True).state_dict().items()}
+    names = [k for k in sd1 if not k.endswith("num_batches_tracked")]
+    t0 = time.perf_counter()
+    paths = {"mat": fixtures.write_csn_mat(str(out / MAT_NAME), sd1,
+                                           (3, 8, 36, 3)),
+             "detr": fixtures.write_detr_pth(str(out / "detr.pth"), sd1),
+             "tuber": fixtures.write_tuber_pth(str(out / "tuber_csn152.pth"),
+                                               sd1)}
+    log(f"[weights] wrote {', '.join(Path(p).name for p in paths.values())}"
+        f" ({', '.join(f'{Path(p).stat().st_size / 2**20:.1f}' for p in paths.values())}"
+        f" MiB) in {time.perf_counter() - t0:.1f} s")
+    loaders = {"mat": (ckpt_lib.load_backbone_mat, ("backbone.body.",)),
+               "detr": (ckpt_lib.seed_from_detr,
+                        ("transformer.", "bbox_embed.")),
+               "tuber": (ckpt_lib.load_tuber_pth, ("",))}
+    detr_q = torch.load(paths["detr"], map_location="cpu",
+                        weights_only=True)["model"]["query_embed.weight"]
+    load_s = {}
+    for kind, (load, prefixes) in loaders.items():
+        model = build_model(cfg, device="cuda", seed=0, train=True)
+        sd0 = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load(cfg, model, paths[kind])
+        torch.cuda.synchronize()
+        load_s[kind] = time.perf_counter() - t0
+        got = model.state_dict()
+        want = dict(sd0)
+        moved = [n for n in names if n.startswith(prefixes)]
+        want.update({n: sd1[n] for n in moved})
+        if kind == "detr":
+            want["query_embed.weight"] = detr_q[:cfg.model.query_num]
+            moved.append("query_embed.weight")
+        bad = _state_equal(torch, got, want, names)
+        log(f"[weights] {kind}: {len(moved)} tensors loaded in "
+            f"{load_s[kind]:.3f} s; the model's {len(names)} tensors bit-"
+            f"equal to the file's (and the seed-0 build's elsewhere): "
+            f"{not bad}")
+        if bad or not moved:
+            raise AssertionError(f"{kind}: {len(bad)} tensors differ, e.g. "
+                                 f"{bad[:3]}")
+        del model
+        torch.cuda.empty_cache()
+    return {**paths, "sd": sd1, "load_s": load_s}
+
+
+def _capture(module, name: str, sink: list):
+    """Wrap ``module.name`` so that each call appends its result to
+    ``sink``; returns the undo."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        sink.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, fn)
+
+
+def _run_cli(module, argv: list) -> None:
+    """``module.main()`` with ``argv`` as the command line."""
+    saved = sys.argv
+    sys.argv = [module.__name__, *argv]
+    try:
+        module.main()
+    finally:
+        sys.argv = saved
+
+
+def phase_eval_cli(torch, train: dict) -> dict:
+    """The eval CLI on the train phase's checkpoint (MODEL.LOAD with
+    PRETRAINED_PATH): the eval build's weights equal the checkpoint's cast
+    once to the compute dtype, and a float32 build's equal it bit for bit;
+    its frame mAP beside the train run's last validation."""
+    from tubelet_transformer_tpu_torch.cli import eval_ava, runner
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+    ckpt = train["ckpt"]
+    cfg_path = write_config("chip_smoke_eval.yaml", lambda c: c[
+        "MODEL"].update(LOAD=True, PRETRAINED_PATH=str(ckpt)),
+        source=train["cfg_path"])
+    runs: list = []
+    undo = _capture(runner, "run_eval", runs)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        _run_cli(eval_ava, ["--config-file", str(cfg_path), "--device",
+                            "cuda", "--seed", "3"])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    model = runs[0]["model"]
+    got = model.state_dict()
+    cast = {n: saved[n].to(got[n].dtype) for n in saved}
+    bad = _state_equal(torch, got, cast, saved)
+    f32 = build_model(load_config(str(cfg_path)), device="cpu", seed=3,
+                      train=True, pretrained=True).state_dict()
+    bad32 = _state_equal(torch, f32, saved, saved)
+    val_map = runs[0]["val"]["mAP"]
+    log(f"[eval cli] eval_ava on {ckpt.relative_to(ROOT)}: frame mAP "
+        f"{val_map:.6f} (the train run's last validation "
+        f"{train['val_map']:.6f}, difference {val_map - train['val_map']:.3g});"
+        f" the eval build's {len(saved)} tensors equal the checkpoint's cast "
+        f"to {model.dtype} (BN statistics float32): {not bad}; a float32 "
+        f"build's equal it bit for bit: {not bad32}; launches {launches}; "
+        f"wall {wall:.1f} s")
+    if bad or bad32 or not np.isfinite(val_map) or launches[
+            "stem_pool"] != VAL_FORWARDS:
+        raise AssertionError(f"eval CLI: weights differ ({bad[:3]}, "
+                             f"{bad32[:3]}), mAP {val_map} or launches "
+                             f"{launches}")
+    return {"cfg_path": cfg_path, "launches": launches, "map": val_map}
+
+
+def phase_serve_load(torch, cfg_path: Path, ckpt: Path) -> dict:
+    """The serving CLI with MODEL.LOAD on the train phase's checkpoint, in
+    this process: its model's weights equal the checkpoint's cast once to
+    the compute dtype, and >= 3 keyframes are served."""
+    import contextlib
+    import io
+
+    from tubelet_transformer_tpu_torch import serving
+    from tubelet_transformer_tpu_torch.cli import serve
+
+    made: list = []
+    undo = _capture(serving, "StreamingDetector", made)
+    buf = io.StringIO()
+    zero_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _run_cli(serve, ["--config-file", str(cfg_path), "--num-frames",
+                             str(FRAMES), "--fps", "8", "--device", "cuda"])
+    finally:
+        undo()
+    launches = launch_counts()
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")]
+    keyframes = [d for d in lines if "keyframe" in d]
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    got = made[0].model.state_dict()
+    bad = _state_equal(torch, got, {n: saved[n].to(got[n].dtype)
+                                    for n in saved}, saved)
+    log(f"[serve load] serve with MODEL.LOAD: keyframes "
+        f"{[d['keyframe'] for d in keyframes]}, latency ms "
+        f"{[d['latency_ms'] for d in keyframes]}; weights equal the "
+        f"checkpoint's (cast once): {not bad}; launches {launches}")
+    if bad or len(keyframes) < 3 or launches["stem_pool"] != len(keyframes):
+        raise AssertionError(f"serve with MODEL.LOAD: {len(keyframes)} "
+                             f"keyframes, weights differ {bad[:3]}")
+    return launches
+
+
+def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
+    """The JHMDB recipe at full width through train_jhmdb and eval_jhmdb,
+    on an ACT-detector fixture of random 320x240 frames: the loss finite,
+    the frozen prefix bit-equal across the steps, frame and video mAP
+    finite; #2 and #4 in situ on the path's own stem inputs against their
+    plain versions and a repeat launch; the steady train step and the eval
+    step (their device breakdowns: phase_jhmdb_breakdown)."""
+    import shutil
+
+    from tubelet_transformer_tpu_torch.cli import (eval_jhmdb, runner,
+                                                   train_jhmdb)
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.data.device_preprocess import (
+        device_preprocess)
+    from tubelet_transformer_tpu_torch.models import csn
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.tools import fixtures
+    from tubelet_transformer_tpu_torch.train import engine
+    from tubelet_transformer_tpu_torch.train.optimizer import param_label
+
+    root = BUILD_DIR / "jhmdb_fixture"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    frames = fixtures.write_jhmdb_set(
+        str(root), JHMDB_TRAIN_VIDEOS, JHMDB_TEST_VIDEOS, JHMDB_FRAMES,
+        num_classes=21, hw=(240, 320))
+    base = BUILD_DIR / "chip_smoke_runs"
+
+    def edit(c):
+        c["DATA"].update(ANNO_PATH=str(root), DATA_PATH=frames)
+        c["TRAIN"]["EPOCH_NUM"] = 1
+        c["MODEL"]["PRETRAIN_BACKBONE_DIR"] = str(weights["mat"])
+        c["LOG"]["BASE_PATH"] = str(base)
+
+    cfg_path = write_config("chip_smoke_jhmdb.yaml", edit,
+                            source=JHMDB_CONFIG)
+    cfg = load_config(str(cfg_path))
+    log(f"[jhmdb] fixture: {len(JHMDB_TRAIN_VIDEOS)} train and "
+        f"{len(JHMDB_TEST_VIDEOS)} test videos of {JHMDB_FRAMES} 320x240 "
+        f"frames, 21 classes, in {time.perf_counter() - t0:.1f} s; "
+        f"{cfg.model.backbone_name} {cfg.data.img_size}px T="
+        f"{cfg.data.temp_len} Q={cfg.model.query_num}x{cfg.model.temp_len}, "
+        f"{cfg.model.enc_layers}+{cfg.model.dec_layers} d={cfg.model.d_model}"
+        f" {cfg.model.compute_dtype} bs={cfg.train.batch_size}, TUNE_POINT "
+        f"{cfg.model.tune_point} over the smoke's .mat backbone")
+
+    steps: list = []
+    make = engine.make_train_step
+
+    def timed_make(cfg_, state):
+        step = make(cfg_, state)
+
+        def timed(batch, weight):
+            t = time.perf_counter()
+            metrics = step(batch, weight)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t) * 1e3,
+                          float(metrics["total_loss"]),
+                          float(metrics["finite"])))
+            return metrics
+
+        return timed
+
+    stem_in: dict = {"stats": [], "pool": []}
+
+    def keep(kind, fn):
+        def wrapped(x, w, *rest):
+            if not any(a[0].shape == x.shape for a in stem_in[kind]):
+                stem_in[kind].append((x.detach().clone(), w.clone(),
+                                      *(r.detach().clone() for r in rest)))
+            return fn(x, w, *rest)
+        return wrapped
+
+    saved_fns = (csn.stem_batch_stats, csn.stem_forward)
+    csn.stem_batch_stats = keep("stats", saved_fns[0])
+    csn.stem_forward = keep("pool", saved_fns[1])
+    engine.make_train_step = timed_make
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        _run_cli(train_jhmdb, ["--config-file", str(cfg_path), "--device",
+                               "cuda", "--seed", "0"])
+    finally:
+        engine.make_train_step = make
+        csn.stem_batch_stats, csn.stem_forward = saved_fns
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    n_train = len(JHMDB_TRAIN_VIDEOS) * JHMDB_FRAMES // cfg.train.batch_size
+    n_val = len(JHMDB_TEST_VIDEOS) * JHMDB_FRAMES
+    if len(steps) != n_train or not all(
+            fin == 1.0 and np.isfinite(loss) for _, loss, fin in steps):
+        raise AssertionError(f"jhmdb steps {steps}: want {n_train} finite")
+    if launches != {"stem_pool": n_train + n_val, "stem_stats": n_train,
+                    "stem_conv": 0, "depthwise": 0, "bottleneck": 0,
+                    "chain": 0}:
+        raise AssertionError(f"jhmdb launches {launches}")
+    run = max(glob.glob(str(base / f"{cfg.log.exp_name}_*")),
+              key=lambda d: Path(d).stat().st_mtime)
+    ckpt = Path(run) / cfg.log.save_dir / "ckpt_epoch_0"
+    with open(Path(run) / cfg.log.log_dir / "metrics.jsonl") as f:
+        tags = {json.loads(line)["tag"]: json.loads(line)["value"]
+                for line in f}
+    maps = {k: tags.get(k) for k in ("val/val_mAP_epoch",
+                                     "val/video_mAP@0.2",
+                                     "val/video_mAP@0.5")}
+    if not all(v is not None and np.isfinite(v) for v in maps.values()):
+        raise AssertionError(f"jhmdb validation: {maps}")
+    final = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    start = build_model(cfg, device="cpu", seed=0, train=True,
+                        pretrained=True).state_dict()
+    frozen = [n for n in start if not n.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))
+        and param_label(n, cfg) == "frozen"]
+    moved = _state_equal(torch, final, start, frozen)
+    trained = [n for n in start if n.startswith(("class_fc.", "bbox_embed.",
+                                                 "class_embed_b."))]
+    still = [n for n in trained if torch.equal(final[n], start[n])]
+    if not frozen or moved or still:
+        raise AssertionError(f"jhmdb freeze check: frozen moved {moved[:3]},"
+                             f" trained unchanged {still[:3]}")
+    step_ms = [ms for ms, _, _ in steps]
+    log(f"[jhmdb] train_jhmdb: {len(steps)} steps, losses "
+        f"{[round(l, 3) for _, l, _ in steps]}; the {len(frozen)} frozen "
+        f"params bit-equal across the steps; validation frame mAP "
+        f"{maps['val/val_mAP_epoch']:.4f}, video mAP@0.2 "
+        f"{maps['val/video_mAP@0.2']:.4f} @0.5 "
+        f"{maps['val/video_mAP@0.5']:.4f}; launches {launches}; wall "
+        f"{wall:.1f} s")
+    log(f"[jhmdb] step ms: first {step_ms[0]:.2f}, steady median (after "
+        f"the first) {statistics.median(step_ms[1:]):.2f} (min "
+        f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}); {smi}")
+
+    # #2 and #4 in situ: the path's own stem inputs
+    insitu = {}
+    for kind, args in stem_in.items():
+        for a in args:
+            shape = tuple(a[0].shape)
+            if kind == "stats":
+                got, again = stem.stem_batch_stats(*a), stem.stem_batch_stats(
+                    *a)
+                ref = stem.stem_batch_stats_reference(*a)
+                var_rel = ((got[1] - ref[1]).abs() / ref[1]).max().item()
+                mean_err = (got[0] - ref[0]).abs().max().item()
+                std = ref[1].sqrt().max().item()
+                ok = (mean_err <= STATS_MEAN_TOL["bfloat16"] * std
+                      and var_rel <= STATS_VAR_TOL["bfloat16"])
+                bits = all(torch.equal(p, q) for p, q in zip(got, again))
+                err = f"mean {mean_err / std:.3g} of max std, var {var_rel:.3g}"
+            else:
+                got, again = stem.stem_forward(*a), stem.stem_forward(*a)
+                ref = stem.stem_reference(*a)
+                e = (got.float() - ref.float()).abs().max().item()
+                span = ref.float().abs().max().item()
+                ok = e <= STEM_TOL * span
+                bits = torch.equal(got, again)
+                err = f"{e / span:.3g} of max|ref|"
+            torch.cuda.synchronize()
+            log(f"[jhmdb in situ] {'stem_stats' if kind == 'stats' else 'stem_pool'}"
+                f" {shape} on the path's clips: kernel vs plain {err}; "
+                f"repeat bit-equal {bits}")
+            if not (ok and bits):
+                raise AssertionError(f"jhmdb in situ {kind} {shape}")
+            insitu[f"{kind}_{shape[0]}"] = True
+    if set(insitu) != {"stats_2", "pool_2", "pool_1"}:
+        raise AssertionError(f"jhmdb in situ: saw {sorted(insitu)}")
+
+    # eval_jhmdb on the run's checkpoint
+    eval_path = write_config("chip_smoke_jhmdb_eval.yaml", lambda c: (
+        edit(c), c["MODEL"].update(LOAD=True, PRETRAINED_PATH=str(ckpt))),
+        source=JHMDB_CONFIG)
+    runs: list = []
+    undo = _capture(runner, "run_eval", runs)
+    zero_counts()
+    try:
+        _run_cli(eval_jhmdb, ["--config-file", str(eval_path), "--device",
+                              "cuda"])
+    finally:
+        undo()
+    eval_launches = launch_counts()
+    res = runs[0]["val"]
+    if not (np.isfinite(res["mAP"]) and eval_launches["stem_pool"] == n_val):
+        raise AssertionError(f"eval_jhmdb: {res}, launches {eval_launches}")
+    log(f"[jhmdb] eval_jhmdb on {ckpt.relative_to(ROOT)}: frame mAP "
+        f"{res['mAP']:.4f}, video mAP "
+        f"{ {k: round(v, 4) for k, v in res.items() if 'video' in k} }; "
+        f"launches {eval_launches}")
+
+    # the eval step's time (its breakdown waits for phase_jhmdb_breakdown)
+    model = runs[0]["model"]
+    batches = iter(runner.make_loaders(load_config(str(eval_path)),
+                                       val_only=True)[1])
+    batch = engine.device_batch(next(batches), torch.device("cuda"))
+    batches.close()
+    step_fn = engine.make_eval_step(cfg, model)
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    eval_ms = statistics.median(times[2:])
+    log(f"[jhmdb] eval step (1,32,224,400,3) forward + postprocess + "
+        f"losses: median {eval_ms:.2f} ms of 10 (min {min(times[2:]):.2f});"
+        f" {smi}")
+    del runs
+    return {"launches": launches, "eval_launches": eval_launches,
+            "steady_ms": statistics.median(step_ms[1:]),
+            "first_ms": step_ms[0], "eval_ms": eval_ms, "cfg": cfg,
+            "smi": smi,
+            "eval_step": step_fn, "eval_batch": batch}
+
+
+def phase_jhmdb_breakdown(torch, jhmdb: dict) -> None:
+    """Where the device time of one JHMDB eval step and of one JHMDB train
+    step goes (torch.profiler), against the times phase_jhmdb took before
+    any profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+
+    step_fn, batch = jhmdb.pop("eval_step"), jhmdb.pop("eval_batch")
+    step_fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(batch)
+        torch.cuda.synchronize()
+    _report_device_time(torch, prof, "jhmdb eval breakdown",
+                        f"one JHMDB eval step (eval step "
+                        f"{jhmdb['eval_ms']:.2f} ms; {jhmdb['smi']})",
+                        jhmdb["eval_ms"],
+                        ("stem_pool_tc_kernel",), top=6)
+    del step_fn, batch
+    torch.cuda.empty_cache()
+
+    cfg = jhmdb["cfg"]
+    model = build_model(cfg, device="cuda", seed=0, train=True,
+                        pretrained=True)
+    step = engine.make_train_step(
+        cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+    batch = _train_batch(torch, cfg)
+    step(batch, cfg.loss.dice_cof)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+    _report_device_time(torch, prof, "jhmdb train breakdown",
+                        f"one JHMDB train step (steady step "
+                        f"{jhmdb['steady_ms']:.2f} ms; {jhmdb['smi']})",
+                        jhmdb["steady_ms"],
+                        ("stem_pool_tc_kernel", "stem_stats_tc_kernel"),
+                        top=10)
+
+
 def main() -> int:
     import torch
 
@@ -1416,8 +1904,10 @@ def main() -> int:
 
     smi = phase_environment(torch)
     phase_build()
-    pool = phase_kernels(torch, stem)["ava_256px_train"]
-    stats = phase_stats_kernel(torch, stem)["ava_256px_train"]
+    pools = phase_kernels(torch, stem)
+    pool = pools["ava_256px_train"]
+    stats_cases = phase_stats_kernel(torch, stem)
+    stats = stats_cases["ava_256px_train"]
     dw = phase_depthwise_kernel(torch)["layer1_256px"]
     bn = phase_bottleneck_kernel(torch)["layer2_256px"]
     chains = phase_stage_kernel(torch)
@@ -1450,6 +1940,24 @@ def main() -> int:
     phase_switch_latency(torch, sdet, stages_switch(sdet.model),
                          "stage chains")
 
+    phase_serve_cli(stages_cfg)
+
+    weights = phase_weights(torch)
+    train = phase_train_path(torch, stem, weights)
+    torch.cuda.empty_cache()
+    evaluated = phase_eval_cli(torch, train)
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve_load(torch, evaluated["cfg_path"],
+                                      train["ckpt"])
+    torch.cuda.empty_cache()
+    model = phase_train_in_situ(torch, stem, train["cfg"])
+    train_kernel_launches = phase_train_kernels(torch, train["cfg"])
+    torch.cuda.empty_cache()
+    jhmdb = phase_jhmdb(torch, stem, weights, smi)
+    torch.cuda.empty_cache()
+
+    # the profiled windows last: a window slows the host work of its
+    # process after it, so every time above is taken before the first
     phase_breakdown(torch, det, steady_ms, "breakdown",
                     ("stem_pool_tc_kernel",))
     phase_breakdown(torch, kdet, kernel_steady_ms, "kernels breakdown",
@@ -1458,16 +1966,11 @@ def main() -> int:
                     ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
     del det, kdet, sdet
     torch.cuda.empty_cache()
-    phase_serve_cli(stages_cfg)
-
-    train = phase_train_path(torch, stem)
-    torch.cuda.empty_cache()
-    model = phase_train_in_situ(torch, stem, train["cfg"])
     phase_jitter_and_train_breakdown(torch, stem, train["cfg"], model,
                                      train["steady_ms"])
     del model
     torch.cuda.empty_cache()
-    train_kernel_launches = phase_train_kernels(torch, train["cfg"])
+    phase_jhmdb_breakdown(torch, jhmdb)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "flax", "optax", "orbax", "tubelet_transformer_tpu"))
     if leaked:
@@ -1492,9 +1995,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("stem_pool", "stem.cu", "stem.py:134",
               train["launches"]["stem_pool"], pool,
-              launches_streaming=stream_launches["stem_pool"]),
+              launches_streaming=stream_launches["stem_pool"],
+              launches_eval_ava=evaluated["launches"]["stem_pool"],
+              launches_serve_load=serve_launches["stem_pool"],
+              launches_jhmdb=jhmdb["launches"]["stem_pool"],
+              launches_eval_jhmdb=jhmdb["eval_launches"]["stem_pool"],
+              jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
+                                                 "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
-              train["launches"]["stem_stats"], stats),
+              train["launches"]["stem_stats"], stats,
+              launches_jhmdb=jhmdb["launches"]["stem_stats"],
+              jhmdb_cases={"jhmdb_224x400_train":
+                           stats_cases["jhmdb_224x400_train"]}),
         entry("depthwise", "depthwise.cu", "depthwise.py:66",
               kernel_launches["depthwise"], dw,
               also_replaces="tubelet_transformer_tpu/ops/pallas/"

@@ -27,7 +27,15 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.cli.train_ava",
             "tubelet_transformer_tpu_torch.train.engine",
             "tubelet_transformer_tpu_torch.data.packed",
-            "tubelet_transformer_tpu_torch.eval.ava_eval"} <= set(modules)
+            "tubelet_transformer_tpu_torch.eval.ava_eval",
+            "tubelet_transformer_tpu_torch.cli.eval_ava",
+            "tubelet_transformer_tpu_torch.cli.train_jhmdb",
+            "tubelet_transformer_tpu_torch.cli.eval_jhmdb",
+            "tubelet_transformer_tpu_torch.data.jhmdb",
+            "tubelet_transformer_tpu_torch.eval.np_box",
+            "tubelet_transformer_tpu_torch.eval.ucf_eval",
+            "tubelet_transformer_tpu_torch.eval.video_map",
+            "tubelet_transformer_tpu_torch.tools.fixtures"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

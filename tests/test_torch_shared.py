@@ -1,7 +1,10 @@
 """The port's own copies of the JAX package's jax-free modules against the
 originals: the configuration schema and its YAML mapping, the synthetic set
-and the loader, the AVA frame-mAP evaluator, and the export of flax
-variables to the reference's state dict."""
+and the loader, the AVA frame-mAP evaluator, the export of flax variables to
+the reference's state dict, and the JHMDB/UCF24 copies (``data/jhmdb.py``,
+``eval/{np_box,ucf_eval,video_map}.py``): their source equal to the
+originals' but for the package's name, the box operations, and the UCF
+frame-mAP and video-mAP evaluators on the same detections."""
 
 import dataclasses
 import glob
@@ -15,11 +18,15 @@ from tubelet_transformer_tpu import config as jconfig
 from tubelet_transformer_tpu.data import loader as jloader
 from tubelet_transformer_tpu.data import synthetic as jsynthetic
 from tubelet_transformer_tpu.eval import ava_eval as java_eval
+from tubelet_transformer_tpu.eval import np_box as jnp_box
+from tubelet_transformer_tpu.eval import ucf_eval as jucf_eval
+from tubelet_transformer_tpu.eval import video_map as jvideo_map
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
 from tubelet_transformer_tpu.train import torch_convert
 from tubelet_transformer_tpu_torch import config, convert
 from tubelet_transformer_tpu_torch.data import loader, synthetic
-from tubelet_transformer_tpu_torch.eval import ava_eval
+from tubelet_transformer_tpu_torch.eval import (ava_eval, np_box, ucf_eval,
+                                                video_map)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(ROOT / "configuration" / "*.yaml")))
@@ -111,3 +118,79 @@ def test_torch_state_matches_jax_export():
     for k in ours:
         np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]),
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("module", ["data/jhmdb.py", "eval/np_box.py",
+                                    "eval/ucf_eval.py",
+                                    "eval/video_map.py"])
+def test_copy_is_the_original(module):
+    """The copy's source is the original's with the package renamed."""
+    ours = (ROOT / "tubelet_transformer_tpu_torch" / module).read_text()
+    theirs = (ROOT / "tubelet_transformer_tpu" / module).read_text()
+    assert ours == theirs.replace("tubelet_transformer_tpu.",
+                                  "tubelet_transformer_tpu_torch.")
+
+
+def _boxes(rng, n):
+    yx = rng.uniform(0, 80, (n, 2))
+    return np.concatenate([yx, yx + rng.uniform(5, 40, (n, 2))], 1)
+
+
+def test_np_box_matches_jax():
+    rng = np.random.default_rng(5)
+    a, b = _boxes(rng, 7), _boxes(rng, 5)
+    scores = rng.uniform(size=7)
+    window = np.array([10.0, 10.0, 70.0, 70.0])
+    masks = (rng.uniform(size=(3, 8, 8)) < 0.4).astype(np.uint8)
+    calls = {"area": (a,), "intersection": (a, b), "iou": (a, b),
+             "ioa": (a, b), "non_max_suppression": (a, scores, 5, 0.3, 0.1),
+             "clip_to_window": (a, window),
+             "prune_outside_window": (a, window),
+             "change_coordinate_frame": (a, window),
+             "mask_iou": (masks, masks[:2]), "mask_ioa": (masks, masks[:2])}
+    for name, args in calls.items():
+        ours, theirs = (getattr(mod, name)(*args)
+                        for mod in (np_box, jnp_box))
+        for x, y in zip(*((o,) if not isinstance(o, tuple) else o
+                          for o in (ours, theirs))):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def test_ucf_frame_map_matches_jax():
+    rng = np.random.default_rng(6)
+    evals = [mod.UCFDetectionEvaluator(class_num=4, iou_thresholds=(0.5,
+                                                                    0.75))
+             for mod in (ucf_eval, jucf_eval)]
+    for i in range(10):
+        key = f"v{i // 5}-{i}"
+        gt = _boxes(rng, 2)
+        onehot = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 2)]
+        det = np.concatenate([gt, _boxes(rng, 3)]) + rng.normal(0, 3,
+                                                                 (5, 4))
+        scores = rng.dirichlet(np.ones(5), 5).astype(np.float32)
+        for ev in evals:
+            ev.add_ground_truth(key, gt, onehot)
+            ev.add_detections(key, det, scores)
+    (ours, ours_res), (theirs, theirs_res) = (ev.evaluate() for ev in evals)
+    assert 0.0 < ours[0] < 1.0
+    assert ours == theirs and ours_res == theirs_res
+
+
+def test_video_map_matches_jax():
+    rng = np.random.default_rng(7)
+    evals = [mod.VideoMAPEvaluator(3, (0.2, 0.5))
+             for mod in (video_map, jvideo_map)]
+    for v in range(3):
+        frames = np.arange(12)
+        tube = _boxes(rng, 1) + np.cumsum(rng.normal(0, 1, (12, 4)), 0)
+        for ev in evals:
+            ev.add_gt_tube(f"v{v}", v % 3, frames, tube)
+        for f in frames:
+            det = np.concatenate([tube[f:f + 1] + rng.normal(0, 2, (1, 4)),
+                                  _boxes(rng, 1)])
+            cls = np.array([v % 3, int(rng.integers(0, 3))])
+            sc = rng.uniform(0.3, 1.0, 2)
+            for ev in evals:
+                ev.add_frame_detections(f"v{v}", int(f), det, cls, sc)
+    ours, theirs = (ev.evaluate() for ev in evals)
+    assert ours == theirs and 0.0 < ours[0.5] <= 1.0

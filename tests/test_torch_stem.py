@@ -202,12 +202,15 @@ def test_round_then_pool_equals_pool_then_round():
 @pytest.mark.parametrize("shape,dtype", [
     ((1, 32, 256, 256, 3), torch.bfloat16),
     ((1, 32, 224, 224, 3), torch.bfloat16),
+    ((1, 32, 224, 400, 3), torch.bfloat16),
+    ((2, 32, 224, 400, 3), torch.bfloat16),
     ((2, 3, 37, 45, 3), torch.bfloat16),
     ((2, 3, 37, 45, 3), torch.float32),
 ])
 def test_kernel_matches_plain_on_cuda(cuda, shape, dtype):
     """The CUDA kernel against stem_reference on the card, and a repeat
-    launch bit for bit. bf16 (the tensor-core kernel; the ragged shape
+    launch bit for bit. bf16 (the tensor-core kernel; the JHMDB canvas
+    224x400 in eval and in the train step's batch of 2; the ragged shape
     checks its edge masking): the plain version rounds its conv output to
     bf16 before the f32 epilogue, the kernel rounds once, so 2^-6 of the
     output range. float32 (TF32 off): summation order only."""

@@ -74,12 +74,15 @@ def test_plain_stats_match_pallas_kernel(interpret, width):
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 32, 256, 256, 3), torch.bfloat16),
     ((2, 32, 224, 224, 3), torch.bfloat16),
+    ((2, 32, 224, 400, 3), torch.bfloat16),
     ((2, 32, 250, 230, 3), torch.bfloat16),
     ((2, 3, 37, 45, 3), torch.float32),
 ])
 def test_stats_kernel_matches_plain_on_cuda(cuda, shape, dtype):
     """The stats kernel against stem_batch_stats_reference on the card, on
-    structured inputs. bf16 (the tensor-core kernel): the plain version
+    structured inputs (the train steps' batches of 2 at 256 px, 224 px and
+    the JHMDB canvas 224x400, and a ragged shape). bf16 (the tensor-core
+    kernel): the plain version
     rounds the conv output to bf16 before it reduces, the kernel reduces
     the f32 accumulator; a float64 emulation of that rounding on these
     inputs gives 0.08 (mean) and 0.30 (var) of the limits, 2^-12 of the

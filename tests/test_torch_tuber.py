@@ -115,13 +115,11 @@ def test_build_model_is_seeded_and_casts():
     assert m.backbone.body.bn1.running_var.dtype == torch.float32
 
 
-@pytest.mark.parametrize("knob", ["lfb", "jhmdb", "moe", "pre_norm", "pipe"])
+@pytest.mark.parametrize("knob", ["lfb", "moe", "pre_norm", "pipe"])
 def test_build_model_refuses_unported(knob):
     cfg = small_cfg()
     if knob == "lfb":
         cfg.use_lfb = True
-    elif knob == "jhmdb":
-        cfg.data.dataset_name = "jhmdb"
     elif knob == "moe":
         cfg.model.moe_experts = 4
     elif knob == "pre_norm":

@@ -1,11 +1,15 @@
-"""The training runner behind ``cli/train_ava``.
+"""The train and eval runners behind the CLIs (``train_ava``,
+``eval_ava``, ``train_jhmdb``, ``eval_jhmdb``).
 
 Port of ``tubelet_transformer_tpu/cli/runner.py`` for one device: loaders
-from ``data/loader.py`` and the datasets, the train build of the
-model with its optimizer, resume from the newest checkpoint
+from ``data/loader.py`` and the datasets (AVA, JHMDB/UCF24, packed or not,
+and the synthetic AVA set), the train build of the model with its
+pretrained weights and optimizer, resume from the newest checkpoint
 (``MODEL.LOAD`` without ``PRETRAINED_PATH``), the epoch loop with
-checkpoints and validation, and SIGTERM/SIGINT handling: a signal asks for a
-checkpoint at the next epoch boundary and a clean exit.
+checkpoints and validation (AVA or JHMDB/UCF24 by ``DATA.DATASET_NAME``),
+SIGTERM/SIGINT handling (a signal asks for a checkpoint at the next epoch
+boundary and a clean exit), and the eval run of a checkpoint
+(``MODEL.LOAD`` with ``PRETRAINED_PATH``).
 """
 
 from __future__ import annotations
@@ -40,18 +44,27 @@ def build_dataset(cfg: Config, split: str):
 
         return SyntheticAVADataset(cfg, size=cfg.data.synthetic_size)
     if name in ("jhmdb", "ucf"):
-        raise NotImplementedError(f"DATA.DATASET_NAME {name} is not ported "
-                                  "yet")
+        if cfg.data.packed_path:
+            from tubelet_transformer_tpu_torch.data.packed import (
+                PackedJHMDBDataset)
+
+            return PackedJHMDBDataset(cfg, split)
+        from tubelet_transformer_tpu_torch.data.jhmdb import JHMDBDataset
+
+        return JHMDBDataset(cfg, split)
     raise ValueError(f"unknown dataset {name!r}")
 
 
-def make_loaders(cfg: Config):
+def make_loaders(cfg: Config, val_only: bool = False):
     """(train_loader, val_loader) for one device: BATCH_SIZE per step; the
-    val tail is wrap-padded to full batches (the evaluators dedupe)."""
-    train_loader = DataLoader(build_dataset(cfg, "train"),
-                              cfg.train.batch_size, shuffle=True,
-                              seed=cfg.train.seed,
-                              num_workers=cfg.data.num_workers)
+    val tail is wrap-padded to full batches (the evaluators dedupe).
+    ``val_only`` builds no train set (None in its place)."""
+    train_loader = None
+    if not val_only:
+        train_loader = DataLoader(build_dataset(cfg, "train"),
+                                  cfg.train.batch_size, shuffle=True,
+                                  seed=cfg.train.seed,
+                                  num_workers=cfg.data.num_workers)
     val_loader = DataLoader(build_dataset(cfg, "val"), cfg.val.batch_size,
                             shuffle=False, num_workers=cfg.data.num_workers,
                             drop_last=True, pad_to_batch=True)
@@ -62,9 +75,16 @@ def init_state(cfg: Config, steps_per_epoch: int, device: torch.device,
                seed: int = 0) -> engine.TrainState:
     """The train build of the model (random weights from ``seed``, then any
     configured pretrained weights), its optimizer and schedule."""
-    model = build_model(cfg, device=device, seed=seed, train=True)
-    ckpt_lib.load_pretrained(cfg, model)
+    model = build_model(cfg, device=device, seed=seed, train=True,
+                        pretrained=True)
     return engine.create_train_state(cfg, model, steps_per_epoch)
+
+
+def _validate(cfg: Config, eval_step, model, val_loader, epoch: int,
+              writer) -> dict:
+    validate = (loop_lib.validate_ava if engine.is_ava_mode(cfg)
+                else loop_lib.validate_ucf)
+    return validate(cfg, eval_step, model, val_loader, epoch, writer)
 
 
 def check_supported(cfg: Config) -> None:
@@ -141,9 +161,57 @@ def _run_training_body(cfg: Config, device: torch.device, seed: int,
                 print(f"preempted: checkpointed epoch {epoch}, exiting")
                 break
             if epoch % cfg.val.freq == 0 or epoch == cfg.train.epoch_num - 1:
-                result["val"] = loop_lib.validate_ava(
-                    cfg, eval_step, state.model, val_loader, epoch, writer)
+                result["val"] = _validate(cfg, eval_step, state.model,
+                                          val_loader, epoch, writer)
     finally:
         writer.close()
     print(f"Training time {time.time() - t0:.0f}s")
     return result
+
+
+def run_eval(cfg: Config, device: torch.device | str = "cuda",
+             seed: int = 0) -> dict:
+    """Validate the checkpoint of MODEL.LOAD with PRETRAINED_PATH on the val
+    split with the eval build of the model; returns the validation result
+    and the model."""
+    check_supported(cfg)
+    if not (cfg.model.load and cfg.model.pretrained_path):
+        raise ValueError("eval requires MODEL.LOAD with PRETRAINED_PATH")
+    device = torch.device(device)
+    _, val_loader = make_loaders(cfg, val_only=True)
+    model = build_model(cfg, device=device, seed=seed, pretrained=True)
+    eval_step = engine.make_eval_step(cfg, model)
+    return {"val": _validate(cfg, eval_step, model, val_loader, epoch=0,
+                             writer=None), "model": model}
+
+
+def main(mode: str, default_dataset: str) -> None:
+    """The CLIs' entry: ``mode`` "train" or "eval"; ``default_dataset``
+    is DATA.DATASET_NAME when no config file is given. Flags: the JAX
+    CLI's ``--config-file``, plus ``--device`` and ``--seed`` (of the
+    random initial weights)."""
+    import argparse
+
+    from tubelet_transformer_tpu_torch.config import load_config
+
+    parser = argparse.ArgumentParser(
+        description=f"TubeR {default_dataset} {mode} (PyTorch)")
+    parser.add_argument("--config-file", default=None,
+                        help="path to a YAML config (reference format OK)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; 'cpu' only when asked for")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random initial weights")
+    args = parser.parse_args()
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is "
+                         "available (pass --device cpu to run on the CPU)")
+    cfg = load_config(args.config_file)
+    if not args.config_file:
+        cfg.data.dataset_name = default_dataset
+    if mode == "train":
+        run_training(cfg, device=device, seed=args.seed)
+    else:
+        cfg.eval_only = True
+        run_eval(cfg, device=device, seed=args.seed)

@@ -4,6 +4,10 @@ Feeds a frame stream (a directory of JPEG/PNG frames, or synthetic frames)
 through ``serving.StreamingDetector`` and prints one JSON line per keyframe
 detection, then a summary line: the same flags and lines as
 ``tubelet_transformer_tpu.cli.serve``, plus ``--device`` and ``--seed``.
+With ``MODEL.LOAD`` and ``PRETRAINED_PATH`` the model serves the weight
+files the config names (``train.checkpoint.load_pretrained``: a TubeR
+``.pth`` or the port's own ``ckpt_epoch_N``), else random weights from
+``--seed``.
 
 Usage:
   python -m tubelet_transformer_tpu_torch.cli.serve --config-file <yaml> \
@@ -41,6 +45,7 @@ def main() -> None:
     import torch
 
     from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
     from tubelet_transformer_tpu_torch.serving import StreamingDetector
 
     parser = argparse.ArgumentParser(description="TubeR streaming serve "
@@ -66,10 +71,10 @@ def main() -> None:
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
     cfg = load_config(args.config_file)
-    if cfg.model.load and cfg.model.pretrained_path:
-        raise NotImplementedError("checkpoint loading (MODEL.LOAD) is not "
-                                  "ported yet")
-    detector = StreamingDetector(cfg, fps=args.fps,
+    model = build_model(cfg, device=device, seed=args.seed,
+                        pretrained=bool(cfg.model.load
+                                        and cfg.model.pretrained_path))
+    detector = StreamingDetector(cfg, model, fps=args.fps,
                                  detect_every=args.detect_every,
                                  rng_seed=args.seed, device=device)
 

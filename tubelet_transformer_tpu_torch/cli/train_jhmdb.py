@@ -1,0 +1,20 @@
+"""CLI: train TubeR on JHMDB (or UCF24) with the PyTorch port (reference
+train_tuber_jhmdb.py equivalent).
+
+The JAX CLI's flag plus ``--device`` and ``--seed`` (of the random initial
+weights, which any weight files the config names replace).
+
+Usage:
+  python -m tubelet_transformer_tpu_torch.cli.train_jhmdb --config-file <yaml> \
+      [--device cuda] [--seed 0]
+"""
+
+from tubelet_transformer_tpu_torch.cli import runner
+
+
+def main() -> None:
+    runner.main("train", "jhmdb")
+
+
+if __name__ == "__main__":
+    main()

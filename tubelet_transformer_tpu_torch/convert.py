@@ -1,4 +1,13 @@
-"""Weight bridge: the JAX package's TubeR variables into the port's TubeR.
+"""Weight bridge: foreign checkpoints and the JAX package's variables into
+the port's TubeR.
+
+The import half is the port's copy of the reading side of
+``tubelet_transformer_tpu/train/torch_convert.py``, mapped straight onto the
+reference's module names, which the port's modules carry:
+``csn_state_from_mat`` (its ``csn_params_from_mat``: the Caffe2 CSN
+``.mat`` export), ``strip_module_prefix`` and ``load_torch_checkpoint``. A
+Caffe2 conv blob is (O, I/g, T, H, W), the layout of a torch Conv3d weight,
+so it is copied as it is; a BN's ``_riv`` blob is its running variance.
 
 ``tuber_torch_state_from_params`` and its ``_inv_*`` / ``_put_*`` helpers
 are the port's copy of the export half of
@@ -18,6 +27,64 @@ import numpy as np
 import torch
 
 from tubelet_transformer_tpu_torch.models.tuber import TubeR
+
+# Per-stage starting block index in the flat Caffe2 numbering
+# (ir_CSN_152.py:269 / ir_CSN_50.py:272 of the reference).
+MAT_START_COUNT = {
+    (3, 8, 36, 3): (0, 3, 11, 47),   # CSN-152
+    (3, 4, 6, 3): (0, 3, 7, 13),     # CSN-50
+}
+
+
+def csn_state_from_mat(path: str, block_nums,
+                       prefix: str = "backbone.body.") -> Dict[str, np.ndarray]:
+    """A Caffe2 CSN ``.mat`` export -> the CSN's state dict under
+    ``prefix``, in the reference's names (``conv1.weight``,
+    ``layer{s}.{b}.conv{1,3,4}.weight``, ``bn*.running_var``,
+    ``down_sample.{0,1}``...)."""
+    import scipy.io as sio
+
+    w = sio.loadmat(path)
+    start = MAT_START_COUNT[tuple(block_nums)]
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_bn(ours: str, name: str) -> None:
+        for field, blob in (("weight", "_s"), ("bias", "_b"),
+                            ("running_mean", "_rm"), ("running_var", "_riv")):
+            sd[f"{prefix}{ours}.{field}"] = np.asarray(
+                w[name + blob]).reshape(-1)
+
+    sd[f"{prefix}conv1.weight"] = np.asarray(w["conv1_w"])
+    put_bn("bn1", "conv1_spatbn_relu")
+    for s, blocks in enumerate(tuple(block_nums)):
+        for b in range(blocks):
+            count, rp = start[s] + b, f"layer{s + 1}.{b}"
+            for i in ("1", "3", "4"):
+                sd[f"{prefix}{rp}.conv{i}.weight"] = np.asarray(
+                    w[f"comp_{count}_conv_{i}_w"])
+                put_bn(f"{rp}.bn{i}", f"comp_{count}_spatbn_{i}")
+            if b == 0:
+                sd[f"{prefix}{rp}.down_sample.0.weight"] = np.asarray(
+                    w[f"shortcut_projection_{count}_w"])
+                put_bn(f"{rp}.down_sample.1",
+                       f"shortcut_projection_{count}_spatbn")
+    return sd
+
+
+def strip_module_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Remove the DDP ``module.`` prefix (model_utils.py:20-25)."""
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` checkpoint's state dict on the CPU (``ckpt["model"]``
+    when there is one). Released files pickle more than tensors (DETR's
+    argparse namespace), so this reads them in full, as the JAX loader
+    does: load only files you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
 
 
 def _inv_linear(k) -> np.ndarray:

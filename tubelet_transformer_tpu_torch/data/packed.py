@@ -27,9 +27,8 @@ Enable via ``DATA.PACKED_PATH`` ("{}" formats the split) after running
 ``python -m tubelet_transformer_tpu.cli.pack_data`` (the shard format is
 the same in both packages).
 
-The port's copy of ``tubelet_transformer_tpu/data/packed.py``, AVA half:
-the JHMDB/UCF24 pack raises ``NotImplementedError``, as JHMDB does in
-``cli.runner.build_dataset``.
+The port's copy of ``tubelet_transformer_tpu/data/packed.py``: the AVA
+pack and the per-video JHMDB/UCF24 pack.
 """
 
 from __future__ import annotations
@@ -307,10 +306,100 @@ class PackedAVADataset(AVADataset):
         return self._finalize(clip, boxes, labels, self.keys[index], index)
 
 
-def pack_jhmdb(cfg: Config, split: str, out_dir: str, **kwargs) -> str:
-    raise NotImplementedError("JHMDB/UCF24 packing is not ported yet")
+# ---------------------------------------------------------------------------
+# JHMDB / UCF24: per-VIDEO packing (samples are overlapping windows over
+# every frame — packing per sample would duplicate each frame ~T times, so
+# the pack stores each video's full resized frame stack once and the reader
+# slices the boundary-padded window at read time).
+# ---------------------------------------------------------------------------
+
+def pack_jhmdb(cfg: Config, split: str, out_dir: str,
+               shard_bytes: int = 1 << 31, limit: Optional[int] = None,
+               progress_every: int = 50, workers: int = 1) -> str:
+    """Decode a JHMDB/UCF split's videos once into packed shards + index."""
+    from tubelet_transformer_tpu_torch.data.jhmdb import JHMDBDataset
+
+    os.makedirs(out_dir, exist_ok=True)
+    ds = JHMDBDataset(cfg, split)
+    vids = list(dict.fromkeys(v for v, _ in ds.samples))  # ordered unique
+    if limit:
+        vids = vids[:limit]
+
+    def _decode(vid: str) -> np.ndarray:
+        from PIL import Image
+
+        nh, nw = ds._video_resize(vid)
+        nframes = ds.dataset["nframes"][vid]
+        frames = []
+        for i in range(nframes):
+            path = os.path.join(cfg.data.data_path, vid,
+                                "{:0>5}.png".format(i + 1))
+            img = Image.open(path).convert("RGB")
+            frames.append(np.asarray(img.resize((nw, nh))))
+        return np.stack(frames).astype(np.uint8, copy=False)
+
+    stacks, shutdown = _decode_ahead(vids, _decode, workers)
+    writer = _ShardWriter(out_dir, shard_bytes)
+    for i, (vid, stack) in enumerate(zip(vids, stacks)):
+        writer.write(stack)
+        if progress_every and (i + 1) % progress_every == 0:
+            print(f"packed {i + 1}/{len(vids)} videos", flush=True)
+    writer.close()
+    shutdown()
+    np.savez_compressed(
+        os.path.join(out_dir, _INDEX),
+        vids=np.asarray(vids, dtype=str),
+        **writer.index_fields(),
+        resize_size=np.int32(ds.resize_size))
+    return out_dir
 
 
 class PackedJHMDBDataset:
-    def __new__(cls, cfg: Config, split: str, packed_dir=None):
-        raise NotImplementedError("JHMDB/UCF24 packs are not ported yet")
+    """JHMDB/UCF24 samples from per-video packed shards.
+
+    Annotations still come from the (small) GT pickle via the base
+    ``JHMDBDataset``; only the frame decode is replaced by a memmap slice.
+    Built by delegation so the transforms / dummy-box / canvas logic stays
+    in exactly one place.
+    """
+
+    def __new__(cls, cfg: Config, split: str,
+                packed_dir: Optional[str] = None):
+        from tubelet_transformer_tpu_torch.data.jhmdb import JHMDBDataset
+
+        self = JHMDBDataset(cfg, split)
+        packed_dir = packed_dir or cfg.data.packed_path.format(split)
+        idx = np.load(os.path.join(packed_dir, _INDEX), allow_pickle=False)
+        if int(idx["resize_size"]) != self.resize_size:
+            raise ValueError(
+                f"pack was built at resize {int(idx['resize_size'])}, "
+                f"config asks {self.resize_size} (re-pack for this split)")
+        vid_row = {str(v): i for i, v in enumerate(idx["vids"])}
+        shard_ids, offsets, shapes = idx["shard"], idx["offset"], idx["shape"]
+        mmaps: Dict[int, np.memmap] = {}
+
+        def _shard(sid: int) -> np.memmap:
+            m = mmaps.get(sid)
+            if m is None:
+                m = np.memmap(os.path.join(packed_dir, _SHARD.format(sid)),
+                              dtype=np.uint8, mode="r")
+                mmaps[sid] = m
+            return m
+
+        def _load_frames(vid: str, mid: int, nh: int, nw: int):
+            row = vid_row.get(vid)
+            if row is None:
+                raise KeyError(f"video {vid!r} missing from pack "
+                               f"{packed_dir!r}")
+            t, h, w = (int(v) for v in shapes[row])
+            if (h, w) != (nh, nw):
+                raise ValueError(
+                    f"pack stores {vid} at {h}x{w}, config asks {nh}x{nw} "
+                    f"(re-pack for this split)")
+            off = int(offsets[row])
+            raw = _shard(int(shard_ids[row]))[off:off + t * h * w * 3]
+            stack = np.asarray(raw).reshape(t, h, w, 3)
+            return stack[np.asarray(self._clip_ids(vid, mid))]
+
+        self._load_frames = _load_frames  # instance override
+        return self

@@ -1,11 +1,18 @@
-"""TubeR: tubelet-query DETR for spatio-temporal action detection (AVA
-mode).
+"""TubeR: tubelet-query DETR for spatio-temporal action detection.
 
 Port of ``tubelet_transformer_tpu/models/tuber.py``: irCSN backbone ->
 temporal pooling (avg / max / learned decode / middle) -> DETR
 encoder-decoder over the (t, H', W') tokens -> per-layer box, actorness and
 class heads, the classes read out by a cross-attention over the un-pooled
 features through a one-layer factorised space/time encoder.
+
+Two dataset modes, as in the JAX model. AVA: Q queries, a per-query 3-way
+actorness head and C sigmoid classes. JHMDB/UCF24 (``dataset_mode``
+"jhmdb" or "ucf"): Q x T tubelet queries (T = ``temporal_length``, the
+key frame's Q at rows key_pos*Q .. key_pos*Q + Q - 1), a clip-level 2-way
+visibility head read from the mean of the un-pooled backbone features over
+(T', H', W') (padded positions included, as in JAX) and broadcast over the
+decoder layers, and C + 1 softmax classes.
 
 In training, dropout sits where the JAX model puts it: the transformer at
 ``MODEL.DROPOUT``, the pooling decoder, the class-branch encoder and its
@@ -37,6 +44,7 @@ from tubelet_transformer_tpu_torch.train.optimizer import stop_grad_stage
 
 POOL_DIM = 2048     # CSN output channels, the width of the pooling decoder
 STRATEGIES = ("avg", "max", "decode", "middle")
+DATASET_MODES = ("ava", "jhmdb", "ucf")
 
 
 def nearest_resize_mask(x: torch.Tensor, out_h: int, out_w: int
@@ -79,11 +87,15 @@ class TubeR(nn.Module):
                  stop_grad_stage: int = -1,
                  compute_dtype: torch.dtype = torch.float32,
                  pallas_kernels: bool = False, fused_blocks: bool = False,
-                 fused_stages: bool = False):
+                 fused_stages: bool = False, dataset_mode: str = "ava",
+                 temporal_length: int = 32):
         super().__init__()
         if temporal_ds_strategy not in STRATEGIES:
             raise ValueError(f"unknown temporal_ds_strategy "
                              f"{temporal_ds_strategy!r}")
+        if dataset_mode not in DATASET_MODES:
+            raise ValueError(f"unknown dataset_mode {dataset_mode!r}")
+        self.is_ava = dataset_mode == "ava"
         self.hidden_dim = hidden_dim
         self.enc_layers, self.dec_layers = enc_layers, dec_layers
         self.single_frame = single_frame
@@ -97,16 +109,19 @@ class TubeR(nn.Module):
             decode=single_frame and temporal_ds_strategy == "decode")
         self.transformer = Transformer(hidden_dim, nhead, enc_layers,
                                        dec_layers, dim_feedforward, dropout)
-        self.query_embed = nn.Embedding(num_queries, hidden_dim)
+        self.query_embed = nn.Embedding(
+            num_queries if self.is_ava else num_queries * temporal_length,
+            hidden_dim)
         self.input_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
         self.class_proj = PointwiseConv(POOL_DIM, hidden_dim, bias=True)
         self.encoder = LayerStack(
             [FactorizedSTEncoderLayer(hidden_dim, 8, 2048, dropout=0.1)])
         self.cross_attn = MultiHeadAttention(hidden_dim, 8, dropout=0.1)
-        self.class_embed_b = Linear(hidden_dim, 3)
+        self.class_embed_b = (Linear(hidden_dim, 3) if self.is_ava
+                              else Linear(POOL_DIM, 2))
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
         self.head_dropout = Dropout(0.5)
-        self.class_fc = Linear(hidden_dim, num_classes)
+        self.class_fc = Linear(hidden_dim, num_classes + (not self.is_ava))
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
                               ) -> None:
@@ -159,7 +174,11 @@ class TubeR(nn.Module):
                               self.query_embed.weight,
                               pos.reshape(b, t * h * w, e))  # (L,B,Q,E)
         lay_n, _, nq, _ = hs.shape
-        outputs_class_b = self.class_embed_b(hs)          # (L,B,Q,3)
+        if self.is_ava:
+            outputs_class_b = self.class_embed_b(hs)      # (L,B,Q,3)
+        else:
+            cb = self.class_embed_b(xt.mean(dim=(1, 2, 3)))   # (B, 2)
+            outputs_class_b = cb[None].expand(lay_n, -1, -1)
 
         # class branch over the un-pooled features
         tc = xt.shape[1]
@@ -217,18 +236,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                         generator=generator)
 
 
+def dataset_mode(cfg: Config) -> str:
+    """"ava" for every dataset but the tubelet ones (JHMDB, UCF24)."""
+    name = cfg.data.dataset_name
+    return name if name in ("jhmdb", "ucf") else "ava"
+
+
 def build_model(cfg: Config, device: torch.device | str = "cpu",
-                seed: int = 0, train: bool = False) -> TubeR:
+                seed: int = 0, train: bool = False,
+                pretrained: bool = False) -> TubeR:
     """TubeR for ``cfg`` on ``device``, with random weights from ``seed``
     (drawn on the CPU, so equal on every device); it computes in
     ``MODEL.COMPUTE_DTYPE``. The eval build (``train=False``) is in eval mode
     with its parameters cast once to the compute dtype. The train build is in
     train mode with float32 parameters, cast to the compute dtype at use as
-    the JAX package keeps them. BatchNorm statistics stay float32."""
+    the JAX package keeps them. BatchNorm statistics stay float32. With
+    ``pretrained``, the weight files the config names
+    (``train.checkpoint.load_pretrained``) replace the random weights, in
+    float32, before the eval build's cast."""
     m = cfg.model
     unsupported = {
-        "DATA.DATASET_NAME jhmdb/ucf": cfg.data.dataset_name in ("jhmdb",
-                                                                 "ucf"),
         "CONFIG.USE_LFB": cfg.use_lfb,
         "MODEL.GENERATE_LFB": m.generate_lfb,
         "MODEL.MOE_EXPERTS": m.moe_experts > 0,
@@ -252,8 +279,14 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                   stop_grad_stage=stop_grad_stage(cfg), compute_dtype=dtype,
                   pallas_kernels=m.pallas_kernels,
                   fused_blocks=m.fused_blocks,
-                  fused_stages=m.fused_stages)
+                  fused_stages=m.fused_stages,
+                  dataset_mode=dataset_mode(cfg), temporal_length=m.temp_len)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if pretrained:
+        from tubelet_transformer_tpu_torch.train.checkpoint import (
+            load_pretrained)
+
+        load_pretrained(cfg, model)
     if train:
         return model.to(device).train()
     # one cast here, not one per use: the serving path is host-bound

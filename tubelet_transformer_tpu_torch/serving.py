@@ -6,7 +6,10 @@ detection per ``detect_every`` pushed frames, the keyframe at the window's
 centre, frames aspect-resized onto the fixed ``IMG_SIZE`` canvas with PIL.
 The device side is one forward under ``torch.inference_mode()`` (uint8
 upload, normalisation on the device, model, postprocess) and one
-device-to-host copy of all outputs.
+device-to-host copy of all outputs. An AVA config is postprocessed with
+``postprocess_ava`` (gated at the actor threshold); a JHMDB/UCF24 config
+with ``postprocess_softmax``, whose clip-level visibility stands for every
+one of the Q*T tubelet queries.
 
 Not ported yet, and refused with ``NotImplementedError``: the long-term
 feature memory (``CONFIG.USE_LFB``), mesh serving, ``MODEL.INFER_CHUNK``
@@ -27,7 +30,18 @@ from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.data.device_preprocess import (
     device_preprocess)
 from tubelet_transformer_tpu_torch.models.tuber import TubeR, build_model
-from tubelet_transformer_tpu_torch.train.postprocess import postprocess_ava
+from tubelet_transformer_tpu_torch.train.postprocess import (
+    postprocess_ava, postprocess_softmax)
+
+
+def _per_query_binary(binary_row: np.ndarray, n_queries: int) -> np.ndarray:
+    """Per-query actor probabilities from a postprocess binary row: AVA
+    emits (Q, 1); JHMDB/UCF emit a clip-level (1,) visibility, which
+    broadcasts to every query."""
+    b = np.asarray(binary_row).reshape(-1)
+    if b.shape[0] == n_queries:
+        return b
+    return np.full((n_queries,), float(b[0]), np.float32)
 
 
 @dataclass
@@ -52,7 +66,7 @@ class StreamingDetector:
     """Streaming TubeR detector over a live frame feed.
 
     Args:
-      cfg: framework config (AVA mode).
+      cfg: framework config (AVA or JHMDB/UCF24 mode).
       model: a built ``TubeR``; if None, one with random weights from
         ``rng_seed`` is built on ``device``.
       detect_every: one detection per this many pushed frames (default
@@ -101,8 +115,11 @@ class StreamingDetector:
         out = self.model(clips, pad_mask)
         size = torch.tensor([[self.img_size, self.img_size]],
                             dtype=torch.float32, device=clip_u8.device)
-        # gate at the serving threshold, not the offline-eval 0.8
-        return postprocess_ava(out, size, binary_gate=self.actor_threshold)
+        if self.model.is_ava:
+            # gate at the serving threshold, not the offline-eval 0.8
+            return postprocess_ava(out, size,
+                                   binary_gate=self.actor_threshold)
+        return postprocess_softmax(out, size)
 
     # -- host loop --------------------------------------------------------
 
@@ -165,7 +182,7 @@ class StreamingDetector:
         scores, boxes, binary = (
             a.numpy().reshape(o.shape[1:]) for a, o in
             zip(flat.split([o[0].numel() for o in outs]), outs))
-        binary = binary.reshape(-1)
+        binary = _per_query_binary(binary, scores.shape[0])
 
         # canvas pixels -> source-frame pixels
         sh, sw = self._src_hw

@@ -1,12 +1,19 @@
-"""Checkpoints of the full training state, with ``torch.save``.
+"""Checkpoints of the full training state, with ``torch.save``, and the
+foreign weight files.
 
-Port of the native half of ``tubelet_transformer_tpu/train/checkpoint.py``:
-``ckpt_epoch_{N}`` (here one file, written to a temporary name and renamed,
-so that a name without a suffix is always a whole checkpoint) holds the
-model's parameters and BN statistics, the optimizer's state, the step and
-update counts and the epoch. The foreign formats (the Caffe2 ``.mat``
-backbone, ``detr.pth``, a released TubeR ``.pth``) are not ported yet:
-``load_pretrained`` refuses them and is a no-op when none is configured.
+Port of ``tubelet_transformer_tpu/train/checkpoint.py``. ``ckpt_epoch_{N}``
+(here one file, written to a temporary name and renamed, so that a name
+without a suffix is always a whole checkpoint) holds the model's parameters
+and BN statistics, the optimizer's state, the step and update counts and the
+epoch. ``load_pretrained`` takes the reference's three foreign formats in
+the reference's order: the Caffe2 CSN ``.mat`` backbone
+(``load_backbone_mat``), the COCO DETR ``detr.pth`` seed
+(``seed_from_detr``) and a TubeR ``.pth`` (``load_tuber_pth``: a released
+checkpoint, with or without the DDP ``module.`` prefix, or the port's own
+``ckpt_epoch_N``, whose ``model`` entry is in the same key scheme). Each
+copies the tensors present on both sides, raises on a shape mismatch and
+prints the counts, as the JAX loaders' ``_merge`` does. The JAX package's
+orbax directories are not read: the port imports torch only.
 """
 
 from __future__ import annotations
@@ -14,10 +21,11 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 import torch
 
+from tubelet_transformer_tpu_torch import convert
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.train.engine import TrainState
 
@@ -93,19 +101,101 @@ def latest_checkpoint_any_run(base_path: str, save_dir: str = "checkpoints",
     return max(cands, key=lambda p: (_epoch_of(p), os.path.getmtime(p)))
 
 
+def _merge(dst: Mapping[str, torch.Tensor], src: Mapping[str, Any]) -> int:
+    """Copy each entry of ``src`` whose name ``dst`` has into dst's tensor,
+    in place and cast to its dtype; a shape mismatch raises ValueError.
+    Returns the number copied."""
+    n = 0
+    with torch.no_grad():
+        for k, v in src.items():
+            if k not in dst:
+                continue
+            v = torch.as_tensor(v)
+            if tuple(dst[k].shape) != tuple(v.shape):
+                raise ValueError(f"shape mismatch at {k}: "
+                                 f"{tuple(dst[k].shape)} vs {tuple(v.shape)}")
+            dst[k].copy_(v)
+            n += 1
+    return n
+
+
+def _merge_model(model: torch.nn.Module, src: Mapping[str, Any]
+                 ) -> tuple[int, int]:
+    """``_merge`` into ``model``'s state; (parameters, BN statistics)
+    copied."""
+    sd = model.state_dict()
+    stats = {n for n, _ in model.named_buffers()}
+    return (_merge(sd, {k: v for k, v in src.items() if k not in stats}),
+            _merge(sd, {k: v for k, v in src.items() if k in stats}))
+
+
+def _wanted(model: torch.nn.Module, sd: Mapping[str, Any], prefixes=("",)
+            ) -> dict:
+    """The entries of ``sd`` for every parameter and statistic of ``model``
+    under ``prefixes``; a missing one raises KeyError, as the JAX package's
+    name-mapped conversion does. BN's ``num_batches_tracked`` is left out:
+    the JAX variables have no such leaf, and the port never reads it."""
+    return {k: sd[k] for k in model.state_dict()
+            if k.startswith(prefixes) and not k.endswith(
+                "num_batches_tracked")}
+
+
+def load_tuber_pth(cfg: Config, model: torch.nn.Module,
+                   path: Optional[str] = None) -> torch.nn.Module:
+    """A TubeR checkpoint (``ckpt["model"]`` when present, ``module.``
+    prefixes stripped) into ``model``: every weight of the model must be in
+    the file; entries the model lacks are skipped."""
+    path = path or cfg.model.pretrained_path
+    sd = convert.strip_module_prefix(convert.load_torch_checkpoint(path))
+    n_p, n_s = _merge_model(model, _wanted(model, sd))
+    print(f"loaded TubeR checkpoint {path}: {n_p} params, {n_s} stats")
+    return model
+
+
+def load_backbone_mat(cfg: Config, model: torch.nn.Module,
+                      path: Optional[str] = None) -> torch.nn.Module:
+    """The Caffe2 CSN ``.mat`` backbone export into ``model``'s backbone."""
+    path = path or cfg.model.pretrain_backbone_dir
+    sd = convert.csn_state_from_mat(path, model.backbone.body.block_nums)
+    n_p, n_s = _merge_model(model, sd)
+    print(f"loaded CSN .mat {path}: {n_p} params, {n_s} stats")
+    return model
+
+
+def seed_from_detr(cfg: Config, model: torch.nn.Module,
+                   path: Optional[str] = None) -> torch.nn.Module:
+    """Seed the transformer, ``bbox_embed`` and the query embedding from
+    COCO DETR's ``detr.pth`` (the reference's filter, model_utils.py:10-36):
+    the query rows are the file's first ``n_q`` when it has that many, and
+    stay as they are when it has fewer (JHMDB's Q x T = 320 queries against
+    DETR's 100)."""
+    path = path or cfg.model.pretrain_transformer_dir
+    sd = convert.load_torch_checkpoint(path)
+    n = sum(_merge_model(model, _wanted(model, sd,
+                                        ("transformer.", "bbox_embed."))))
+    q = sd["query_embed.weight"]
+    dst = model.state_dict()["query_embed.weight"]
+    if q.shape[0] >= dst.shape[0]:
+        n += _merge({"query_embed.weight": dst},
+                    {"query_embed.weight": q[:dst.shape[0]]})
+    print(f"seeded from DETR {path}: {n} tensors")
+    return model
+
+
 def load_pretrained(cfg: Config, model: torch.nn.Module) -> torch.nn.Module:
-    """The reference's load order (backbone .mat if PRETRAINED, the DETR
-    seed if LOAD_DETR, a TubeR checkpoint if LOAD with PRETRAINED_PATH):
-    nothing is loaded when no file is configured."""
+    """The reference's load order: the backbone ``.mat`` if PRETRAINED,
+    then the DETR seed if LOAD_DETR, then a TubeR checkpoint if LOAD with
+    PRETRAINED_PATH. Nothing is loaded when no file is configured."""
     m = cfg.model
-    asked = {
-        "MODEL.PRETRAIN_BACKBONE_DIR": m.pretrained and m.pretrain_backbone_dir,
-        "MODEL.PRETRAIN_TRANSFORMER_DIR": (m.load_detr
-                                           and m.pretrain_transformer_dir),
-        "MODEL.PRETRAINED_PATH": m.load and m.pretrained_path,
-    }
-    for name, path in asked.items():
-        if path:
-            raise NotImplementedError(f"loading {name} ({path}) is not "
-                                      "ported yet")
+    if m.pretrained and m.pretrain_backbone_dir:
+        load_backbone_mat(cfg, model)
+    if m.load_detr and m.pretrain_transformer_dir:
+        seed_from_detr(cfg, model)
+    if m.load and m.pretrained_path:
+        if os.path.isdir(m.pretrained_path):
+            raise NotImplementedError(
+                f"MODEL.PRETRAINED_PATH {m.pretrained_path} is a directory "
+                "(an orbax checkpoint of the JAX package); the port reads "
+                ".pth files and its own ckpt_epoch_N")
+        load_tuber_pth(cfg, model)
     return model

@@ -1,13 +1,17 @@
-"""Hungarian-matched DETR set losses, AVA mode, with static shapes.
+"""Hungarian-matched DETR set losses with static shapes.
 
-Port of the AVA half of ``tubelet_transformer_tpu/train/criterion.py``:
-3-way actorness CE with class weights [1, 1, eos_coef]; multi-label sigmoid
-BCE with weight ``weight`` on matched queries; L1 + GIoU box losses over the
-target count. Targets are padded: boxes (B, M, 4) normalised cxcywh, labels
-(B, M, C) multi-hot, valid (B, M) bool. The aux (per-decoder-layer) losses
-fold the layer axis into the batch and share one matcher call. Reductions
-follow torch: the weighted CE divides by the sum of the applied weights, the
-weighted BCE is a plain mean of w * elem.
+Port of ``tubelet_transformer_tpu/train/criterion.py``. AVA
+(``criterion_ava``): 3-way actorness CE with class weights [1, 1,
+eos_coef]; multi-label sigmoid BCE with weight ``weight`` on matched
+queries; L1 + GIoU box losses over the target count. JHMDB/UCF24
+(``criterion_ucf``): the key frame's Q queries gathered from the Q*T
+tubelet layout, softmax CE with a no-object class weighted ``eos_coef``,
+the clip-level (B, 2) visibility CE, and the box losses (0 when the batch
+has no box). Targets are padded: boxes (B, M, 4) normalised cxcywh, labels
+(B, M, C) multi-hot (AVA) or (B, M) class ids (UCF), valid (B, M) bool. The
+aux (per-decoder-layer) losses fold the layer axis into the batch and share
+one matcher call. Reductions follow torch: the weighted CE divides by the
+sum of the applied weights, the weighted BCE is a plain mean of w * elem.
 """
 
 from __future__ import annotations
@@ -23,6 +27,14 @@ class TargetsAVA(NamedTuple):
     boxes: torch.Tensor   # (B, M, 4) cxcywh normalised
     labels: torch.Tensor  # (B, M, C) multi-hot float
     valid: torch.Tensor   # (B, M) bool
+
+
+class TargetsUCF(NamedTuple):
+    boxes: torch.Tensor    # (B, M, 4)
+    labels: torch.Tensor   # (B, M) int class ids
+    valid: torch.Tensor    # (B, M) bool
+    vis: torch.Tensor      # (B,) int {0, 1} clip-level visibility
+    key_pos: torch.Tensor  # (B,) int key-frame index in [0, T)
 
 
 def _stable_bce_from_logits(logits: torch.Tensor, targets: torch.Tensor
@@ -51,6 +63,22 @@ def match_ava(pred_boxes: torch.Tensor, pred_logits_b: torch.Tensor,
         p_actor = pred_logits_b.softmax(-1)[..., 1]                 # (B, Q)
         class_cost = -p_actor[..., None].expand(
             -1, -1, targets.boxes.shape[1])
+        cost = matcher.compute_cost_matrix(
+            pred_boxes, class_cost, targets.boxes, targets.valid,
+            cost_class, cost_bbox, cost_giou)
+        return matcher.match(cost, targets.valid)
+
+
+def match_ucf(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
+              targets: TargetsUCF, cost_class: float, cost_bbox: float,
+              cost_giou: float):
+    """JHMDB/UCF matching: class cost = -softmax(logits)[target class]
+    (models/detr/matcher_ucf.py:73-74), without gradients."""
+    with torch.no_grad():
+        prob = pred_logits.softmax(-1)                           # (B,Q,C+1)
+        cls = targets.labels.long().clamp(0, prob.shape[-1] - 1)  # (B, M)
+        class_cost = -prob.gather(
+            -1, cls[:, None, :].expand(-1, prob.shape[1], -1))   # (B,Q,M)
         cost = matcher.compute_cost_matrix(
             pred_boxes, class_cost, targets.boxes, targets.valid,
             cost_class, cost_bbox, cost_giou)
@@ -151,6 +179,107 @@ def criterion_ava(outputs: Dict[str, torch.Tensor], targets: TargetsAVA, *,
     per_layer = ava_layer_losses(
         logits, boxes, logits_b, targets, tfq.reshape(lay_n, b, q),
         num_boxes, weight=weight, eos_coef=eos_coef, evaluation=evaluation)
+
+    losses = {k: v[-1] for k, v in per_layer.items()}
+    if aux_loss:
+        for i in range(lay_n - 1):
+            for k in ("loss_ce", "loss_ce_b", "loss_bbox", "loss_giou"):
+                losses[f"{k}_{i}"] = per_layer[k][i]
+    return losses
+
+
+def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+                     pred_logits_b: torch.Tensor, targets: TargetsUCF,
+                     tgt_for_query: torch.Tensor, num_boxes: torch.Tensor, *,
+                     eos_coef: float, num_classes: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Losses of the softmax (JHMDB/UCF) criterion for the layers stacked
+    on a leading axis: ``pred_*`` (L, B, Q, .) already key-frame gathered,
+    ``pred_logits_b`` the clip-level (L, B, 2) visibility head,
+    ``tgt_for_query`` (L, B, Q). Each returned value is (L,)."""
+    matched = tgt_for_query >= 0                                  # (L,B,Q)
+    lay_n = pred_logits.shape[0]
+    mf = matched.float()
+    red = (1, 2)
+
+    # visibility CE over (B, 2), unweighted (criterion.py:251-253)
+    vis = targets.vis.long()[None, :, None].expand(lay_n, -1, 1)
+    loss_ce_b = -pred_logits_b.log_softmax(-1).gather(-1, vis)[..., 0].mean(1)
+
+    # softmax CE with the no-object class at weight eos_coef
+    tfq = tgt_for_query.flatten(0, 1)
+    labels = targets.labels.long().repeat(lay_n, 1)
+    tgt_ids = _gather_matched(labels[..., None], tfq)[..., 0].reshape(
+        matched.shape)
+    tgt_full = torch.where(matched, tgt_ids, num_classes)
+    cw = torch.ones(num_classes + 1, device=pred_logits.device)
+    cw[-1] = eos_coef
+    loss_ce = _weighted_ce(pred_logits, tgt_full, cw, red)
+
+    # box losses over the matched pairs, 0 when the batch has no box
+    # (criterion.py:308-318)
+    tgt_box = _gather_matched(targets.boxes.repeat(lay_n, 1, 1),
+                              tfq).reshape(pred_boxes.shape)
+    l1 = (pred_boxes - tgt_box).abs().sum(-1)
+    giou = box_ops.elementwise_giou(box_ops.box_cxcywh_to_xyxy(pred_boxes),
+                                    box_ops.box_cxcywh_to_xyxy(tgt_box))
+    has_boxes = num_boxes > 0
+    denom = num_boxes.clamp(min=1.0)
+    loss_bbox = torch.where(has_boxes, (l1 * mf).sum(red) / denom, 0.0)
+    loss_giou = torch.where(has_boxes, ((1.0 - giou) * mf).sum(red) / denom,
+                            0.0)
+
+    # top-1 accuracy of the matched queries (logging only)
+    with torch.no_grad():
+        correct = ((pred_logits.argmax(-1) == tgt_full) & matched).float()
+        n_match = mf.sum(red).clamp(min=1.0)
+        class_error = 100.0 * (1.0 - correct.sum(red) / n_match)
+
+    return {"loss_ce": loss_ce, "loss_ce_b": loss_ce_b,
+            "loss_bbox": loss_bbox, "loss_giou": loss_giou,
+            "class_error": class_error}
+
+
+def gather_key_frame_queries(x: torch.Tensor, key_pos: torch.Tensor,
+                             num_queries: int) -> torch.Tensor:
+    """The key frame's Q queries of the (B, Q*T, ...) tubelet layout: rows
+    key_pos*Q .. key_pos*Q + Q - 1 of each sample (criterion.py:378-380)."""
+    rows = (key_pos.long()[:, None] * num_queries
+            + torch.arange(num_queries, device=x.device)[None])  # (B, Q)
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], rows]
+
+
+def criterion_ucf(outputs: Dict[str, torch.Tensor], targets: TargetsUCF, *,
+                  cost_class: float, cost_bbox: float, cost_giou: float,
+                  eos_coef: float, num_classes: int, num_queries: int,
+                  aux_loss: bool = True) -> Dict[str, torch.Tensor]:
+    """The JHMDB/UCF criterion with the key-frame query gather, over the
+    last layer (and the stacked aux layers)."""
+    if aux_loss:
+        logits = outputs["aux_logits"]                 # (L, B, Q*T, C+1)
+        boxes = outputs["aux_boxes"]
+        logits_b = outputs["aux_logits_b"]             # (L, B, 2)
+    else:
+        logits = outputs["pred_logits"][None]
+        boxes = outputs["pred_boxes"][None]
+        logits_b = outputs["pred_logits_b"][None]
+    lay_n, b = logits.shape[:2]
+    # (L, B, Q*T, .) -> (L, B, Q, .), the layers moved out of the way
+    logits_k, boxes_k = (gather_key_frame_queries(
+        x.movedim(0, 2), targets.key_pos, num_queries).movedim(2, 0)
+        for x in (logits, boxes))
+
+    reps = TargetsUCF(boxes=targets.boxes.repeat(lay_n, 1, 1),
+                      labels=targets.labels.repeat(lay_n, 1),
+                      valid=targets.valid.repeat(lay_n, 1),
+                      vis=targets.vis.repeat(lay_n),
+                      key_pos=targets.key_pos.repeat(lay_n))
+    tfq, _ = match_ucf(boxes_k.flatten(0, 1), logits_k.flatten(0, 1), reps,
+                       cost_class, cost_bbox, cost_giou)
+    per_layer = ucf_layer_losses(
+        logits_k, boxes_k, logits_b, targets,
+        tfq.reshape(lay_n, b, num_queries), targets.valid.float().sum(),
+        eos_coef=eos_coef, num_classes=num_classes)
 
     losses = {k: v[-1] for k, v in per_layer.items()}
     if aux_loss:

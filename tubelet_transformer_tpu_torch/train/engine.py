@@ -29,17 +29,19 @@ from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.data.device_preprocess import (
     device_preprocess)
 from tubelet_transformer_tpu_torch.models.csn import FoldableBN
-from tubelet_transformer_tpu_torch.models.tuber import TubeR
+from tubelet_transformer_tpu_torch.models.tuber import TubeR, dataset_mode
 from tubelet_transformer_tpu_torch.train import criterion as crit
 from tubelet_transformer_tpu_torch.train.optimizer import (
     build_optimizer, clip_by_global_norm, set_learning_rate,
     trainable_params)
-from tubelet_transformer_tpu_torch.train.postprocess import postprocess_ava
+from tubelet_transformer_tpu_torch.train.postprocess import (
+    postprocess_ava, postprocess_softmax)
 from tubelet_transformer_tpu_torch.train.schedule import build_schedule
 
 # batch keys that go to the device; the rest (image_key, key_idx, ...)
 # stay on the host
-DEVICE_KEYS = ("clips", "pad_mask", "boxes", "labels", "valid", "sizes")
+DEVICE_KEYS = ("clips", "pad_mask", "boxes", "labels", "valid", "sizes",
+               "vis", "key_pos")
 
 
 @dataclass
@@ -79,25 +81,38 @@ def check_supported(cfg: Config) -> None:
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
         "MESH.ZERO1": cfg.mesh.zero1,
         "MESH.SPATIAL": cfg.mesh.spatial,
-        "DATA.DATASET_NAME jhmdb/ucf": cfg.data.dataset_name in ("jhmdb",
-                                                                 "ucf"),
     }
     for name, asked in unsupported.items():
         if asked:
             raise NotImplementedError(f"{name} is not ported yet")
 
 
-def _targets(batch: Dict[str, torch.Tensor]) -> crit.TargetsAVA:
-    return crit.TargetsAVA(boxes=batch["boxes"], labels=batch["labels"],
-                           valid=batch["valid"])
+def is_ava_mode(cfg: Config) -> bool:
+    """Everything but the tubelet (JHMDB/UCF) datasets uses AVA semantics."""
+    return dataset_mode(cfg) == "ava"
+
+
+def _targets_from_batch(cfg: Config, batch: Dict[str, torch.Tensor]):
+    if is_ava_mode(cfg):
+        return crit.TargetsAVA(boxes=batch["boxes"], labels=batch["labels"],
+                               valid=batch["valid"])
+    return crit.TargetsUCF(boxes=batch["boxes"], labels=batch["labels"],
+                           valid=batch["valid"], vis=batch["vis"],
+                           key_pos=batch["key_pos"])
 
 
 def compute_losses(cfg: Config, outputs, targets, evaluation: bool = False):
-    return crit.criterion_ava(
+    if is_ava_mode(cfg):
+        return crit.criterion_ava(
+            outputs, targets, cost_class=cfg.matcher.cost_class,
+            cost_bbox=cfg.matcher.cost_bbox, cost_giou=cfg.matcher.cost_giou,
+            weight=cfg.loss.weight, eos_coef=cfg.loss.eos_cof,
+            aux_loss=cfg.train.aux_loss, evaluation=evaluation)
+    return crit.criterion_ucf(
         outputs, targets, cost_class=cfg.matcher.cost_class,
         cost_bbox=cfg.matcher.cost_bbox, cost_giou=cfg.matcher.cost_giou,
-        weight=cfg.loss.weight, eos_coef=cfg.loss.eos_cof,
-        aux_loss=cfg.train.aux_loss, evaluation=evaluation)
+        eos_coef=cfg.loss.eos_cof, num_classes=cfg.data.num_classes,
+        num_queries=cfg.model.query_num, aux_loss=cfg.train.aux_loss)
 
 
 def weighted_total(cfg: Config, loss_dict: Dict[str, torch.Tensor],
@@ -137,7 +152,8 @@ def make_train_step(cfg: Config, state: TrainState):
                                   generator=generator)
         torch._foreach_copy_(saved, stats)
         outputs = model(clips, pad_mask)
-        loss_dict = compute_losses(cfg, outputs, _targets(batch))
+        loss_dict = compute_losses(cfg, outputs,
+                                   _targets_from_batch(cfg, batch))
         total = weighted_total(cfg, loss_dict, loss_ce_weight)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -160,9 +176,11 @@ def make_train_step(cfg: Config, state: TrainState):
 
 
 def make_eval_step(cfg: Config, model: TubeR):
-    """The eval step: batch on the device -> detections (postprocess_ava)
-    and, unless VAL.COMPUTE_LOSSES is off, the criterion's losses."""
+    """The eval step: batch on the device -> detections (postprocess_ava,
+    or postprocess_softmax for JHMDB/UCF) and, unless VAL.COMPUTE_LOSSES is
+    off, the criterion's losses."""
     check_supported(cfg)
+    postprocess = postprocess_ava if is_ava_mode(cfg) else postprocess_softmax
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict:
@@ -171,12 +189,13 @@ def make_eval_step(cfg: Config, model: TubeR):
         outputs = model(device_preprocess(batch["clips"], dtype=model.dtype,
                                           pad_mask=pad_mask), pad_mask)
         if cfg.val.compute_losses:
-            losses = compute_losses(cfg, outputs, _targets(batch),
+            losses = compute_losses(cfg, outputs,
+                                    _targets_from_batch(cfg, batch),
                                     evaluation=True)
         else:
             losses = {k: torch.zeros(()) for k in
                       ("loss_ce", "loss_ce_b", "loss_bbox", "loss_giou")}
-        scores, boxes, binary = postprocess_ava(outputs, batch["sizes"])
+        scores, boxes, binary = postprocess(outputs, batch["sizes"])
         return {"scores": scores, "boxes": boxes, "binary": binary,
                 "losses": losses}
 

@@ -1,12 +1,16 @@
-"""Epoch-level orchestration: the training loop and AVA validation.
+"""Epoch-level orchestration: the training loop, AVA validation and
+JHMDB/UCF24 validation.
 
 Port of ``tubelet_transformer_tpu/train/loop.py`` for one process: the
 per-iteration body is one train step (train/engine.py); validation feeds the
-numpy evaluators of ``eval/ava_eval.py``.
+numpy evaluators of ``eval/ava_eval.py`` (frame mAP and person AP), or of
+``eval/ucf_eval.py`` and ``eval/video_map.py`` (frame mAP over the key
+frame's tubelet queries, and video mAP by tube linking).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional
 
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 
 from tubelet_transformer_tpu_torch.eval.ava_eval import (
-    AVADetectionEvaluator, PersonDetectionEvaluator, load_excluded_keys)
+    AVADetectionEvaluator, PersonDetectionEvaluator, dump_detections_txt,
+    load_excluded_keys)
 from tubelet_transformer_tpu_torch.utils import AverageMeter, MetricsWriter
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.train.engine import TrainState, device_batch
@@ -70,10 +75,14 @@ def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
 
 def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
                  epoch: int, writer: Optional[MetricsWriter] = None,
+                 dump_dir: Optional[str] = None,
                  label_path: Optional[str] = None,
                  exclude_keys=()) -> Dict[str, float]:
     """AVA validation -> frame mAP and person AP (and the size-banded
-    person APs of VAL.PERSON_SIZE_BANDS), with the mean criterion losses."""
+    person APs of VAL.PERSON_SIZE_BANDS), with the mean criterion losses.
+    ``dump_dir`` also writes every keyframe's detections once to
+    ``<dump_dir>/0.txt`` (``dump_detections_txt``); the JAX package draws
+    a PR-curve panel beside it, which the port does not draw yet."""
     dataset = loader.dataset
     device = next(model.parameters()).device
     if not exclude_keys and cfg.data.exclude_path:
@@ -85,6 +94,7 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
     band_evals = [(lo, hi, PersonDetectionEvaluator(size_min=lo, size_max=hi))
                   for lo, hi in (cfg.val.person_size_bands or ())]
     loss_meters = {k: AverageMeter(k) for k in LOSS_KEYS}
+    dump_rows, dumped_keys = [], set()
 
     for batch in loader:
         out = eval_step(device_batch(batch, device))
@@ -112,8 +122,17 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
             person_eval.add_ground_truth(image_key, gxyxy)
             for _, _, bev in band_evals:
                 bev.add_ground_truth(image_key, gxyxy)
+            # the loader's wrap-padded tail repeats samples: dump each once
+            if dump_dir is not None and image_key not in dumped_keys:
+                dumped_keys.add(image_key)
+                dump_rows.extend(
+                    (image_key, list(boxes[i][q]) + list(scores[i][q])
+                     + [binary[i][q, 0]]) for q in range(boxes.shape[1]))
 
     result: Dict[str, float] = {k: m.avg for k, m in loss_meters.items()}
+    if dump_dir is not None:
+        os.makedirs(dump_dir, exist_ok=True)
+        dump_detections_txt(os.path.join(dump_dir, "0.txt"), dump_rows)
     maps, _ = evaluator.evaluate()
     result["mAP"] = maps[0]
     result["person_AP"] = person_eval.evaluate()[0]
@@ -129,4 +148,101 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
         print(f"  person AP (area {int(lo)}..{int(hi)}): {result[tag]:.4f}")
         if writer:
             writer.add_scalar(f"val/{tag}", result[tag], epoch)
+    return result
+
+
+def validate_ucf(cfg: Config, eval_step, model: torch.nn.Module, loader,
+                 epoch: int, writer: Optional[MetricsWriter] = None,
+                 iou_thresholds=(0.5,),
+                 video_map_thresholds=(0.2, 0.5)) -> Dict[str, float]:
+    """JHMDB/UCF24 validation -> frame mAP over the key frame's tubelet
+    queries, and video mAP by tube linking when the dataset carries its GT
+    tubes. Each sample's Q queries at ``key_pos`` are sliced from the Q*T
+    layout before scoring; the UCF evaluator applies the argmax/no-object
+    and tiny-GT exclusion rules."""
+    from tubelet_transformer_tpu_torch.eval.ucf_eval import (
+        UCFDetectionEvaluator)
+    from tubelet_transformer_tpu_torch.eval.video_map import (
+        VideoMAPEvaluator)
+
+    dataset = loader.dataset
+    device = next(model.parameters()).device
+    evaluator = UCFDetectionEvaluator(class_num=cfg.data.num_classes,
+                                      iou_thresholds=iou_thresholds)
+    q = cfg.model.query_num
+    n_cls = cfg.data.num_classes
+    do_video = bool(video_map_thresholds) and "gttubes" in getattr(
+        dataset, "dataset", {})
+    video_eval = (VideoMAPEvaluator(n_cls, video_map_thresholds)
+                  if do_video else None)
+
+    for batch in loader:
+        out = eval_step(device_batch(batch, device))
+        scores, boxes = (out[k].float().cpu().numpy()
+                         for k in ("scores", "boxes"))
+        for i in range(batch["clips"].shape[0]):
+            idx = int(batch["key_idx"][i])
+            if hasattr(dataset, "samples"):
+                vid, fid = dataset.samples[idx]
+                image_key = str(vid).replace("/", "_") + "-" + str(fid)
+            else:
+                image_key = f"idx_{idx}"
+            kp = int(batch["key_pos"][i])
+            det_boxes = boxes[i][kp * q:(kp + 1) * q]
+            det_scores = scores[i][kp * q:(kp + 1) * q]     # (Q, C+1)
+            evaluator.add_detections(image_key, det_boxes, det_scores)
+
+            if video_eval is not None:
+                # the key frame's argmax-class detections for tube linking
+                # (the frame evaluator's no-object rule)
+                keep = np.argmax(det_scores, 1) != det_scores.shape[1] - 1
+                if keep.any():
+                    fg = det_scores[keep][:, :n_cls]
+                    cls = np.argmax(fg, axis=1)
+                    video_eval.add_frame_detections(
+                        str(vid), int(fid), det_boxes[keep], cls,
+                        fg[np.arange(len(cls)), cls])
+
+            h, w = batch["sizes"][i]
+            gv = batch["valid"][i]
+            gb = batch["boxes"][i][gv]
+            if gb.size and int(batch["vis"][i]):
+                cx, cy, bw, bh = gb.T
+                gxyxy = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                                  cy + bh / 2], 1) * np.array(
+                                      [w, h, w, h], np.float64)
+                onehot = np.zeros((len(gb), n_cls), np.float32)
+                onehot[np.arange(len(gb)), batch["labels"][i][gv]] = 1.0
+                evaluator.add_ground_truth(image_key, gxyxy, onehot)
+
+    result: Dict[str, float] = {}
+    maps, _ = evaluator.evaluate()
+    for t, m in zip(iou_thresholds, maps):
+        result[f"mAP@{t}"] = m
+    result["mAP"] = maps[0]
+    print(f"UCF/JHMDB validation epoch {epoch}: " + " ".join(
+        f"mAP@{t}={m:.4f}" for t, m in zip(iou_thresholds, maps)),
+        flush=True)
+    if writer:
+        writer.add_scalar("val/val_mAP_epoch", maps[0], epoch)
+    if video_eval is not None:
+        # GT tubes from the pickle, scaled to the frame the detections were
+        # scaled to (the dataset's own resize policy)
+        for v in {v for v, _ in dataset.samples}:
+            oh, ow = dataset.dataset["resolution"][v]
+            nh, nw = dataset._video_resize(v)
+            sc = np.array([nw / ow, nh / oh, nw / ow, nh / oh])
+            for ilabel, tubes in dataset.dataset["gttubes"][v].items():
+                for tube in tubes:
+                    video_eval.add_gt_tube(str(v), int(ilabel),
+                                           tube[:, 0].astype(int),
+                                           tube[:, 1:5] * sc)
+        vmaps = video_eval.evaluate()
+        for t, m in vmaps.items():
+            result[f"video_mAP@{t}"] = m
+        print("video-mAP: " + " ".join(f"@{t}={m:.4f}"
+                                       for t, m in vmaps.items()), flush=True)
+        if writer:
+            for t, m in vmaps.items():
+                writer.add_scalar(f"val/video_mAP@{t}", m, epoch)
     return result
