@@ -20,7 +20,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    pooled stem also at a ragged shape in bf16 and float32; the unpooled
    stem, which no model path runs, at 256 and 224 px and at ragged shapes
    in bf16 and float32, bit for bit against a repeat launch, and in bf16
-   with the ReLU, max-pooled, bit for bit against the pooled stem), with
+   with the ReLU, max-pooled, bit for bit against the pooled stem; the
+   pooled stem, the depthwise and the chain's three tails also at the
+   serving pool's largest bucket of 8 clips, each clip's output bit-equal
+   whatever the other clips hold), with
    CUDA-event times (``tools/timing.py``) of calls back to back for both
    (``ms``, host work included) and of the kernel on the device alone
    (``device_ms``), of the one PyTorch call that computes the same
@@ -43,8 +46,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``MODEL.FUSED_STAGES`` on as well (``build/chip_smoke_stages.yaml``): the
    identity tails of layers 2-4 as stage chains (3 launches per keyframe,
    no fused bottleneck), in situ and the host time with the chains on and
-   off; then where the device time of one forward of each detector goes
-   (torch.profiler), and the serving CLI through the stage path's YAML;
+   off; then the serving pool (``StreamingDetectorPool``, max_batch 8) on
+   the stage path's model: warmup of buckets 1, 2, 4 and 8, then 8 streams
+   of four source geometries, staggered so that buckets 4 and 8 run
+   padded, each stream's keyframes against a single detector's on the same
+   frames, the launches per bucket forward, the pooled stem, the depthwise
+   and the chains in situ on the path's own 8-clip inputs, and the step
+   latency per bucket with its assemble/upload/exec split; then where the
+   device time of one forward of each detector goes (torch.profiler), and
+   the serving CLI through the stage path's YAML;
 8. weights in, at flagship size: a Caffe2 ``.mat`` backbone, a COCO DETR
    ``detr.pth`` (100 query rows) and a ``module.``-prefixed TubeR ``.pth``
    written from a seed-1 model (``tools/fixtures.py``), each loaded into a
@@ -58,7 +68,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
 10. the eval CLI (``eval_ava``) on that checkpoint (MODEL.LOAD with
     PRETRAINED_PATH): its weights equal the checkpoint's, its frame mAP
     beside the train run's; then the serving CLI with MODEL.LOAD on it,
-    in this process, its weights equal the checkpoint's too;
+    in this process, its weights equal the checkpoint's too; then
+    long-term context: the ``generate_lfb`` CLI on that YAML writes a
+    feature bank with one key per val keyframe, and ``train_ava`` with
+    USE_LFB and LFB.BANK_PATH on it takes 2 steps at batch 2 and one
+    validation from the checkpoint (``build/chip_smoke_lfb_train.yaml``),
+    its LFB weights moved; then the HTTP server (``DetectionServer``,
+    max_batch 8) on the stage path's YAML with USE_LFB
+    (``build/chip_smoke_lfb_stages.yaml``): 4 streams through
+    ``client.py``, two of JPEG and two of raw frames, every keyframe
+    delivered with its memory size, /healthz and /v1/stats, the launches
+    per forward, and no scheduler failure;
 11. in situ, train: one flagship train forward with both stem kernels on
     and off;
 12. one train step on uint8 clips, so that the HSV jitter runs on the card,
@@ -76,9 +96,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
     inputs against their plain versions and a repeat launch, the steady
     step and the eval step, and where the device time of each goes.
 
-The profiled windows of phases 7, 12 and 14 (where the device time goes)
-run last, after every timed phase: a window slows the host work of its
-process after it.
+The profiled windows of phases 7, 12 and 14 (where the device time goes;
+for the pool, one stage-path forward of 8 clips) run last, after every
+timed phase: a window slows the host work of its process after it.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -103,10 +124,12 @@ ROOT = Path(__file__).resolve().parent
 FLAGSHIP_CONFIG = ROOT / "configuration" / "tuber_csn152_ava22.yaml"
 JHMDB_CONFIG = ROOT / "configuration" / "tuber_csn152_jhmdb.yaml"
 # Pooled stem (x shape, dtype): the streaming paths' 256 and 224 px, the
-# train path's batch of 2, and a shape the 8x8 pooled tiles do not divide,
+# serving pool's largest bucket (B = 8) at 256 px, the train path's batch
+# of 2, and a shape the 8x8 pooled tiles do not divide,
 # in bf16 (the tensor-core kernel's edge masking) and float32 (the CUDA-core
 # kernel).
 STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
+              "ava_256px_b8": ((8, 32, 256, 256, 3), "bfloat16"),
               "jhmdb_224px": ((1, 32, 224, 224, 3), "bfloat16"),
               "ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
               "jhmdb_224x400": ((1, 32, 224, 400, 3), "bfloat16"),
@@ -171,8 +194,35 @@ TRAIN_IN_SITU_TOL = 0.02
 TRAIN_STEPS = 4        # SYNTHETIC_SIZE 8 at BATCH_SIZE 2
 VAL_FORWARDS = 8       # SYNTHETIC_SIZE 8 at VAL.BATCH_SIZE 1
 FRAMES = 88            # 64-frame window + 3 x 8: four keyframe detections
+# The serving pool at full width (phase_pool): 8 streams of four source
+# geometries; streams 0-2 start at tick 0 and 3-7 at tick 4, so with one
+# step per tick the pool runs 3 streams in bucket 4 and 5 in bucket 8, both
+# padded, three keyframes each (a 64-frame window, then one every 8).
+POOL_GEOMETRIES = ((240, 320), (360, 640), (480, 480), (720, 1280)) * 2
+POOL_STARTS = (0, 0, 0, 4, 4, 4, 4, 4)
+POOL_TICKS = 84
+# A stream served in a bucket against the same stream served alone: the
+# largest difference of scores and actor probabilities (absolute, both in
+# [0, 1]) and of boxes over the source's longer side. The same phase reads
+# a control, each stream against another stream's single detector, as a
+# row handed another row's output would show; the limit must lie between
+# the two readings, or the phase fails. bf16: cuBLAS may choose another
+# GEMM for another batch, so the two differ by bf16 rounding carried
+# through 50 blocks and 12 layers: 0.0061 on an H100, where the control's
+# nearest pair differs by 0.0146 with pool_frames' brightness levels (noise
+# at one level: 0.0062 against 0.0050, no limit between them;
+# tools/pool_control.py reads both). float32 with TF32 off: 5.7e-7 against
+# 0.0134.
+POOL_TOL = 0.01
+POOL_F32_TOL = 1e-4
+# The HTTP server at full width (phase_http): 4 client streams of these
+# geometries, the first two pushing JPEG and the others raw frames, each
+# FRAMES frames (four keyframes), with a 3-keyframe x 2-slot memory.
+HTTP_GEOMETRIES = ((360, 640), (480, 480), (240, 320), (720, 1280))
+HTTP_MEMORY = (3, 2)
 # Depthwise kernel (x, w, optional scale and bias: shape, dtype, epilogue):
-# layer1 of CSN-152 at 256 px, bare and with the affine + ReLU epilogue; a
+# layer1 of CSN-152 at 256 px, bare and with the affine + ReLU epilogue,
+# and bare at the serving pool's largest bucket (B = 8); a
 # shape smaller than one tile in float32; and shapes its blocks (16x16
 # pixels, 32 bf16 or 16 float channels, runs of 8 frames) do not divide: T
 # not a multiple of the run, H and W not multiples of the tile, C = 8 and
@@ -183,6 +233,7 @@ DW_RAGGED = {"t11": (1, 11, 16, 16, 64), "hw_20x37": (1, 8, 20, 37, 64),
              "c8": (1, 9, 18, 17, 8), "c72": (1, 9, 18, 17, 72),
              "two_clips_t5": (2, 5, 16, 16, 64)}
 DW_CASES = {"layer1_256px": ((1, 32, 64, 64, 64), "bfloat16", False),
+            "layer1_256px_b8": ((8, 32, 64, 64, 64), "bfloat16", False),
             "layer1_256px_affine_relu": ((1, 32, 64, 64, 64), "bfloat16",
                                          True),
             "ragged_f32": ((2, 5, 7, 9, 64), "float32", False),
@@ -213,11 +264,14 @@ BN_TOL = 5e-3
 FLAGSHIP_TAILS = {"layer2": ((1, 16, 32, 32, 512), 128, 7),
                   "layer3": ((1, 8, 16, 16, 1024), 256, 35),
                   "layer4": ((1, 4, 16, 16, 2048), 512, 2)}
-# the chain's checks: those three, two clips of five frames at layer2 (the
+# the chain's checks: those three, the same at the serving pool's largest
+# bucket (B = 8), two clips of five frames at layer2 (the
 # reset of the depthwise's frame window at each clip's edges), and float32
 # at a shape the 8x8 tiles do not divide
 CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
                   FLAGSHIP_TAILS.items()},
+               **{f"{k}_256px_b8": (((8, *x[1:]), cm, tail), "bfloat16")
+                  for k, (x, cm, tail) in FLAGSHIP_TAILS.items()},
                "two_clips_t5": (((2, 5, 32, 32, 512), 128, 7), "bfloat16"),
                "ragged_f32": (((1, 4, 13, 21, 512), 128, 3), "float32")}
 # Chain against the plain version. The kernel must equal K launches of
@@ -322,6 +376,21 @@ def phase_build() -> None:
         f", {wall:.2f} s to build and load")
 
 
+def rows_independent(torch, fn, x, rest, rows=(0, -1)) -> bool:
+    """Whether row i of ``fn(x, *rest)`` is bit-equal whatever the other
+    rows of the batch hold: for each i of ``rows``, the other rows are
+    replaced by x's rows in reverse order (other contents, and rows the
+    serving pool's padding repeats) and row i must not move by a bit."""
+    want = fn(x, *rest)
+    filler = x.flip(0)
+    for i in rows:
+        other = filler.clone()
+        other[i] = x[i]
+        if not torch.equal(fn(other, *rest)[i], want[i]):
+            return False
+    return True
+
+
 def _dev(torch, a, dtype):
     return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
 
@@ -346,6 +415,8 @@ def phase_kernels(torch, stem) -> dict:
             raise AssertionError(f"stem {name}: {tuple(got.shape)} "
                                  f"{got.dtype}, want {tuple(ref.shape)}")
         bits = torch.equal(got, again)
+        rows = shape[0] < 8 or rows_independent(torch, stem.stem_forward, x,
+                                                 (w, scale, bias))
         err = (got.float() - ref.float()).abs().max().item()
         span = ref.float().abs().max().item()
         ms = time_ms(torch, lambda: stem.stem_forward(x, w, scale, bias))
@@ -361,14 +432,16 @@ def phase_kernels(torch, stem) -> dict:
         tol = STEM_POOL_TOL[dtype_name]
         log(f"[kernel] stem_pool {name} {shape} {dtype_name}: max_abs_err "
             f"{err:.6g} (rel to max|ref| {err / span:.3g}, tol {tol:.3g}); "
-            f"repeat bit-equal {bits}; kernel {ms:.4f} ms (the device alone "
+            f"repeat bit-equal {bits}; rows independent {rows}; kernel "
+            f"{ms:.4f} ms (the device alone "
             f"{device_ms:.4f} ms, {gflop / device_ms:.2f} TFLOP/s, "
             f"{bound_ms / device_ms:.3f} of the bound), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err <= tol * span and bits):
+        if not (err <= tol * span and bits and rows):
             raise AssertionError(f"stem {name}: kernel disagrees with plain "
-                                 f"({err} > {tol} * {span}) or repeats "
-                                 f"differ ({bits})")
+                                 f"({err} > {tol} * {span}), repeats "
+                                 f"differ ({bits}) or rows depend on each "
+                                 f"other ({rows})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None, "device_ms": device_ms}
@@ -468,6 +541,9 @@ def phase_depthwise_kernel(torch) -> dict:
         again = kernel()
         torch.cuda.synchronize()
         bits = torch.equal(got, again)
+        rows = shape[0] < 8 or rows_independent(
+            torch, lambda xs: D.depthwise_conv3x3x3(xs, w, scale, bias,
+                                                    relu=epilogue), x, ())
         ref = plain()
         if got.shape != ref.shape or got.dtype != dtype:
             raise AssertionError(f"depthwise {name}: {tuple(got.shape)} "
@@ -491,15 +567,16 @@ def phase_depthwise_kernel(torch) -> dict:
         log(f"[kernel] depthwise {name} {shape} {dtype_name}"
             f"{' +affine+relu' if epilogue else ''}: max_abs_err {err:.4g} "
             f"(rel to max|ref| {err / span:.3g}, tol {tol:.3g}); repeat "
-            f"bit-equal {bits}; kernel "
+            f"bit-equal {bits}; rows independent {rows}; kernel "
             f"{ms:.4f} ms (the device alone {device_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, cuDNN grouped conv "
             f"{library_ms:.4f} ms ({copies_ms:.4f} ms with the two layout "
             f"copies), bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err <= tol * span and bits):
+        if not (err <= tol * span and bits and rows):
             raise AssertionError(f"depthwise {name}: kernel disagrees with "
-                                 f"plain ({err} > {tol} * {span}) or "
-                                 f"repeats differ ({bits})")
+                                 f"plain ({err} > {tol} * {span}), "
+                                 f"repeats differ ({bits}) or rows depend "
+                                 f"on each other ({rows})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms,
@@ -593,6 +670,26 @@ def _chain_args(torch, shape, cm, k, dtype_name, seed):
             *(_dev(torch, a, torch.float32) for a in affines))
 
 
+def chain_errors(torch, S, got, args
+                 ) -> tuple[list, list, list, list, list]:
+    """Per clip: the kernel's error against the float64 plain version that
+    rounds where it does, the limit (CHAIN_TOL of max|ref|, or twice the
+    float32 rounded plain version's own error, whichever is larger), that
+    float32 error, max|ref|, and the kernel's error against the float64
+    version with its output rounded to the kernel's type as well."""
+    ref64 = S.chain_reference_rounded(args[0], args[1:], torch.float64)
+    ref32 = S.chain_reference_rounded(args[0], args[1:])
+    errs, limits, plain_errs, spans, rounded_errs = [], [], [], [], []
+    for i in range(args[0].shape[0]):
+        spans.append(ref64[i].abs().max().item())
+        errs.append((got[i].double() - ref64[i]).abs().max().item())
+        plain_errs.append((ref32[i].double() - ref64[i]).abs().max().item())
+        limits.append(max(CHAIN_TOL * spans[-1], 2 * plain_errs[-1]))
+        rounded_errs.append((got[i].double() - ref64[i].to(got.dtype)
+                             .double()).abs().max().item())
+    return errs, limits, plain_errs, spans, rounded_errs
+
+
 def phase_stage_kernel(torch) -> dict:
     """The stage chain against K launches of itself with K = 1, a repeat
     launch and the plain version (CHAIN_CASES, CHAIN_TOL), with its grid,
@@ -619,21 +716,17 @@ def phase_stage_kernel(torch) -> dict:
         torch.cuda.synchronize()
         exact = got.shape == blocks.shape and torch.equal(got, blocks)
         repeat = torch.equal(got, again)
-        ref64 = S.chain_reference_rounded(args[0], args[1:], torch.float64)
-        ref32 = S.chain_reference_rounded(args[0], args[1:])
+        rows = b < 8 or rows_independent(torch, S.bottleneck_chain, args[0],
+                                         args[1:])
+        errs, limits, plain_errs, spans, _ = chain_errors(torch, S, got,
+                                                          args)
+        span = max(spans)
         unrounded = S.chain_reference(args[0].float(),
                                       [a.float() for a in args[1:]])
-        errs, limits, plain_errs, unrounded_errs = [], [], [], []
-        for i in range(b):
-            span = ref64[i].abs().max().item()
-            errs.append((got[i].double() - ref64[i]).abs().max().item())
-            plain_errs.append((ref32[i].double() - ref64[i]).abs().max()
-                              .item())
-            unrounded_errs.append((got[i].float() - unrounded[i]).abs()
-                                  .max().item() / span)
-            limits.append(max(CHAIN_TOL * span, 2 * plain_errs[-1]))
+        unrounded_errs = [(got[i].float() - unrounded[i]).abs().max().item()
+                          / unrounded[i].abs().max().item()
+                          for i in range(b)]
         finite = bool(torch.isfinite(got).all())
-        span = ref64.abs().max().item()
         ms = time_ms(torch, lambda: S.bottleneck_chain(*args))
         device_ms = time_ms(torch, lambda: S.bottleneck_chain(*args),
                             queued=True)
@@ -646,7 +739,8 @@ def phase_stage_kernel(torch) -> dict:
             f": a grid of {S.grid_blocks(args[0])} resident blocks; work "
             f"items per block of the chain {S.phase_tiles(shape, cm)}; "
             f"bit-equal to {k} launches with K = 1 {exact}, to a repeat "
-            f"launch {repeat}; max_abs_err per clip vs the float64 rounded "
+            f"launch {repeat}; rows independent {rows}; max_abs_err per "
+            f"clip vs the float64 rounded "
             f"plain version {[round(e, 5) for e in errs]} (limits "
             f"{[round(v, 5) for v in limits]}; the float32 rounded plain "
             f"version's {[round(e, 5) for e in plain_errs]}; max|ref| "
@@ -656,12 +750,13 @@ def phase_stage_kernel(torch) -> dict:
             f"{ops / device_ms / 1e9:.2f} TFLOP/s, "
             f"{bound_ms / device_ms:.3f} of the bound), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (exact and repeat and finite and all(
+        if not (exact and repeat and rows and finite and all(
                 e <= v for e, v in zip(errs, limits))):
             raise AssertionError(f"stage_chain {name}: the kernel disagrees "
                                  f"with its one-block launches ({exact}), a "
                                  f"repeat ({repeat}) or the plain version "
-                                 f"({errs} vs {limits})")
+                                 f"({errs} vs {limits}), or rows depend on "
+                                 f"each other ({rows})")
         results[name] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None, "k": k,
@@ -920,11 +1015,12 @@ def backbone_kernels_switch(model):
     return switch
 
 
-def chain_totals(chains: dict) -> dict:
+def chain_totals(chains: dict, suffix: str = "") -> dict:
     """The chain's numbers for one flagship forward: the times and bounds of
     its three tails added (one launch each, in turn), the largest error, the
-    bound's kind of the largest bound."""
-    tails = [chains[f"{k}_256px"] for k in FLAGSHIP_TAILS]
+    bound's kind of the largest bound; ``suffix`` "_b8" for the pool's
+    bucket of 8 clips."""
+    tails = [chains[f"{k}_256px{suffix}"] for k in FLAGSHIP_TAILS]
     return {"max_abs_err": max(c["max_abs_err"] for c in tails),
             **{k: sum(c[k] for c in tails) for k in ("ms", "plain_ms",
                                                      "bound_ms",
@@ -1047,14 +1143,18 @@ def phase_switch_latency(torch, det, switch, what: str,
 
 
 def phase_breakdown(torch, det, steady_ms: float, tag: str,
-                    kernels) -> None:
+                    kernels, batch: int = 1, what: str = "one flagship "
+                    "forward (against the steady keyframe latency)") -> None:
+    """Where the device time of one flagship forward of ``batch`` clips
+    goes (torch.profiler), against ``steady_ms`` of the host's clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
         device_preprocess)
 
     model = det.model
-    clip = torch.zeros((1, 32, 256, 256, 3), dtype=torch.uint8, device="cuda")
+    clip = torch.zeros((batch, 32, 256, 256, 3), dtype=torch.uint8,
+                       device="cuda")
     with torch.inference_mode():
         x = device_preprocess(clip, dtype=model.dtype)
         model(x)
@@ -1063,9 +1163,7 @@ def phase_breakdown(torch, det, steady_ms: float, tag: str,
                                  ProfilerActivity.CUDA]) as prof:
             model(x)
             torch.cuda.synchronize()
-    _report_device_time(torch, prof, tag, "one flagship forward "
-                        "(against the steady keyframe latency)", steady_ms,
-                        kernels)
+    _report_device_time(torch, prof, tag, what, steady_ms, kernels)
 
 
 def phase_serve_cli(cfg_path: Path) -> None:
@@ -1893,6 +1991,510 @@ def phase_jhmdb_breakdown(torch, jhmdb: dict) -> None:
                         top=10)
 
 
+def _keep_inputs(captured: dict, kind: str, fn, batch: int):
+    """``fn`` that also keeps a copy of the arguments of its first call at
+    each input shape with ``batch`` clips in ``captured[kind]``."""
+    def wrapped(x, *rest):
+        if x.shape[0] == batch and not any(
+                a[0].shape == x.shape for a in captured[kind]):
+            captured[kind].append((x.clone(), *(r.clone() for r in rest)))
+        return fn(x, *rest)
+    return wrapped
+
+
+def pool_in_situ(torch, captured: dict) -> dict:
+    """#2, #5 and #8 on the pool path's own inputs at 8 clips: against their
+    plain versions (STEM_TOL, DW_TOL, the chain's limits), a repeat launch
+    and rows_independent, bit for bit. Returns the errors by kernel."""
+    from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+    from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+    kernels = {"stem": (stem.stem_forward, stem.stem_reference, STEM_TOL),
+               "depthwise": (D.depthwise_conv3x3x3, D.depthwise_reference,
+                             DW_TOL["bfloat16"]),
+               "chain": (S.bottleneck_chain, None, None)}
+    errors = {}
+    with torch.inference_mode():
+        for kind, (fn, plain, tol) in kernels.items():
+            for args in captured[kind]:
+                got, again = fn(*args), fn(*args)
+                rows = rows_independent(torch, fn, args[0], args[1:],
+                                        rows=range(args[0].shape[0]))
+                detail = ""
+                if plain is None:
+                    errs, limits, plain_errs, spans, rounded = chain_errors(
+                        torch, S, got, args)
+                    # the kernel rounds its output to bf16 and the plain
+                    # version does not: round to nearest adds at most half
+                    # an ulp at each clip's max|ref|, which joins the limit
+                    # (1.0 where layer4's stream reaches ~340 on the path's
+                    # inputs, above phase 3's O(1) inputs)
+                    eps = torch.finfo(got.dtype).eps
+                    limits = [v + 0.5 * eps * 2.0 ** math.floor(math.log2(c))
+                              for v, c in zip(limits, spans)]
+                    ok = all(e <= v for e, v in zip(errs, limits))
+                    err = max(errs) / max(spans)
+                    detail = (
+                        f" (per clip: max_abs_err "
+                        f"{[round(e, 5) for e in errs]}, limits "
+                        f"{[round(v, 5) for v in limits]}, the float32 "
+                        f"rounded plain version's "
+                        f"{[round(e, 5) for e in plain_errs]}, against the "
+                        f"float64 version rounded to bf16 "
+                        f"{[round(e, 5) for e in rounded]}, max|ref| "
+                        f"{[round(c, 4) for c in spans]})")
+                else:
+                    ref = plain(*args)
+                    span = ref.float().abs().max().item()
+                    err = (got.float() - ref.float()).abs().max().item() / span
+                    ok = err <= tol
+                bits = torch.equal(got, again)
+                torch.cuda.synchronize()
+                shape = tuple(args[0].shape)
+                log(f"[pool in situ] {kind} {shape} on the path's inputs: "
+                    f"kernel vs plain {err:.4g} of max|ref|{detail}; "
+                    f"repeat bit-equal {bits}; every row independent of the "
+                    f"others {rows}")
+                if not (ok and bits and rows):
+                    raise AssertionError(f"pool in situ {kind} {shape}")
+                errors[f"{kind}_{shape}"] = err
+    if [len(captured[k]) for k in kernels] != [1, 1, 3]:
+        raise AssertionError(f"pool in situ: saw "
+                             f"{ {k: len(v) for k, v in captured.items()} }")
+    return errors
+
+
+def _timing_by_bucket(forwards: list) -> dict:
+    """Median ms of each part of the pool's forwards, by bucket."""
+    out = {}
+    for b in sorted({f["bucket"] for f in forwards}):
+        fs = [f for f in forwards if f["bucket"] == b]
+        parts = {k: statistics.median(f[k] for f in fs) for k in (
+            "assemble_ms", "upload_ms", "exec_fetch_ms")}
+        parts["total_ms"] = statistics.median(
+            f["assemble_ms"] + f["upload_ms"] + f["exec_fetch_ms"]
+            for f in fs)
+        out[b] = {"forwards": len(fs), "streams": sorted(
+            {f["streams"] for f in fs}), **parts}
+    return out
+
+
+def pool_frames(i: int, h: int, w: int) -> list:
+    """Stream ``i``'s 16 frames of ``h`` x ``w``: uniform noise in
+    [24 i, 24 i + 64). Random weights map noise clips of one brightness to
+    nearly one output, so the streams' levels set them apart."""
+    rng = np.random.default_rng(100 + i)
+    return [rng.integers(24 * i, 24 * i + 64, (h, w, 3), dtype=np.uint8)
+            for _ in range(16)]
+
+
+def _drive_pool(pool, frames: list) -> tuple[dict, list]:
+    """POOL_TICKS ticks of the pool: every started stream (POOL_STARTS)
+    pushes its next frame, then one step. Returns each stream's results and
+    the forwards' timings (empty unless the pool instruments)."""
+    forwards, results = [], {i: [] for i in range(len(POOL_STARTS))}
+    for tick in range(POOL_TICKS):
+        for i, start in enumerate(POOL_STARTS):
+            if tick >= start:
+                pool.push_frame(i, frames[i][(tick - start) % 16])
+        for sid, res in pool.step().items():
+            results[sid].append(res)
+        forwards += pool.last_timing
+    return results, forwards
+
+
+def _pool_diff(got: list, sid: int, alone: dict, other: int) -> dict:
+    """Largest difference of stream ``sid``'s keyframe results from
+    stream ``other``'s single-detector results of the same frame indices:
+    scores and actor probabilities absolute, boxes over each source's
+    longer side."""
+    diff = {"scores": 0.0, "boxes": 0.0, "actor_prob": 0.0}
+    sides = (max(POOL_GEOMETRIES[sid]), max(POOL_GEOMETRIES[other]))
+    for r in got:
+        for d, e in zip(r.detections, alone[r.frame_index].detections):
+            diff["scores"] = max(diff["scores"], float(
+                np.abs(d.scores - e.scores).max()))
+            diff["boxes"] = max(diff["boxes"], float(np.abs(
+                d.box / sides[0] - e.box / sides[1]).max()))
+            diff["actor_prob"] = max(diff["actor_prob"],
+                                     abs(d.actor_prob - e.actor_prob))
+    return diff
+
+
+def _pool_against_single(cfg, model, kw: dict, frames: list, results: dict,
+                         tol: float | None, tag: str) -> tuple[dict, dict]:
+    """Each stream's pool results against a single StreamingDetector on the
+    same model and frames (the sound reading), and against another
+    stream's single detector (the control, as a fault that hands a row
+    another row's output would show it): the sound reading must lie within
+    ``tol`` and the nearest pair of the control beyond it (no check where
+    ``tol`` is None). Returns both readings."""
+    from tubelet_transformer_tpu_torch.serving import StreamingDetector
+
+    alone = {}
+    for sid in results:
+        single = StreamingDetector(cfg, model, **kw)
+        alone[sid] = {}
+        for n in range(POOL_TICKS - POOL_STARTS[sid]):
+            if (r := single.push_frame(frames[sid][n % 16])) is not None:
+                alone[sid][r.frame_index] = r
+        if [r.frame_index for r in results[sid]] != sorted(alone[sid]):
+            raise AssertionError(f"{tag} stream {sid}: keyframes "
+                                 f"{[r.frame_index for r in results[sid]]}, "
+                                 f"alone {sorted(alone[sid])}")
+        for r in results[sid]:
+            if not (len(r.detections) == len(alone[sid][r.frame_index]
+                                             .detections)
+                    == cfg.model.query_num):
+                raise AssertionError(f"{tag} stream {sid}: detections")
+            if not all(np.isfinite(d.box).all() and np.isfinite(
+                    d.scores).all() for d in r.detections):
+                raise AssertionError(f"{tag}: non-finite detection")
+    sound = {k: 0.0 for k in ("scores", "boxes", "actor_prob")}
+    for sid in results:
+        for k, v in _pool_diff(results[sid], sid, alone[sid], sid).items():
+            sound[k] = max(sound[k], v)
+    control = {(sid, other): _pool_diff(results[sid], sid, alone[other],
+                                        other)
+               for sid in results for other in results if other != sid}
+    near = min(control, key=lambda p: max(control[p].values()))
+    log(f"[{tag}] each stream's keyframes against a single detector on the "
+        f"same model and frames: largest difference {sound} (scores and "
+        f"actor probabilities absolute, boxes over the source's longer "
+        f"side; tol {tol}); control, against another stream's single "
+        f"detector: the nearest pair {near} differs by "
+        f"{max(control[near].values())} {control[near]}")
+    if tol is not None and not (max(sound.values()) <= tol
+                                < max(control[near].values())):
+        raise AssertionError(f"{tag} against single: {sound}, control "
+                             f"{control[near]}, tol {tol}")
+    return sound, control[near]
+
+
+def phase_pool(torch, model, cfg_path: Path, per_forward: dict,
+               smi: str) -> dict:
+    """The serving pool at full width on ``cfg_path``'s model: warmup over
+    the buckets, then 8 streams of POOL_GEOMETRIES staggered by
+    POOL_STARTS, one step per tick, with instrument on: buckets 4 and 8
+    padded, each stream's keyframes equal to a single StreamingDetector's on
+    the same model and frames (POOL_TOL, with its control), the kernel
+    launches per forward, #2/#5/#8 in situ on the path's inputs at 8 clips,
+    and the step latency per bucket with its assemble/upload/exec split."""
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models import csn
+    from tubelet_transformer_tpu_torch.serving import StreamingDetectorPool
+
+    cfg = load_config(str(cfg_path))
+    kw = dict(fps=8.0, detect_every=8, actor_threshold=-1.0, device="cuda")
+    pool = StreamingDetectorPool(cfg, model, max_batch=8, instrument=True,
+                                 **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    frames = [pool_frames(i, h, w) for i, (h, w) in
+              enumerate(POOL_GEOMETRIES)]
+
+    captured: dict = {"stem": [], "depthwise": [], "chain": []}
+    saved = (csn.stem_forward, csn.depthwise_conv3x3x3, csn.bottleneck_chain)
+    csn.stem_forward, csn.depthwise_conv3x3x3, csn.bottleneck_chain = (
+        _keep_inputs(captured, k, f, 8) for k, f in zip(captured, saved))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        results, forwards = _drive_pool(pool, frames)
+    finally:
+        csn.stem_forward, csn.depthwise_conv3x3x3, csn.bottleneck_chain = (
+            saved)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: per_forward.get(k, 0) * len(forwards) for k in launches}
+    shapes = sorted({(f["bucket"], f["streams"]) for f in forwards})
+    log(f"[pool] {cfg_path.name}, max_batch 8, streams "
+        f"{[f'{h}x{w}' for h, w in POOL_GEOMETRIES]}: warmup of buckets "
+        f"1, 2, 4, 8 {warm_s:.2f} s; {len(forwards)} forwards (bucket, "
+        f"streams) {shapes}; keyframes per stream "
+        f"{[len(r) for r in results.values()]}; launches {launches}; "
+        f"{POOL_TICKS} ticks in {wall:.2f} s; peak device memory "
+        f"{peak_gb:.2f} GB")
+    if launches != want or shapes != [(4, 3), (8, 5)] or any(
+            len(r) != 3 for r in results.values()):
+        raise AssertionError(f"pool: launches {launches} (want {want}), "
+                             f"forwards {shapes}")
+    sound, control = _pool_against_single(cfg, model, kw, frames, results,
+                                          POOL_TOL, "pool")
+
+    insitu = pool_in_situ(torch, captured)
+    by_bucket = _timing_by_bucket(forwards)
+    for b, t in by_bucket.items():
+        log(f"[pool] bucket {b} ({t['forwards']} forwards of "
+            f"{t['streams']} streams): step median {t['total_ms']:.2f} ms = "
+            f"assemble {t['assemble_ms']:.2f} + upload {t['upload_ms']:.2f} "
+            f"+ exec and fetch {t['exec_fetch_ms']:.2f} ms; {smi}")
+    return {"launches": launches, "forwards": len(forwards),
+            "by_bucket": by_bucket, "pool_vs_single": sound,
+            "pool_control": control, "in_situ": insitu, "warmup_s": warm_s}
+
+
+def phase_pool_float32(torch, cfg_path: Path) -> dict:
+    """The pool's streams again on ``cfg_path``'s model built in float32
+    (TF32 off), against single detectors with POOL_F32_TOL and its control:
+    without bf16 rounding the batch's own noise is ~1e-6, so this reading
+    sees a stream handed another row's output where the bf16 one barely
+    can. No timing, no launch count (the bf16 phase has them)."""
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.serving import StreamingDetectorPool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(str(cfg_path))
+    cfg.model.compute_dtype = "float32"
+    model = build_model(cfg, device="cuda", seed=0)
+    kw = dict(fps=8.0, detect_every=8, actor_threshold=-1.0, device="cuda")
+    pool = StreamingDetectorPool(cfg, model, max_batch=8, **kw)
+    frames = [pool_frames(i, h, w) for i, (h, w) in
+              enumerate(POOL_GEOMETRIES)]
+    results, _ = _drive_pool(pool, frames)
+    sound, control = _pool_against_single(cfg, model, kw, frames, results,
+                                          POOL_F32_TOL, "pool float32")
+    del model, pool
+    torch.cuda.empty_cache()
+    return {"pool_vs_single": sound, "pool_control": control}
+
+
+def phase_lfb(torch, eval_cfg: Path, train: dict) -> dict:
+    """Long-term context at full width: the generate_lfb CLI on phase 10's
+    YAML (MODEL.LOAD on phase 9's checkpoint) writes a bank with one key per
+    val keyframe; then train_ava with USE_LFB and LFB.BANK_PATH on it from
+    that checkpoint (SYNTHETIC_SIZE 4: 2 steps at batch 2, one validation):
+    the loss finite, the checkpoint's weights loaded, the LFB weights
+    moved."""
+    from tubelet_transformer_tpu_torch.cli import (generate_lfb, runner,
+                                                   train_ava)
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.eval.lfb import FeatureBank
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+    from tubelet_transformer_tpu_torch.train.checkpoint import LFB_MODULES
+
+    bank_path = BUILD_DIR / "chip_smoke_lfb_bank.npz"
+    zero_counts()
+    t0 = time.perf_counter()
+    _run_cli(generate_lfb, ["--config-file", str(eval_cfg), "--out",
+                            str(bank_path), "--device", "cuda", "--seed",
+                            "0"])
+    gen_s = time.perf_counter() - t0
+    gen_launches = launch_counts()
+    bank = FeatureBank.load(str(bank_path))
+    keys = runner.build_dataset(load_config(str(eval_cfg)), "val").keys
+    valid = sum(int(v.sum()) for v in bank._valid.values())
+    log(f"[lfb] generate_lfb on {eval_cfg.name}: {len(bank)} keys, "
+        f"{bank.slots} slots of {bank.feat_dim}, {valid} slots valid at "
+        f"the actor threshold 0.8; launches {gen_launches}; wall "
+        f"{gen_s:.1f} s")
+    if (sorted(bank._bank) != sorted(keys) or bank.feat_dim != 256
+            or gen_launches["stem_pool"] != VAL_FORWARDS):
+        raise AssertionError(f"generate_lfb: keys {sorted(bank._bank)} "
+                             f"against {sorted(keys)}, launches "
+                             f"{gen_launches}")
+    # the checkpoint has trained 4 steps from random heads: its actor
+    # probabilities mean nothing, so every slot is admitted and the
+    # USE_LFB steps train lfb_attn whatever they are
+    for k, v in bank._valid.items():
+        bank._valid[k] = np.ones_like(v)
+    bank.save(str(bank_path))
+
+    ckpt = train["ckpt"]
+    base = BUILD_DIR / "chip_smoke_runs"
+
+    def edit(c):
+        c["USE_LFB"] = True
+        c["LFB"] = {"BANK_PATH": str(bank_path)}
+        c["DATA"]["SYNTHETIC_SIZE"] = 4
+        c["MODEL"].update(LOAD=True, PRETRAINED_PATH=str(ckpt))
+        c["LOG"]["EXP_NAME"] = "chip_smoke_lfb"
+
+    cfg_path = write_config("chip_smoke_lfb_train.yaml", edit,
+                            source=train["cfg_path"])
+    cfg = load_config(str(cfg_path))
+    steps = []
+    make = engine.make_train_step
+
+    def recording(cfg_, state):
+        step = make(cfg_, state)
+
+        def run(batch, weight):
+            metrics = step(batch, weight)
+            steps.append((tuple(batch["lfb_features"].shape),
+                          float(metrics["total_loss"]),
+                          float(metrics["finite"])))
+            return metrics
+        return run
+
+    engine.make_train_step = recording
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        _run_cli(train_ava, ["--config-file", str(cfg_path), "--device",
+                             "cuda", "--seed", "0"])
+    finally:
+        engine.make_train_step = make
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    run = max(glob.glob(str(base / "chip_smoke_lfb_*")),
+              key=lambda d: Path(d).stat().st_mtime)
+    final = torch.load(Path(run) / cfg.log.save_dir / "ckpt_epoch_0",
+                       map_location="cpu", weights_only=True)["model"]
+    start = build_model(cfg, device="cpu", seed=0, train=True,
+                        pretrained=True).state_dict()
+    phase9 = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    loaded = not _state_equal(torch, start, phase9, [
+        n for n in phase9 if not n.endswith("num_batches_tracked")])
+    lfb_names = [n for n in final if n.startswith(LFB_MODULES)]
+    still = [n for n in lfb_names if torch.equal(final[n], start[n])]
+    l_mem = 2 * cfg.lfb.half_window * bank.slots
+    log(f"[lfb] train_ava USE_LFB from {ckpt.relative_to(ROOT)}: steps "
+        f"(memory shape, loss, finite) {steps}; the start is phase 9's "
+        f"checkpoint {loaded}; the {len(lfb_names)} LFB tensors moved "
+        f"({len(still)} unchanged: {still[:3]}); launches {launches}; wall "
+        f"{wall:.1f} s")
+    if launches != {"stem_pool": 2 + 4, "stem_stats": 2, "stem_conv": 0,
+                    "depthwise": 0, "bottleneck": 0, "chain": 0}:
+        raise AssertionError(f"USE_LFB train: launches {launches}, want 2 "
+                             "statistics and 2 + 4 pooled")
+    if not (len(steps) == 2 and all(
+            shape == (2, l_mem, 256) and fin == 1.0 and np.isfinite(loss)
+            for shape, loss, fin in steps) and loaded and len(lfb_names) == 8
+            and not still):
+        raise AssertionError(f"USE_LFB train: steps {steps}, loaded "
+                             f"{loaded}, unchanged {still}")
+    return {"generate_launches": gen_launches, "train_launches": launches,
+            "steps": steps}
+
+
+def phase_http(torch, cfg_path: Path, per_forward: dict, smi: str) -> dict:
+    """The HTTP server at full width on ``cfg_path`` (USE_LFB on, memory
+    HTTP_MEMORY), max_batch 8: 4 client streams through ``client.py``, two
+    pushing JPEG and two raw frames, each waiting for its keyframe before
+    it pushes the next 8 frames; every keyframe delivered with the memory
+    sequence 0, 2, 4, 6; /healthz and /v1/stats; the kernel launches per
+    forward, read after the scheduler has joined; no scheduler failure."""
+    import contextlib
+    import io
+    import threading
+
+    from PIL import Image
+
+    from tubelet_transformer_tpu_torch.client import DetectionClient
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.serving_http import DetectionServer
+
+    cfg = load_config(str(cfg_path))
+    out = io.StringIO()
+    batches: list = []
+    results = {i: [] for i in range(len(HTTP_GEOMETRIES))}
+    errors: list = []
+
+    def client_stream(i, client):
+        try:
+            h, w = HTTP_GEOMETRIES[i]
+            rng = np.random.default_rng(200 + i)
+            pool = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                    for _ in range(8)]
+            jpegs = []
+            for f in pool:
+                buf = io.BytesIO()
+                Image.fromarray(f).save(buf, format="JPEG")
+                jpegs.append(buf.getvalue())
+            with client.open_stream() as stream:
+                for n in range(FRAMES):
+                    if i < 2:
+                        stream.push_jpeg(jpegs[n % 8])
+                    else:
+                        stream.push(pool[n % 8])
+                    if n + 1 >= 64 and (n + 1 - 64) % 8 == 0:
+                        got = []
+                        while not got:
+                            got = stream.results(timeout_s=120)
+                        results[i] += got
+        except Exception as e:
+            errors.append((i, repr(e)))
+
+    with contextlib.redirect_stdout(out):
+        server = DetectionServer(
+            cfg, host="127.0.0.1", port=0, max_batch=8, detect_every=8,
+            fps=8.0, actor_threshold=-1.0, memory_keyframes=HTTP_MEMORY[0],
+            memory_slots=HTTP_MEMORY[1], device="cuda", rng_seed=0)
+        core = server.pool._tpl._detect_core
+
+        def counting(clips, *rest):
+            batches.append(clips.shape[0])
+            return core(clips, *rest)
+
+        server.pool._tpl._detect_core = counting
+        t0 = time.perf_counter()
+        try:
+            server.start(wait_ready=True)
+            warm_s = time.perf_counter() - t0
+            warmup = list(batches)
+            client = DetectionClient(f"http://127.0.0.1:{server.port}",
+                                     timeout_s=120)
+            zero_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client_stream,
+                                        args=(i, client))
+                       for i in range(len(HTTP_GEOMETRIES))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            health, stats = client.health(), client.stats()
+        finally:
+            server.stop()
+    launches = launch_counts()
+    printed = out.getvalue()
+    streamed = batches[len(warmup):]
+    want = {k: per_forward.get(k, 0) * len(streamed) for k in launches}
+    n_mem, slots = HTTP_MEMORY
+    want_sizes = [min(k * slots, n_mem * slots) for k in range(4)]
+    log(f"[http] {cfg_path.name}, USE_LFB, memory {n_mem} x {slots}, "
+        f"max_batch 8: warmup {warm_s:.2f} s over batches {warmup}; "
+        f"streams {[f'{h}x{w}' for h, w in HTTP_GEOMETRIES]} (JPEG, JPEG, "
+        f"raw, raw): keyframes {[[r['frame_index'] for r in v] for v in results.values()]}"
+        f", memory sizes "
+        f"{[[r['memory_size'] for r in v] for v in results.values()]}; "
+        f"{len(streamed)} forwards of batches {streamed}; launches "
+        f"{launches}; {wall:.2f} s; /healthz {health}; /v1/stats {stats}; "
+        f"{smi}")
+    if printed.strip():
+        log(f"[http] the server printed: {printed.strip()[-2000:]}")
+    bad_lines = [l for l in printed.splitlines()
+                 if "warmup failed" in l or "step failed" in l]
+    alive = [t.name for t in threads if t.is_alive()]
+    if (errors or bad_lines or alive
+            or any([r["frame_index"] for r in v] != [32, 40, 48, 56]
+                   or [r["memory_size"] for r in v] != want_sizes
+                   or any(len(r["detections"]) != cfg.model.query_num
+                          for r in v) for v in results.values())
+            or health.get("status") != "ok"
+            or health.get("backend") != "cuda"
+            or health.get("device") != torch.cuda.get_device_name(0)
+            or stats.get("keyframes_served") != 16
+            or warmup != [1, 2, 4, 8] or launches != want):
+        raise AssertionError(f"http: errors {errors}, failures {bad_lines}, "
+                             f"threads alive {alive}, launches {launches} "
+                             f"(want {want})")
+    return {"launches": launches, "forwards": len(streamed),
+            "stats": stats}
+
+
 def main() -> int:
     import torch
 
@@ -1908,7 +2510,8 @@ def main() -> int:
     pool = pools["ava_256px_train"]
     stats_cases = phase_stats_kernel(torch, stem)
     stats = stats_cases["ava_256px_train"]
-    dw = phase_depthwise_kernel(torch)["layer1_256px"]
+    dw_cases = phase_depthwise_kernel(torch)
+    dw, dw_b8 = dw_cases["layer1_256px"], dw_cases["layer1_256px_b8"]
     bn = phase_bottleneck_kernel(torch)["layer2_256px"]
     chains = phase_stage_kernel(torch)
     stem_conv, stem_conv_launches = phase_stem_conv_kernel(torch, stem)
@@ -1939,6 +2542,10 @@ def main() -> int:
     phase_in_situ(torch, sdet, stages_switch(sdet.model), "stage chains")
     phase_switch_latency(torch, sdet, stages_switch(sdet.model),
                          "stage chains")
+    stage_forward = {"stem_pool": 1, "depthwise": 3,
+                     "chain": flagship_chains()}
+    pooled = phase_pool(torch, sdet.model, stages_cfg, stage_forward, smi)
+    phase_pool_float32(torch, stages_cfg)
 
     phase_serve_cli(stages_cfg)
 
@@ -1949,6 +2556,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches = phase_serve_load(torch, evaluated["cfg_path"],
                                       train["ckpt"])
+    torch.cuda.empty_cache()
+    lfb = phase_lfb(torch, evaluated["cfg_path"], train)
+    torch.cuda.empty_cache()
+    http_cfg = write_config("chip_smoke_lfb_stages.yaml", lambda c: (
+        c["MODEL"].update(PALLAS_KERNELS=True, FUSED_BLOCKS=True,
+                          FUSED_STAGES=True), c.update(USE_LFB=True)))
+    http = phase_http(torch, http_cfg, stage_forward, smi)
     torch.cuda.empty_cache()
     model = phase_train_in_situ(torch, stem, train["cfg"])
     train_kernel_launches = phase_train_kernels(torch, train["cfg"])
@@ -1964,6 +2578,12 @@ def main() -> int:
                     ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
     phase_breakdown(torch, sdet, stage_steady_ms, "stages breakdown",
                     ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"))
+    bucket8 = pooled["by_bucket"][8]["exec_fetch_ms"]
+    phase_breakdown(torch, sdet, bucket8, "pool breakdown",
+                    ("stem_pool_tc_kernel", "depthwise_kernel", "chain_kernel"),
+                    batch=8, what=f"one stage-path forward of 8 clips "
+                    f"(against the pool's bucket-8 exec and fetch, "
+                    f"{bucket8:.2f} ms; {smi})")
     del det, kdet, sdet
     torch.cuda.empty_cache()
     phase_jitter_and_train_breakdown(torch, stem, train["cfg"], model,
@@ -1996,6 +2616,11 @@ def main() -> int:
         entry("stem_pool", "stem.cu", "stem.py:134",
               train["launches"]["stem_pool"], pool,
               launches_streaming=stream_launches["stem_pool"],
+              launches_pool=pooled["launches"]["stem_pool"],
+              launches_http=http["launches"]["stem_pool"],
+              launches_lfb_generate=lfb["generate_launches"]["stem_pool"],
+              launches_lfb_train=lfb["train_launches"]["stem_pool"],
+              b8_case=pools["ava_256px_b8"],
               launches_eval_ava=evaluated["launches"]["stem_pool"],
               launches_serve_load=serve_launches["stem_pool"],
               launches_jhmdb=jhmdb["launches"]["stem_pool"],
@@ -2004,6 +2629,7 @@ def main() -> int:
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
               train["launches"]["stem_stats"], stats,
+              launches_lfb_train=lfb["train_launches"]["stem_stats"],
               launches_jhmdb=jhmdb["launches"]["stem_stats"],
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]}),
@@ -2012,6 +2638,9 @@ def main() -> int:
               also_replaces="tubelet_transformer_tpu/ops/pallas/"
                             "depthwise.py:184",
               launches_train_step=train_kernel_launches["depthwise"],
+              launches_pool=pooled["launches"]["depthwise"],
+              launches_http=http["launches"]["depthwise"],
+              b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
               kernel_launches["bottleneck"], bn,
@@ -2020,6 +2649,9 @@ def main() -> int:
               stage_launches["chain"], chain_totals(chains),
               per_forward="the sum of the flagship's three tails (one "
                           "launch each)",
+              launches_pool=pooled["launches"]["chain"],
+              launches_http=http["launches"]["chain"],
+              b8_case=chain_totals(chains, "_b8"),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",
               stem_conv_launches, stem_conv["ava_256px"],

@@ -35,7 +35,12 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.eval.np_box",
             "tubelet_transformer_tpu_torch.eval.ucf_eval",
             "tubelet_transformer_tpu_torch.eval.video_map",
-            "tubelet_transformer_tpu_torch.tools.fixtures"} <= set(modules)
+            "tubelet_transformer_tpu_torch.tools.fixtures",
+            "tubelet_transformer_tpu_torch.serving_http",
+            "tubelet_transformer_tpu_torch.client",
+            "tubelet_transformer_tpu_torch.eval.lfb",
+            "tubelet_transformer_tpu_torch.cli.serve_http",
+            "tubelet_transformer_tpu_torch.cli.generate_lfb"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -14,8 +14,7 @@ from tubelet_transformer_tpu.serving import StreamingDetector as JDetector
 from tubelet_transformer_tpu_torch.cli import serve as cli_serve
 from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
-from tubelet_transformer_tpu_torch.serving import (
-    StreamingDetector, StreamingDetectorPool)
+from tubelet_transformer_tpu_torch.serving import StreamingDetector
 
 
 def small_cfg():
@@ -88,17 +87,11 @@ def test_default_threshold_filters_detections():
         assert r.latency_ms > 0
 
 
-@pytest.mark.parametrize("knob", ["lfb", "mesh", "infer_chunk", "pool"])
+@pytest.mark.parametrize("knob", ["mesh", "infer_chunk"])
 def test_unported_serving_options_raise(knob):
     cfg = small_cfg()
     kw = {"device": "cpu"}
-    if knob == "pool":
-        with pytest.raises(NotImplementedError):
-            StreamingDetectorPool(cfg)
-        return
-    if knob == "lfb":
-        cfg.use_lfb = True
-    elif knob == "mesh":
+    if knob == "mesh":
         kw["mesh"] = object()
     else:
         cfg.model.infer_chunk = 2

@@ -2,9 +2,11 @@
 originals: the configuration schema and its YAML mapping, the synthetic set
 and the loader, the AVA frame-mAP evaluator, the export of flax variables to
 the reference's state dict, and the JHMDB/UCF24 copies (``data/jhmdb.py``,
-``eval/{np_box,ucf_eval,video_map}.py``): their source equal to the
-originals' but for the package's name, the box operations, and the UCF
-frame-mAP and video-mAP evaluators on the same detections."""
+``eval/{np_box,ucf_eval,video_map}.py``) and the serving client
+(``client.py``): their source equal to the originals' but for the
+package's name, the box operations, and the UCF frame-mAP and video-mAP
+evaluators on the same detections; the HTTP server's frame decoder, and the
+long-term feature bank and its dataset wrapper on the same inputs."""
 
 import dataclasses
 import glob
@@ -15,18 +17,20 @@ import numpy as np
 import pytest
 
 from tubelet_transformer_tpu import config as jconfig
+from tubelet_transformer_tpu import serving_http as jserving_http
 from tubelet_transformer_tpu.data import loader as jloader
 from tubelet_transformer_tpu.data import synthetic as jsynthetic
 from tubelet_transformer_tpu.eval import ava_eval as java_eval
+from tubelet_transformer_tpu.eval import lfb as jlfb
 from tubelet_transformer_tpu.eval import np_box as jnp_box
 from tubelet_transformer_tpu.eval import ucf_eval as jucf_eval
 from tubelet_transformer_tpu.eval import video_map as jvideo_map
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
 from tubelet_transformer_tpu.train import torch_convert
-from tubelet_transformer_tpu_torch import config, convert
+from tubelet_transformer_tpu_torch import config, convert, serving_http
 from tubelet_transformer_tpu_torch.data import loader, synthetic
-from tubelet_transformer_tpu_torch.eval import (ava_eval, np_box, ucf_eval,
-                                                video_map)
+from tubelet_transformer_tpu_torch.eval import (ava_eval, lfb, np_box,
+                                                ucf_eval, video_map)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(ROOT / "configuration" / "*.yaml")))
@@ -122,13 +126,67 @@ def test_torch_state_matches_jax_export():
 
 @pytest.mark.parametrize("module", ["data/jhmdb.py", "eval/np_box.py",
                                     "eval/ucf_eval.py",
-                                    "eval/video_map.py"])
+                                    "eval/video_map.py", "client.py"])
 def test_copy_is_the_original(module):
     """The copy's source is the original's with the package renamed."""
     ours = (ROOT / "tubelet_transformer_tpu_torch" / module).read_text()
     theirs = (ROOT / "tubelet_transformer_tpu" / module).read_text()
     assert ours == theirs.replace("tubelet_transformer_tpu.",
                                   "tubelet_transformer_tpu_torch.")
+
+
+def _encoded(frame, fmt):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format=fmt)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ["raw", "JPEG", "PNG"])
+def test_decode_frame_matches_jax(fmt):
+    frame = np.random.default_rng(8).integers(0, 256, (24, 40, 3),
+                                              dtype=np.uint8)
+    if fmt == "raw":
+        args = (frame.tobytes(), "application/octet-stream", "24x40x3")
+    else:
+        args = (_encoded(frame, fmt), f"image/{fmt.lower()}", None)
+    ours = serving_http._decode_frame(*args)
+    np.testing.assert_array_equal(ours, jserving_http._decode_frame(*args))
+    assert ours.shape == (24, 40, 3) and ours.dtype == np.uint8
+    if fmt != "JPEG":
+        np.testing.assert_array_equal(ours, frame)
+
+
+def test_feature_bank_and_attach_match_jax():
+    """The same adds (more queries than slots, probabilities on both sides
+    of the threshold) give the same windows, and the wrapped synthetic set
+    the same samples with their memories."""
+    cfg = jconfig.Config()
+    cfg.data.num_classes, cfg.data.img_size, cfg.data.temp_len = 5, 32, 4
+    banks = (lfb.FeatureBank(6, 2), jlfb.FeatureBank(6, 2))
+    for bank in banks:
+        rng = np.random.default_rng(9)
+        for s in (899, 900, 902, 903):
+            bank.add(f"synth,{s:04d}",
+                     rng.normal(size=(4, 6)).astype(np.float32),
+                     rng.uniform(size=4), threshold=0.5)
+    for sec, hw in ((901, 1), (900, 2), (905, 1)):
+        for got, want in zip(banks[0].window("synth", sec, hw),
+                             banks[1].window("synth", sec, hw)):
+            np.testing.assert_array_equal(got, want)
+    ours = lfb.BankAttachDataset(synthetic.SyntheticAVADataset(cfg, size=4),
+                                 banks[0], half_window=1)
+    theirs = jlfb.BankAttachDataset(
+        jsynthetic.SyntheticAVADataset(cfg, size=4), banks[1], half_window=1)
+    for i in range(4):
+        got = ours.get(i, np.random.default_rng(i))
+        want = theirs.get(i, np.random.default_rng(i))
+        assert set(got) == set(want) >= {"lfb_features", "lfb_mask"}
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _boxes(rng, n):

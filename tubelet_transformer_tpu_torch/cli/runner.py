@@ -9,7 +9,10 @@ pretrained weights and optimizer, resume from the newest checkpoint
 checkpoints and validation (AVA or JHMDB/UCF24 by ``DATA.DATASET_NAME``),
 SIGTERM/SIGINT handling (a signal asks for a checkpoint at the next epoch
 boundary and a clean exit), and the eval run of a checkpoint
-(``MODEL.LOAD`` with ``PRETRAINED_PATH``).
+(``MODEL.LOAD`` with ``PRETRAINED_PATH``). With ``CONFIG.USE_LFB`` every
+sample carries its keyframe's long-term memory window from the bank at
+``LFB.BANK_PATH``; ``run_generate_lfb`` writes such a bank from a
+checkpoint (the ``generate_lfb`` CLI).
 """
 
 from __future__ import annotations
@@ -30,6 +33,29 @@ from tubelet_transformer_tpu_torch.train import loop as loop_lib
 
 
 def build_dataset(cfg: Config, split: str):
+    """The dataset of DATA.DATASET_NAME for ``split``, with the long-term
+    memory attached under USE_LFB."""
+    return _maybe_attach_lfb(cfg, _base_dataset(cfg, split))
+
+
+def _maybe_attach_lfb(cfg: Config, ds):
+    """USE_LFB: ship a long-term memory window with every sample, as the
+    reference's collate variants do; without a bank the flag would train
+    and evaluate with no long-term context, so that raises."""
+    if not cfg.use_lfb or cfg.model.generate_lfb:
+        return ds
+    if not cfg.lfb.bank_path:
+        raise ValueError(
+            "USE_LFB needs LFB.BANK_PATH (an .npz feature bank; produce one "
+            "with `python -m tubelet_transformer_tpu_torch.cli.generate_lfb`)")
+    from tubelet_transformer_tpu_torch.eval.lfb import (BankAttachDataset,
+                                                        FeatureBank)
+
+    return BankAttachDataset(ds, FeatureBank.load(cfg.lfb.bank_path),
+                             half_window=cfg.lfb.half_window)
+
+
+def _base_dataset(cfg: Config, split: str):
     name = cfg.data.dataset_name
     if name == "ava":
         if cfg.data.packed_path:
@@ -91,7 +117,6 @@ def check_supported(cfg: Config) -> None:
     unsupported = {
         "CONFIG.TWO_STREAM": cfg.two_stream,
         "CONFIG.USE_LOCATION": cfg.use_location,
-        "CONFIG.USE_LFB": cfg.use_lfb,
         "LOG.PROFILE_STEPS": cfg.log.profile_steps > 0,
     }
     for name, asked in unsupported.items():
@@ -185,11 +210,38 @@ def run_eval(cfg: Config, device: torch.device | str = "cuda",
                              writer=None), "model": model}
 
 
+def run_generate_lfb(cfg: Config, out_path: str = "lfb_bank.npz",
+                     device: torch.device | str = "cuda", seed: int = 0
+                     ) -> str:
+    """The long-term feature bank of the val split, from the checkpoint of
+    MODEL.LOAD with PRETRAINED_PATH in ``generate_lfb`` mode, saved to
+    ``out_path``; a slot is valid where its actor probability exceeds 0.8,
+    as in the JAX package. Returns the path."""
+    check_supported(cfg)
+    if not (cfg.model.load and cfg.model.pretrained_path):
+        # a bank from random weights poisons every later USE_LFB run
+        raise ValueError(
+            "generate_lfb requires MODEL.LOAD with PRETRAINED_PATH "
+            "(a feature bank needs trained weights)")
+    from tubelet_transformer_tpu_torch.eval.lfb import generate_bank
+
+    cfg.model.generate_lfb = True
+    _, val_loader = make_loaders(cfg, val_only=True)
+    model = build_model(cfg, device=torch.device(device), seed=seed,
+                        pretrained=True)
+    bank = generate_bank(cfg, model, val_loader)
+    bank.save(out_path)
+    print(f"saved feature bank ({len(bank)} keyframes) to {out_path}",
+          flush=True)
+    return out_path
+
+
 def main(mode: str, default_dataset: str) -> None:
-    """The CLIs' entry: ``mode`` "train" or "eval"; ``default_dataset``
-    is DATA.DATASET_NAME when no config file is given. Flags: the JAX
-    CLI's ``--config-file``, plus ``--device`` and ``--seed`` (of the
-    random initial weights)."""
+    """The CLIs' entry: ``mode`` "train", "eval" or "generate-lfb";
+    ``default_dataset`` is DATA.DATASET_NAME when no config file is given.
+    Flags: the JAX CLI's ``--config-file``, plus ``--device`` and ``--seed``
+    (of the random initial weights), and for "generate-lfb" ``--out`` (the
+    bank's path; the JAX CLI always writes ``lfb_bank.npz``)."""
     import argparse
 
     from tubelet_transformer_tpu_torch.config import load_config
@@ -202,6 +254,9 @@ def main(mode: str, default_dataset: str) -> None:
                         help="torch device; 'cpu' only when asked for")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random initial weights")
+    if mode == "generate-lfb":
+        parser.add_argument("--out", default="lfb_bank.npz",
+                            help="where the feature bank is written")
     args = parser.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -212,6 +267,8 @@ def main(mode: str, default_dataset: str) -> None:
         cfg.data.dataset_name = default_dataset
     if mode == "train":
         run_training(cfg, device=device, seed=args.seed)
+    elif mode == "generate-lfb":
+        run_generate_lfb(cfg, args.out, device=device, seed=args.seed)
     else:
         cfg.eval_only = True
         run_eval(cfg, device=device, seed=args.seed)

@@ -16,7 +16,10 @@ batch_stats) trees of numpy arrays to the reference's module-named state
 dict. Layouts: a flax Dense kernel (in, out) becomes a torch Linear weight
 (out, in); a flax Conv kernel (t, h, w, in/g, out) a torch Conv3d weight
 (out, in/g, t, h, w); flax BatchNorm {scale, bias} + {mean, var} torch's
-{weight, bias, running_mean, running_var}.
+{weight, bias, running_mean, running_var}. The long-term context's
+``lfb_proj``, ``lfb_attn`` and ``lfb_norm``, which the reference lacks (the
+JAX package's ``cli/export_torch.py`` refuses them), cross over under the
+port's module names when the params hold them.
 """
 
 from __future__ import annotations
@@ -215,6 +218,11 @@ def tuber_torch_state_from_params(
         _put_ln(sd, "backbone.pool_decoder.layers.0.norm2", lp["norm2"])
         _put_ln(sd, "backbone.pool_decoder.layers.0.norm3", lp["norm3"])
         _put_ln(sd, "backbone.pool_decoder.norm", params["pool_norm"])
+
+    if "lfb_proj" in params:
+        _put_dense(sd, "lfb_proj", params["lfb_proj"])
+        _put_mha(sd, "lfb_attn", params["lfb_attn"])
+        _put_ln(sd, "lfb_norm", params["lfb_norm"])
 
     if ddp_prefix:
         sd = {f"module.{k}": v for k, v in sd.items()}

@@ -14,13 +14,26 @@ visibility head read from the mean of the un-pooled backbone features over
 (T', H', W') (padded positions included, as in JAX) and broadcast over the
 decoder layers, and C + 1 softmax classes.
 
+Long-term context (``use_lfb``, ``CONFIG.USE_LFB``), as the JAX model adds
+it (tuber.py:160-171, 276-299 there): the class branch's query states,
+folded over the decoder layers, cross-attend (``lfb_attn``, 8 heads) over
+the projected memory (``lfb_proj``) of ``lfb_features`` (B, L_mem, E) with
+``lfb_mask`` (B, L_mem), True = pad, and the result is added back and
+normed (``lfb_norm``). A fully padded memory adds nothing: the port's
+additive mask makes such a row's attention uniform over the padding, so it
+is zeroed, as JAX's ``jnp.where(any_valid, ltc, 0)`` does.
+``generate_lfb`` (``MODEL.GENERATE_LFB``) returns only what the feature
+bank keeps: the final layer's query features, actorness logits and boxes.
+
 In training, dropout sits where the JAX model puts it: the transformer at
 ``MODEL.DROPOUT``, the pooling decoder, the class-branch encoder and its
 cross-attention at 0.1, and the class head at 0.5 (tuber.py:133-155 there).
 
 Submodules are named after the reference's key scheme, which
 ``train.torch_convert.tuber_torch_state_from_params`` emits; ``convert.py``
-loads the JAX package's variables through it with ``strict=True``.
+loads the JAX package's variables through it with ``strict=True``. The
+reference has no long-term context, so the three LFB modules carry the
+port's own names.
 """
 
 from __future__ import annotations
@@ -88,7 +101,8 @@ class TubeR(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  pallas_kernels: bool = False, fused_blocks: bool = False,
                  fused_stages: bool = False, dataset_mode: str = "ava",
-                 temporal_length: int = 32):
+                 temporal_length: int = 32, use_lfb: bool = False,
+                 generate_lfb: bool = False):
         super().__init__()
         if temporal_ds_strategy not in STRATEGIES:
             raise ValueError(f"unknown temporal_ds_strategy "
@@ -122,6 +136,11 @@ class TubeR(nn.Module):
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
         self.head_dropout = Dropout(0.5)
         self.class_fc = Linear(hidden_dim, num_classes + (not self.is_ava))
+        self.use_lfb, self.generate_lfb = use_lfb, generate_lfb
+        if use_lfb:
+            self.lfb_proj = Linear(hidden_dim, hidden_dim)
+            self.lfb_attn = MultiHeadAttention(hidden_dim, 8, dropout)
+            self.lfb_norm = layer_norm(hidden_dim)
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
                               ) -> None:
@@ -150,9 +169,34 @@ class TubeR(nn.Module):
             return out.reshape(b, h, w, 1, c).permute(0, 3, 1, 2, 4)
         return xs[:, t // 2: t // 2 + 1]
 
+    def _fuse_lfb(self, q_class: torch.Tensor, lfb_features: torch.Tensor,
+                  lfb_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Residual cross-attention of the (L,B,Q,E) query states over the
+        memory; a fully padded memory row adds nothing."""
+        lay_n, b, nq, e = q_class.shape
+        mem = self.lfb_proj(lfb_features.to(q_class.dtype))   # (B,L_mem,E)
+        l_mem = mem.shape[1]
+        mem_rep = mem[None].expand(lay_n, -1, -1, -1).reshape(
+            lay_n * b, l_mem, e)
+        if lfb_mask is None:
+            lfb_mask = torch.zeros((b, l_mem), dtype=torch.bool,
+                                   device=mem.device)
+        mask_rep = lfb_mask[None].expand(lay_n, -1, -1).reshape(
+            lay_n * b, l_mem)
+        qc = q_class.reshape(lay_n * b, nq, e)
+        ltc = self.lfb_attn(qc, mem_rep, mem_rep, key_padding_mask=mask_rep)
+        any_valid = (~mask_rep).any(dim=-1)[:, None, None]
+        qc = self.lfb_norm(qc + torch.where(any_valid, ltc, 0.0))
+        return qc.reshape(lay_n, b, nq, e)
+
     def forward(self, clips: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
-                return_features: bool = False) -> dict:
+                return_features: bool = False,
+                lfb_features: Optional[torch.Tensor] = None,
+                lfb_mask: Optional[torch.Tensor] = None) -> dict:
+        """clips (B,T,H,W,3), pad_mask (B,H,W) True = pad; with
+        ``use_lfb``, the memory ``lfb_features`` (B,L_mem,E) and
+        ``lfb_mask`` (B,L_mem) True = pad."""
         b, _, h_in, w_in, _ = clips.shape
         if clips.dtype != self.dtype:
             clips = clips.to(self.dtype)
@@ -188,10 +232,18 @@ class TubeR(nn.Module):
             lay_n, -1, -1, -1).reshape(lay_n * b, tc * h * w, e)
         q_class = self.cross_attn(hs.reshape(lay_n * b, nq, e), enc_rep,
                                   enc_rep).reshape(lay_n, b, nq, e)
+        if self.use_lfb and lfb_features is not None:
+            q_class = self._fuse_lfb(q_class, lfb_features, lfb_mask)
         q_class = self.head_dropout(q_class)
 
-        outputs_class = self.class_fc(q_class)            # (L,B,Q,C)
         outputs_coord = torch.sigmoid(self.bbox_embed(hs).float())
+        if self.generate_lfb:
+            # what the feature bank keeps: the final layer's query states
+            # after the context cross-attention, and their actorness
+            return {"lfb_features": q_class[-1].float(),
+                    "pred_logits_b": outputs_class_b[-1].float(),
+                    "pred_boxes": outputs_coord[-1]}
+        outputs_class = self.class_fc(q_class)            # (L,B,Q,C)
         out = {
             "pred_logits": outputs_class[-1].float(),
             "pred_boxes": outputs_coord[-1],
@@ -256,8 +308,6 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
     float32, before the eval build's cast."""
     m = cfg.model
     unsupported = {
-        "CONFIG.USE_LFB": cfg.use_lfb,
-        "MODEL.GENERATE_LFB": m.generate_lfb,
         "MODEL.MOE_EXPERTS": m.moe_experts > 0,
         "MODEL.NORMALIZE_BEFORE": m.normalize_before,
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
@@ -280,7 +330,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                   pallas_kernels=m.pallas_kernels,
                   fused_blocks=m.fused_blocks,
                   fused_stages=m.fused_stages,
-                  dataset_mode=dataset_mode(cfg), temporal_length=m.temp_len)
+                  dataset_mode=dataset_mode(cfg), temporal_length=m.temp_len,
+                  use_lfb=cfg.use_lfb, generate_lfb=m.generate_lfb)
     init_weights(model, torch.Generator().manual_seed(seed))
     if pretrained:
         from tubelet_transformer_tpu_torch.train.checkpoint import (

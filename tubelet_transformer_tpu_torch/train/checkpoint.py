@@ -129,15 +129,24 @@ def _merge_model(model: torch.nn.Module, src: Mapping[str, Any]
             _merge(sd, {k: v for k, v in src.items() if k in stats}))
 
 
+# the long-term context's modules (CONFIG.USE_LFB), which the reference's
+# checkpoints lack
+LFB_MODULES = ("lfb_proj.", "lfb_attn.", "lfb_norm.")
+
+
 def _wanted(model: torch.nn.Module, sd: Mapping[str, Any], prefixes=("",)
             ) -> dict:
     """The entries of ``sd`` for every parameter and statistic of ``model``
     under ``prefixes``; a missing one raises KeyError, as the JAX package's
     name-mapped conversion does. BN's ``num_batches_tracked`` is left out:
-    the JAX variables have no such leaf, and the port never reads it."""
+    the JAX variables have no such leaf, and the port never reads it. The
+    long-term context's weights are taken when ``sd`` has them (the port's
+    own checkpoint of a USE_LFB run) and else keep their initial values, as
+    the JAX package's loader keeps them for a reference checkpoint."""
     return {k: sd[k] for k in model.state_dict()
-            if k.startswith(prefixes) and not k.endswith(
-                "num_batches_tracked")}
+            if k.startswith(prefixes)
+            and not k.endswith("num_batches_tracked")
+            and (k in sd or not k.startswith(LFB_MODULES))}
 
 
 def load_tuber_pth(cfg: Config, model: torch.nn.Module,

@@ -39,9 +39,10 @@ from tubelet_transformer_tpu_torch.train.postprocess import (
 from tubelet_transformer_tpu_torch.train.schedule import build_schedule
 
 # batch keys that go to the device; the rest (image_key, key_idx, ...)
-# stay on the host
+# stay on the host. lfb_features / lfb_mask: the long-term memory window
+# that USE_LFB attaches to each sample (eval/lfb.py:BankAttachDataset)
 DEVICE_KEYS = ("clips", "pad_mask", "boxes", "labels", "valid", "sizes",
-               "vis", "key_pos")
+               "vis", "key_pos", "lfb_features", "lfb_mask")
 
 
 @dataclass
@@ -68,6 +69,15 @@ def device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     ``device``."""
     return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
             for k, v in batch.items() if k in DEVICE_KEYS}
+
+
+def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The model's long-term memory arguments when the batch carries them
+    (USE_LFB), else none."""
+    if "lfb_features" not in batch:
+        return {}
+    return {"lfb_features": batch["lfb_features"],
+            "lfb_mask": batch["lfb_mask"]}
 
 
 def check_supported(cfg: Config) -> None:
@@ -151,7 +161,7 @@ def make_train_step(cfg: Config, state: TrainState):
                                   pad_mask=pad_mask, jitter=True,
                                   generator=generator)
         torch._foreach_copy_(saved, stats)
-        outputs = model(clips, pad_mask)
+        outputs = model(clips, pad_mask, **lfb_kwargs(batch))
         loss_dict = compute_losses(cfg, outputs,
                                    _targets_from_batch(cfg, batch))
         total = weighted_total(cfg, loss_dict, loss_ce_weight)
@@ -187,7 +197,8 @@ def make_eval_step(cfg: Config, model: TubeR):
         model.eval()
         pad_mask = batch.get("pad_mask")
         outputs = model(device_preprocess(batch["clips"], dtype=model.dtype,
-                                          pad_mask=pad_mask), pad_mask)
+                                          pad_mask=pad_mask), pad_mask,
+                        **lfb_kwargs(batch))
         if cfg.val.compute_losses:
             losses = compute_losses(cfg, outputs,
                                     _targets_from_batch(cfg, batch),
