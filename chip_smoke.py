@@ -96,9 +96,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
     inputs against their plain versions and a repeat launch, the steady
     step and the eval step, and where the device time of each goes.
 
-The profiled windows of phases 7, 12 and 14 (where the device time goes;
-for the pool, one stage-path forward of 8 clips) run last, after every
-timed phase: a window slows the host work of its process after it.
+15. the train options of one device, each through the flagship YAML of
+    phase 9 (its ``.mat`` and DETR seed): ``TRAIN.FROZEN_CHUNK 1`` at bs 2
+    through ``train_ava`` (2 steps; #4 and #2 twice a step, in situ on the
+    step's one-clip inputs; the chunked prefix and its BN statistics
+    against the unchunked model on each clip in turn, bit for bit);
+    ``TRAIN.ACCUM_STEPS 2`` at bs 4 through ``train_ava`` (2 steps), then
+    from one state the peak memory against an unaccumulated bs-4 step and
+    the step against two half-batch passes by hand (the loss, the pre-clip
+    gradients and grad_norm, the updated parameters);
+    ``TRAIN.REMAT_BACKBONE``
+    on a full-backprop step (TUNE_POINT 0, ``MODEL.PALLAS_KERNELS``, bs 2)
+    against two plain steps from the same state: the peak memory, the
+    gradients within the plain steps' spread, the running statistics bit
+    for bit, the depthwise launches with the backward's recompute;
+16. the model options: ``MODEL.MOE_EXPERTS 4`` (top 2) through
+    ``train_ava`` (2 steps, ``loss_moe_aux`` finite, the expert stacks
+    moved), the stage-path detector's keyframes, a StreamingDetectorPool
+    bucket of 8 streams, each stream's keyframes bit-equal whatever the
+    other streams push, and the card against the CPU
+    port at small size; ``MODEL.NORMALIZE_BEFORE``: the stage-path
+    detector's keyframes, one train step, and the card against the CPU
+    port at small size;
+17. ``LOG.PROFILE_STEPS 2`` through ``train_ava``: the trace under
+    ``<log dir>/profile`` must name the stem statistics kernel.
+
+The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
+time goes, and in how many kernel launches; for the pool, one stage-path
+forward of 8 clips) run last, after every timed phase: a window slows the
+host work of its process after it.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -137,11 +163,12 @@ STEM_CASES = {"ava_256px": ((1, 32, 256, 256, 3), "bfloat16"),
               "ragged_bf16": ((2, 3, 37, 45, 3), "bfloat16"),
               "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
 # Statistics kernel (x shape, dtype): the train path's batch of 2 at 256
-# and 224 px, and shapes its 16x16 conv tiles do not divide: in bf16 (the
+# and 224 px, one clip at 256 px (TRAIN.FROZEN_CHUNK 1), and shapes its 16x16 conv tiles do not divide: in bf16 (the
 # tensor-core kernel's edge mask; ~1e6 conv pixels, as at the train shape,
 # since the plain version's bf16 rounding noise shrinks as 1/sqrt(pixels))
 # and in float32 (the CUDA-core kernel).
 STATS_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
+               "ava_256px_clip": ((1, 32, 256, 256, 3), "bfloat16"),
                "jhmdb_224px_train": ((2, 32, 224, 224, 3), "bfloat16"),
                "jhmdb_224x400_train": ((2, 32, 224, 400, 3), "bfloat16"),
                "ragged_bf16": ((2, 32, 250, 230, 3), "bfloat16"),
@@ -191,6 +218,30 @@ SMALL_TOL = 1e-4
 # carries the bf16 noise of 50 blocks and 12 layers: 2% of it separates
 # that from a wrong stem.
 TRAIN_IN_SITU_TOL = 0.02
+# The accumulated flagship step (bf16) against two half-batch passes run by
+# hand, from one state: the same kernels on the same shapes, so the totals
+# should agree to the last bit; 1e-3 relative leaves room for a GEMM that
+# cuBLAS picks anew. The gradients are read before the clip (CLIPS_MAX_NORM
+# 0.1 acts on a random-weight step and would normalise a wrong scale away),
+# in relative L2 per tensor (_rel_diffs), and so is the step's grad_norm:
+# cuDNN's weight-gradient kernels may sum in another order from call to
+# call, each term carrying bf16 rounding (2^-8); a missing microbatch or a
+# missing or doubled 1/ACCUM_STEPS moves them by O(1). The updated
+# parameters, in units of the learning rate: AdamW's first step moves each
+# weight by about lr times the sign of its gradient, so a gradient of
+# another sign moves it by about 2 lr; 0.1 lr leaves room for the weights
+# whose gradient is near AdamW's eps.
+ACCUM_LOSS_TOL = 1e-3
+ACCUM_GRAD_TOL = 5e-2
+ACCUM_PARAM_TOL = 0.1
+# Remat against plain, full backprop, bf16: each gradient tensor within
+# twice the spread of two plain steps from the same state (relative L2),
+# and at least 2^-6 (4 bf16 ulps, relative), where the plain steps agree
+# bit for bit: the recompute may meet other free memory, and so other cuDNN
+# algorithms, than the plain step's forward.
+REMAT_FLOOR = 2.0 ** -6
+# The MoE options of the MoE phase: 4 experts, each token to its top 2.
+MOE = {"MOE_EXPERTS": 4, "MOE_TOP_K": 2}
 TRAIN_STEPS = 4        # SYNTHETIC_SIZE 8 at BATCH_SIZE 2
 VAL_FORWARDS = 8       # SYNTHETIC_SIZE 8 at VAL.BATCH_SIZE 1
 FRAMES = 88            # 64-frame window + 3 x 8: four keyframe detections
@@ -876,12 +927,18 @@ def small_config():
     return cfg
 
 
-def phase_small_reference(torch, stem) -> None:
+def phase_small_reference(torch, stem, tag: str = "small",
+                          edit=None) -> None:
+    """CSN-TINY float32 on the card against the CPU port (TF32 off), the
+    config changed by ``edit``: the heads, and the MoE loss where the
+    model has one."""
     from tubelet_transformer_tpu_torch.models.tuber import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = small_config()
+    if edit is not None:
+        edit(cfg)
     cpu_model = build_model(cfg, device="cpu", seed=1)
     gpu_model = build_model(cfg, device="cuda", seed=1)
     rng = np.random.default_rng(1)
@@ -893,14 +950,19 @@ def phase_small_reference(torch, stem) -> None:
         ref = cpu_model(x, pad)
         got = gpu_model(x.cuda(), pad.cuda())
     if stem.LAUNCHES != launches + 1:
-        raise AssertionError("small model on the card did not run the stem "
-                             "kernel")
-    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        raise AssertionError(f"{tag} model on the card did not run the "
+                             "stem kernel")
+    if set(got) != set(ref):
+        raise AssertionError(f"{tag}: outputs {sorted(got)} on the card, "
+                             f"{sorted(ref)} on the CPU")
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b", "moe_aux"):
+        if k not in ref:
+            continue
         err = (got[k].cpu() - ref[k]).abs().max().item()
-        log(f"[small] CSN-TINY f32 card vs CPU {k}: max_abs_err {err:.3g} "
+        log(f"[{tag}] CSN-TINY f32 card vs CPU {k}: max_abs_err {err:.3g} "
             f"(tol {SMALL_TOL})")
         if not err <= SMALL_TOL:
-            raise AssertionError(f"small model {k}: card and CPU disagree")
+            raise AssertionError(f"{tag} model {k}: card and CPU disagree")
 
 
 def launch_counts() -> dict:
@@ -1093,9 +1155,11 @@ def _report_device_time(torch, prof, tag: str, what: str, wall_ms: float,
               for ev in prof.key_averages()
               if ev.device_type != cuda and ev.self_device_time_total > 0]
     attributed = sum(ms for _, ms, _ in ops_ms)
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == cuda)
     log(f"[{tag}] {what}: device kernel time {total:.3f} ms "
-        f"({100 * total / wall_ms:.1f}% of {wall_ms:.2f} ms); by aten op "
-        f"(self device time):")
+        f"({100 * total / wall_ms:.1f}% of {wall_ms:.2f} ms) in {launches} "
+        f"kernel launches; by aten op (self device time):")
     ranked = sorted(ops_ms, key=lambda o: -o[1])
     for name, ms, count in ranked[:top] + [o for o in ranked[top:]
                                            if o[0] in ops]:
@@ -1412,7 +1476,7 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
         f"peak device "
         f"memory {peak_gb:.2f} GB; train_ava wall {wall:.1f} s")
     return {"cfg": cfg, "cfg_path": cfg_path, "launches": launches,
-            "ckpt": ckpt,
+            "ckpt": ckpt, "start": start,
             "val_map": tags["val/val_mAP_epoch"],
             "steady_ms": statistics.median(step_ms[1:])}
 
@@ -1798,18 +1862,9 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
         return timed
 
     stem_in: dict = {"stats": [], "pool": []}
-
-    def keep(kind, fn):
-        def wrapped(x, w, *rest):
-            if not any(a[0].shape == x.shape for a in stem_in[kind]):
-                stem_in[kind].append((x.detach().clone(), w.clone(),
-                                      *(r.detach().clone() for r in rest)))
-            return fn(x, w, *rest)
-        return wrapped
-
     saved_fns = (csn.stem_batch_stats, csn.stem_forward)
-    csn.stem_batch_stats = keep("stats", saved_fns[0])
-    csn.stem_forward = keep("pool", saved_fns[1])
+    csn.stem_batch_stats = _keep_stem_inputs(stem_in, "stats", saved_fns[0])
+    csn.stem_forward = _keep_stem_inputs(stem_in, "pool", saved_fns[1])
     engine.make_train_step = timed_make
     zero_counts()
     t0 = time.perf_counter()
@@ -1867,36 +1922,7 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
         f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}); {smi}")
 
     # #2 and #4 in situ: the path's own stem inputs
-    insitu = {}
-    for kind, args in stem_in.items():
-        for a in args:
-            shape = tuple(a[0].shape)
-            if kind == "stats":
-                got, again = stem.stem_batch_stats(*a), stem.stem_batch_stats(
-                    *a)
-                ref = stem.stem_batch_stats_reference(*a)
-                var_rel = ((got[1] - ref[1]).abs() / ref[1]).max().item()
-                mean_err = (got[0] - ref[0]).abs().max().item()
-                std = ref[1].sqrt().max().item()
-                ok = (mean_err <= STATS_MEAN_TOL["bfloat16"] * std
-                      and var_rel <= STATS_VAR_TOL["bfloat16"])
-                bits = all(torch.equal(p, q) for p, q in zip(got, again))
-                err = f"mean {mean_err / std:.3g} of max std, var {var_rel:.3g}"
-            else:
-                got, again = stem.stem_forward(*a), stem.stem_forward(*a)
-                ref = stem.stem_reference(*a)
-                e = (got.float() - ref.float()).abs().max().item()
-                span = ref.float().abs().max().item()
-                ok = e <= STEM_TOL * span
-                bits = torch.equal(got, again)
-                err = f"{e / span:.3g} of max|ref|"
-            torch.cuda.synchronize()
-            log(f"[jhmdb in situ] {'stem_stats' if kind == 'stats' else 'stem_pool'}"
-                f" {shape} on the path's clips: kernel vs plain {err}; "
-                f"repeat bit-equal {bits}")
-            if not (ok and bits):
-                raise AssertionError(f"jhmdb in situ {kind} {shape}")
-            insitu[f"{kind}_{shape[0]}"] = True
+    insitu = _stem_in_situ(torch, stem, stem_in, "jhmdb")
     if set(insitu) != {"stats_2", "pool_2", "pool_1"}:
         raise AssertionError(f"jhmdb in situ: saw {sorted(insitu)}")
 
@@ -1989,6 +2015,17 @@ def phase_jhmdb_breakdown(torch, jhmdb: dict) -> None:
                         jhmdb["steady_ms"],
                         ("stem_pool_tc_kernel", "stem_stats_tc_kernel"),
                         top=10)
+
+
+def _keep_stem_inputs(stem_in: dict, kind: str, fn):
+    """A stem kernel's wrapper ``fn`` that also keeps a copy of the
+    arguments of its first call at each input shape in ``stem_in[kind]``."""
+    def wrapped(x, w, *rest):
+        if not any(a[0].shape == x.shape for a in stem_in[kind]):
+            stem_in[kind].append((x.detach().clone(), w.clone(),
+                                  *(r.detach().clone() for r in rest)))
+        return fn(x, w, *rest)
+    return wrapped
 
 
 def _keep_inputs(captured: dict, kind: str, fn, batch: int):
@@ -2495,6 +2532,644 @@ def phase_http(torch, cfg_path: Path, per_forward: dict, smi: str) -> dict:
             "stats": stats}
 
 
+def _train_run(torch, train: dict, name: str, edit,
+               keep_stem: bool = False) -> dict:
+    """train_ava on phase 9's YAML with ``edit`` applied, as experiment
+    ``name`` (2 or more steps and one validation on the synthetic set):
+    each step's time and metrics, the kernel launches, the peak device
+    memory, the run's directory and its checkpoint's state; with
+    ``keep_stem`` the first inputs of each shape of the two stem kernels.
+    Raises unless every step is finite."""
+    from tubelet_transformer_tpu_torch.cli import train_ava
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models import csn
+    from tubelet_transformer_tpu_torch.train import engine
+
+    cfg_path = write_config(f"{name}.yaml", lambda c: (
+        c["LOG"].update(EXP_NAME=name), edit(c)), source=train["cfg_path"])
+    cfg = load_config(str(cfg_path))
+    steps: list = []
+    make = engine.make_train_step
+
+    def recording(cfg_, state):
+        step = make(cfg_, state)
+
+        def run(batch, weight):
+            t = time.perf_counter()
+            metrics = step(batch, weight)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t) * 1e3,
+                          {k: float(v) for k, v in metrics.items()}))
+            return metrics
+        return run
+
+    stem_in: dict = {"stats": [], "pool": []}
+    saved = (csn.stem_batch_stats, csn.stem_forward)
+    if keep_stem:
+        csn.stem_batch_stats = _keep_stem_inputs(stem_in, "stats", saved[0])
+        csn.stem_forward = _keep_stem_inputs(stem_in, "pool", saved[1])
+    engine.make_train_step = recording
+    window = _peak_from(torch)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        _run_cli(train_ava, ["--config-file", str(cfg_path), "--device",
+                             "cuda", "--seed", "0"])
+    finally:
+        engine.make_train_step = make
+        csn.stem_batch_stats, csn.stem_forward = saved
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = _peak_gb(torch, window)
+    if len(steps) < 2 or not all(m["finite"] == 1.0 and np.isfinite(
+            m["total_loss"]) for _, m in steps):
+        raise AssertionError(f"{name}: steps {steps}")
+    run = Path(max(glob.glob(str(BUILD_DIR / "chip_smoke_runs"
+                                 / f"{name}_*")),
+                   key=lambda d: Path(d).stat().st_mtime))
+    final = torch.load(run / cfg.log.save_dir / "ckpt_epoch_0",
+                       map_location="cpu", weights_only=True)["model"]
+    return {"cfg": cfg, "steps": steps, "launches": launches,
+            "peak_gb": peak_gb, "wall": wall, "run": run, "final": final,
+            "stem_in": stem_in}
+
+
+def _peak_from(torch) -> tuple:
+    """Start a peak-memory window: synchronise, reset the peak and return
+    the memory the process holds now, which the window's peak is read
+    against (_peak_gb)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return (torch.cuda.memory_allocated(),)
+
+
+def _peak_gb(torch, window: tuple) -> float:
+    """The window's peak device memory above what the process held at its
+    start (the earlier phases' models, still alive), GB."""
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - window[0]) / 1e9
+
+
+def _train_launches(steps: int, stats_per_step: int, val: int) -> dict:
+    """The launches of a train run of ``steps`` steps with the frozen stem
+    (TUNE_POINT 4), ``stats_per_step`` two-phase stems a step, and ``val``
+    validation forwards."""
+    n = steps * stats_per_step
+    return {"stem_pool": n + val, "stem_stats": n, "stem_conv": 0,
+            "depthwise": 0, "bottleneck": 0, "chain": 0}
+
+
+def _frozen_still(torch, r: dict, start: dict) -> int:
+    """The number of frozen parameters of run ``r``; raises unless each
+    is bit-equal to ``start`` (phase 9's initial state) in its
+    checkpoint."""
+    from tubelet_transformer_tpu_torch.train.optimizer import param_label
+
+    names = [n for n in start if not n.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))
+        and param_label(n, r["cfg"]) == "frozen"]
+    moved = _state_equal(torch, r["final"], start, names)
+    if not names or moved:
+        raise AssertionError(f"frozen parameters moved: {moved[:5]}")
+    return len(names)
+
+
+def _step_ms(steps: list) -> str:
+    ms = [round(t, 2) for t, _ in steps]
+    return f"step ms {ms} (steady: the last {ms[-1]})"
+
+
+def _stem_in_situ(torch, stem, stem_in: dict, tag: str) -> set:
+    """#2 and #4 on a path's own stem inputs: against their plain versions
+    (STEM_TOL; STATS_MEAN_TOL / STATS_VAR_TOL) and a repeat launch, bit for
+    bit. Returns the kinds and batch sizes checked ("stats_2"...)."""
+    seen = set()
+    for kind, args in stem_in.items():
+        for a in args:
+            shape = tuple(a[0].shape)
+            if kind == "stats":
+                got, again = stem.stem_batch_stats(*a), stem.stem_batch_stats(
+                    *a)
+                ref = stem.stem_batch_stats_reference(*a)
+                var_rel = ((got[1] - ref[1]).abs() / ref[1]).max().item()
+                mean_err = (got[0] - ref[0]).abs().max().item()
+                std = ref[1].sqrt().max().item()
+                ok = (mean_err <= STATS_MEAN_TOL["bfloat16"] * std
+                      and var_rel <= STATS_VAR_TOL["bfloat16"])
+                bits = all(torch.equal(p, q) for p, q in zip(got, again))
+                err = f"mean {mean_err / std:.3g} of max std, var {var_rel:.3g}"
+            else:
+                got, again = stem.stem_forward(*a), stem.stem_forward(*a)
+                ref = stem.stem_reference(*a)
+                e = (got.float() - ref.float()).abs().max().item()
+                span = ref.float().abs().max().item()
+                ok = e <= STEM_TOL * span
+                bits = torch.equal(got, again)
+                err = f"{e / span:.3g} of max|ref|"
+            torch.cuda.synchronize()
+            log(f"[{tag} in situ] {'stem_stats' if kind == 'stats' else 'stem_pool'}"
+                f" {shape} on the path's clips: kernel vs plain {err}; "
+                f"repeat bit-equal {bits}")
+            if not (ok and bits):
+                raise AssertionError(f"{tag} in situ {kind} {shape}")
+            seen.add(f"{kind}_{shape[0]}")
+    return seen
+
+
+def phase_frozen_chunk(torch, stem, train: dict, smi: str) -> dict:
+    """TRAIN.FROZEN_CHUNK 1 at the recipe's batch of 2 (TUNE_POINT 4)
+    through train_ava, 2 steps: the frozen prefix runs one clip at a time,
+    so #4 and #2 launch twice a step; both in situ on the step's one-clip
+    inputs; the chunked prefix and its BN running statistics against the
+    unchunked model run on each clip in turn, bit for bit."""
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+    r = _train_run(torch, train, "chip_smoke_frozen_chunk", lambda c: (
+        c["DATA"].update(SYNTHETIC_SIZE=4),
+        c["TRAIN"].update(BATCH_SIZE=2, FROZEN_CHUNK=1),
+        c["MODEL"].update(TUNE_POINT=4)), keep_stem=True)
+    want = _train_launches(len(r["steps"]), 2, 4)
+    if len(r["steps"]) != 2 or r["launches"] != want:
+        raise AssertionError(f"frozen chunk: launches {r['launches']}, want "
+                             f"{want}")
+    frozen = _frozen_still(torch, r, train["start"])
+    seen = _stem_in_situ(torch, stem, r["stem_in"], "frozen chunk")
+    if seen != {"stats_1", "pool_1"}:
+        raise AssertionError(f"frozen chunk in situ: saw {sorted(seen)}")
+
+    cfg = r["cfg"]
+    batch = _train_batch(torch, cfg)
+    models = []
+    for ck in (1, 0):
+        cfg.train.frozen_chunk = ck
+        models.append(build_model(cfg, device="cuda", seed=0, train=True))
+    chunked, plain = (m.backbone.body for m in models)
+    clips = batch["clips"].to(models[0].dtype)
+    with torch.no_grad():
+        y_chunked = chunked(clips)
+        y = torch.cat([plain.stage(1, plain.stage(0, plain.stem(c)))
+                       for c in clips.split(1)])
+        y_plain = plain.stage(3, plain.stage(2, y))
+    stats = [n for n, _ in chunked.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    moved = _state_equal(torch, dict(chunked.named_buffers()),
+                         dict(plain.named_buffers()), stats)
+    same = torch.equal(y_chunked, y_plain)
+    log(f"[frozen chunk] train_ava FROZEN_CHUNK 1, bs 2, TUNE_POINT 4: "
+        f"losses {[round(m['total_loss'], 4) for _, m in r['steps']]}; "
+        f"{_step_ms(r['steps'])}; launches {r['launches']}; the "
+        f"{frozen} frozen params bit-equal; peak device memory "
+        f"{r['peak_gb']:.2f} GB above the run's start; wall "
+        f"{r['wall']:.1f} s; the chunked "
+        f"backbone output {tuple(y_chunked.shape)} equal to the unchunked "
+        f"model on each clip in turn {same}, its {len(stats)} running "
+        f"statistics equal too: {not moved}; {smi}")
+    if not same or moved:
+        raise AssertionError(f"frozen chunk: output equal {same}, "
+                             f"statistics differ {moved[:3]}")
+    del models, chunked, plain
+    return {"launches": r["launches"], "steady_ms": r["steps"][-1][0],
+            "peak_gb": r["peak_gb"]}
+
+
+def _grads(model) -> dict:
+    """The model's gradients, copied to the host: copies on the card would
+    count in the next step's peak memory."""
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _rel_diffs(got: dict, want: dict) -> dict:
+    """The L2 distance of each tensor of ``got`` from ``want``, relative to
+    the norm of ``want``'s tensor, or to 1e-6 of all of ``want`` where the
+    tensor's own is smaller (a gradient that is zero but for noise)."""
+    norms = {n: float(w.float().norm()) for n, w in want.items()}
+    floor = 1e-6 * math.sqrt(sum(v * v for v in norms.values()))
+    return {n: float((got[n].float() - w.float()).norm())
+            / max(norms[n], floor, 1e-30) for n, w in want.items()}
+
+
+def phase_accum(torch, train: dict, smi: str) -> dict:
+    """TRAIN.ACCUM_STEPS 2 at batch 4 (microbatch 2, the recipe's batch)
+    through train_ava, 2 steps: finite, the frozen parameters bit-equal,
+    #4 once per microbatch; then, from one state, the peak memory of an
+    accumulated step against an unaccumulated bs-4 step, and the
+    accumulated step against two half-batch passes run by hand (loss,
+    pre-clip gradients and grad_norm, updated parameters)."""
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+    from tubelet_transformer_tpu_torch.train.optimizer import (
+        clip_by_global_norm, param_label, set_learning_rate,
+        trainable_params)
+
+    r = _train_run(torch, train, "chip_smoke_accum", lambda c: (
+        c["DATA"].update(SYNTHETIC_SIZE=8),
+        c["TRAIN"].update(BATCH_SIZE=4, ACCUM_STEPS=2)))
+    want = _train_launches(len(r["steps"]), 2, 8)
+    if len(r["steps"]) != 2 or r["launches"] != want:
+        raise AssertionError(f"accum: launches {r['launches']}, want {want}")
+    frozen = _frozen_still(torch, r, train["start"])
+
+    cfg = r["cfg"]
+    batch = _train_batch(torch, cfg)
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    _no_dropout(model)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    # each way twice, in turns, the second kept: a model's first step
+    # carries its warm-up
+    for accum in (1, 2, 1, 2):
+        model.load_state_dict(saved)
+        cfg.train.accum_steps = accum
+        step = engine.make_train_step(
+            cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+        torch.cuda.empty_cache()
+        window = _peak_from(torch)
+        t = time.perf_counter()
+        step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+        runs[accum] = {"ms": (time.perf_counter() - t) * 1e3,
+                       "peak_gb": _peak_gb(torch, window)}
+    # the accumulated step once more, untimed, with its gradients read
+    # before the clip
+    model.load_state_dict(saved)
+    step = engine.make_train_step(
+        cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+    pre_clip: dict = {}
+    clip = engine.clip_by_global_norm
+
+    def recording_clip(params_, max_norm):
+        pre_clip.update(_grads(model))
+        return clip(params_, max_norm)
+
+    engine.clip_by_global_norm = recording_clip
+    try:
+        metrics = step(batch, cfg.loss.dice_cof)
+    finally:
+        engine.clip_by_global_norm = clip
+    got = {"total": float(metrics["total_loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "params": {n: p.detach().cpu()
+                      for n, p in model.named_parameters()}}
+    # the same step by hand: two half-batch passes, the gradients summed
+    # by backward, averaged, clipped, one AdamW step
+    model.load_state_dict(saved)
+    cfg.train.accum_steps = 1
+    state = engine.create_train_state(cfg, model, steps_per_epoch=1)
+    params = trainable_params(state.optimizer)
+    clips = batch["clips"].to(model.dtype)
+    totals = []
+    for rows in (slice(0, 2), slice(2, 4)):
+        half = {k: v[rows] for k, v in batch.items()}
+        out = model(clips[rows], half["pad_mask"])
+        total = engine.weighted_total(cfg, engine.compute_losses(
+            cfg, out, engine._targets_from_batch(cfg, half)),
+            cfg.loss.dice_cof)
+        total.backward()
+        totals.append(total.detach())
+    torch._foreach_mul_([p.grad for p in params if p.grad is not None], 0.5)
+    hand_grads = _grads(model)
+    hand_norm = float(clip_by_global_norm(params, cfg.loss.clips_max_norm))
+    set_learning_rate(state.optimizer, state.schedule(0))
+    state.optimizer.step()
+    cfg.train.accum_steps = 2
+    hand_total = float((totals[0] + totals[1]) * 0.5)
+    total_rel = abs(got["total"] - hand_total) / abs(hand_total)
+    grad_rel = _rel_diffs(pre_clip, hand_grads)
+    norm_rel = abs(got["grad_norm"] - hand_norm) / hand_norm
+    lr = {"main": cfg.train.lr, "backbone": cfg.train.lr_backbone}
+    moved_rel = max(
+        float((p.detach().cpu() - got["params"][n]).abs().max())
+        / lr[param_label(n, cfg)] for n, p in model.named_parameters()
+        if n in hand_grads)
+    worst = max(grad_rel, key=grad_rel.get)
+    clipped = hand_norm > cfg.loss.clips_max_norm
+    log(f"[accum] train_ava bs 4 ACCUM_STEPS 2: losses "
+        f"{[round(m['total_loss'], 4) for _, m in r['steps']]}; "
+        f"{_step_ms(r['steps'])}; launches {r['launches']}; the {frozen} "
+        f"frozen params bit-equal; wall {r['wall']:.1f} s. One state, bs 4, "
+        f"the second step each way, peaks above the step's start: "
+        f"unaccumulated step {runs[1]['ms']:.2f} ms, peak "
+        f"{runs[1]['peak_gb']:.2f} GB; accumulated {runs[2]['ms']:.2f} ms, "
+        f"peak {runs[2]['peak_gb']:.2f} GB; against two half-batch passes "
+        f"by hand: total {got['total']:.6f} vs {hand_total:.6f} (rel "
+        f"{total_rel:.3g}, tol {ACCUM_LOSS_TOL}), pre-clip grad_norm "
+        f"{got['grad_norm']:.6g} vs {hand_norm:.6g} (rel {norm_rel:.3g}; "
+        f"the clip at {cfg.loss.clips_max_norm} acts: {clipped}), pre-clip "
+        f"gradients' largest relative L2 distance {grad_rel[worst]:.3g} "
+        f"({worst}; tol {ACCUM_GRAD_TOL} for both), updated parameters "
+        f"within {moved_rel:.3g} lr (tol {ACCUM_PARAM_TOL}); {smi}")
+    if not (total_rel <= ACCUM_LOSS_TOL and grad_rel[worst] <= ACCUM_GRAD_TOL
+            and norm_rel <= ACCUM_GRAD_TOL and moved_rel <= ACCUM_PARAM_TOL
+            and set(pre_clip) == set(hand_grads)
+            and runs[2]["peak_gb"] < runs[1]["peak_gb"]):
+        raise AssertionError("accum: the accumulated step disagrees with the "
+                             "hand-run halves, or takes no less memory")
+    del model, runs, saved, got, pre_clip, hand_grads
+    return {"launches": r["launches"], "steady_ms": r["steps"][-1][0]}
+
+
+def phase_remat(torch, train: dict, smi: str) -> dict:
+    """TRAIN.REMAT_BACKBONE on a full-backprop step (TUNE_POINT 0: nothing
+    frozen) with MODEL.PALLAS_KERNELS, bs 2, from one state: two plain
+    steps (their spread) and one with remat. Peak memory both ways; the
+    gradients within the spread; the running statistics bit-equal; the
+    depthwise launches, the recompute's included (3 per plain step, 6 with
+    remat: layer1's convs run again in the backward)."""
+    import copy
+
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+
+    cfg = copy.deepcopy(train["cfg"])
+    cfg.model.tune_point = 0
+    cfg.model.pallas_kernels = True
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    _no_dropout(model)
+    batch = _train_batch(torch, cfg)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for remat in (False, False, True):
+        model.load_state_dict(saved)
+        model.backbone.body.remat = remat
+        step = engine.make_train_step(
+            cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+        torch.cuda.empty_cache()
+        window = _peak_from(torch)
+        zero_counts()
+        t = time.perf_counter()
+        metrics = step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+        runs.append({"ms": (time.perf_counter() - t) * 1e3,
+                     "peak_gb": _peak_gb(torch, window),
+                     "launches": launch_counts(),
+                     "total": float(metrics["total_loss"]),
+                     "grads": _grads(model),
+                     "stats": {n: b.cpu() for n, b in model.named_buffers()
+                               if n.endswith(("running_mean",
+                                              "running_var"))}})
+    model.backbone.body.remat = False
+    plain, again, remat = runs
+    spread = _rel_diffs(again["grads"], plain["grads"])
+    diff = _rel_diffs(remat["grads"], plain["grads"])
+    limit = max(2 * max(spread.values()), REMAT_FLOOR)
+    worst = max(diff, key=diff.get)
+    stats_moved = _state_equal(torch, remat["stats"], plain["stats"],
+                               list(plain["stats"]))
+    plain_stats = not _state_equal(torch, again["stats"], plain["stats"],
+                                   list(plain["stats"]))
+    want = {k: 0 for k in plain["launches"]}
+    log(f"[remat] full-backprop step (TUNE_POINT 0, PALLAS_KERNELS) bs 2, "
+        f"peaks above the step's start: "
+        f"plain {plain['ms']:.2f} / {again['ms']:.2f} ms, peak "
+        f"{plain['peak_gb']:.2f} GB, launches {plain['launches']}; remat "
+        f"{remat['ms']:.2f} ms, peak {remat['peak_gb']:.2f} GB, launches "
+        f"{remat['launches']}; totals {[round(x['total'], 5) for x in runs]}"
+        f"; the spread of two plain steps' gradients (largest relative L2) "
+        f"{max(spread.values()):.3g}, remat against plain "
+        f"{diff[worst]:.3g} ({worst}; limit {limit:.3g}); running "
+        f"statistics bit-equal: remat {not stats_moved}, plain twice "
+        f"{plain_stats}; {smi}")
+    if not (plain["launches"] == again["launches"] == dict(want,
+                                                           depthwise=3)
+            and remat["launches"] == dict(want, depthwise=6)
+            and diff[worst] <= limit and not stats_moved
+            and remat["peak_gb"] < plain["peak_gb"]
+            and np.isfinite(remat["total"])):
+        raise AssertionError("remat: launches, gradients, statistics or "
+                             "memory not as the plain step's")
+    del model, runs, saved
+    return {"launches_plain": plain["launches"]["depthwise"],
+            "launches": remat["launches"]["depthwise"],
+            "peak_gb": {"plain": plain["peak_gb"],
+                        "remat": remat["peak_gb"]},
+            "ms": {"plain": plain["ms"], "remat": remat["ms"]}}
+
+
+def phase_moe(torch, stem, train: dict, stage_forward: dict, sdet,
+              smi: str) -> dict:
+    """MODEL.MOE_EXPERTS 4, top 2: 2 train_ava steps (loss_moe_aux finite,
+    the expert stacks moved); the stage-path detector's keyframes, and its
+    forward against the stage path's in turns; a pool bucket of 8 streams,
+    each stream's keyframes bit-equal whatever the others push
+    (_pool_rows_independent), with the sizes of the dense routing tensors; the card against the CPU port at small size."""
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+    r = _train_run(torch, train, "chip_smoke_moe", lambda c: (
+        c["DATA"].update(SYNTHETIC_SIZE=4), c["MODEL"].update(**MOE)))
+    want = _train_launches(len(r["steps"]), 1, 4)
+    aux = [m.get("loss_moe_aux", float("nan")) for _, m in r["steps"]]
+    start = build_model(r["cfg"], device="cpu", seed=0,
+                        train=True).state_dict()
+    experts = [n for n in start if ".moe_ffn.expert_w" in n]
+    still = [n for n in experts if torch.equal(r["final"][n], start[n])]
+    frozen = _frozen_still(torch, r, train["start"])
+    log(f"[moe] train_ava MOE_EXPERTS 4 top 2: losses "
+        f"{[round(m['total_loss'], 4) for _, m in r['steps']]}, "
+        f"loss_moe_aux {[round(a, 5) for a in aux]}; "
+        f"{_step_ms(r['steps'])}; launches {r['launches']}; the "
+        f"{len(experts)} expert tensors moved ({len(still)} unchanged), the "
+        f"{frozen} frozen params bit-equal; peak device memory "
+        f"{r['peak_gb']:.2f} GB above the run's start; wall "
+        f"{r['wall']:.1f} s; {smi}")
+    if (len(r["steps"]) != 2 or r["launches"] != want
+            or not np.isfinite(aux).all()
+            or len(experts) != 2 * r["cfg"].model.enc_layers or still):
+        raise AssertionError(f"moe train: launches {r['launches']}, aux "
+                             f"{aux}, unchanged experts {still[:3]}")
+    det, launches, steady, fwd_ms = _option_serving(
+        torch, "chip_smoke_moe_stages", MOE, "moe", stage_forward, sdet, smi)
+    moe = det.model.transformer.encoder.layers[0].moe_ffn
+    seen = []
+    hook = moe.register_forward_hook(
+        lambda m, args, out: seen.append(tuple(args[0].shape)))
+    try:
+        rows = _pool_rows_independent(torch, det, "moe")
+    finally:
+        hook.remove()
+    b, s, _ = seen[0]
+    e, cap = moe.num_experts, moe.capacity(s)
+    n = b * s * e * cap
+    log(f"[moe] the dense routing tensors of one MoE layer at {b} clips: S "
+        f"{s} tokens a clip, E {e}, C {cap}: (B,S,E,C) {n} elements; the "
+        f"float32 combine {n * 4 / 1e6:.2f} MB, the bf16 dispatch "
+        f"{n * 2 / 1e6:.2f} MB, each of the {moe.top_k} slots' float32 "
+        f"position one-hots {n * 4 / 1e6:.2f} MB")
+    def small_moe(c):
+        c.model.moe_experts, c.model.moe_top_k = 4, 2
+
+    phase_small_reference(torch, stem, "moe", small_moe)
+    return {"det": det, "train_launches": r["launches"],
+            "serve_launches": launches,
+            "steady_ms": steady, "rows_independent": rows,
+            "train_steady_ms": r["steps"][-1][0], "forward_ms": fwd_ms,
+            "routing": {"S": s, "E": e, "C": cap}}
+
+
+def _option_serving(torch, name: str, model_keys: dict, tag: str,
+                    stage_forward: dict, sdet, smi: str):
+    """The stage-path detector with ``model_keys`` set on the flagship
+    YAML: phase_main_path's keyframes and launches; then one forward of it
+    and of the stage path's own detector ``sdet`` in turns."""
+    cfg_path = write_config(f"{name}.yaml", lambda c: c["MODEL"].update(
+        PALLAS_KERNELS=True, FUSED_BLOCKS=True, FUSED_STAGES=True,
+        **model_keys))
+    det, launches, steady = phase_main_path(torch, cfg_path, f"{tag} stages",
+                                            stage_forward)
+    ms = _alternating_forward_ms(torch, {tag: det.model,
+                                         "stage path": sdet.model})
+    log(f"[{tag}] one flagship forward, {tag} against the stage path, 10 "
+        f"alternating pairs: median {ms[tag]:.3f} vs "
+        f"{ms['stage path']:.3f} ms; {smi}")
+    return det, launches, steady, ms
+
+
+def _alternating_forward_ms(torch, models: dict, pairs: int = 10) -> dict:
+    """Host wall time of one flagship forward (ending in a sync) of each of
+    two models, in turns (a, b, b, a, ...) in one process after a warm-up
+    pair: the median ms of each."""
+    from tubelet_transformer_tpu_torch.data.device_preprocess import (
+        device_preprocess)
+
+    names = list(models)
+    clip = torch.zeros((1, 32, 256, 256, 3), dtype=torch.uint8, device="cuda")
+    times = {n: [] for n in names}
+    with torch.inference_mode():
+        xs = {n: device_preprocess(clip, dtype=m.dtype)
+              for n, m in models.items()}
+        for i in range(2 * pairs + 2):
+            n = names[0] if (i % 4) in (0, 3) else names[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models[n](xs[n])
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[n].append((time.perf_counter() - t0) * 1e3)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def _pool_rows_independent(torch, det, tag: str) -> bool:
+    """A StreamingDetectorPool (max_batch 8) on the detector's model and
+    config, 8 streams of POOL_GEOMETRIES from tick 0, so that every forward
+    is a bucket of 8, run twice: streams 0 and 7 push the same frames both
+    times, streams 1-6 the levels of streams 6-1 the second time. Each keyframe result
+    of streams 0 and 7 (scores, boxes, actor probabilities) must be
+    bit-equal across the two runs, and stream 1's must differ (the
+    control: the other rows did change)."""
+    from tubelet_transformer_tpu_torch.serving import StreamingDetectorPool
+
+    kw = dict(fps=8.0, detect_every=8, actor_threshold=-1.0, device="cuda")
+    runs, buckets = [], set()
+    for swap in (False, True):
+        pool = StreamingDetectorPool(det.cfg, det.model, max_batch=8,
+                                     instrument=True, **kw)
+        frames = [pool_frames(7 - i if swap and i not in (0, 7) else i,
+                              h, w)
+                  for i, (h, w) in enumerate(POOL_GEOMETRIES)]
+        results = {i: [] for i in range(8)}
+        for tick in range(POOL_TICKS):
+            for i in range(8):
+                pool.push_frame(i, frames[i][tick % 16])
+            for sid, res in pool.step().items():
+                results[sid].append(res)
+            buckets |= {(f["bucket"], f["streams"])
+                        for f in pool.last_timing}
+        runs.append({sid: [np.concatenate([np.concatenate(
+            [d.scores.ravel(), d.box.ravel(), [d.actor_prob]])
+            for d in r.detections]) for r in rs]
+            for sid, rs in results.items()})
+        del pool
+
+    def same(sid):
+        a, b = runs[0][sid], runs[1][sid]
+        return len(a) == len(b) > 0 and all(
+            np.array_equal(x, y) for x, y in zip(a, b))
+
+    ok = same(0) and same(7)
+    control = not same(1)
+    log(f"[{tag}] StreamingDetectorPool, 8 streams from tick 0, forwards "
+        f"(bucket, streams) {sorted(buckets)}, twice with streams 1-6 fed "
+        f"other frames the second time: streams 0 and 7's "
+        f"{len(runs[0][0])} + {len(runs[0][7])} keyframes bit-equal across "
+        f"the runs: {ok}; control, stream 1's differ: {control}")
+    if not (ok and control and buckets == {(8, 8)}):
+        raise AssertionError(f"{tag}: a pool row depends on the other rows, "
+                             f"or the control did not change (buckets "
+                             f"{buckets})")
+    return ok
+
+
+def phase_prenorm(torch, stem, train: dict, stage_forward: dict, sdet,
+                  smi: str) -> dict:
+    """MODEL.NORMALIZE_BEFORE: the stage-path detector's keyframes, and its
+    forward against the stage path's in turns; two flagship train steps
+    (TUNE_POINT 4) finite; the card against the CPU port at small size."""
+    import copy
+
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+
+    det, launches, steady, fwd_ms = _option_serving(
+        torch, "chip_smoke_prenorm_stages", {"NORMALIZE_BEFORE": True},
+        "pre-norm", stage_forward, sdet, smi)
+    if det.model.transformer.encoder.norm is None:
+        raise AssertionError("pre-norm: no encoder norm")
+    cfg = copy.deepcopy(train["cfg"])
+    cfg.model.normalize_before = True
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    step = engine.make_train_step(
+        cfg, engine.create_train_state(cfg, model, steps_per_epoch=1))
+    batch = _train_batch(torch, cfg)
+    times = []
+    zero_counts()
+    for _ in range(2):
+        t = time.perf_counter()
+        metrics = step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_launches = launch_counts()
+    log(f"[pre-norm] flagship train step, NORMALIZE_BEFORE, TUNE_POINT "
+        f"{cfg.model.tune_point}, bs {cfg.train.batch_size}: total loss "
+        f"{float(metrics['total_loss']):.5f}, finite "
+        f"{float(metrics['finite'])}; step ms {[round(t, 2) for t in times]}"
+        f" (the second steady); launches {step_launches}; {smi}")
+    if not (metrics["finite"] == 1.0 and step_launches == _train_launches(
+            2, 1, 0)):
+        raise AssertionError(f"pre-norm train step: launches "
+                             f"{step_launches} or a loss not finite")
+    del model, step
+    def small_prenorm(c):
+        c.model.normalize_before = True
+
+    phase_small_reference(torch, stem, "pre-norm", small_prenorm)
+    return {"det": det, "serve_launches": launches, "steady_ms": steady,
+            "train_ms": times[-1], "forward_ms": fwd_ms}
+
+
+def phase_profile(torch, train: dict) -> None:
+    """LOG.PROFILE_STEPS 2 through train_ava (3 steps): a Chrome trace
+    under <log dir>/profile that names the stem statistics kernel."""
+    r = _train_run(torch, train, "chip_smoke_profile", lambda c: (
+        c["DATA"].update(SYNTHETIC_SIZE=6),
+        c["LOG"].update(PROFILE_STEPS=2)))
+    traces = glob.glob(str(r["run"] / r["cfg"].log.log_dir / "profile"
+                           / "*.json"))
+    kernels = set()
+    for path in traces:
+        with open(path) as f:
+            kernels |= {e.get("name", "") for e in json.load(f).get(
+                "traceEvents", []) if e.get("cat") == "kernel"}
+    stats = sorted(k for k in kernels if "stem_stats" in k)
+    log(f"[profile] train_ava LOG.PROFILE_STEPS 2: {len(r['steps'])} steps, "
+        f"{_step_ms(r['steps'])}; traces "
+        f"{[str(Path(p).relative_to(ROOT)) for p in traces]} "
+        f"({sum(Path(p).stat().st_size for p in traces) / 1e6:.1f} MB), "
+        f"{len(kernels)} kernel names, the stem statistics kernels {stats}")
+    if len(traces) != 1 or not stats:
+        raise AssertionError(f"profile: traces {traces}, stem statistics "
+                             f"kernels {stats}")
+
+
 def main() -> int:
     import torch
 
@@ -2567,6 +3242,16 @@ def main() -> int:
     model = phase_train_in_situ(torch, stem, train["cfg"])
     train_kernel_launches = phase_train_kernels(torch, train["cfg"])
     torch.cuda.empty_cache()
+    frozen_chunk = phase_frozen_chunk(torch, stem, train, smi)
+    torch.cuda.empty_cache()
+    accum = phase_accum(torch, train, smi)
+    torch.cuda.empty_cache()
+    remat = phase_remat(torch, train, smi)
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, stem, train, stage_forward, sdet, smi)
+    torch.cuda.empty_cache()
+    prenorm = phase_prenorm(torch, stem, train, stage_forward, sdet, smi)
+    torch.cuda.empty_cache()
     jhmdb = phase_jhmdb(torch, stem, weights, smi)
     torch.cuda.empty_cache()
 
@@ -2584,6 +3269,14 @@ def main() -> int:
                     batch=8, what=f"one stage-path forward of 8 clips "
                     f"(against the pool's bucket-8 exec and fetch, "
                     f"{bucket8:.2f} ms; {smi})")
+    for tag, opt in (("moe", moe), ("pre-norm", prenorm)):
+        phase_breakdown(torch, opt.pop("det"), opt["forward_ms"][tag],
+                        f"{tag} breakdown",
+                        ("stem_pool_tc_kernel", "depthwise_kernel",
+                         "chain_kernel"),
+                        what=f"one {tag} stage-path forward (against its "
+                        f"median in alternating pairs; the stage path's "
+                        f"{opt['forward_ms']['stage path']:.2f} ms there)")
     del det, kdet, sdet
     torch.cuda.empty_cache()
     phase_jitter_and_train_breakdown(torch, stem, train["cfg"], model,
@@ -2591,6 +3284,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_jhmdb_breakdown(torch, jhmdb)
+    torch.cuda.empty_cache()
+    phase_profile(torch, train)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "flax", "optax", "orbax", "tubelet_transformer_tpu"))
     if leaked:
@@ -2601,7 +3296,9 @@ def main() -> int:
     # paths' count of the pooled kernel beside it), the depthwise and the
     # bottleneck on the kernel path (the train step's depthwise beside it),
     # the chain on the stage path; the unpooled stem, which no model path
-    # runs, in its checks of phase 3
+    # runs, in its checks of phase 3. The option phases' counts stand
+    # beside them (launches_<path>); the remat step's depthwise count holds
+    # the backward's recompute: each of layer1's 3 convs launches twice
     def entry(name, source, replaces, launches, measured, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms")
@@ -2625,14 +3322,23 @@ def main() -> int:
               launches_serve_load=serve_launches["stem_pool"],
               launches_jhmdb=jhmdb["launches"]["stem_pool"],
               launches_eval_jhmdb=jhmdb["eval_launches"]["stem_pool"],
+              launches_frozen_chunk=frozen_chunk["launches"]["stem_pool"],
+              launches_accum=accum["launches"]["stem_pool"],
+              launches_moe_train=moe["train_launches"]["stem_pool"],
+              launches_moe_serve=moe["serve_launches"]["stem_pool"],
+              launches_prenorm_serve=prenorm["serve_launches"]["stem_pool"],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
               train["launches"]["stem_stats"], stats,
               launches_lfb_train=lfb["train_launches"]["stem_stats"],
               launches_jhmdb=jhmdb["launches"]["stem_stats"],
+              launches_frozen_chunk=frozen_chunk["launches"]["stem_stats"],
+              launches_accum=accum["launches"]["stem_stats"],
+              launches_moe_train=moe["train_launches"]["stem_stats"],
               jhmdb_cases={"jhmdb_224x400_train":
-                           stats_cases["jhmdb_224x400_train"]}),
+                           stats_cases["jhmdb_224x400_train"]},
+              one_clip_case=stats_cases["ava_256px_clip"]),
         entry("depthwise", "depthwise.cu", "depthwise.py:66",
               kernel_launches["depthwise"], dw,
               also_replaces="tubelet_transformer_tpu/ops/pallas/"
@@ -2640,6 +3346,10 @@ def main() -> int:
               launches_train_step=train_kernel_launches["depthwise"],
               launches_pool=pooled["launches"]["depthwise"],
               launches_http=http["launches"]["depthwise"],
+              launches_remat_step=remat["launches"],
+              launches_full_backprop_step=remat["launches_plain"],
+              launches_moe_serve=moe["serve_launches"]["depthwise"],
+              launches_prenorm_serve=prenorm["serve_launches"]["depthwise"],
               b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
@@ -2651,6 +3361,8 @@ def main() -> int:
                           "launch each)",
               launches_pool=pooled["launches"]["chain"],
               launches_http=http["launches"]["chain"],
+              launches_moe_serve=moe["serve_launches"]["chain"],
+              launches_prenorm_serve=prenorm["serve_launches"]["chain"],
               b8_case=chain_totals(chains, "_b8"),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",

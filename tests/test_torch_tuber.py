@@ -115,14 +115,9 @@ def test_build_model_is_seeded_and_casts():
     assert m.backbone.body.bn1.running_var.dtype == torch.float32
 
 
-@pytest.mark.parametrize("knob", ["moe", "pre_norm", "pipe"])
+@pytest.mark.parametrize("knob", ["pipe"])
 def test_build_model_refuses_unported(knob):
     cfg = small_cfg()
-    if knob == "moe":
-        cfg.model.moe_experts = 4
-    elif knob == "pre_norm":
-        cfg.model.normalize_before = True
-    else:
-        cfg.mesh.pipe = 2
+    cfg.mesh.pipe = 2
     with pytest.raises(NotImplementedError):
         build_model(cfg)

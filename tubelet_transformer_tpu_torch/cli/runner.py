@@ -117,7 +117,6 @@ def check_supported(cfg: Config) -> None:
     unsupported = {
         "CONFIG.TWO_STREAM": cfg.two_stream,
         "CONFIG.USE_LOCATION": cfg.use_location,
-        "LOG.PROFILE_STEPS": cfg.log.profile_steps > 0,
     }
     for name, asked in unsupported.items():
         if asked:

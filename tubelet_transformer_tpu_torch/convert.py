@@ -19,7 +19,9 @@ dict. Layouts: a flax Dense kernel (in, out) becomes a torch Linear weight
 {weight, bias, running_mean, running_var}. The long-term context's
 ``lfb_proj``, ``lfb_attn`` and ``lfb_norm``, which the reference lacks (the
 JAX package's ``cli/export_torch.py`` refuses them), cross over under the
-port's module names when the params hold them.
+port's module names when the params hold them; so do an MoE encoder layer's
+``moe_ffn`` (the router's kernel transposed, the expert stacks as they are)
+and the pre-norm transformer's ``encoder_norm`` (as ``encoder.norm``).
 """
 
 from __future__ import annotations
@@ -123,10 +125,19 @@ def _put_mha(out: Dict, prefix: str, p: Mapping) -> None:
     _put_dense(out, f"{prefix}.out_proj", p["out_proj"])
 
 
+def _put_moe(out: Dict, prefix: str, p: Mapping) -> None:
+    out[f"{prefix}.router.weight"] = _inv_linear(p["router"]["kernel"])
+    for name in ("expert_w1", "expert_b1", "expert_w2", "expert_b2"):
+        out[f"{prefix}.{name}"] = np.asarray(p[name], np.float32)
+
+
 def _put_encoder_layer(out: Dict, prefix: str, p: Mapping) -> None:
     _put_mha(out, f"{prefix}.self_attn", p["self_attn"])
-    _put_dense(out, f"{prefix}.linear1", p["linear1"])
-    _put_dense(out, f"{prefix}.linear2", p["linear2"])
+    if "moe_ffn" in p:
+        _put_moe(out, f"{prefix}.moe_ffn", p["moe_ffn"])
+    else:
+        _put_dense(out, f"{prefix}.linear1", p["linear1"])
+        _put_dense(out, f"{prefix}.linear2", p["linear2"])
     _put_ln(out, f"{prefix}.norm1", p["norm1"])
     _put_ln(out, f"{prefix}.norm2", p["norm2"])
 
@@ -185,6 +196,8 @@ def tuber_torch_state_from_params(
         _put_decoder_layer(sd, f"transformer.decoder.layers.{i}",
                            tr[f"decoder_layer_{i}"])
     _put_ln(sd, "transformer.decoder.norm", tr["decoder_norm"])
+    if "encoder_norm" in tr:
+        _put_ln(sd, "transformer.encoder.norm", tr["encoder_norm"])
 
     fe = params["encoder"]
     _put_mha(sd, "encoder.layers.0.self_attn_t", fe["self_attn_t"])

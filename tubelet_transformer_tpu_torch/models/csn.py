@@ -34,6 +34,16 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
 * ``stop_grad_stage`` (``train.optimizer.stop_grad_stage``) freezes the stem
   and the stages before that boundary in training: they run without
   autograd, their BN still in train mode.
+* ``frozen_chunk`` (``TRAIN.FROZEN_CHUNK``): in training, with a frozen
+  prefix and a batch that is a multiple of the chunk (and larger), the
+  prefix runs chunk by chunk over the batch axis, each chunk normalised by
+  its own batch statistics and every BN of the prefix taking one EMA
+  update per chunk, in chunk order (csn.py:284-329 of the JAX package).
+* ``remat`` (``TRAIN.REMAT_BACKBONE``): in training, every bottleneck that
+  has gradients runs under ``torch.utils.checkpoint`` and recomputes its
+  activations in the backward, as the JAX package's ``nn.remat``
+  (csn.py:392-396 there). The recompute leaves the BN running statistics
+  alone, so they take one update per step, as in JAX.
 * The stem takes the fused CUDA kernels (``ops/cuda/stem.py``) when
   ``stem_kernel`` is on: in eval mode the pooled kernel with the folded BN
   on a CUDA tensor; in training with a frozen stem the two-phase path
@@ -44,10 +54,13 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tubelet_transformer_tpu_torch.ops.cuda.bottleneck import (
@@ -68,6 +81,25 @@ BLOCK_NUMS = {
     # one block per stage, for tests; not a reference variant
     "CSN-TINY": (1, 1, 1, 1),
 }
+
+
+# set on the thread that recomputes a checkpointed block in the backward
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = False
+
+
+def _remat_contexts():
+    """``checkpoint``'s context_fn: nothing around the forward; around the
+    recompute, the flag that keeps the BN running statistics still."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 def channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +152,10 @@ class FoldableBN(nn.BatchNorm3d):
         return mul, self.bias - self.running_mean * mul
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """The EMA of the running statistics (flax momentum 0.9)."""
+        """The EMA of the running statistics (flax momentum 0.9); none in
+        the backward's recompute of a checkpointed block."""
+        if getattr(_RECOMPUTE, "active", False):
+            return
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)
@@ -267,17 +302,21 @@ class CSN(nn.Module):
     stages 1..s in training (5: the whole trunk). ``use_pallas`` and
     ``fused_blocks`` reach every block (``MODEL.PALLAS_KERNELS``,
     ``MODEL.FUSED_BLOCKS``); ``fused_stages`` (``MODEL.FUSED_STAGES``) runs
-    the stages' identity tails as chains in eval."""
+    the stages' identity tails as chains in eval. ``frozen_chunk`` and
+    ``remat`` act in training only (``TRAIN.FROZEN_CHUNK``,
+    ``TRAIN.REMAT_BACKBONE``)."""
 
     def __init__(self, block_nums: Sequence[int] = (3, 8, 36, 3),
                  last_stride: bool = True, stem_kernel: bool = True,
                  stop_grad_stage: int = -1, use_pallas: bool = False,
-                 fused_blocks: bool = False, fused_stages: bool = False):
+                 fused_blocks: bool = False, fused_stages: bool = False,
+                 frozen_chunk: int = 0, remat: bool = False):
         super().__init__()
         self.block_nums = tuple(block_nums)
         self.stem_kernel = stem_kernel
         self.stop_grad_stage = stop_grad_stage
         self.fused_stages = fused_stages
+        self.frozen_chunk, self.remat = frozen_chunk, remat
         self.conv1 = nn.Conv3d(3, 64, (3, 7, 7), stride=(1, 2, 2),
                                padding=(1, 3, 3), bias=False)
         self.bn1 = FoldableBN(64)
@@ -345,6 +384,12 @@ class CSN(nn.Module):
         module and the identity tail as chains where ``chain_supported``
         (csn.py:410-426 of the JAX package); otherwise block by block."""
         layer = getattr(self, f"layer{s + 1}")
+        if self.remat and self.training and torch.is_grad_enabled():
+            for block in layer:
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, use_reentrant=False,
+                    context_fn=_remat_contexts)
+            return x
         if not (self.fused_stages and not self.training and len(layer) > 1):
             return layer(x)
         x = layer[0](x)
@@ -377,12 +422,27 @@ class CSN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         frozen = self.stop_grad_stage if self.training else -1
-        # the frozen prefix (stem + stages 1..frozen) runs without autograd:
-        # the JAX package's stop_gradient at that boundary (csn.py:375-378,
-        # 427-428)
-        with torch.set_grad_enabled(torch.is_grad_enabled() and frozen < 0):
-            x = self.stem(x)
-        for s in range(len(self.block_nums)):
+        b, ck, start = x.shape[0], self.frozen_chunk, 0
+        if frozen >= 0 and 0 < ck < b and b % ck == 0:
+            # the frozen prefix chunk by chunk, in batch order, as the JAX
+            # package's scan over x.reshape(b // ck, ck, ...)
+            start = min(frozen, len(self.block_nums))
+            with torch.no_grad():
+                chunks = []
+                for xc in x.split(ck):
+                    xc = self.stem(xc)
+                    for s in range(start):
+                        xc = self.stage(s, xc)
+                    chunks.append(xc)
+                x = torch.cat(chunks)
+        else:
+            # the frozen prefix (stem + stages 1..frozen) runs without
+            # autograd: the JAX package's stop_gradient at that boundary
+            # (csn.py:375-378, 427-428)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and frozen < 0):
+                x = self.stem(x)
+        for s in range(start, len(self.block_nums)):
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and s + 1 > frozen):
                 x = self.stage(s, x)
@@ -392,9 +452,11 @@ class CSN(nn.Module):
 def build_csn(backbone_name: str, last_stride: bool,
               stem_kernel: bool = True, stop_grad_stage: int = -1,
               use_pallas: bool = False, fused_blocks: bool = False,
-              fused_stages: bool = False) -> CSN:
+              fused_stages: bool = False, frozen_chunk: int = 0,
+              remat: bool = False) -> CSN:
     if backbone_name not in BLOCK_NUMS:
         raise ValueError(f"unknown backbone {backbone_name!r}; "
                          f"supported: {sorted(BLOCK_NUMS)}")
     return CSN(BLOCK_NUMS[backbone_name], last_stride, stem_kernel,
-               stop_grad_stage, use_pallas, fused_blocks, fused_stages)
+               stop_grad_stage, use_pallas, fused_blocks, fused_stages,
+               frozen_chunk, remat)

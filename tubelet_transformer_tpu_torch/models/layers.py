@@ -141,36 +141,68 @@ def _add_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 class EncoderLayer(nn.Module):
-    """DETR post-norm encoder layer."""
+    """DETR encoder layer, post-norm or, with ``normalize_before``, pre-norm
+    (layers.py:216-222 of the JAX package). ``moe_experts > 0`` swaps the
+    dense FFN for ``MoEFFN`` (``moe_ffn``), whose load-balance loss is
+    appended to the ``moe_aux`` list the caller passes."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.linear1 = Linear(d_model, dim_feedforward)
-        self.linear2 = Linear(dim_feedforward, d_model)
+        if moe_experts > 0:
+            from tubelet_transformer_tpu_torch.models.moe import MoEFFN
+
+            self.moe_ffn = MoEFFN(d_model, dim_feedforward, moe_experts,
+                                  moe_top_k, moe_capacity_factor, dropout)
+        else:
+            self.moe_ffn = None
+            self.linear1 = Linear(d_model, dim_feedforward)
+            self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.dropout = Dropout(dropout)
 
+    def _ffn(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
+             moe_aux: Optional[list]) -> torch.Tensor:
+        if self.moe_ffn is None:
+            return self.linear2(self.dropout(F.relu(self.linear1(x))))
+        # padded tokens must not take expert capacity
+        y, aux = self.moe_ffn(x, pad_mask=key_padding_mask)
+        if moe_aux is not None:
+            moe_aux.append(aux)
+        return y
+
     def forward(self, src: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos: Optional[torch.Tensor] = None,
+                moe_aux: Optional[list] = None) -> torch.Tensor:
         drop = self.dropout
+        if self.normalize_before:
+            s2 = self.norm1(src)
+            qk = _add_pos(s2, pos)
+            src = src + drop(self.self_attn(qk, qk, s2, key_padding_mask))
+            return src + drop(self._ffn(self.norm2(src), key_padding_mask,
+                                        moe_aux))
         qk = _add_pos(src, pos)
         src = self.norm1(src + drop(self.self_attn(qk, qk, src,
                                                    key_padding_mask)))
-        return self.norm2(src + drop(self.linear2(drop(F.relu(
-            self.linear1(src))))))
+        return self.norm2(src + drop(self._ffn(src, key_padding_mask,
+                                               moe_aux)))
 
 
 class DecoderLayer(nn.Module):
-    """DETR post-norm decoder layer: query self-attention, cross-attention
-    over the memory, FFN."""
+    """DETR decoder layer: query self-attention, cross-attention over the
+    memory, FFN; post-norm or, with ``normalize_before``, pre-norm
+    (layers.py:271-281 of the JAX package)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
@@ -185,13 +217,25 @@ class DecoderLayer(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         drop = self.dropout
+
+        def ffn(x):
+            return self.linear2(drop(F.relu(self.linear1(x))))
+
+        if self.normalize_before:
+            t2 = self.norm1(tgt)
+            qk = _add_pos(t2, query_pos)
+            tgt = tgt + drop(self.self_attn(qk, qk, t2))
+            t2 = self.norm2(tgt)
+            tgt = tgt + drop(self.multihead_attn(
+                _add_pos(t2, query_pos), _add_pos(memory, pos), memory,
+                memory_key_padding_mask))
+            return tgt + drop(ffn(self.norm3(tgt)))
         qk = _add_pos(tgt, query_pos)
         tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt)))
         tgt = self.norm2(tgt + drop(self.multihead_attn(
             _add_pos(tgt, query_pos), _add_pos(memory, pos), memory,
             memory_key_padding_mask)))
-        return self.norm3(tgt + drop(self.linear2(drop(F.relu(
-            self.linear1(tgt))))))
+        return self.norm3(tgt + drop(ffn(tgt)))
 
 
 class FactorizedSTEncoderLayer(nn.Module):

@@ -25,6 +25,12 @@ is zeroed, as JAX's ``jnp.where(any_valid, ltc, 0)`` does.
 ``generate_lfb`` (``MODEL.GENERATE_LFB``) returns only what the feature
 bank keeps: the final layer's query features, actorness logits and boxes.
 
+The transformer may be pre-norm (``normalize_before``,
+``MODEL.NORMALIZE_BEFORE``) and its encoder FFNs Mixtures of Experts
+(``moe_experts``, ``MODEL.MOE_EXPERTS``); the forward then returns the
+mean of the MoE layers' load-balance losses as ``moe_aux``, which the
+train step weighs by ``LOSS_COFS.MOE_AUX_COF``.
+
 In training, dropout sits where the JAX model puts it: the transformer at
 ``MODEL.DROPOUT``, the pooling decoder, the class-branch encoder and its
 cross-attention at 0.1, and the class head at 0.5 (tuber.py:133-155 there).
@@ -32,8 +38,8 @@ cross-attention at 0.1, and the class head at 0.5 (tuber.py:133-155 there).
 Submodules are named after the reference's key scheme, which
 ``train.torch_convert.tuber_torch_state_from_params`` emits; ``convert.py``
 loads the JAX package's variables through it with ``strict=True``. The
-reference has no long-term context, so the three LFB modules carry the
-port's own names.
+reference has no long-term context and no MoE, so the three LFB modules and
+each encoder layer's ``moe_ffn`` carry the port's own names.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from tubelet_transformer_tpu_torch.models.csn import (
 from tubelet_transformer_tpu_torch.models.layers import (
     MLP, Dropout, FactorizedSTEncoderLayer, LayerStack, Linear,
     LSTRDecoderLayer, MultiHeadAttention, layer_norm)
+from tubelet_transformer_tpu_torch.models.moe import (
+    MoEFFN, Router, expert_init_)
 from tubelet_transformer_tpu_torch.models.transformer import Transformer
 from tubelet_transformer_tpu_torch.ops.position_encoding import (
     position_embedding_sine_3d)
@@ -102,7 +110,10 @@ class TubeR(nn.Module):
                  pallas_kernels: bool = False, fused_blocks: bool = False,
                  fused_stages: bool = False, dataset_mode: str = "ava",
                  temporal_length: int = 32, use_lfb: bool = False,
-                 generate_lfb: bool = False):
+                 generate_lfb: bool = False, frozen_chunk: int = 0,
+                 remat_backbone: bool = False,
+                 normalize_before: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25):
         super().__init__()
         if temporal_ds_strategy not in STRATEGIES:
             raise ValueError(f"unknown temporal_ds_strategy "
@@ -119,10 +130,12 @@ class TubeR(nn.Module):
         self.backbone = Backbone(
             build_csn(backbone_name, last_stride, stem_kernel,
                       stop_grad_stage, pallas_kernels, fused_blocks,
-                      fused_stages),
+                      fused_stages, frozen_chunk, remat_backbone),
             decode=single_frame and temporal_ds_strategy == "decode")
         self.transformer = Transformer(hidden_dim, nhead, enc_layers,
-                                       dec_layers, dim_feedforward, dropout)
+                                       dec_layers, dim_feedforward, dropout,
+                                       normalize_before, moe_experts,
+                                       moe_top_k, moe_capacity_factor)
         self.query_embed = nn.Embedding(
             num_queries if self.is_ava else num_queries * temporal_length,
             hidden_dim)
@@ -213,10 +226,12 @@ class TubeR(nn.Module):
         feat_mask_t = feat_mask[:, None].expand(b, t, h, w)
         pos = position_embedding_sine_3d(~feat_mask_t, e, dtype=xs.dtype)
         src = self.input_proj(xs)
+        moe_aux: list = []
         hs = self.transformer(src.reshape(b, t * h * w, e),
                               feat_mask_t.reshape(b, t * h * w),
                               self.query_embed.weight,
-                              pos.reshape(b, t * h * w, e))  # (L,B,Q,E)
+                              pos.reshape(b, t * h * w, e),
+                              moe_aux)                       # (L,B,Q,E)
         lay_n, _, nq, _ = hs.shape
         if self.is_ava:
             outputs_class_b = self.class_embed_b(hs)      # (L,B,Q,3)
@@ -254,6 +269,9 @@ class TubeR(nn.Module):
         }
         if return_features:
             out["lfb_features"] = q_class[-1].float()
+        if moe_aux:
+            # the mean over the MoE layers, as the JAX train step takes it
+            out["moe_aux"] = sum(moe_aux) / len(moe_aux)
         return out
 
 
@@ -266,8 +284,9 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn like the JAX package's initialisers: LeCun
-    normal for convs and plain dense layers, Xavier uniform for attention
-    and transformer FFNs, N(0, 1) query embeddings, identity norms and BN."""
+    normal for convs, plain dense layers and MoE routers, Xavier uniform
+    for attention, transformer FFNs and expert stacks, N(0, 1) query
+    embeddings, identity norms and BN."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv3d)):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
@@ -275,6 +294,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, MoEFFN):
+            expert_init_(m.expert_w1, generator)
+            expert_init_(m.expert_w2, generator)
+            m.expert_b1.zero_()
+            m.expert_b2.zero_()
         elif isinstance(m, (nn.LayerNorm, FoldableBN)):
             m.reset_parameters()
     for m in model.modules():
@@ -305,18 +329,14 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
     the JAX package keeps them. BatchNorm statistics stay float32. With
     ``pretrained``, the weight files the config names
     (``train.checkpoint.load_pretrained``) replace the random weights, in
-    float32, before the eval build's cast."""
+    float32, before the eval build's cast (which leaves the BN statistics
+    and the MoE routers float32)."""
     m = cfg.model
-    unsupported = {
-        "MODEL.MOE_EXPERTS": m.moe_experts > 0,
-        "MODEL.NORMALIZE_BEFORE": m.normalize_before,
-        "MESH.PIPE > 1": cfg.mesh.pipe > 1,
-        "TRAIN.FROZEN_CHUNK": train and cfg.train.frozen_chunk > 0,
-        "TRAIN.REMAT_BACKBONE": train and cfg.train.remat_backbone,
-    }
-    for name, asked in unsupported.items():
-        if asked:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.mesh.pipe > 1:
+        raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
+    if cfg.train.frozen_chunk and cfg.mesh.data > 1:
+        raise ValueError("TRAIN.FROZEN_CHUNK is a single-device option; "
+                         "disable it when MESH.DATA > 1")
     dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
     model = TubeR(num_classes=cfg.data.num_classes, num_queries=m.query_num,
                   hidden_dim=m.d_model, nhead=m.nhead,
@@ -331,7 +351,12 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                   fused_blocks=m.fused_blocks,
                   fused_stages=m.fused_stages,
                   dataset_mode=dataset_mode(cfg), temporal_length=m.temp_len,
-                  use_lfb=cfg.use_lfb, generate_lfb=m.generate_lfb)
+                  use_lfb=cfg.use_lfb, generate_lfb=m.generate_lfb,
+                  frozen_chunk=cfg.train.frozen_chunk,
+                  remat_backbone=cfg.train.remat_backbone,
+                  normalize_before=m.normalize_before,
+                  moe_experts=m.moe_experts, moe_top_k=m.moe_top_k,
+                  moe_capacity_factor=m.moe_capacity_factor)
     init_weights(model, torch.Generator().manual_seed(seed))
     if pretrained:
         from tubelet_transformer_tpu_torch.train.checkpoint import (
@@ -342,7 +367,7 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
         return model.to(device).train()
     # one cast here, not one per use: the serving path is host-bound
     for mod in model.modules():
-        if not isinstance(mod, FoldableBN):
+        if not isinstance(mod, (FoldableBN, Router)):
             for p in mod.parameters(recurse=False):
                 p.data = p.data.to(dtype)
     return model.to(device).eval()

@@ -134,19 +134,28 @@ def _merge_model(model: torch.nn.Module, src: Mapping[str, Any]
 LFB_MODULES = ("lfb_proj.", "lfb_attn.", "lfb_norm.")
 
 
+def port_only(name: str) -> bool:
+    """Whether the reference's key scheme lacks this entry: the long-term
+    context's modules, an MoE encoder FFN (MODEL.MOE_EXPERTS) and the
+    pre-norm encoder's final norm (MODEL.NORMALIZE_BEFORE)."""
+    return (name.startswith(LFB_MODULES) or ".moe_ffn." in name
+            or name.startswith("transformer.encoder.norm."))
+
+
 def _wanted(model: torch.nn.Module, sd: Mapping[str, Any], prefixes=("",)
             ) -> dict:
     """The entries of ``sd`` for every parameter and statistic of ``model``
     under ``prefixes``; a missing one raises KeyError, as the JAX package's
     name-mapped conversion does. BN's ``num_batches_tracked`` is left out:
     the JAX variables have no such leaf, and the port never reads it. The
-    long-term context's weights are taken when ``sd`` has them (the port's
-    own checkpoint of a USE_LFB run) and else keep their initial values, as
-    the JAX package's loader keeps them for a reference checkpoint."""
+    weights the reference lacks (``port_only``) are taken when ``sd`` has
+    them (the port's own checkpoint of such a run) and else keep their
+    initial values, as the JAX package's loader keeps them for a reference
+    checkpoint."""
     return {k: sd[k] for k in model.state_dict()
             if k.startswith(prefixes)
             and not k.endswith("num_batches_tracked")
-            and (k in sd or not k.startswith(LFB_MODULES))}
+            and (k in sd or not port_only(k))}
 
 
 def load_tuber_pth(cfg: Config, model: torch.nn.Module,

@@ -5,6 +5,16 @@ is eager PyTorch: preprocess (with the HSV jitter for uint8 clips), the
 train forward, the matched losses (the assignment on the host, one
 device-to-host copy of the costs), the weighted total, backward, the global
 norm clip over the trainable gradients, and AdamW at the scheduled rate.
+With MoE encoder FFNs the model's ``moe_aux`` joins the total, weighted by
+``LOSS_COFS.MOE_AUX_COF``, and is reported as ``loss_moe_aux``.
+
+With ``TRAIN.ACCUM_STEPS`` > 1 the step splits the batch (after the jitter,
+which runs once on the whole batch) into that many microbatches, in order:
+each runs its forward, its criterion (normalised within the microbatch)
+and its backward, so that the gradients sum, and the BN running statistics
+take one update per microbatch. The summed gradients, the total and every
+loss term are then scaled by 1/ACCUM_STEPS, as the JAX step does
+(engine.py:127-213 there), before the clip and the update.
 
 The NaN guard skips the whole update when the total loss is not finite:
 the parameters and the Adam moments (no ``optimizer.step()``) and the BN
@@ -83,8 +93,6 @@ def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the step options not ported yet."""
     unsupported = {
-        "TRAIN.ACCUM_STEPS > 1": cfg.train.accum_steps > 1,
-        "MODEL.MOE_EXPERTS": cfg.model.moe_experts > 0,
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
         "MESH.DATA > 1": cfg.mesh.data > 1,
         "MESH.MODEL > 1": cfg.mesh.model > 1,
@@ -151,22 +159,52 @@ def make_train_step(cfg: Config, state: TrainState):
     params = trainable_params(state.optimizer)
     stats = _bn_stats(model)
     saved = [torch.empty_like(t) for t in stats]
+    accum = max(1, cfg.train.accum_steps)
+
+    def microbatch(batch: Dict[str, torch.Tensor], clips: torch.Tensor,
+                   loss_ce_weight: float):
+        """Forward, losses and backward of one microbatch: the total and
+        the loss terms, detached."""
+        outputs = model(clips, batch.get("pad_mask"), **lfb_kwargs(batch))
+        loss_dict = compute_losses(cfg, outputs,
+                                   _targets_from_batch(cfg, batch))
+        total = weighted_total(cfg, loss_dict, loss_ce_weight)
+        if "moe_aux" in outputs:
+            loss_dict["loss_moe_aux"] = outputs["moe_aux"]
+            total = total + cfg.loss.moe_aux_cof * outputs["moe_aux"]
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in loss_dict.items()}
 
     def train_step(batch: Dict[str, torch.Tensor], loss_ce_weight: float
                    ) -> Dict[str, torch.Tensor]:
         model.train()
         generator.manual_seed(state.seed * 1_000_003 + state.step)
-        pad_mask = batch.get("pad_mask")
         clips = device_preprocess(batch["clips"], dtype=model.dtype,
-                                  pad_mask=pad_mask, jitter=True,
-                                  generator=generator)
+                                  pad_mask=batch.get("pad_mask"),
+                                  jitter=True, generator=generator)
+        b = clips.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"TRAIN.ACCUM_STEPS={accum}")
         torch._foreach_copy_(saved, stats)
-        outputs = model(clips, pad_mask, **lfb_kwargs(batch))
-        loss_dict = compute_losses(cfg, outputs,
-                                   _targets_from_batch(cfg, batch))
-        total = weighted_total(cfg, loss_dict, loss_ce_weight)
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        mb = b // accum
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            t, ld = microbatch({k: v[rows] for k, v in batch.items()},
+                               clips[rows], loss_ce_weight)
+            if i == 0:
+                total, loss_dict = t, ld
+            else:
+                total = total + t
+                loss_dict = {k: loss_dict[k] + v for k, v in ld.items()}
+        if accum > 1:
+            # the sums first, then the scaling, as the JAX step
+            inv = 1.0 / accum
+            torch._foreach_mul_([p.grad for p in params
+                                 if p.grad is not None], inv)
+            total = total * inv
+            loss_dict = {k: v * inv for k, v in loss_dict.items()}
         grad_norm = clip_by_global_norm(params, cfg.loss.clips_max_norm)
         finite = bool(torch.isfinite(total))
         if finite:
@@ -176,8 +214,8 @@ def make_train_step(cfg: Config, state: TrainState):
         else:
             torch._foreach_copy_(stats, saved)
         state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["total_loss"] = total.detach()
+        metrics = dict(loss_dict)
+        metrics["total_loss"] = total
         metrics["finite"] = torch.tensor(float(finite))
         metrics["grad_norm"] = grad_norm
         return metrics

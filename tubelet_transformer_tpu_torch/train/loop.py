@@ -10,6 +10,7 @@ frame's tubelet queries, and video mAP by tube linking).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -20,6 +21,7 @@ import torch
 from tubelet_transformer_tpu_torch.eval.ava_eval import (
     AVADetectionEvaluator, PersonDetectionEvaluator, dump_detections_txt,
     load_excluded_keys)
+from tubelet_transformer_tpu_torch import profiling
 from tubelet_transformer_tpu_torch.utils import AverageMeter, MetricsWriter
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.train.engine import TrainState, device_batch
@@ -36,9 +38,20 @@ def loss_ce_weight(cfg: Config, epoch: int) -> float:
 def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
                     epoch: int, writer: Optional[MetricsWriter] = None
                     ) -> Dict[str, float]:
-    """One training epoch; returns the epoch's mean metrics."""
+    """One training epoch; returns the epoch's mean metrics. With
+    ``LOG.PROFILE_STEPS`` N, epoch 0 traces steps 1..N (step 0 warms up)
+    into ``<writer's log dir>/profile`` (train/loop.py:60-80 of the JAX
+    package)."""
     loader.set_epoch(epoch)
     device = next(state.model.parameters()).device
+    prof_steps = cfg.log.profile_steps if epoch == 0 else 0
+    prof = contextlib.ExitStack()
+
+    def stop_trace():
+        if prof_steps and device.type == "cuda":
+            torch.cuda.synchronize(device)   # the queued steps, traced
+        prof.close()
+
     ce_w = loss_ce_weight(cfg, epoch)
     meters = {k: AverageMeter(k) for k in
               ("total_loss", *LOSS_KEYS, "class_error")}
@@ -47,6 +60,11 @@ def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
     n_batches = len(loader)
     end = time.time()
     for it, batch in enumerate(loader):
+        if prof_steps and it == 1:
+            prof.enter_context(profiling.trace(os.path.join(
+                writer.log_dir if writer else ".", "profile")))
+        elif prof_steps and it == 1 + prof_steps:
+            stop_trace()
         data_time.update(time.time() - end)
         metrics = train_step(device_batch(batch, device), ce_w)
         if (it + 1) % cfg.log.display_freq == 0 or it + 1 == n_batches:
@@ -70,6 +88,7 @@ def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
                 for k, m in meters.items():
                     writer.add_scalar(f"train/{k}", m.val, state.step)
         end = time.time()
+    stop_trace()
     return {k: m.avg for k, m in meters.items()}
 
 
