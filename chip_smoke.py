@@ -119,7 +119,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
     detector's keyframes, one train step, and the card against the CPU
     port at small size;
 17. ``LOG.PROFILE_STEPS 2`` through ``train_ava``: the trace under
-    ``<log dir>/profile`` must name the stem statistics kernel.
+    ``<log dir>/profile`` must name the stem statistics kernel;
+18. the classification trainer (``train/classify.py``):
+    ``VideoClassifier`` (CSN-152, 400 classes; no hand kernel, as in JAX)
+    on (2, 32, 224, 224, 3) float32 clips with TF32 off, 4 steps of
+    ``train_classification`` with an explicit AdamW: the loss finite,
+    every parameter and running statistic moved, every tensor on the card,
+    the step times and peak memory; then CSN-TINY, card against CPU;
+19. the segmentation heads and mask losses (``models/segmentation.py``) at
+    the flagship's widths, card against CPU, and their times;
+20. the rolling KV-cache attention (``ops/streaming.py``) on the
+    flagship's pool_decoder cross-attention (E 2048, 8 heads), 256 rows, a
+    window of 4, 64 steps, each against the full recompute;
+21. the ``export_torch`` CLI on phase 9's checkpoint: bit-equal through
+    ``load_tuber_pth``, one eval forward bit-equal, MoE and pre-norm
+    refused with a nonzero exit; ``validate_ava`` with a dump directory
+    on the exported weights: ``0.txt`` and ``pr_epoch_0.png``, or the
+    "PR plot skipped" line where matplotlib is missing;
+22. the ``pack_data`` CLI on the JHMDB fixture's val split, then
+    ``eval_jhmdb`` with ``DATA.PACKED_PATH``: every eval step's scores and
+    boxes and the frame and video mAP bit-equal to the unpacked run's.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -1969,6 +1988,7 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
     return {"launches": launches, "eval_launches": eval_launches,
             "steady_ms": statistics.median(step_ms[1:]),
             "first_ms": step_ms[0], "eval_ms": eval_ms, "cfg": cfg,
+            "eval_cfg": eval_path,
             "smi": smi,
             "eval_step": step_fn, "eval_batch": batch}
 
@@ -3170,6 +3190,483 @@ def phase_profile(torch, train: dict) -> None:
                              f"kernels {stats}")
 
 
+CLASSIFY_SHAPE = (2, 32, 224, 224, 3)   # two Kinetics-style clips
+CLASSIFY_CLASSES = 400
+CLASSIFY_STEPS = 4
+# the card against the CPU at CSN-TINY, float32 with TF32 off: summation
+# order through 13 convs and batch statistics, relative to max |logit|
+CLASSIFY_TOL = 1e-4
+# the segmentation heads at the flagship's widths (d 256, 8 heads, 15
+# queries over a 256-px keyframe's 16x16 memory; the FPN maps shaped like
+# CSN-152's layers 3/2/1 at 256 px), card against CPU, float32, TF32 off:
+# the maps within SEG_MAP_TOL, the mask logits within SEG_TOL of their
+# largest magnitude, the losses within SEG_LOSS_RTOL
+SEG_QUERIES, SEG_D, SEG_HEADS = 15, 256, 8
+SEG_FPN = ((1024, 16), (512, 32), (256, 64))
+SEG_TARGET = 256
+SEG_MAP_TOL, SEG_TOL, SEG_LOSS_RTOL = 1e-6, 1e-4, 1e-5
+# the flagship's pool_decoder cross-attention (E 2048, 8 heads) over one
+# 256-px keyframe's 16x16 locations, one query, the flagship's T' = 4
+# window, 64 rolling steps; float32 with TF32 off, each step against the
+# full recompute of its window within STREAM_RTOL and STREAM_ATOL x max|out|
+STREAM_B, STREAM_E, STREAM_W, STREAM_STEPS = 256, 2048, 4, 64
+STREAM_RTOL, STREAM_ATOL = 1e-5, 1e-5
+
+
+def _no_tf32(torch):
+    """Turn TF32 off; returns the undo."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def undo():
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+    return undo
+
+
+def _adamw(torch, model):
+    """optax.adamw(1e-3)'s settings, stated: torch's default weight decay
+    is 1e-2, optax's 1e-4."""
+    return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+def phase_classify(torch, smi: str) -> None:
+    """The classification trainer at full width: VideoClassifier(CSN-152,
+    400 classes) on (2, 32, 224, 224, 3) float32 clips with TF32 off, 4
+    steps of train_classification with an explicit AdamW: the loss finite
+    on every step, every parameter and running statistic moved, every
+    tensor on the card; the step times and the peak memory above a step's
+    start. Then CSN-TINY on a small input: the step's loss and the
+    train-mode logits after it, card against CPU."""
+    from tubelet_transformer_tpu_torch.train import classify
+    from tubelet_transformer_tpu_torch.utils import MetricsWriter
+
+    undo = _no_tf32(torch)
+    try:
+        model = classify.build_classifier("CSN-152", CLASSIFY_CLASSES,
+                                          seed=0, device="cuda")
+        state = classify.create_classifier_state(model, _adamw(torch, model))
+        step = classify.make_classification_train_step(state)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        batches = [{"clips": torch.randn(CLASSIFY_SHAPE, generator=g,
+                                         device="cuda"),
+                    "labels": torch.randint(0, CLASSIFY_CLASSES, (2,),
+                                            generator=g, device="cuda")}
+                   for _ in range(CLASSIFY_STEPS)]
+        start = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        runs: list = []
+
+        def timed(clips, labels):
+            window = _peak_from(torch)
+            t = time.perf_counter()
+            loss = step(clips, labels)
+            torch.cuda.synchronize()
+            runs.append(((time.perf_counter() - t) * 1e3,
+                         _peak_gb(torch, window), loss))
+            return loss
+
+        writer = MetricsWriter(str(BUILD_DIR / "chip_smoke_classify"))
+        t0 = time.perf_counter()
+        base_iter, state = classify.train_classification(
+            0, state, timed, batches, 0, display_freq=2,
+            lr_fn=state.schedule, writer=writer)
+        writer.close()
+        wall = time.perf_counter() - t0
+        losses = [float(loss) for _, _, loss in runs]
+        end = model.state_dict()
+        stale = [k for k in start if not k.endswith("num_batches_tracked")
+                 and torch.equal(start[k], end[k])]
+        tensors = [*model.parameters(), *model.buffers(),
+                   *(t for s in state.optimizer.state.values()
+                     for t in s.values() if torch.is_tensor(t)
+                     and t.dim() > 0)]
+        off_card = sum(t.device.type != "cuda" for t in tensors)
+        ms = [round(m, 2) for m, _, _ in runs]
+        peak = max(p for _, p, _ in runs[1:])
+        log(f"[classify] CSN-152, {CLASSIFY_CLASSES} classes, "
+            f"{CLASSIFY_SHAPE} float32 (TF32 off), AdamW lr 1e-3 wd 1e-4: "
+            f"{base_iter} steps, losses {[round(v, 4) for v in losses]}; "
+            f"{len(start) - len(stale)} of {len(start)} tensors moved "
+            f"(num_batches_tracked aside); {len(tensors)} tensors, "
+            f"{off_card} off the card; wall {wall:.1f} s")
+        log(f"[classify] step ms {ms} (steps 2-4 median "
+            f"{statistics.median(ms[1:]):.2f}); peak memory above a step's "
+            f"start {peak:.2f} GB; {smi}")
+        if (base_iter != CLASSIFY_STEPS or not all(np.isfinite(losses))
+                or stale or off_card):
+            raise AssertionError(f"classify: steps {base_iter}, losses "
+                                 f"{losses}, unmoved {stale[:5]}, off the "
+                                 f"card {off_card}")
+        del model, state, batches, start, end, runs, tensors
+        torch.cuda.empty_cache()
+
+        x = torch.randn(2, 8, 64, 64, 3, generator=torch.Generator()
+                        .manual_seed(1))
+        labels = torch.tensor([0, 3])
+        small = {}
+        for dev in ("cpu", "cuda"):
+            m = classify.build_classifier("CSN-TINY", 5, seed=1, device=dev)
+            before = [p.detach().cpu().clone() for p in m.parameters()]
+            s = classify.create_classifier_state(m, _adamw(torch, m))
+            with torch.no_grad():
+                logits = m(x.to(dev)).cpu()
+            loss = classify.make_classification_train_step(s)(
+                x.to(dev), labels.to(dev))
+            small[dev] = (loss.reshape(1).cpu(), logits, [
+                (p.detach().cpu() - b, p.grad.cpu())
+                for p, b in zip(m.parameters(), before)])
+        err = max(float((a - b).abs().max() / b.abs().max()) for a, b in
+                  zip(small["cuda"][:2], small["cpu"][:2]))
+        # the first AdamW step moves a weight by lr * g / (|g| + eps): the
+        # updates agree to 1e-3 lr but where g is near zero, whose sign the
+        # summation order may flip (<= 2.2 lr apart there)
+        upd, stray, n_off, n_all = 0.0, 0.0, 0, 0
+        for (dg, _), (dw, g) in zip(small["cuda"][2], small["cpu"][2]):
+            diff = (dg - dw).abs()
+            upd = max(upd, float(diff.max()) / 1e-3)
+            off = diff > 1e-6
+            n_off, n_all = n_off + int(off.sum()), n_all + off.numel()
+            if off.any():
+                stray = max(stray, float(g[off].abs().max()
+                                         / g.square().mean().sqrt()))
+        log(f"[classify] CSN-TINY (2,8,64,64,3), one AdamW step, card "
+            f"against CPU: the train-mode logits and the step's loss within "
+            f"{err:.3g} of max|value| (limit {CLASSIFY_TOL}); the updates "
+            f"within {upd:.3g} lr (limit 2.2), apart by more than 1e-3 lr at "
+            f"{n_off} of {n_all} weights (limit 0.1%), each with |g| <= "
+            f"{stray:.3g} of its tensor's rms (limit 0.05)")
+        if not (err <= CLASSIFY_TOL and upd <= 2.2 and stray <= 0.05
+                and n_off <= 1e-3 * n_all):
+            raise AssertionError(f"classify small: {err}, {upd}, {stray}, "
+                                 f"{n_off}")
+    finally:
+        undo()
+
+
+def phase_segmentation(torch, smi: str) -> None:
+    """The segmentation heads and mask losses at the flagship's widths on
+    the card against the same port code on the CPU, float32 with TF32 off:
+    MHAttentionMap(256, 256, 8) of 15 queries over a (1, 256, 16, 16)
+    memory with padded pixels, MaskHeadSmallConv(256 + 8, (1024, 512, 256),
+    256) over FPN maps at 16, 32 and 64 px, loss_masks against 256x256
+    targets with padded rows, postprocess_masks to 256x256; with their
+    times on the card."""
+    import copy
+
+    from tubelet_transformer_tpu_torch.models import segmentation as seg
+
+    undo = _no_tf32(torch)
+    try:
+        rng = np.random.default_rng(0)
+        q = rng.normal(size=(1, SEG_QUERIES, SEG_D)).astype(np.float32)
+        mem = rng.normal(size=(1, SEG_D, 16, 16)).astype(np.float32)
+        mask = np.zeros((1, 16, 16), bool)
+        mask[:, 12:, :] = True
+        fpns = [rng.normal(size=(1, c, s, s)).astype(np.float32)
+                for c, s in SEG_FPN]
+        n_live = 10
+        tgt = (rng.uniform(size=(SEG_QUERIES, SEG_TARGET, SEG_TARGET))
+               > 0.5).astype(np.float32)
+        valid = np.arange(SEG_QUERIES) < n_live
+        attn = seg.MHAttentionMap(SEG_D, SEG_D, SEG_HEADS)
+        head = seg.MaskHeadSmallConv(SEG_D + SEG_HEADS,
+                                     [c for c, _ in SEG_FPN], SEG_D)
+        for i, m in enumerate((attn, head)):
+            seg.init_weights(m, torch.Generator().manual_seed(i))
+        mods = {"cpu": (attn, head),
+                "cuda": tuple(copy.deepcopy(m).cuda() for m in (attn, head))}
+
+        def run(dev):
+            a, h = mods[dev]
+            def t(v):
+                return torch.from_numpy(v).to(dev)
+
+            with torch.no_grad():
+                maps = a(t(q), t(mem), t(mask))
+                logits = h(t(mem), maps, [t(f) for f in fpns])
+                pred = logits[:, 0]
+                losses = seg.loss_masks(pred, t(tgt), t(valid), n_live)
+                masks = seg.postprocess_masks(pred[None], (SEG_TARGET,
+                                                           SEG_TARGET))
+            return {"maps": maps, "logits": logits, "losses": torch.stack(
+                [losses["loss_mask"], losses["loss_dice"]]), "masks": masks,
+                "up": seg._bilinear(pred[None], (SEG_TARGET, SEG_TARGET))}
+
+        got, want = ({k: v.cpu() for k, v in run(d).items()}
+                     for d in ("cuda", "cpu"))
+        map_err = float((got["maps"] - want["maps"]).abs().max())
+        logit_err = float((got["logits"] - want["logits"]).abs().max()
+                          / want["logits"].abs().max())
+        loss_err = float(((got["losses"] - want["losses"]).abs()
+                          / want["losses"].abs()).max())
+        away = (want["up"].sigmoid() - 0.5).abs() > 1e-4
+        flips = int((got["masks"] != want["masks"])[away].sum())
+        a, h = mods["cuda"]
+        dq, dmem, dmask = (torch.from_numpy(v).cuda() for v in (q, mem, mask))
+        dfpn = [torch.from_numpy(f).cuda() for f in fpns]
+        with torch.no_grad():
+            dmaps = a(dq, dmem, dmask)
+            dpred = h(dmem, dmaps, dfpn)[:, 0]
+            dtgt, dvalid = (torch.from_numpy(v).cuda() for v in (tgt, valid))
+            times = {
+                "mh_attention_map": time_ms(torch, lambda: a(dq, dmem,
+                                                             dmask)),
+                "mask_head": time_ms(torch, lambda: h(dmem, dmaps, dfpn)),
+                "loss_masks": time_ms(torch, lambda: seg.loss_masks(
+                    dpred, dtgt, dvalid, n_live)),
+                "postprocess_masks": time_ms(torch, lambda: (
+                    seg.postprocess_masks(dpred[None], (SEG_TARGET,
+                                                        SEG_TARGET))))}
+        log(f"[segmentation] card against CPU, float32 (TF32 off): the maps "
+            f"{tuple(got['maps'].shape)} within {map_err:.3g} (limit "
+            f"{SEG_MAP_TOL}); the mask logits {tuple(got['logits'].shape)} "
+            f"within {logit_err:.3g} of max|logit| (limit {SEG_TOL}); "
+            f"loss_mask / loss_dice {got['losses'].tolist()} within "
+            f"{loss_err:.3g} relative (limit {SEG_LOSS_RTOL}); "
+            f"postprocess_masks {tuple(got['masks'].shape)}: {flips} flips "
+            f"away from the 0.5 boundary ({int(away.sum())} pixels)")
+        log(f"[segmentation] ms on the card (back to back): "
+            f"{ {k: round(v, 4) for k, v in times.items()} }; {smi}")
+        if not (map_err <= SEG_MAP_TOL and logit_err <= SEG_TOL
+                and loss_err <= SEG_LOSS_RTOL and flips == 0
+                and all(bool(torch.isfinite(v.float()).all())
+                        for v in got.values())):
+            raise AssertionError("segmentation: card and CPU disagree")
+    finally:
+        undo()
+
+
+def phase_streaming(torch, smi: str) -> None:
+    """The rolling KV-cache attention on the flagship's pool_decoder
+    cross-attention (E 2048, 8 heads): 256 rows (a 256-px keyframe's 16x16
+    locations), one query, a window of T' = 4 positioned by the 1-D table,
+    64 rolling steps, each against streaming_init + streaming_attend on
+    the rolled window; the first pass against the module's own forward on
+    the same window. float32, TF32 off; the step's and the recompute's
+    times on the card."""
+    from tubelet_transformer_tpu_torch.models.layers import LSTRDecoderLayer
+    from tubelet_transformer_tpu_torch.models.tuber import init_weights
+    from tubelet_transformer_tpu_torch.ops import streaming
+    from tubelet_transformer_tpu_torch.ops.position_encoding import (
+        positional_encoding_1d)
+
+    undo = _no_tf32(torch)
+    try:
+        layer = LSTRDecoderLayer(STREAM_E, 8, 2048)
+        init_weights(layer, torch.Generator().manual_seed(0))
+        attn = layer.multihead_attn.cuda().eval()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(STREAM_B, 1, STREAM_E, generator=g, device="cuda")
+        window = torch.randn(STREAM_B, STREAM_W, STREAM_E, generator=g,
+                             device="cuda")
+        toks = torch.randn(STREAM_STEPS, STREAM_B, 1, STREAM_E, generator=g,
+                           device="cuda")
+        pos = positional_encoding_1d(STREAM_W, STREAM_E, device="cuda")
+        pos_err = float((pos.cpu() - positional_encoding_1d(
+            STREAM_W, STREAM_E)).abs().max())
+        pos = pos.expand(STREAM_B, -1, -1)
+
+        def recompute(w):
+            return streaming.streaming_attend(attn, streaming.streaming_init(
+                attn, q, w, pos))
+
+        errs = []
+        with torch.no_grad():
+            state = streaming.streaming_init(attn, q, window, pos)
+            first = streaming.streaming_attend(attn, state)
+            kv = window + pos
+            module = attn(q, kv, kv)
+            first_err = float((first - module).abs().max()
+                              / module.abs().max())
+            for t in range(STREAM_STEPS):
+                out, state = streaming.streaming_step(attn, state, toks[t])
+                window = torch.cat([window[:, 1:], toks[t]], 1)
+                want = recompute(window)
+                errs.append(float(((out - want).abs() - STREAM_RTOL
+                                   * want.abs()).max() / want.abs().max()))
+            finite = bool(torch.isfinite(out).all())
+            step_ms = time_ms(torch, lambda: streaming.streaming_step(
+                attn, state, toks[0]))
+            full_ms = time_ms(torch, lambda: recompute(window))
+        log(f"[streaming] E {STREAM_E}, 8 heads, {STREAM_B} rows, 1 query, "
+            f"window {STREAM_W}, {STREAM_STEPS} rolling steps, float32 (TF32 "
+            f"off): each step against the full recompute, the largest "
+            f"excess over rtol {STREAM_RTOL} {max(errs):.3g} of max|out| "
+            f"(limit {STREAM_ATOL}); the first pass against the module's "
+            f"forward {first_err:.3g} of max|out|; the 1-D table on the card "
+            f"against the CPU {pos_err:.3g}")
+        log(f"[streaming] ms on the card: a rolling step {step_ms:.4f}, the "
+            f"full recompute of the window {full_ms:.4f}; {smi}")
+        if not (max(errs) <= STREAM_ATOL and first_err <= STREAM_ATOL
+                and pos_err <= 1e-6 and finite):
+            raise AssertionError(f"streaming: steps {max(errs)}, first pass "
+                                 f"{first_err}, table {pos_err}")
+    finally:
+        undo()
+
+
+def _cli(module: str, *argv) -> subprocess.CompletedProcess:
+    """``python -m tubelet_transformer_tpu_torch.cli.<module> argv`` from
+    the repository root, as a user runs it."""
+    return subprocess.run(
+        [sys.executable, "-m", f"tubelet_transformer_tpu_torch.cli.{module}",
+         *map(str, argv)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+
+
+def phase_export(torch, train: dict, eval_cfg: Path) -> None:
+    """The export CLI on the train phase's checkpoint: the .pth loaded
+    through load_tuber_pth into a fresh build equals the checkpoint bit for
+    bit, and one eval forward from it equals one from the checkpoint bit
+    for bit; the MoE and the pre-norm configurations are refused with a
+    nonzero exit. Then validate_ava with a dump directory on the exported
+    weights: 0.txt and the PR-curve panel, or its skip line where
+    matplotlib is missing."""
+    import contextlib
+    import io
+
+    from tubelet_transformer_tpu_torch.cli import runner
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine, loop
+
+    out = BUILD_DIR / "chip_smoke_export.pth"
+    t0 = time.perf_counter()
+    res = _cli("export_torch", "--config-file", eval_cfg, "--out", out,
+               "--device", "cuda")
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"export_torch: {res.stderr[-2000:]}")
+    exported = torch.load(out, map_location="cpu", weights_only=True)["model"]
+    saved = torch.load(train["ckpt"], map_location="cpu",
+                       weights_only=True)["model"]
+    if sorted(exported) != sorted(f"module.{k}" for k in saved):
+        raise AssertionError("export: keys differ from the checkpoint's")
+    cfg_path = write_config("chip_smoke_export.yaml", lambda c: c[
+        "MODEL"].update(PRETRAINED_PATH=str(out)), source=eval_cfg)
+    cfg = load_config(str(cfg_path))
+    fresh = build_model(cfg, device="cuda", seed=7, train=True,
+                        pretrained=True).state_dict()
+    bad = _state_equal(torch, fresh, saved, saved)
+    models = {name: build_model(load_config(str(p)), device="cuda", seed=7,
+                                pretrained=True)
+              for name, p in (("ckpt", eval_cfg), ("export", cfg_path))}
+    clip = torch.randn(1, 32, 256, 256, 3, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    pad = torch.zeros(1, 256, 256, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        outs = {k: m(clip, pad) for k, m in models.items()}
+    differ = [k for k in outs["ckpt"]
+              if not torch.equal(outs["ckpt"][k], outs["export"][k])]
+    refused = {}
+    for name, edit in (("moe", lambda c: c["MODEL"].update(MOE)),
+                       ("pre-norm", lambda c: c["MODEL"].update(
+                           NORMALIZE_BEFORE=True))):
+        p = write_config(f"chip_smoke_export_{name}.yaml", edit,
+                         source=eval_cfg)
+        r = _cli("export_torch", "--config-file", p, "--out",
+                 BUILD_DIR / f"chip_smoke_export_{name}.pth", "--device",
+                 "cuda")
+        refused[name] = (r.returncode, r.stderr.strip().splitlines()[-1:])
+    log(f"[export] export_torch on {train['ckpt'].relative_to(ROOT)}: "
+        f"{len(exported)} module.-prefixed tensors in {wall:.1f} s (the "
+        f"process included); loaded through load_tuber_pth into a fresh "
+        f"build, bit-equal to the checkpoint: {not bad}; one eval forward "
+        f"bit-equal to the checkpoint's: {not differ} ({sorted(outs['ckpt'])})"
+        f"; refused: {refused}")
+    if bad or differ or any(rc == 0 for rc, _ in refused.values()):
+        raise AssertionError(f"export: state differs {bad[:3]}, outputs "
+                             f"differ {differ}, refusals {refused}")
+
+    # validate_ava with a dump directory on the exported weights
+    model = models["export"]
+    del models["ckpt"], outs
+    dump = BUILD_DIR / "chip_smoke_dump"
+    for old in dump.glob("*"):
+        old.unlink()
+    _, val_loader = runner.make_loaders(cfg, val_only=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = loop.validate_ava(cfg, engine.make_eval_step(cfg, model),
+                                   model, val_loader, 0,
+                                   dump_dir=str(dump))
+    printed = buf.getvalue()
+    png = dump / "pr_epoch_0.png"
+    skipped = [line for line in printed.splitlines()
+               if line.startswith("PR plot skipped")]
+    drew = png.exists() and png.read_bytes()[:4] == b"\x89PNG"
+    log(f"[plots] validate_ava with a dump directory: 0.txt "
+        f"{(dump / '0.txt').exists()}, frame mAP {result['mAP']:.4f}; "
+        + (f"wrote {png.relative_to(ROOT)} ({png.stat().st_size} bytes)"
+           if drew else f"the PR plot skipped: {skipped}"))
+    if not (dump / "0.txt").exists() or drew == bool(skipped):
+        raise AssertionError(f"validate_ava dump: png {drew}, skip lines "
+                             f"{skipped}")
+
+
+def phase_pack(torch, jhmdb: dict) -> None:
+    """The pack_data CLI on the JHMDB fixture's val split, then eval_jhmdb
+    with DATA.PACKED_PATH on it against eval_jhmdb on the unpacked frames,
+    with the same weights: every eval step's scores and boxes, and the
+    frame and video mAP, bit for bit."""
+    from tubelet_transformer_tpu_torch.cli import eval_jhmdb, runner
+    from tubelet_transformer_tpu_torch.train import engine
+
+    packed = BUILD_DIR / "jhmdb_packed_val"
+    t0 = time.perf_counter()
+    res = _cli("pack_data", "--config-file", jhmdb["eval_cfg"], "--split",
+               "val", "--out", packed, "--workers", "4")
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"pack_data: {res.stderr[-2000:]}")
+    packed_cfg = write_config(
+        "chip_smoke_jhmdb_packed.yaml", lambda c: c["DATA"].update(
+            PACKED_PATH=str(BUILD_DIR / "jhmdb_packed_{}")),
+        source=jhmdb["eval_cfg"])
+    results = {}
+    make = engine.make_eval_step
+    for name, p in (("unpacked", jhmdb["eval_cfg"]), ("packed", packed_cfg)):
+        outs: list = []
+
+        def recording(cfg_, model, _outs=outs):
+            step = make(cfg_, model)
+
+            def rec(batch):
+                out = step(batch)
+                _outs.append({k: out[k].clone() for k in ("scores",
+                                                          "boxes")})
+                return out
+
+            return rec
+
+        runs: list = []
+        undo = _capture(runner, "run_eval", runs)
+        engine.make_eval_step = recording
+        try:
+            _run_cli(eval_jhmdb, ["--config-file", str(p), "--device",
+                                  "cuda"])
+        finally:
+            engine.make_eval_step = make
+            undo()
+        results[name] = (runs[0]["val"], outs)
+        del runs
+    (want, wout), (got, gout) = results["unpacked"], results["packed"]
+    same = len(gout) == len(wout) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(gout, wout) for k in a)
+    log(f"[pack] pack_data on the JHMDB fixture's val split in {wall:.1f} s "
+        f"(the process included): {sorted(x.name for x in packed.iterdir())}"
+        f"; eval_jhmdb with DATA.PACKED_PATH against the unpacked frames: "
+        f"{len(gout)} eval steps' scores and boxes bit-equal: {same}; "
+        f"frame and video mAP {got} against {want}")
+    if not same or got != want:
+        raise AssertionError("pack: packed and unpacked evals differ")
+
+
 def main() -> int:
     import torch
 
@@ -3254,6 +3751,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     jhmdb = phase_jhmdb(torch, stem, weights, smi)
     torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    phase_classify(torch, smi)
+    torch.cuda.empty_cache()
+    phase_segmentation(torch, smi)
+    phase_streaming(torch, smi)
+    phase_export(torch, train, evaluated["cfg_path"])
+    torch.cuda.empty_cache()
+    phase_pack(torch, jhmdb)
+    torch.cuda.empty_cache()
+    log(f"[surfaces] the classify, segmentation, streaming, export, plots "
+        f"and pack phases: {time.perf_counter() - t_slice:.1f} s; {smi}")
 
     # the profiled windows last: a window slows the host work of its
     # process after it, so every time above is taken before the first

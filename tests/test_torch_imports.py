@@ -42,7 +42,13 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.cli.serve_http",
             "tubelet_transformer_tpu_torch.cli.generate_lfb",
             "tubelet_transformer_tpu_torch.models.moe",
-            "tubelet_transformer_tpu_torch.profiling"} <= set(modules)
+            "tubelet_transformer_tpu_torch.profiling",
+            "tubelet_transformer_tpu_torch.models.segmentation",
+            "tubelet_transformer_tpu_torch.train.classify",
+            "tubelet_transformer_tpu_torch.ops.streaming",
+            "tubelet_transformer_tpu_torch.plots",
+            "tubelet_transformer_tpu_torch.cli.export_torch",
+            "tubelet_transformer_tpu_torch.cli.pack_data"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -1,5 +1,6 @@
 """The PyTorch TubeR with MoE encoder FFNs (MODEL.MOE_EXPERTS) or pre-norm
-layers (MODEL.NORMALIZE_BEFORE) against the JAX TubeR: the whole forward,
+layers (MODEL.NORMALIZE_BEFORE), and with both under each temporal pooling
+strategy and in JHMDB mode, against the JAX TubeR: the whole forward,
 the JAX variables (BN statistics randomised) carried over by
 ``convert.load_jax_variables`` with ``strict=True``; and the MoE model in
 the serving pool against a single detector. Float32 on the CPU."""
@@ -22,17 +23,11 @@ from tubelet_transformer_tpu_torch.serving import (StreamingDetector,
                                                    StreamingDetectorPool)
 
 
-@pytest.mark.parametrize("option", ["moe", "pre_norm"])
-def test_tuber_option_matches_jax(option):
-    """The whole TubeR forward, eval mode, with padded tokens (which take
-    no expert capacity); with MoE the mean of the layers' load-balance
-    losses against the JAX model's sown ones."""
-    cfg = _option_cfg(option, small_cfg("avg"))
-    cfg.model.enc_layers = 2
-    rng = np.random.default_rng(0)
-    clip = rng.normal(size=(1, 8, 64, 64, 3)).astype(np.float32)
-    pad = np.zeros((1, 64, 64), bool)
-    pad[:, 40:, :] = True
+def _assert_matches_jax(cfg, clip, pad, rng):
+    """The port's eval forward of ``cfg`` against the JAX TubeR's, the JAX
+    variables (BN statistics randomised from ``rng``) carried over; with
+    MoE the mean of the layers' load-balance losses against the JAX
+    model's sown ones."""
     jmodel = jbuild_model(cfg)
     variables = jax.device_get(jax.jit(
         lambda k, x: jmodel.init(k, x, train=False))(
@@ -46,11 +41,11 @@ def test_tuber_option_matches_jax(option):
                                variables["batch_stats"])
     with torch.inference_mode():
         got = model(torch.from_numpy(clip), torch.from_numpy(pad))
-    moe = "moe" in option
+    moe = cfg.model.moe_experts > 0
     assert set(got) == set(want) | ({"moe_aux"} if moe else set())
     assert hasattr(model.transformer.encoder.layers[0], "linear1") != moe
     assert (model.transformer.encoder.norm is not None) == (
-        "pre_norm" in option)
+        cfg.model.normalize_before)
     for k in want:
         # float32: summation order only, through ~20 layers
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
@@ -61,6 +56,54 @@ def test_tuber_option_matches_jax(option):
         np.testing.assert_allclose(float(got["moe_aux"]),
                                    float(sum(leaves) / len(leaves)),
                                    rtol=1e-5)
+
+
+def _padded_clip(shape, pad_from: int):
+    """A random clip of ``shape``, its pad mask (rows from ``pad_from``
+    padded) and the generator that drew the clip."""
+    rng = np.random.default_rng(0)
+    clip = rng.normal(size=shape).astype(np.float32)
+    pad = np.zeros((shape[0], *shape[2:4]), bool)
+    pad[:, pad_from:, :] = True
+    return clip, pad, rng
+
+
+@pytest.mark.parametrize("option", ["moe", "pre_norm"])
+def test_tuber_option_matches_jax(option):
+    """The whole TubeR forward, eval mode, with padded tokens (which take
+    no expert capacity)."""
+    cfg = _option_cfg(option, small_cfg("avg"))
+    cfg.model.enc_layers = 2
+    _assert_matches_jax(cfg, *_padded_clip((1, 8, 64, 64, 3), 40))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for torch: the suite runs in several worker
+    processes at once, whose thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("mode", ["avg", "max", "decode", "middle", "jhmdb"])
+def test_moe_with_pre_norm_matches_jax(mode, one_torch_thread):
+    """MoE encoder FFNs (4 experts, top 2) and pre-norm together, under
+    each temporal pooling strategy (16 frames: two to pool) and in JHMDB
+    mode (Q x T tubelet queries, the visibility head), with padded
+    tokens."""
+    if mode == "jhmdb":
+        from test_torch_jhmdb import T
+        from test_torch_jhmdb import small_cfg as jhmdb_cfg
+
+        cfg, shape = jhmdb_cfg(), (2, T, 32, 64, 3)
+    else:
+        cfg, shape = small_cfg(mode), (1, 16, 64, 64, 3)
+        cfg.model.temp_len = cfg.data.temp_len = 16
+    cfg = _option_cfg("moe", _option_cfg("pre_norm", cfg))
+    cfg.model.enc_layers = 2
+    _assert_matches_jax(cfg, *_padded_clip(shape, 3 * shape[2] // 4))
 
 
 def test_moe_pool_bucket_matches_single_detector():

@@ -126,7 +126,8 @@ def test_torch_state_matches_jax_export():
 
 @pytest.mark.parametrize("module", ["data/jhmdb.py", "eval/np_box.py",
                                     "eval/ucf_eval.py",
-                                    "eval/video_map.py", "client.py"])
+                                    "eval/video_map.py", "client.py",
+                                    "plots.py"])
 def test_copy_is_the_original(module):
     """The copy's source is the original's with the package renamed."""
     ours = (ROOT / "tubelet_transformer_tpu_torch" / module).read_text()

@@ -22,6 +22,13 @@ JAX package's ``cli/export_torch.py`` refuses them), cross over under the
 port's module names when the params hold them; so do an MoE encoder layer's
 ``moe_ffn`` (the router's kernel transposed, the expert stacks as they are)
 and the pre-norm transformer's ``encoder_norm`` (as ``encoder.norm``).
+
+The same layouts carry the JAX package's segmentation heads
+(``mh_attention_map_state``, ``mask_head_state``: a flax Conv kernel
+(kh, kw, in, out) becomes a torch Conv2d weight (out, in, kh, kw), a
+GroupNorm's {scale, bias} its {weight, bias}) and its ``VideoClassifier``
+(``classifier_state``: the CSN trunk and the ``head``) into the port's
+modules; the ``load_*`` functions load with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -148,6 +155,29 @@ def _put_decoder_layer(out: Dict, prefix: str, p: Mapping) -> None:
     _put_ln(out, f"{prefix}.norm3", p["norm3"])
 
 
+def _put_csn(out: Dict, prefix: str, bb_p: Mapping, bb_s: Mapping,
+             block_nums) -> None:
+    """A flax CSN's (params, batch_stats) under ``prefix`` in the
+    reference's names."""
+    out[f"{prefix}.conv1.weight"] = _inv_conv3d(bb_p["conv1"]["kernel"])
+    _put_bn(out, f"{prefix}.bn1", bb_p["bn1"], bb_s["bn1"])
+    for s, blocks in enumerate(tuple(block_nums)):
+        for b in range(blocks):
+            name = f"layer{s + 1}_{b}"
+            rp = f"{prefix}.layer{s + 1}.{b}"
+            blk_p, blk_s = bb_p[name], bb_s[name]
+            for conv in ("conv1", "conv3", "conv4"):
+                bn = "bn" + conv[-1]
+                out[f"{rp}.{conv}.weight"] = _inv_conv3d(
+                    blk_p[conv]["kernel"])
+                _put_bn(out, f"{rp}.{bn}", blk_p[bn], blk_s[bn])
+            if b == 0:
+                out[f"{rp}.down_sample.0.weight"] = _inv_conv3d(
+                    blk_p["downsample_conv"]["kernel"])
+                _put_bn(out, f"{rp}.down_sample.1",
+                        blk_p["downsample_bn"], blk_s["downsample_bn"])
+
+
 def tuber_torch_state_from_params(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any], *,
     block_nums, enc_layers: int = 6, dec_layers: int = 6,
@@ -160,25 +190,8 @@ def tuber_torch_state_from_params(
     carry (saved from DDP-wrapped models, model_utils.py:20-25).
     """
     sd: Dict[str, np.ndarray] = {}
-
-    bb_p, bb_s = params["backbone"], batch_stats["backbone"]
-    sd["backbone.body.conv1.weight"] = _inv_conv3d(bb_p["conv1"]["kernel"])
-    _put_bn(sd, "backbone.body.bn1", bb_p["bn1"], bb_s["bn1"])
-    for s, blocks in enumerate(tuple(block_nums)):
-        for b in range(blocks):
-            name = f"layer{s + 1}_{b}"
-            rp = f"backbone.body.layer{s + 1}.{b}"
-            blk_p, blk_s = bb_p[name], bb_s[name]
-            for conv in ("conv1", "conv3", "conv4"):
-                bn = "bn" + conv[-1]
-                sd[f"{rp}.{conv}.weight"] = _inv_conv3d(
-                    blk_p[conv]["kernel"])
-                _put_bn(sd, f"{rp}.{bn}", blk_p[bn], blk_s[bn])
-            if b == 0:
-                sd[f"{rp}.down_sample.0.weight"] = _inv_conv3d(
-                    blk_p["downsample_conv"]["kernel"])
-                _put_bn(sd, f"{rp}.down_sample.1",
-                        blk_p["downsample_bn"], blk_s["downsample_bn"])
+    _put_csn(sd, "backbone.body", params["backbone"],
+             batch_stats["backbone"], block_nums)
 
     sd["query_embed.weight"] = np.asarray(params["query_embed"], np.float32)
     for ours, theirs in (("input_proj", "input_proj"),
@@ -242,17 +255,94 @@ def tuber_torch_state_from_params(
     return sd
 
 
+def _load_strict(module: torch.nn.Module, sd: Mapping[str, Any]):
+    """``sd`` (numpy arrays) into ``module`` with ``strict=True``: every
+    weight of the module must cross over, and nothing else."""
+    module.load_state_dict(
+        {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()},
+        strict=True)
+    return module
+
+
 def load_jax_variables(model: TubeR, params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> TubeR:
     """Load flax ``params`` / ``batch_stats`` trees (numpy arrays) into
-    ``model`` through the reference key scheme. ``strict=True``: every
-    weight of the model must cross over, and nothing else."""
-    sd = tuber_torch_state_from_params(
+    ``model`` through the reference key scheme, ``strict=True``."""
+    return _load_strict(model, tuber_torch_state_from_params(
         params, batch_stats, block_nums=model.backbone.body.block_nums,
         enc_layers=model.enc_layers, dec_layers=model.dec_layers,
         temporal_ds_strategy=model.temporal_ds_strategy,
-        single_frame=model.single_frame, ddp_prefix=False)
-    model.load_state_dict(
-        {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()},
-        strict=True)
-    return model
+        single_frame=model.single_frame, ddp_prefix=False))
+
+
+def _inv_conv2d(k) -> np.ndarray:
+    """flax Conv kernel (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    return np.ascontiguousarray(
+        np.transpose(np.asarray(k, np.float32), (3, 2, 0, 1)))
+
+
+def mh_attention_map_state(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX ``MHAttentionMap``'s params -> the port's state dict (the
+    inverse of the JAX package's ``mh_attention_map_params``)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("q_linear", "k_linear"):
+        _put_dense(sd, name, params[name])
+    return sd
+
+
+def mask_head_state(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX ``MaskHeadSmallConv``'s params -> the port's state dict
+    (the inverse of ``mask_head_params``): each conv's kernel to (out, in,
+    kh, kw), each GroupNorm's {scale, bias} to {weight, bias}."""
+    sd: Dict[str, np.ndarray] = {}
+    convs = [f"lay{i}" for i in range(1, 6)] + [
+        f"adapter{i}" for i in range(1, 4)] + ["out_lay"]
+    for name in convs:
+        sd[f"{name}.weight"] = _inv_conv2d(params[name]["kernel"])
+        sd[f"{name}.bias"] = np.asarray(params[name]["bias"], np.float32)
+    for i in range(1, 6):
+        _put_ln(sd, f"gn{i}", params[f"gn{i}"])
+    return sd
+
+
+def classifier_state(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                     block_nums) -> Dict[str, Any]:
+    """The JAX ``VideoClassifier``'s variables -> the port's state dict:
+    the trunk (flax's auto-named ``CSN_0``) under ``trunk.`` and the
+    linear ``head``."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_csn(sd, "trunk", params["CSN_0"], batch_stats["CSN_0"], block_nums)
+    _put_dense(sd, "head", params["head"])
+    return sd
+
+
+def load_mh_attention_map(module: torch.nn.Module,
+                          params: Mapping[str, Any]) -> torch.nn.Module:
+    return _load_strict(module, mh_attention_map_state(params))
+
+
+def load_mask_head(module: torch.nn.Module,
+                   params: Mapping[str, Any]) -> torch.nn.Module:
+    return _load_strict(module, mask_head_state(params))
+
+
+def load_classifier(model: torch.nn.Module, params: Mapping[str, Any],
+                    batch_stats: Mapping[str, Any]) -> torch.nn.Module:
+    return _load_strict(model, classifier_state(
+        params, batch_stats, model.trunk.block_nums))
+
+
+def export_tuber_pth(path: str, model: torch.nn.Module,
+                     ddp_prefix: bool = True) -> str:
+    """Write ``model``'s parameters and statistics as a reference-format
+    ``.pth`` (``{"model": state_dict}``, float32 on the CPU; with
+    ``ddp_prefix`` each name under ``module.``, as the released checkpoints
+    carry it), loadable by the reference's ``load_model``: the counterpart
+    of the JAX package's ``export_tuber_pth``. The port's module names are
+    the reference's, so this is the model's own state dict."""
+    prefix = "module." if ddp_prefix else ""
+    sd = {f"{prefix}{k}": v.detach().to(
+        "cpu", torch.float32 if v.is_floating_point() else v.dtype).clone()
+        for k, v in model.state_dict().items()}
+    torch.save({"model": sd}, path)
+    return path

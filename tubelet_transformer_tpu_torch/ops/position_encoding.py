@@ -1,8 +1,11 @@
-"""3-D sine/cosine position embedding, channels-last.
+"""Sine/cosine position embeddings: the 3-D one, channels-last, and the
+classic 1-D table.
 
-Port of ``tubelet_transformer_tpu/ops/position_encoding.py``: channels split
-2/8 temporal, 3/8 y, 3/8 x; positions are cumulative sums of valid pixels,
-normalised to [0, 2*pi]. Computed in float32, then cast.
+Port of ``tubelet_transformer_tpu/ops/position_encoding.py``. 3-D: channels
+split 2/8 temporal, 3/8 y, 3/8 x; positions are cumulative sums of valid
+pixels, normalised to [0, 2*pi]. 1-D (``positional_encoding_1d``): even
+channels sin, odd channels cos of ``position / 10000^(2i/d)``. Both are
+computed in float32, then cast.
 """
 
 from __future__ import annotations
@@ -53,3 +56,20 @@ def position_embedding_sine_3d(not_mask: torch.Tensor, d_model: int,
     pos_y = _interleave_sin_cos(y_embed[..., None] / dim_s)
     pos_x = _interleave_sin_cos(x_embed[..., None] / dim_s)
     return torch.cat([pos_t, pos_y, pos_x], dim=-1).to(dtype)
+
+
+def positional_encoding_1d(length: int, d_model: int,
+                           dtype: torch.dtype = torch.float32,
+                           device: torch.device | str = "cpu"
+                           ) -> torch.Tensor:
+    """The classic (length, d_model) sinusoidal table (reference
+    transformer_layers.py:451-468): even channels sin, odd channels cos."""
+    position = torch.arange(length, dtype=torch.float32,
+                            device=device)[:, None]
+    div_term = torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(length, d_model, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe.to(dtype)

@@ -100,8 +100,10 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
     """AVA validation -> frame mAP and person AP (and the size-banded
     person APs of VAL.PERSON_SIZE_BANDS), with the mean criterion losses.
     ``dump_dir`` also writes every keyframe's detections once to
-    ``<dump_dir>/0.txt`` (``dump_detections_txt``); the JAX package draws
-    a PR-curve panel beside it, which the port does not draw yet."""
+    ``<dump_dir>/0.txt`` (``dump_detections_txt``) and the per-class
+    precision/recall panel beside it, ``pr_epoch_{epoch}.png``
+    (``plots.plot_pr_curves``); without matplotlib the panel is skipped
+    with a "PR plot skipped" line, as in the JAX package."""
     dataset = loader.dataset
     device = next(model.parameters()).device
     if not exclude_keys and cfg.data.exclude_path:
@@ -152,6 +154,14 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
     if dump_dir is not None:
         os.makedirs(dump_dir, exist_ok=True)
         dump_detections_txt(os.path.join(dump_dir, "0.txt"), dump_rows)
+        try:
+            # the PR-curve panel next to the dump (the counterpart of the
+            # reference's util/plot_utils.py:plot_precision_recall)
+            from tubelet_transformer_tpu_torch.plots import plot_pr_curves
+            plot_pr_curves(evaluator.precision_recall_curves(),
+                           os.path.join(dump_dir, f"pr_epoch_{epoch}.png"))
+        except Exception as exc:  # plotting must never fail validation
+            print(f"PR plot skipped: {exc}")
     maps, _ = evaluator.evaluate()
     result["mAP"] = maps[0]
     result["person_AP"] = person_eval.evaluate()[0]
