@@ -3324,7 +3324,7 @@ def phase_classify(torch, smi: str) -> None:
                   zip(small["cuda"][:2], small["cpu"][:2]))
         # the first AdamW step moves a weight by lr * g / (|g| + eps): the
         # updates agree to 1e-3 lr but where g is near zero, whose sign the
-        # summation order may flip (<= 2.2 lr apart there)
+        # summation order may flip; the largest gap is reported, not held
         upd, stray, n_off, n_all = 0.0, 0.0, 0, 0
         for (dg, _), (dw, g) in zip(small["cuda"][2], small["cpu"][2]):
             diff = (dg - dw).abs()
@@ -3337,13 +3337,12 @@ def phase_classify(torch, smi: str) -> None:
         log(f"[classify] CSN-TINY (2,8,64,64,3), one AdamW step, card "
             f"against CPU: the train-mode logits and the step's loss within "
             f"{err:.3g} of max|value| (limit {CLASSIFY_TOL}); the updates "
-            f"within {upd:.3g} lr (limit 2.2), apart by more than 1e-3 lr at "
+            f"within {upd:.3g} lr, apart by more than 1e-3 lr at "
             f"{n_off} of {n_all} weights (limit 0.1%), each with |g| <= "
             f"{stray:.3g} of its tensor's rms (limit 0.05)")
-        if not (err <= CLASSIFY_TOL and upd <= 2.2 and stray <= 0.05
+        if not (err <= CLASSIFY_TOL and stray <= 0.05
                 and n_off <= 1e-3 * n_all):
-            raise AssertionError(f"classify small: {err}, {upd}, {stray}, "
-                                 f"{n_off}")
+            raise AssertionError(f"classify small: {err}, {stray}, {n_off}")
     finally:
         undo()
 
@@ -3563,25 +3562,36 @@ def phase_export(torch, train: dict, eval_cfg: Path) -> None:
         outs = {k: m(clip, pad) for k, m in models.items()}
     differ = [k for k in outs["ckpt"]
               if not torch.equal(outs["ckpt"][k], outs["export"][k])]
-    refused = {}
-    for name, edit in (("moe", lambda c: c["MODEL"].update(MOE)),
-                       ("pre-norm", lambda c: c["MODEL"].update(
-                           NORMALIZE_BEFORE=True))):
+    # a refusal is the CLI's NotImplementedError naming the option, not any
+    # nonzero exit: an import error or a bad config would exit nonzero too
+    refused, wrong = {}, []
+    for name, option, edit in (
+            ("moe", "MODEL.MOE_EXPERTS",
+             lambda c: c["MODEL"].update(MOE)),
+            ("pre-norm", "MODEL.NORMALIZE_BEFORE",
+             lambda c: c["MODEL"].update(NORMALIZE_BEFORE=True))):
         p = write_config(f"chip_smoke_export_{name}.yaml", edit,
                          source=eval_cfg)
-        r = _cli("export_torch", "--config-file", p, "--out",
-                 BUILD_DIR / f"chip_smoke_export_{name}.pth", "--device",
-                 "cuda")
-        refused[name] = (r.returncode, r.stderr.strip().splitlines()[-1:])
+        target = BUILD_DIR / f"chip_smoke_export_{name}.pth"
+        target.unlink(missing_ok=True)
+        r = _cli("export_torch", "--config-file", p, "--out", target,
+                 "--device", "cuda")
+        last = r.stderr.strip().splitlines()[-1:]
+        refused[name] = (r.returncode, last)
+        if (r.returncode == 0 or target.exists() or not last
+                or not last[0].startswith("NotImplementedError")
+                or option not in last[0]):
+            wrong.append(name)
     log(f"[export] export_torch on {train['ckpt'].relative_to(ROOT)}: "
         f"{len(exported)} module.-prefixed tensors in {wall:.1f} s (the "
         f"process included); loaded through load_tuber_pth into a fresh "
         f"build, bit-equal to the checkpoint: {not bad}; one eval forward "
         f"bit-equal to the checkpoint's: {not differ} ({sorted(outs['ckpt'])})"
         f"; refused: {refused}")
-    if bad or differ or any(rc == 0 for rc, _ in refused.values()):
+    if bad or differ or wrong:
         raise AssertionError(f"export: state differs {bad[:3]}, outputs "
-                             f"differ {differ}, refusals {refused}")
+                             f"differ {differ}, not refused as expected "
+                             f"{wrong}: {refused}")
 
     # validate_ava with a dump directory on the exported weights
     model = models["export"]

@@ -11,6 +11,7 @@ is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
 
@@ -49,13 +50,6 @@ def interpret(jax_bn):
     jax_bn._INTERPRET["on"] = True
     yield jax_bn
     jax_bn._INTERPRET["on"] = False
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 8, 8), (1, 3, 5, 7)])

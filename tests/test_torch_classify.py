@@ -17,10 +17,13 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda, one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu_torch import convert
 from tubelet_transformer_tpu_torch.train import classify
 from tubelet_transformer_tpu_torch.utils import MetricsWriter
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LR, WD, EPS = 1e-3, 1e-4, 1e-8     # optax.adamw(1e-3)'s defaults
 N_CLASSES = 5
@@ -36,23 +39,6 @@ def jax_mods():
     from tubelet_transformer_tpu.utils import MetricsWriter as JWriter
 
     return jax, optax, jclassify, JWriter, randomize_bn
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for torch: the suite runs in several worker
-    processes at once, whose thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _adamw(model):

@@ -12,6 +12,7 @@ installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
 
@@ -40,13 +41,6 @@ def jax_dw():
     from tubelet_transformer_tpu.ops.pallas import depthwise as JD
 
     return JD
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("shape", [RAGGED, (2, 5, 7, 9, 8), *KERNEL_RAGGED])

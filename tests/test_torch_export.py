@@ -17,6 +17,7 @@ import pytest
 import torch
 import yaml
 from test_torch_csn import randomize_bn
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.config import load_config as jload_config
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
@@ -28,18 +29,10 @@ from tubelet_transformer_tpu_torch.data import packed
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.tools import fixtures
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ROOT = Path(__file__).resolve().parents[1]
 STRATEGIES = ("avg", "max", "decode", "middle")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for torch: the suite runs in several worker
-    processes at once, whose thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(strategy="avg", **model):

@@ -15,6 +15,7 @@ from test_torch_pool import GEOMETRY, _drive
 from test_torch_serving import _assert_same, _frames
 from test_torch_serving import small_cfg as serving_cfg
 from test_torch_tuber import small_cfg
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
 from tubelet_transformer_tpu_torch.convert import load_jax_variables
@@ -75,16 +76,6 @@ def test_tuber_option_matches_jax(option):
     cfg = _option_cfg(option, small_cfg("avg"))
     cfg.model.enc_layers = 2
     _assert_matches_jax(cfg, *_padded_clip((1, 8, 64, 64, 3), 40))
-
-
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread for torch: the suite runs in several worker
-    processes at once, whose thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("mode", ["avg", "max", "decode", "middle", "jhmdb"])

@@ -14,9 +14,12 @@ CUDA cases also run where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda, one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu_torch import convert
 from tubelet_transformer_tpu_torch.models import segmentation as seg
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (pred h, w) -> (target H, W): up by 2, up by a ragged factor, down by a
 # ragged factor
@@ -35,23 +38,6 @@ def jseg():
     from tubelet_transformer_tpu.models import segmentation as js
 
     return js
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for torch: the suite runs in several worker
-    processes at once, whose thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _randomize(params, rng):

@@ -12,6 +12,7 @@ is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 
@@ -67,13 +68,6 @@ def interpret(jax_stage):
     jax_stage._INTERPRET["on"] = True
     yield jax_stage
     jax_stage._INTERPRET["on"] = False
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("k", [1, 3])

@@ -9,6 +9,7 @@ runs where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import stem
 
@@ -46,13 +47,6 @@ def interpret(jax_stem):
     jax_stem._DEBUG["interpret"] = True
     yield jax_stem
     jax_stem._DEBUG["interpret"] = False
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 32, 48, 3), (2, 3, 37, 45, 3)])

@@ -15,11 +15,14 @@ not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import cuda, one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu_torch.models.layers import MultiHeadAttention
 from tubelet_transformer_tpu_torch.ops import streaming
 from tubelet_transformer_tpu_torch.ops.position_encoding import (
     positional_encoding_1d)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 E, H, B, Q, W = 64, 4, 2, 3, 6
 STEPS = 4
@@ -35,23 +38,6 @@ def jax_mods():
     from tubelet_transformer_tpu.train import torch_convert as tc
 
     return jpe, js, tc
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for torch: the suite runs in several worker
-    processes at once, whose thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _setup(seed=0):

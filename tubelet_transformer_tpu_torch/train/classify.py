@@ -64,13 +64,13 @@ def build_classifier(backbone_name: str = "CSN-50", num_classes: int = 400,
 
 
 def create_classifier_state(model: VideoClassifier,
-                            optimizer: torch.optim.Optimizer,
-                            seed: int = 0) -> TrainState:
+                            optimizer: torch.optim.Optimizer) -> TrainState:
     """The training state of ``model`` and its ``optimizer``; the schedule
     reads the optimizer's learning rate."""
+    # The classification step draws no randomness, so the seed is unused.
     return TrainState(model=model, optimizer=optimizer,
                       schedule=lambda _: optimizer.param_groups[0]["lr"],
-                      seed=seed)
+                      seed=0)
 
 
 def make_classification_train_step(state: TrainState
