@@ -138,7 +138,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
     "PR plot skipped" line where matplotlib is missing;
 22. the ``pack_data`` CLI on the JHMDB fixture's val split, then
     ``eval_jhmdb`` with ``DATA.PACKED_PATH``: every eval step's scores and
-    boxes and the frame and video mAP bit-equal to the unpacked run's.
+    boxes and the frame and video mAP bit-equal to the unpacked run's;
+23. data parallelism (``MESH.DATA``) over ``torch.distributed``, two ranks
+    on the one card over gloo (NCCL refuses two ranks of one communicator
+    on one device): ``train_ava`` through torchrun on phase 9's YAML (the
+    metrics, config and checkpoint from rank 0 alone); ``tools/dp_check``
+    through torchrun, the DP step of 2 ranks x 2 clips against the
+    one-process step on the global batch of 4 from one state under
+    deterministic algorithms, in bf16 (the stem's global statistics from
+    #4 on each shard against #4 over the whole batch) and in float32 with
+    TF32 off (those, the losses, the gradient norm, every gradient, the
+    running statistics), each reading within its bound and a control of
+    local statistics and normalisers outside every one, with each rank's
+    step and gradient all-reduce times; and
+    ``train_ava`` through torchrun with the default backend (NCCL) at
+    world size 1.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -157,6 +171,9 @@ from __future__ import annotations
 import glob
 import json
 import math
+import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1383,8 +1400,8 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
     steps, solves = [], []
     make_train_step, lsa = engine.make_train_step, matcher.linear_sum_assignment
 
-    def timed_make(cfg_, state):
-        step = make_train_step(cfg_, state)
+    def timed_make(cfg_, state, **kw):
+        step = make_train_step(cfg_, state, **kw)
 
         def timed(batch, weight):
             t0 = time.perf_counter()
@@ -1866,8 +1883,8 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
     steps: list = []
     make = engine.make_train_step
 
-    def timed_make(cfg_, state):
-        step = make(cfg_, state)
+    def timed_make(cfg_, state, **kw):
+        step = make(cfg_, state, **kw)
 
         def timed(batch, weight):
             t = time.perf_counter()
@@ -2383,8 +2400,8 @@ def phase_lfb(torch, eval_cfg: Path, train: dict) -> dict:
     steps = []
     make = engine.make_train_step
 
-    def recording(cfg_, state):
-        step = make(cfg_, state)
+    def recording(cfg_, state, **kw):
+        step = make(cfg_, state, **kw)
 
         def run(batch, weight):
             metrics = step(batch, weight)
@@ -2571,8 +2588,8 @@ def _train_run(torch, train: dict, name: str, edit,
     steps: list = []
     make = engine.make_train_step
 
-    def recording(cfg_, state):
-        step = make(cfg_, state)
+    def recording(cfg_, state, **kw):
+        step = make(cfg_, state, **kw)
 
         def run(batch, weight):
             t = time.perf_counter()
@@ -3643,8 +3660,8 @@ def phase_pack(torch, jhmdb: dict) -> None:
     for name, p in (("unpacked", jhmdb["eval_cfg"]), ("packed", packed_cfg)):
         outs: list = []
 
-        def recording(cfg_, model, _outs=outs):
-            step = make(cfg_, model)
+        def recording(cfg_, model, _outs=outs, **kw):
+            step = make(cfg_, model, **kw)
 
             def rec(batch):
                 out = step(batch)
@@ -3675,6 +3692,181 @@ def phase_pack(torch, jhmdb: dict) -> None:
         f"frame and video mAP {got} against {want}")
     if not same or got != want:
         raise AssertionError("pack: packed and unpacked evals differ")
+
+
+# phase 23: data parallelism over torch.distributed, two ranks on one card
+DP_RANKS = 2
+DP_TIMEOUT = 600
+# the DP step of 2 ranks x 2 clips against the one-process step on the
+# global batch of 4 from one state (tools/dp_check.py, flagship width,
+# deterministic algorithms): each reading's bound, in bf16 (the train
+# path) and in float32 with TF32 off; the control (each rank's own BN
+# statistics and loss normalisers, losses and gradients averaged) must
+# miss every one. In bf16 the two steps' losses, gradients, gradient
+# norms and running statistics part by about as much as the control's
+# (gradients 0.115-0.146 against the control's 0.116-0.144, losses
+# 0.0070-0.0077 against 0.012-0.098, over two seeds; not isolated: the
+# kernels picked for 2 and for 4 clips round otherwise, and a matching
+# near a tie at random init can flip): bf16 bounds the stem's statistics alone, float32 every
+# reading. The bounds sit between the two seeds' readings and their
+# controls' (float32: losses 1.1e-5-3.0e-5 against 0.012-0.099, gradient
+# norm 2.5e-5-8.0e-5 against 0.0036-0.011, gradients 0.0087-0.0093
+# against 0.116-0.143, running statistics 1.7e-5-2.2e-5 against 0.028;
+# the stem's mean and variance 3.5e-8-7.0e-8 against 8e-1 and 1e-3)
+DP_TOL = {"bfloat16": {"stem_mean_rel": 1e-5, "stem_var_rel": 1e-5},
+          "float32": {"stem_mean_rel": 1e-5, "stem_var_rel": 1e-5,
+                      "loss_rel": 1e-3, "grad_norm_rel": 1e-3,
+                      "grads_rel": 0.04, "running_update_rel": 1e-3}}
+
+
+def _torchrun(nproc: int, module: str, argv: list, log_name: str) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m module argv`` from the repository root in a session of its
+    own, its output in build/<log_name>; the whole session is killed when
+    DP_TIMEOUT runs out. Raises unless it exits 0; returns the output."""
+    path = BUILD_DIR / log_name
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(nproc), "-m", module, *map(str, argv)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    text = path.read_text()
+    if rc != 0:
+        raise AssertionError(f"{log_name}: exit {rc}:\n{text[-3000:]}")
+    return text
+
+
+def _dist_lines(text: str, backend: str, world: int, devices) -> list:
+    """The ranks' "distributed:" lines; raises unless each rank printed
+    one with ``backend``, ``world`` and its device."""
+    lines = sorted(re.findall(r"distributed: backend \S+, world \d+, rank "
+                              r"\d+, device cuda:\d+", text))
+    want = sorted(f"distributed: backend {backend}, world {world}, rank "
+                  f"{r}, device {devices[r]}" for r in range(world))
+    if lines != want:
+        raise AssertionError(f"distributed lines {lines}, want {want}")
+    return lines
+
+
+def phase_data_parallel(torch, train: dict, smi: str) -> dict:
+    """MESH.DATA over torch.distributed: (1) train_ava through torchrun, 2
+    ranks on cuda:0 over gloo, on phase 9's YAML (2 steps a rank, a
+    validation of 4 keyframes a rank): both exit 0, one run directory,
+    one checkpoint and the metrics from rank 0 alone; (2) tools/dp_check
+    through torchrun, 2 ranks x 2 clips against the one-process step on
+    the global batch of 4 from one state, deterministic algorithms, in
+    bf16 and in float32: the stem's global statistics (#4 on each shard,
+    reduced) against #4 over the whole batch, and in float32 the loss
+    dict, the gradient norm, every gradient and the running statistics'
+    updates, each within DP_TOL, the control outside every bound, #4 and
+    #2 launched once each in the DP step, and each rank's step and
+    gradient all-reduce times (bf16); (3) NCCL, the default
+    backend, at world size 1 through train_ava (one rank per card over
+    NCCL at 2 ranks where the machine has two cards)."""
+    ranks = ["cuda:0"] * DP_RANKS
+    # (1) the train CLI
+    name = "chip_smoke_dp"
+    cfg_path = write_config(f"{name}.yaml", lambda c: c["LOG"].update(
+        EXP_NAME=name, DISPLAY_FREQ=1), source=train["cfg_path"])
+    t0 = time.perf_counter()
+    text = _torchrun(DP_RANKS, "tubelet_transformer_tpu_torch.cli.train_ava",
+                     ["--config-file", cfg_path, "--device", "cuda:0",
+                      "--dist-backend", "gloo", "--seed", "0"],
+                     "chip_smoke_dp_train.log")
+    wall = time.perf_counter() - t0
+    lines = _dist_lines(text, "gloo", DP_RANKS, ranks)
+    runs = glob.glob(str(BUILD_DIR / "chip_smoke_runs" / f"{name}_*"))
+    ckpts = glob.glob(str(Path(runs[0], "checkpoints", "ckpt_*"))) \
+        if len(runs) == 1 else []
+    tags = [json.loads(x)["tag"] for x in Path(
+        runs[0], "tb_log", "metrics.jsonl").read_text().splitlines()] \
+        if len(runs) == 1 else []
+    steps = TRAIN_STEPS // DP_RANKS
+    epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
+    ok = (len(runs) == 1 and len(ckpts) == 1
+          and tags.count("train/total_loss") == steps
+          and tags.count("val/val_mAP_epoch") == 1
+          and len(epoch_lines) == steps
+          and Path(runs[0], "config.json").is_file())
+    log(f"[dp] train_ava via torchrun, {DP_RANKS} ranks on cuda:0 over "
+        f"gloo: {lines}; {wall:.1f} s (the processes included); one run "
+        f"directory {len(runs) == 1}, checkpoints {len(ckpts)}, "
+        f"train/total_loss lines {tags.count('train/total_loss')} (the "
+        f"{steps} global steps, rank 0 alone), val/val_mAP_epoch "
+        f"{tags.count('val/val_mAP_epoch')}; rank 0's epoch lines: "
+        f"{[x.split(' data ')[0] for x in epoch_lines]}; {smi}")
+    if not ok:
+        raise AssertionError(f"dp train: runs {runs}, ckpts {ckpts}, tags "
+                             f"{tags}, epoch lines {epoch_lines}")
+
+    # (2) the DP step against the one-process step, with its control
+    checks = {}
+    for dtype, tol in DP_TOL.items():
+        out_path = BUILD_DIR / f"chip_smoke_dp_check_{dtype}.pt"
+        extra = (["--timed-steps", "3"] if dtype == "bfloat16"
+                 else ["--float32"])
+        text = _torchrun(
+            DP_RANKS, "tubelet_transformer_tpu_torch.tools.dp_check",
+            ["--config-file", cfg_path, "--device", "cuda:0",
+             "--dist-backend", "gloo", "--deterministic", *extra,
+             "--out", out_path], f"chip_smoke_dp_check_{dtype}.log")
+        _dist_lines(text, "gloo", DP_RANKS, ranks)
+        res = checks[dtype] = torch.load(out_path, weights_only=False)
+        dp, control = res["readings"]["dp"], res["readings"]["control"]
+        held = {k: dp[k] <= v for k, v in tol.items()}
+        missed = {k: control[k] > v for k, v in tol.items()}
+        launches = res["dp"]["launches"]
+        log(f"[dp] dp_check {dtype}, {DP_RANKS} ranks x 2 clips against "
+            f"one process on the 4 (deterministic algorithms): readings "
+            f"{dp}; control {control}; bounds {tol}: held {held}, control "
+            f"missed {missed}; the DP step's launches on rank 0 "
+            f"{launches} and all-reduces {res['dp']['all_reduces']}; "
+            f"total loss DP "
+            f"{res['dp']['metrics']['total_loss']:.6f}, one process "
+            f"{res['single']['metrics']['total_loss']:.6f}, control "
+            f"{res['control']['metrics']['total_loss']:.6f}; {smi}")
+        if not (all(held.values()) and all(missed.values())
+                and launches == {"stem_stats": 1, "stem_pool": 1}
+                and res["dp"]["metrics"]["finite"] == 1.0):
+            raise AssertionError(f"dp check {dtype}: held {held}, control "
+                                 f"missed {missed}, launches {launches}")
+    timings = checks["bfloat16"]["timings"]
+    for r, (step_ms, reduce_ms) in enumerate(zip(
+            timings["step_ms"], timings["grad_all_reduce_ms"])):
+        log(f"[dp] rank {r} (gloo, cuda:0, bf16, bs 2): step ms "
+            f"{[round(t, 2) for t in step_ms]}, gradient all-reduce ms "
+            f"{[round(t, 2) for t in reduce_ms]} (one process at bs 2 in "
+            f"phase 9: {train['steady_ms']:.2f} ms steady); {smi}")
+
+    # (3) NCCL: the default backend at world size 1 (a card per rank at 2)
+    one = write_config("chip_smoke_dp_nccl.yaml", lambda c: (
+        c["LOG"].update(EXP_NAME="chip_smoke_dp_nccl"),
+        c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
+    text = _torchrun(1, "tubelet_transformer_tpu_torch.cli.train_ava",
+                     ["--config-file", one], "chip_smoke_dp_nccl.log")
+    nccl = _dist_lines(text, "cuda:nccl,cpu:gloo", 1, ["cuda:0"])
+    if torch.cuda.device_count() >= 2:
+        text = _torchrun(2, "tubelet_transformer_tpu_torch.cli.train_ava",
+                         ["--config-file", cfg_path],
+                         "chip_smoke_dp_nccl2.log")
+        nccl += _dist_lines(text, "cuda:nccl,cpu:gloo", 2,
+                            ["cuda:0", "cuda:1"])
+    else:
+        log("[dp] one card: NCCL at 2 ranks (one a card) not run; NCCL "
+            "refuses two ranks of one communicator on one device")
+    log(f"[dp] train_ava via torchrun with the default backend: {nccl}; "
+        f"{smi}")
+    return {"launches": checks["bfloat16"]["dp"]["launches"],
+            "readings": {k: v["readings"] for k, v in checks.items()},
+            "timings": timings}
 
 
 def main() -> int:
@@ -3772,6 +3964,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[surfaces] the classify, segmentation, streaming, export, plots "
         f"and pack phases: {time.perf_counter() - t_slice:.1f} s; {smi}")
+    t_dp = time.perf_counter()
+    dp = phase_data_parallel(torch, train, smi)
+    log(f"[dp] the data-parallel phase: {time.perf_counter() - t_dp:.1f} s")
 
     # the profiled windows last: a window slows the host work of its
     # process after it, so every time above is taken before the first
@@ -3845,6 +4040,7 @@ def main() -> int:
               launches_moe_train=moe["train_launches"]["stem_pool"],
               launches_moe_serve=moe["serve_launches"]["stem_pool"],
               launches_prenorm_serve=prenorm["serve_launches"]["stem_pool"],
+              launches_dp_step=dp["launches"]["stem_pool"],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -3854,6 +4050,7 @@ def main() -> int:
               launches_frozen_chunk=frozen_chunk["launches"]["stem_stats"],
               launches_accum=accum["launches"]["stem_stats"],
               launches_moe_train=moe["train_launches"]["stem_stats"],
+              launches_dp_step=dp["launches"]["stem_stats"],
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]},
               one_clip_case=stats_cases["ava_256px_clip"]),

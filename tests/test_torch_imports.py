@@ -48,7 +48,10 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.ops.streaming",
             "tubelet_transformer_tpu_torch.plots",
             "tubelet_transformer_tpu_torch.cli.export_torch",
-            "tubelet_transformer_tpu_torch.cli.pack_data"} <= set(modules)
+            "tubelet_transformer_tpu_torch.cli.pack_data",
+            "tubelet_transformer_tpu_torch.parallel",
+            "tubelet_transformer_tpu_torch.parallel.mesh",
+            "tubelet_transformer_tpu_torch.tools.dp_check"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -439,8 +439,8 @@ def test_generate_lfb_then_train_and_eval_with_lfb(tmp_path, monkeypatch):
     steps = []
     make = engine.make_train_step
 
-    def recording(cfg_, state):
-        step = make(cfg_, state)
+    def recording(cfg_, state, **kw):
+        step = make(cfg_, state, **kw)
 
         def run(batch, weight):
             assert batch["lfb_features"].shape == (2, 2 * 5, 64)

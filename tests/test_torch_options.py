@@ -2,9 +2,10 @@
 and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
-model, and the options it leaves out still raise: the mesh options,
-MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which
-the JAX package refuses too."""
+model, and the options it leaves out still raise: the mesh options but
+MESH.DATA (which runs MoE with MESH.DATA > 1 refused), MODEL.INFER_CHUNK,
+and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which the JAX package
+refuses too."""
 
 import pytest
 import torch
@@ -42,7 +43,8 @@ def test_ported_options_reach_the_model():
 
 
 REFUSED = {
-    "mesh_data": lambda c: setattr(c.mesh, "data", 2),
+    "mesh_data": lambda c: (setattr(c.mesh, "data", 2),
+                            setattr(c.model, "moe_experts", 4)),
     "mesh_model": lambda c: setattr(c.mesh, "model", 2),
     "mesh_zero1": lambda c: setattr(c.mesh, "zero1", True),
     "mesh_spatial": lambda c: setattr(c.mesh, "spatial", True),

@@ -219,8 +219,8 @@ def test_sigterm_checkpoints_and_stops(tmp_path, monkeypatch):
     cfg.log.base_path = str(tmp_path)
     make = engine.make_train_step
 
-    def make_then_signal(cfg_, state):
-        step = make(cfg_, state)
+    def make_then_signal(cfg_, state, **kw):
+        step = make(cfg_, state, **kw)
 
         def signalled(batch, weight):
             signal.raise_signal(signal.SIGTERM)

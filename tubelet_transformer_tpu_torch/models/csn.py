@@ -50,13 +50,16 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
   (batch statistics kernel, then the pooled kernel with the batch affine)
   on any device, the wrappers taking their plain versions on the CPU.
   Otherwise the plain conv + BN + ReLU + max-pool.
+* Data parallelism (``set_rank_mean``): every train-mode BN, the frozen
+  stem's kernel statistics included, normalises by the global batch's
+  statistics, the mean over ranks of each rank's float32 (E[x], E[x^2]).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +85,9 @@ BLOCK_NUMS = {
     "CSN-TINY": (1, 1, 1, 1),
 }
 
+
+# the mean over data-parallel ranks of a stacked batch statistic
+RankMean = Callable[[torch.Tensor], torch.Tensor]
 
 # set on the thread that recomputes a checkpointed block in the backward
 _RECOMPUTE = threading.local()
@@ -117,7 +123,8 @@ def cast(t: Optional[torch.Tensor], x: torch.Tensor
     return t if t is None or t.dtype == x.dtype else t.to(x.dtype)
 
 
-def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def batch_stats(x: torch.Tensor, rank_mean: Optional[RankMean] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean and biased variance over every axis but the last, as the JAX
     package takes them (csn.py:100-103): ``E[x]`` and ``E[x^2] - E[x]^2``
     from float32 (for a float64 x, float64) sums, not clamped; the gradient
@@ -126,7 +133,13 @@ def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     by each reduction, which accumulates in float32 without a float32 copy
     of x: ``E[x^2]`` is the float32 sum of squares of
     ``torch.linalg.vector_norm``, squared back, within 2 float32 ulps of
-    the sum itself and far inside the error of the sum's order."""
+    the sum itself and far inside the error of the sum's order.
+
+    ``rank_mean`` (data parallelism: ``parallel.mesh.Mesh.batch_mean``)
+    takes the mean over ranks of the stacked (E[x], E[x^2]) before the
+    variance is formed, so that every rank normalises by the global
+    batch's statistics, as the JAX step on a batch sharded over 'data'
+    does."""
     dims = tuple(range(x.dim() - 1))
     acc = torch.promote_types(x.dtype, torch.float32)
     if x.dtype == acc:
@@ -136,6 +149,8 @@ def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         n = x.numel() // x.shape[-1]
         mean = x.sum(dims, dtype=acc) / n
         msq = torch.linalg.vector_norm(x, 2, dims, dtype=acc).square() / n
+    if rank_mean is not None:
+        mean, msq = rank_mean(torch.stack([mean, msq])).unbind()
     return mean, msq - mean.square()
 
 
@@ -145,6 +160,9 @@ class FoldableBN(nn.BatchNorm3d):
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        # data parallelism: the mean over ranks of the batch statistics
+        # (CSN.set_rank_mean); None on one device
+        self.rank_mean: Optional[RankMean] = None
 
     def folded(self):
         """float32 (mul, shift) with the running statistics folded in."""
@@ -170,7 +188,7 @@ class FoldableBN(nn.BatchNorm3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mul, shift = self.batch_affine(*batch_stats(x))
+            mul, shift = self.batch_affine(*batch_stats(x, self.rank_mean))
         else:
             mul, shift = self.folded()
         return torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
@@ -185,7 +203,7 @@ class ShortcutBN(FoldableBN):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = batch_stats(x)
+            mean, var = batch_stats(x, self.rank_mean)
             var = var.clamp_min(0.0)
             self.update_running(mean, var)
         else:
@@ -343,6 +361,14 @@ class CSN(nn.Module):
         # stage index -> (key, the stacked parameters of each chain)
         self._chains: dict = {}
 
+    def set_rank_mean(self, rank_mean: Optional[RankMean]) -> None:
+        """Every train-mode BN of the trunk, the stem's included, takes its
+        batch statistics' mean over data-parallel ranks with ``rank_mean``
+        (``batch_stats``); None for one device."""
+        for m in self.modules():
+            if isinstance(m, FoldableBN):
+                m.rank_mean = rank_mean
+
     def kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The stem weight in the kernels' (3,7,7,3,64) layout and ``dtype``,
         made once per change of ``conv1.weight`` (load, cast, move or
@@ -412,6 +438,14 @@ class CSN(nn.Module):
             w = self.kernel_weight(x.dtype)
             x = x.detach()
             mean, var = stem_batch_stats(x, w)
+            if self.bn1.rank_mean is not None:
+                # the global statistics from each rank's: E[y^2] rebuilt as
+                # var + mean^2 in float32 is the kernel's own float32
+                # E[y^2] exactly where var <= mean^2 (the kernel's
+                # subtraction was exact there) and within an ulp elsewhere
+                mean, msq = self.bn1.rank_mean(
+                    torch.stack([mean, var + mean.square()])).unbind()
+                var = msq - mean.square()
             mul, shift = self.bn1.batch_affine(mean, var)
             return stem_forward(x, w, mul.detach(), shift.detach())
         x = channels_last(self.conv1._conv_forward(

@@ -14,6 +14,10 @@ checkpoint, with or without the DDP ``module.`` prefix, or the port's own
 copies the tensors present on both sides, raises on a shape mismatch and
 prints the counts, as the JAX loaders' ``_merge`` does. The JAX package's
 orbax directories are not read: the port imports torch only.
+
+Under data parallelism rank 0 alone writes a checkpoint (the ranks' states
+are equal), and every rank waits for it at a barrier; every rank loads the
+one path that rank 0 chose (``parallel.mesh.broadcast_string``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from tubelet_transformer_tpu_torch import convert
 from tubelet_transformer_tpu_torch.config import Config
+from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.train.engine import TrainState
 
 
@@ -43,9 +48,19 @@ def _epoch_of(path: str) -> int:
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
                     max_accuracy: float = 0.0, keep: int = 0) -> str:
     """Write ``ckpt_epoch_{epoch}`` under ``ckpt_dir``; ``keep`` > 0 then
-    deletes all but the newest ``keep`` checkpoints of the directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    deletes all but the newest ``keep`` checkpoints of the directory. Under
+    data parallelism rank 0 writes and deletes, and every rank returns the
+    path once the file is there."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"ckpt_epoch_{epoch}"))
+    if mesh_lib.is_main_process():
+        _write_checkpoint(ckpt_dir, path, state, epoch, max_accuracy, keep)
+    mesh_lib.barrier()
+    return path
+
+
+def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
+                      epoch: int, max_accuracy: float, keep: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": state.step, "updates": state.updates, "epoch": epoch,
@@ -59,7 +74,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
         for old in done[:-keep]:
             if os.path.abspath(old) != path:
                 os.remove(old)
-    return path
 
 
 def load_checkpoint(path: str, state: TrainState

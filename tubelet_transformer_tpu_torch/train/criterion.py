@@ -12,15 +12,52 @@ has no box). Targets are padded: boxes (B, M, 4) normalised cxcywh, labels
 aux (per-decoder-layer) losses fold the layer axis into the batch and share
 one matcher call. Reductions follow torch: the weighted CE divides by the
 sum of the applied weights, the weighted BCE is a plain mean of w * elem.
+
+Data parallelism: ``reduce`` is the sum over ranks of a normaliser
+(``parallel.mesh.Mesh.count_sum``; the identity on one device). Every
+divisor (the box count, a sum of class weights, the element count of a
+mean, class_error's counts) is summed over ranks before it divides, so
+each loss term a rank returns is its additive share of the global batch's
+term: the shares sum to it, and so do their gradients. ``class_error``
+(``GLOBAL_KEYS``) is the global value itself on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 
 from tubelet_transformer_tpu_torch.ops import box_ops, matcher
+
+
+# the loss-dict entries that are global values, not a rank's share
+GLOBAL_KEYS = ("class_error",)
+
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _global_mean(x: torch.Tensor, dims: tuple, reduce: Reduce
+                 ) -> torch.Tensor:
+    """This rank's share of the mean over ``dims`` of the global batch: its
+    sum over the element count summed over ranks."""
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    return x.sum(dims) / reduce(x.new_tensor(float(n)))
+
+
+def _class_error(correct: torch.Tensor, mf: torch.Tensor, dims: tuple,
+                 reduce: Reduce) -> torch.Tensor:
+    """100 (1 - matched correct / matched), both counts summed over ranks
+    in one reduction."""
+    n_match, n_correct = reduce(torch.stack(
+        [mf.sum(dims), (correct * mf).sum(dims)])).unbind()
+    return 100.0 * (1.0 - n_correct / n_match.clamp(min=1.0))
 
 
 class TargetsAVA(NamedTuple):
@@ -45,13 +82,15 @@ def _stable_bce_from_logits(logits: torch.Tensor, targets: torch.Tensor
 
 
 def _weighted_ce(logits: torch.Tensor, target_idx: torch.Tensor,
-                 class_weights: torch.Tensor, dims=None) -> torch.Tensor:
+                 class_weights: torch.Tensor, dims=None,
+                 reduce: Reduce = _identity) -> torch.Tensor:
     """torch F.cross_entropy with per-class weights, sum(w*nll)/sum(w),
-    reduced over ``dims`` of target_idx (all of them by default)."""
+    reduced over ``dims`` of target_idx (all of them by default), sum(w)
+    summed over ranks."""
     dims = tuple(range(target_idx.dim())) if dims is None else dims
     nll = -logits.log_softmax(-1).gather(-1, target_idx[..., None])[..., 0]
     w = class_weights[target_idx]
-    return (w * nll).sum(dims) / w.sum(dims).clamp(min=1e-12)
+    return (w * nll).sum(dims) / reduce(w.sum(dims)).clamp(min=1e-12)
 
 
 def match_ava(pred_boxes: torch.Tensor, pred_logits_b: torch.Tensor,
@@ -99,9 +138,11 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                      pred_logits_b: torch.Tensor, targets: TargetsAVA,
                      tgt_for_query: torch.Tensor, num_boxes: torch.Tensor, *,
                      weight: float, eos_coef: float,
-                     evaluation: bool = False) -> Dict[str, torch.Tensor]:
+                     evaluation: bool = False, reduce: Reduce = _identity
+                     ) -> Dict[str, torch.Tensor]:
     """Losses of the layers stacked on a leading axis (L, B, Q, .): each
-    returned value is (L,). ``tgt_for_query`` is (L, B, Q)."""
+    returned value is (L,). ``tgt_for_query`` is (L, B, Q); ``num_boxes``
+    the global box count."""
     matched = tgt_for_query >= 0                                  # (L,B,Q)
     lay_n = pred_logits.shape[0]
     mf = matched.float()
@@ -110,7 +151,7 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     # actorness CE: target 1 matched / 2 unmatched, weights [1, 1, eos]
     cw = torch.tensor([1.0, 1.0, eos_coef], device=pred_logits.device)
     loss_ce_b = _weighted_ce(pred_logits_b, torch.where(matched, 1, 2), cw,
-                             red)
+                             red, reduce)
 
     # multi-label BCE, weight on the matched queries
     def per_layer(x):                    # (L,B,M,.) -> (L*B,M,.)
@@ -122,10 +163,10 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     tgt_cls = torch.where(matched[..., None], tgt_cls, 0.0)
     bce = _stable_bce_from_logits(pred_logits, tgt_cls)
     if evaluation:
-        loss_ce = bce.mean(red + (3,))
+        loss_ce = _global_mean(bce, red + (3,), reduce)
     else:
         wq = torch.where(matched, weight, 1.0)[..., None]
-        loss_ce = (wq * bce).mean(red + (3,))
+        loss_ce = _global_mean(wq * bce, red + (3,), reduce)
 
     # box L1 + GIoU over the matched pairs, over the total target count
     tgt_box = _gather_matched(targets.boxes.repeat(lay_n, 1, 1),
@@ -144,8 +185,7 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
         rank = pred_logits.argsort(-1, descending=True).argsort(-1)
         correct = ((pos == (rank < k_pos[..., None])).all(-1)
                    & (k_pos > 0)).float()
-        n_match = mf.sum(red).clamp(min=1.0)
-        class_error = 100.0 * (1.0 - (correct * mf).sum(red) / n_match)
+        class_error = _class_error(correct, mf, red, reduce)
 
     return {"loss_ce": loss_ce, "loss_ce_b": loss_ce_b,
             "loss_bbox": loss_bbox, "loss_giou": loss_giou,
@@ -155,11 +195,12 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 def criterion_ava(outputs: Dict[str, torch.Tensor], targets: TargetsAVA, *,
                   cost_class: float, cost_bbox: float, cost_giou: float,
                   weight: float, eos_coef: float, aux_loss: bool = True,
-                  evaluation: bool = False) -> Dict[str, torch.Tensor]:
+                  evaluation: bool = False, reduce: Reduce = _identity
+                  ) -> Dict[str, torch.Tensor]:
     """The AVA criterion over the last layer (and the stacked aux layers):
     loss_ce / loss_ce_b / loss_bbox / loss_giou / class_error, plus
     ``_<i>``-suffixed aux entries."""
-    num_boxes = targets.valid.float().sum().clamp(min=1.0)
+    num_boxes = reduce(targets.valid.float().sum()).clamp(min=1.0)
     if aux_loss:
         logits = outputs["aux_logits"]                 # (L, B, Q, C)
         boxes = outputs["aux_boxes"]
@@ -178,7 +219,8 @@ def criterion_ava(outputs: Dict[str, torch.Tensor], targets: TargetsAVA, *,
                        cost_class, cost_bbox, cost_giou)
     per_layer = ava_layer_losses(
         logits, boxes, logits_b, targets, tfq.reshape(lay_n, b, q),
-        num_boxes, weight=weight, eos_coef=eos_coef, evaluation=evaluation)
+        num_boxes, weight=weight, eos_coef=eos_coef, evaluation=evaluation,
+        reduce=reduce)
 
     losses = {k: v[-1] for k, v in per_layer.items()}
     if aux_loss:
@@ -191,12 +233,13 @@ def criterion_ava(outputs: Dict[str, torch.Tensor], targets: TargetsAVA, *,
 def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                      pred_logits_b: torch.Tensor, targets: TargetsUCF,
                      tgt_for_query: torch.Tensor, num_boxes: torch.Tensor, *,
-                     eos_coef: float, num_classes: int
-                     ) -> Dict[str, torch.Tensor]:
+                     eos_coef: float, num_classes: int,
+                     reduce: Reduce = _identity) -> Dict[str, torch.Tensor]:
     """Losses of the softmax (JHMDB/UCF) criterion for the layers stacked
     on a leading axis: ``pred_*`` (L, B, Q, .) already key-frame gathered,
     ``pred_logits_b`` the clip-level (L, B, 2) visibility head,
-    ``tgt_for_query`` (L, B, Q). Each returned value is (L,)."""
+    ``tgt_for_query`` (L, B, Q), ``num_boxes`` the global box count (0
+    when no rank holds a box). Each returned value is (L,)."""
     matched = tgt_for_query >= 0                                  # (L,B,Q)
     lay_n = pred_logits.shape[0]
     mf = matched.float()
@@ -204,7 +247,8 @@ def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 
     # visibility CE over (B, 2), unweighted (criterion.py:251-253)
     vis = targets.vis.long()[None, :, None].expand(lay_n, -1, 1)
-    loss_ce_b = -pred_logits_b.log_softmax(-1).gather(-1, vis)[..., 0].mean(1)
+    loss_ce_b = _global_mean(
+        -pred_logits_b.log_softmax(-1).gather(-1, vis)[..., 0], (1,), reduce)
 
     # softmax CE with the no-object class at weight eos_coef
     tfq = tgt_for_query.flatten(0, 1)
@@ -214,7 +258,7 @@ def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     tgt_full = torch.where(matched, tgt_ids, num_classes)
     cw = torch.ones(num_classes + 1, device=pred_logits.device)
     cw[-1] = eos_coef
-    loss_ce = _weighted_ce(pred_logits, tgt_full, cw, red)
+    loss_ce = _weighted_ce(pred_logits, tgt_full, cw, red, reduce)
 
     # box losses over the matched pairs, 0 when the batch has no box
     # (criterion.py:308-318)
@@ -232,8 +276,7 @@ def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     # top-1 accuracy of the matched queries (logging only)
     with torch.no_grad():
         correct = ((pred_logits.argmax(-1) == tgt_full) & matched).float()
-        n_match = mf.sum(red).clamp(min=1.0)
-        class_error = 100.0 * (1.0 - correct.sum(red) / n_match)
+        class_error = _class_error(correct, mf, red, reduce)
 
     return {"loss_ce": loss_ce, "loss_ce_b": loss_ce_b,
             "loss_bbox": loss_bbox, "loss_giou": loss_giou,
@@ -252,7 +295,8 @@ def gather_key_frame_queries(x: torch.Tensor, key_pos: torch.Tensor,
 def criterion_ucf(outputs: Dict[str, torch.Tensor], targets: TargetsUCF, *,
                   cost_class: float, cost_bbox: float, cost_giou: float,
                   eos_coef: float, num_classes: int, num_queries: int,
-                  aux_loss: bool = True) -> Dict[str, torch.Tensor]:
+                  aux_loss: bool = True, reduce: Reduce = _identity
+                  ) -> Dict[str, torch.Tensor]:
     """The JHMDB/UCF criterion with the key-frame query gather, over the
     last layer (and the stacked aux layers)."""
     if aux_loss:
@@ -278,8 +322,9 @@ def criterion_ucf(outputs: Dict[str, torch.Tensor], targets: TargetsUCF, *,
                        cost_class, cost_bbox, cost_giou)
     per_layer = ucf_layer_losses(
         logits_k, boxes_k, logits_b, targets,
-        tfq.reshape(lay_n, b, num_queries), targets.valid.float().sum(),
-        eos_coef=eos_coef, num_classes=num_classes)
+        tfq.reshape(lay_n, b, num_queries),
+        reduce(targets.valid.float().sum()), eos_coef=eos_coef,
+        num_classes=num_classes, reduce=reduce)
 
     losses = {k: v[-1] for k, v in per_layer.items()}
     if aux_loss:

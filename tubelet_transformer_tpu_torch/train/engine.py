@@ -22,9 +22,20 @@ running statistics, which the forward has already updated in place and are
 put back from a copy taken before it.
 
 Randomness is a ``torch.Generator`` on the model's device, reseeded at each
-step from ``TRAIN.SEED`` and the step number, so that a resumed run draws
-what the uninterrupted one would have (the JAX step folds the step into its
-key the same way).
+step from ``TRAIN.SEED``, the step number and the data-parallel rank, so
+that a resumed run draws what the uninterrupted one would have (the JAX step
+folds the step into its key the same way), and two ranks never draw the same
+jitter or dropout masks.
+
+Data parallelism (``MESH.DATA``, a ``parallel.mesh.Mesh`` of more than one
+rank): each rank runs the step on its shard of the global batch. The BN
+statistics are the global batch's (``CSN.set_rank_mean``), the criterion's
+normalisers are summed over ranks, so that each rank's loss terms are its
+additive shares of the global batch's, and after the backward one flat
+all-reduce sums the ranks' gradients: the gradient of the global loss, on
+every rank. The clip, the NaN guard (on the global total) and AdamW then
+see the same values on every rank, and the metrics are the global ones.
+With ACCUM_STEPS, microbatch i is the union of every rank's local slice i.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from tubelet_transformer_tpu_torch.data.device_preprocess import (
     device_preprocess)
 from tubelet_transformer_tpu_torch.models.csn import FoldableBN
 from tubelet_transformer_tpu_torch.models.tuber import TubeR, dataset_mode
+from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
 from tubelet_transformer_tpu_torch.train import criterion as crit
 from tubelet_transformer_tpu_torch.train.optimizer import (
     build_optimizer, clip_by_global_norm, set_learning_rate,
@@ -90,11 +102,12 @@ def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             "lfb_mask": batch["lfb_mask"]}
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the step options not ported yet."""
+def check_supported(cfg: Config, data: int | None = None) -> None:
+    """Raise NotImplementedError for the step options not ported yet;
+    ``data`` is the mesh's 'data' size (``cfg.mesh.data`` when None)."""
+    data = cfg.mesh.data if data is None else data
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
-        "MESH.DATA > 1": cfg.mesh.data > 1,
         "MESH.MODEL > 1": cfg.mesh.model > 1,
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
         "MESH.ZERO1": cfg.mesh.zero1,
@@ -103,6 +116,13 @@ def check_supported(cfg: Config) -> None:
     for name, asked in unsupported.items():
         if asked:
             raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.model.moe_experts > 0 and data > 1:
+        # the load-balance loss multiplies two means over the batch's
+        # tokens: no sum of per-rank shares gives its gradient
+        raise NotImplementedError(
+            "MODEL.MOE_EXPERTS with MESH.DATA > 1 is not ported yet: the "
+            "MoE auxiliary loss is a product of global means, not a sum of "
+            "per-rank shares")
 
 
 def is_ava_mode(cfg: Config) -> bool:
@@ -119,18 +139,47 @@ def _targets_from_batch(cfg: Config, batch: Dict[str, torch.Tensor]):
                            key_pos=batch["key_pos"])
 
 
-def compute_losses(cfg: Config, outputs, targets, evaluation: bool = False):
+def compute_losses(cfg: Config, outputs, targets, evaluation: bool = False,
+                   mesh: Mesh = Mesh()):
+    """The criterion of the dataset's mode; under data parallelism each
+    loss term is this rank's share (``criterion.GLOBAL_KEYS`` aside)."""
     if is_ava_mode(cfg):
         return crit.criterion_ava(
             outputs, targets, cost_class=cfg.matcher.cost_class,
             cost_bbox=cfg.matcher.cost_bbox, cost_giou=cfg.matcher.cost_giou,
             weight=cfg.loss.weight, eos_coef=cfg.loss.eos_cof,
-            aux_loss=cfg.train.aux_loss, evaluation=evaluation)
+            aux_loss=cfg.train.aux_loss, evaluation=evaluation,
+            reduce=mesh.count_sum)
     return crit.criterion_ucf(
         outputs, targets, cost_class=cfg.matcher.cost_class,
         cost_bbox=cfg.matcher.cost_bbox, cost_giou=cfg.matcher.cost_giou,
         eos_coef=cfg.loss.eos_cof, num_classes=cfg.data.num_classes,
-        num_queries=cfg.model.query_num, aux_loss=cfg.train.aux_loss)
+        num_queries=cfg.model.query_num, aux_loss=cfg.train.aux_loss,
+        reduce=mesh.count_sum)
+
+
+def global_losses(loss_dict: Dict[str, torch.Tensor], mesh: Mesh
+                  ) -> Dict[str, torch.Tensor]:
+    """The global batch's loss dict from this rank's shares: one
+    all-reduce of the stacked shares (``criterion.GLOBAL_KEYS`` are global
+    already)."""
+    if mesh.data == 1:
+        return loss_dict
+    keys = [k for k in loss_dict if k not in crit.GLOBAL_KEYS]
+    summed = mesh.share_sum(torch.stack([loss_dict[k] for k in keys]))
+    return {**loss_dict, **dict(zip(keys, summed.unbind()))}
+
+
+def sync_gradients(params: List[torch.nn.Parameter], mesh: Mesh) -> None:
+    """Sum each gradient over ranks in place, in one all-reduce of the
+    gradients flattened into one buffer. Every rank has run the same graph,
+    so the same parameters have gradients on every rank."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if mesh.data == 1 or not grads:
+        return
+    flat = mesh.share_sum(torch.cat([g.reshape(-1) for g in grads]))
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
 
 
 def weighted_total(cfg: Config, loss_dict: Dict[str, torch.Tensor],
@@ -148,14 +197,18 @@ def _bn_stats(model: torch.nn.Module) -> List[torch.Tensor]:
             for t in (m.running_mean, m.running_var)]
 
 
-def make_train_step(cfg: Config, state: TrainState):
+def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     """The train step: (batch on the device, loss_ce weight) -> metrics
-    (0-dim tensors), updating ``state`` in place."""
-    check_supported(cfg)
+    (0-dim tensors, the global batch's under data parallelism), updating
+    ``state`` in place. ``mesh``: this process's place on the 'data' axis
+    (one device by default); the batch is this rank's shard."""
+    check_supported(cfg, mesh.data)
     model = state.model
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     model.set_dropout_generator(generator)
+    model.backbone.body.set_rank_mean(mesh.batch_mean if mesh.data > 1
+                                      else None)
     params = trainable_params(state.optimizer)
     stats = _bn_stats(model)
     saved = [torch.empty_like(t) for t in stats]
@@ -167,7 +220,7 @@ def make_train_step(cfg: Config, state: TrainState):
         the loss terms, detached."""
         outputs = model(clips, batch.get("pad_mask"), **lfb_kwargs(batch))
         loss_dict = compute_losses(cfg, outputs,
-                                   _targets_from_batch(cfg, batch))
+                                   _targets_from_batch(cfg, batch), mesh=mesh)
         total = weighted_total(cfg, loss_dict, loss_ce_weight)
         if "moe_aux" in outputs:
             loss_dict["loss_moe_aux"] = outputs["moe_aux"]
@@ -178,7 +231,10 @@ def make_train_step(cfg: Config, state: TrainState):
     def train_step(batch: Dict[str, torch.Tensor], loss_ce_weight: float
                    ) -> Dict[str, torch.Tensor]:
         model.train()
-        generator.manual_seed(state.seed * 1_000_003 + state.step)
+        # the rank by an odd 32-bit multiplier: the CPU generator keeps
+        # the low 32 bits of a seed
+        generator.manual_seed(state.seed * 1_000_003 + state.step
+                              + mesh.rank * 2_654_435_761)
         clips = device_preprocess(batch["clips"], dtype=model.dtype,
                                   pad_mask=batch.get("pad_mask"),
                                   jitter=True, generator=generator)
@@ -198,6 +254,9 @@ def make_train_step(cfg: Config, state: TrainState):
             else:
                 total = total + t
                 loss_dict = {k: loss_dict[k] + v for k, v in ld.items()}
+        sync_gradients(params, mesh)
+        loss_dict = global_losses({**loss_dict, "total_loss": total}, mesh)
+        total = loss_dict.pop("total_loss")
         if accum > 1:
             # the sums first, then the scaling, as the JAX step
             inv = 1.0 / accum
@@ -223,11 +282,12 @@ def make_train_step(cfg: Config, state: TrainState):
     return train_step
 
 
-def make_eval_step(cfg: Config, model: TubeR):
+def make_eval_step(cfg: Config, model: TubeR, mesh: Mesh = Mesh()):
     """The eval step: batch on the device -> detections (postprocess_ava,
-    or postprocess_softmax for JHMDB/UCF) and, unless VAL.COMPUTE_LOSSES is
-    off, the criterion's losses."""
-    check_supported(cfg)
+    or postprocess_softmax for JHMDB/UCF) of this rank's shard and, unless
+    VAL.COMPUTE_LOSSES is off, the criterion's losses of the global
+    batch."""
+    check_supported(cfg, mesh.data)
     postprocess = postprocess_ava if is_ava_mode(cfg) else postprocess_softmax
 
     @torch.inference_mode()
@@ -238,9 +298,9 @@ def make_eval_step(cfg: Config, model: TubeR):
                                           pad_mask=pad_mask), pad_mask,
                         **lfb_kwargs(batch))
         if cfg.val.compute_losses:
-            losses = compute_losses(cfg, outputs,
-                                    _targets_from_batch(cfg, batch),
-                                    evaluation=True)
+            losses = global_losses(compute_losses(
+                cfg, outputs, _targets_from_batch(cfg, batch),
+                evaluation=True, mesh=mesh), mesh)
         else:
             losses = {k: torch.zeros(()) for k in
                       ("loss_ce", "loss_ce_b", "loss_bbox", "loss_giou")}

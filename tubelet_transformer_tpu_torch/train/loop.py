@@ -1,11 +1,18 @@
 """Epoch-level orchestration: the training loop, AVA validation and
 JHMDB/UCF24 validation.
 
-Port of ``tubelet_transformer_tpu/train/loop.py`` for one process: the
-per-iteration body is one train step (train/engine.py); validation feeds the
-numpy evaluators of ``eval/ava_eval.py`` (frame mAP and person AP), or of
+Port of ``tubelet_transformer_tpu/train/loop.py``: the per-iteration body
+is one train step (train/engine.py); validation feeds the numpy evaluators
+of ``eval/ava_eval.py`` (frame mAP and person AP), or of
 ``eval/ucf_eval.py`` and ``eval/video_map.py`` (frame mAP over the key
 frame's tubelet queries, and video mAP by tube linking).
+
+Under data parallelism every rank runs the steps on its shard; the
+metrics the steps return are global, and rank 0 alone prints, logs and
+profiles them. Validation gathers each batch's detections and ground
+truth from every rank in one host collective
+(``parallel.mesh.gather_global_tree``), and rank 0 alone evaluates,
+dumps and plots; the other ranks return the losses alone.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from tubelet_transformer_tpu_torch.eval.ava_eval import (
     AVADetectionEvaluator, PersonDetectionEvaluator, dump_detections_txt,
     load_excluded_keys)
 from tubelet_transformer_tpu_torch import profiling
+from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.utils import AverageMeter, MetricsWriter
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.train.engine import TrainState, device_batch
@@ -44,7 +52,8 @@ def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
     package)."""
     loader.set_epoch(epoch)
     device = next(state.model.parameters()).device
-    prof_steps = cfg.log.profile_steps if epoch == 0 else 0
+    is_main = mesh_lib.is_main_process()
+    prof_steps = cfg.log.profile_steps if epoch == 0 and is_main else 0
     prof = contextlib.ExitStack()
 
     def stop_trace():
@@ -69,21 +78,22 @@ def train_one_epoch(cfg: Config, train_step, state: TrainState, loader,
         metrics = train_step(device_batch(batch, device), ce_w)
         if (it + 1) % cfg.log.display_freq == 0 or it + 1 == n_batches:
             metrics = {k: float(v) for k, v in metrics.items()}
-            if not metrics["finite"]:
-                print(f"WARNING: non-finite loss at epoch {epoch} it {it}; "
-                      "update skipped")
             bs = batch["clips"].shape[0]
             for k, m in meters.items():
                 m.update(metrics[k], bs)
             step_time.update(time.time() - end)
-            print(f"Epoch: [{epoch}][{it + 1}/{n_batches}] "
-                  f"loss {meters['total_loss'].avg:.4f} "
-                  f"ce {meters['loss_ce'].avg:.4f} "
-                  f"bbox {meters['loss_bbox'].avg:.4f} "
-                  f"giou {meters['loss_giou'].avg:.4f} "
-                  f"ce_b {meters['loss_ce_b'].avg:.4f} "
-                  f"data {data_time.avg:.3f}s step {step_time.avg:.3f}s",
-                  flush=True)
+            if is_main:
+                if not metrics["finite"]:
+                    print(f"WARNING: non-finite loss at epoch {epoch} it "
+                          f"{it}; update skipped")
+                print(f"Epoch: [{epoch}][{it + 1}/{n_batches}] "
+                      f"loss {meters['total_loss'].avg:.4f} "
+                      f"ce {meters['loss_ce'].avg:.4f} "
+                      f"bbox {meters['loss_bbox'].avg:.4f} "
+                      f"giou {meters['loss_giou'].avg:.4f} "
+                      f"ce_b {meters['loss_ce_b'].avg:.4f} "
+                      f"data {data_time.avg:.3f}s "
+                      f"step {step_time.avg:.3f}s", flush=True)
             if writer:
                 for k, m in meters.items():
                     writer.add_scalar(f"train/{k}", m.val, state.step)
@@ -116,16 +126,23 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
                   for lo, hi in (cfg.val.person_size_bands or ())]
     loss_meters = {k: AverageMeter(k) for k in LOSS_KEYS}
     dump_rows, dumped_keys = [], set()
+    is_main = mesh_lib.is_main_process()
 
     for batch in loader:
         out = eval_step(device_batch(batch, device))
         bs = batch["clips"].shape[0]
         for k, m in loss_meters.items():
             m.update(float(out["losses"][k]), bs)
-        scores, boxes, binary = (out[k].float().cpu().numpy()
-                                 for k in ("scores", "boxes", "binary"))
-        for i in range(bs):
-            idx = int(batch["key_idx"][i])
+        # the global batch, rank-major
+        g = mesh_lib.gather_global_tree({
+            **{k: out[k].float() for k in ("scores", "boxes", "binary")},
+            "key_idx": batch["key_idx"], "sizes": batch["sizes"],
+            **{f"gt_{k}": batch[k] for k in ("boxes", "labels", "valid")}})
+        if not is_main:
+            continue
+        scores, boxes, binary = g["scores"], g["boxes"], g["binary"]
+        for i in range(len(g["key_idx"])):
+            idx = int(g["key_idx"][i])
             image_key = dataset.keys[idx].replace(",", "_") if hasattr(
                 dataset, "keys") else f"idx_{idx}"
             evaluator.add_detections(image_key, boxes[i], scores[i])
@@ -133,13 +150,13 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
             for _, _, bev in band_evals:
                 bev.add_detections(image_key, boxes[i], binary[i][:, 0])
             # ground truth: normalised cxcywh -> absolute xyxy
-            h, w = batch["sizes"][i]
-            gv = batch["valid"][i]
-            cx, cy, bw, bh = batch["boxes"][i][gv].astype(np.float64).T
+            h, w = g["sizes"][i]
+            gv = g["gt_valid"][i]
+            cx, cy, bw, bh = g["gt_boxes"][i][gv].astype(np.float64).T
             gxyxy = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
                               cy + bh / 2], 1) * np.array([w, h, w, h])
             evaluator.add_ground_truth(image_key, gxyxy,
-                                       batch["labels"][i][gv])
+                                       g["gt_labels"][i][gv])
             person_eval.add_ground_truth(image_key, gxyxy)
             for _, _, bev in band_evals:
                 bev.add_ground_truth(image_key, gxyxy)
@@ -151,6 +168,8 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
                      + [binary[i][q, 0]]) for q in range(boxes.shape[1]))
 
     result: Dict[str, float] = {k: m.avg for k, m in loss_meters.items()}
+    if not is_main:
+        return result
     if dump_dir is not None:
         os.makedirs(dump_dir, exist_ok=True)
         dump_detections_txt(os.path.join(dump_dir, "0.txt"), dump_rows)
@@ -205,18 +224,25 @@ def validate_ucf(cfg: Config, eval_step, model: torch.nn.Module, loader,
     video_eval = (VideoMAPEvaluator(n_cls, video_map_thresholds)
                   if do_video else None)
 
+    is_main = mesh_lib.is_main_process()
     for batch in loader:
         out = eval_step(device_batch(batch, device))
-        scores, boxes = (out[k].float().cpu().numpy()
-                         for k in ("scores", "boxes"))
-        for i in range(batch["clips"].shape[0]):
-            idx = int(batch["key_idx"][i])
+        # the global batch, rank-major
+        g = mesh_lib.gather_global_tree({
+            **{k: out[k].float() for k in ("scores", "boxes")},
+            **{k: batch[k] for k in ("key_idx", "key_pos", "sizes", "vis")},
+            **{f"gt_{k}": batch[k] for k in ("boxes", "labels", "valid")}})
+        if not is_main:
+            continue
+        scores, boxes = g["scores"], g["boxes"]
+        for i in range(len(g["key_idx"])):
+            idx = int(g["key_idx"][i])
             if hasattr(dataset, "samples"):
                 vid, fid = dataset.samples[idx]
                 image_key = str(vid).replace("/", "_") + "-" + str(fid)
             else:
                 image_key = f"idx_{idx}"
-            kp = int(batch["key_pos"][i])
+            kp = int(g["key_pos"][i])
             det_boxes = boxes[i][kp * q:(kp + 1) * q]
             det_scores = scores[i][kp * q:(kp + 1) * q]     # (Q, C+1)
             evaluator.add_detections(image_key, det_boxes, det_scores)
@@ -232,19 +258,21 @@ def validate_ucf(cfg: Config, eval_step, model: torch.nn.Module, loader,
                         str(vid), int(fid), det_boxes[keep], cls,
                         fg[np.arange(len(cls)), cls])
 
-            h, w = batch["sizes"][i]
-            gv = batch["valid"][i]
-            gb = batch["boxes"][i][gv]
-            if gb.size and int(batch["vis"][i]):
+            h, w = g["sizes"][i]
+            gv = g["gt_valid"][i]
+            gb = g["gt_boxes"][i][gv]
+            if gb.size and int(g["vis"][i]):
                 cx, cy, bw, bh = gb.T
                 gxyxy = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
                                   cy + bh / 2], 1) * np.array(
                                       [w, h, w, h], np.float64)
                 onehot = np.zeros((len(gb), n_cls), np.float32)
-                onehot[np.arange(len(gb)), batch["labels"][i][gv]] = 1.0
+                onehot[np.arange(len(gb)), g["gt_labels"][i][gv]] = 1.0
                 evaluator.add_ground_truth(image_key, gxyxy, onehot)
 
     result: Dict[str, float] = {}
+    if not is_main:
+        return result
     maps, _ = evaluator.evaluate()
     for t, m in zip(iou_thresholds, maps):
         result[f"mAP@{t}"] = m
