@@ -139,20 +139,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
 22. the ``pack_data`` CLI on the JHMDB fixture's val split, then
     ``eval_jhmdb`` with ``DATA.PACKED_PATH``: every eval step's scores and
     boxes and the frame and video mAP bit-equal to the unpacked run's;
-23. data parallelism (``MESH.DATA``) over ``torch.distributed``, two ranks
-    on the one card over gloo (NCCL refuses two ranks of one communicator
-    on one device): ``train_ava`` through torchrun on phase 9's YAML (the
-    metrics, config and checkpoint from rank 0 alone); ``tools/dp_check``
+23. the 'data' axis over ``torch.distributed``, two ranks on the one card
+    over gloo (NCCL refuses two ranks of one communicator on one device):
+    ``train_ava`` through torchrun on phase 9's YAML with ``MESH.DATA``
+    and with ``MESH.ZERO1`` (the metrics, config and checkpoint from rank
+    0 alone; the ZeRO-1 file in AdamW's layout); ``tools/dp_check``
     through torchrun, the DP step of 2 ranks x 2 clips against the
     one-process step on the global batch of 4 from one state under
     deterministic algorithms, in bf16 (the stem's global statistics from
-    #4 on each shard against #4 over the whole batch) and in float32 with
-    TF32 off (those, the losses, the gradient norm, every gradient, the
-    running statistics), each reading within its bound and a control of
-    local statistics and normalisers outside every one, with each rank's
-    step and gradient all-reduce times; and
-    ``train_ava`` through torchrun with the default backend (NCCL) at
-    world size 1.
+    #4 on each shard against #4 over the whole batch; ZeRO-1 against the
+    DATA-only step over two steps, bit for bit, its control without the
+    all-gather missing, the moment bytes per rank, the all-gather's ms)
+    and in float32 with TF32 off (those, the losses, the gradient norm,
+    every gradient, the running statistics; the same with MoE encoder
+    FFNs and their load-balance loss; the classifier's DP step), each
+    reading within its bound and a control of local statistics and
+    normalisers outside every one, with each rank's step and gradient
+    all-reduce times; and ``train_ava`` through torchrun with the default
+    backend (NCCL) at world size 1, resuming the ZeRO-1 checkpoint
+    without ZeRO-1 for one more step.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -3719,6 +3724,29 @@ DP_TOL = {"bfloat16": {"stem_mean_rel": 1e-5, "stem_var_rel": 1e-5},
                       "grads_rel": 0.04, "running_update_rel": 1e-3}}
 
 
+# the MoE DP step (MOE, float32, TF32 off) against one process, and the
+# classifier's DP step (CSN-152, 400 classes, 2 x (32, 224, 224) clips a
+# rank) against one process on the 4: each bound between two seeds'
+# readings and their controls' (LocalMesh: the MoE counts, the BN
+# statistics and the loss normalisers of each rank's own shard). MoE:
+# the load-balance loss 5.0e-6-1.6e-5 against 3.8e-4-4.2e-4, the losses
+# 3.8e-4-1.2e-3 against 0.098-0.111 (the plain model reads 1.1e-5-3.0e-5;
+# not isolated: a routing or matching near a tie can flip), the gradient
+# norm 3.2e-5-9.4e-5 against 0.0065-0.022, the gradients 0.0076-0.0091
+# against 0.100-0.133, the running statistics 1.9e-5-2.2e-5 against
+# 0.028. The classifier: the loss 8.5e-6-9.2e-6 against 0.0047-0.0074,
+# the running statistics 3.7e-5-4.7e-5 against 0.053-0.054, the
+# gradients 0.094-0.105 against 1.32-1.33 (on the CPU at CSN-TINY 7.6e-6;
+# here every one of CSN-152's BNs trains, and the trunk's max-pool
+# backward has no deterministic CUDA kernel: the one-process step against
+# a repeat of itself is read beside it as "repeat")
+MOE_DP_TOL = {"moe_aux_rel": 1e-4, "loss_rel": 1e-2, "grad_norm_rel": 1e-3,
+              "grads_rel": 0.04, "running_update_rel": 1e-3,
+              "stem_mean_rel": 1e-5, "stem_var_rel": 1e-5}
+CLASSIFIER_DP_TOL = {"loss_rel": 1e-3, "grads_rel": 0.5,
+                     "running_update_rel": 1e-3}
+
+
 def _torchrun(nproc: int, module: str, argv: list, log_name: str) -> str:
     """``python -m torch.distributed.run --standalone --nproc_per_node
     nproc -m module argv`` from the repository root in a session of its
@@ -3756,31 +3784,20 @@ def _dist_lines(text: str, backend: str, world: int, devices) -> list:
     return lines
 
 
-def phase_data_parallel(torch, train: dict, smi: str) -> dict:
-    """MESH.DATA over torch.distributed: (1) train_ava through torchrun, 2
-    ranks on cuda:0 over gloo, on phase 9's YAML (2 steps a rank, a
-    validation of 4 keyframes a rank): both exit 0, one run directory,
-    one checkpoint and the metrics from rank 0 alone; (2) tools/dp_check
-    through torchrun, 2 ranks x 2 clips against the one-process step on
-    the global batch of 4 from one state, deterministic algorithms, in
-    bf16 and in float32: the stem's global statistics (#4 on each shard,
-    reduced) against #4 over the whole batch, and in float32 the loss
-    dict, the gradient norm, every gradient and the running statistics'
-    updates, each within DP_TOL, the control outside every bound, #4 and
-    #2 launched once each in the DP step, and each rank's step and
-    gradient all-reduce times (bf16); (3) NCCL, the default
-    backend, at world size 1 through train_ava (one rank per card over
-    NCCL at 2 ranks where the machine has two cards)."""
+def _dp_train_cli(torch, train: dict, name: str, edit) -> dict:
+    """train_ava through torchrun, 2 ranks on cuda:0 over gloo, on phase
+    9's YAML with ``edit`` (2 steps a rank, a validation of 4 keyframes a
+    rank), as experiment ``name``: both exit 0, one run directory, one
+    checkpoint and the metrics from rank 0 alone. Returns the YAML, the
+    run directory, the checkpoint, the output and the wall seconds."""
     ranks = ["cuda:0"] * DP_RANKS
-    # (1) the train CLI
-    name = "chip_smoke_dp"
-    cfg_path = write_config(f"{name}.yaml", lambda c: c["LOG"].update(
-        EXP_NAME=name, DISPLAY_FREQ=1), source=train["cfg_path"])
+    cfg_path = write_config(f"{name}.yaml", lambda c: (c["LOG"].update(
+        EXP_NAME=name, DISPLAY_FREQ=1), edit(c)), source=train["cfg_path"])
     t0 = time.perf_counter()
     text = _torchrun(DP_RANKS, "tubelet_transformer_tpu_torch.cli.train_ava",
                      ["--config-file", cfg_path, "--device", "cuda:0",
                       "--dist-backend", "gloo", "--seed", "0"],
-                     "chip_smoke_dp_train.log")
+                     f"{name}_train.log")
     wall = time.perf_counter() - t0
     lines = _dist_lines(text, "gloo", DP_RANKS, ranks)
     runs = glob.glob(str(BUILD_DIR / "chip_smoke_runs" / f"{name}_*"))
@@ -3796,23 +3813,81 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
           and tags.count("val/val_mAP_epoch") == 1
           and len(epoch_lines) == steps
           and Path(runs[0], "config.json").is_file())
-    log(f"[dp] train_ava via torchrun, {DP_RANKS} ranks on cuda:0 over "
-        f"gloo: {lines}; {wall:.1f} s (the processes included); one run "
-        f"directory {len(runs) == 1}, checkpoints {len(ckpts)}, "
+    log(f"[dp] {name}: train_ava via torchrun, {DP_RANKS} ranks on cuda:0 "
+        f"over gloo: {lines}; {wall:.1f} s (the processes included); one "
+        f"run directory {len(runs) == 1}, checkpoints {len(ckpts)}, "
         f"train/total_loss lines {tags.count('train/total_loss')} (the "
         f"{steps} global steps, rank 0 alone), val/val_mAP_epoch "
         f"{tags.count('val/val_mAP_epoch')}; rank 0's epoch lines: "
-        f"{[x.split(' data ')[0] for x in epoch_lines]}; {smi}")
+        f"{[x.split(' data ')[0] for x in epoch_lines]}")
     if not ok:
-        raise AssertionError(f"dp train: runs {runs}, ckpts {ckpts}, tags "
-                             f"{tags}, epoch lines {epoch_lines}")
+        raise AssertionError(f"dp train {name}: runs {runs}, ckpts {ckpts}, "
+                             f"tags {tags}, epoch lines {epoch_lines}")
+    return {"cfg_path": cfg_path, "run": runs[0], "ckpt": ckpts[0],
+            "text": text, "wall": wall}
 
-    # (2) the DP step against the one-process step, with its control
+
+def _optimizer_layout(torch, path: str) -> dict:
+    """A checkpoint's optimizer state dict reduced to its layout: each
+    group's keys and parameter indices, and each state entry's shapes."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)["optimizer"]
+    return {"groups": [(sorted(g), g["params"]) for g in sd["param_groups"]],
+            "state": {i: {k: tuple(v.shape) for k, v in st.items()}
+                      for i, st in sd["state"].items()}}
+
+
+def _held(readings: dict, tol: dict) -> tuple[dict, dict]:
+    """Each bounded reading of the DP step within its bound, and of the
+    control outside it."""
+    return ({k: readings["dp"][k] <= v for k, v in tol.items()},
+            {k: readings["control"][k] > v for k, v in tol.items()})
+
+
+def phase_data_parallel(torch, train: dict, smi: str) -> dict:
+    """The 'data' axis over torch.distributed, 2 ranks on cuda:0 over gloo.
+    (1) train_ava through torchrun on phase 9's YAML (2 steps a rank, a
+    validation of 4 keyframes a rank), MESH.DATA alone and with
+    MESH.ZERO1: one run directory, one checkpoint and the metrics from
+    rank 0 alone each; the ZeRO-1 file has the DATA-only file's optimizer
+    layout. (2) tools/dp_check through torchrun, 2 ranks x 2 clips against
+    the one-process step on the global batch of 4 from one state,
+    deterministic algorithms: in bf16 the stem's global statistics (#4 on
+    each shard, reduced) against #4 over the whole batch, each rank's step
+    and gradient all-reduce times, and ZeRO-1 against the DATA-only step
+    over two steps, bit for bit in the parameters, the BN statistics and
+    the gathered moments, its control without the all-gather missing, the
+    moment bytes per rank against the figure from the shapes, the
+    all-gather's MB and ms and the ZeRO-1 step's ms; in float32 every
+    reading of the DP step within DP_TOL, of the MoE DP step (MOE, its
+    load-balance loss among them) within MOE_DP_TOL and of the
+    classifier's DP step within CLASSIFIER_DP_TOL, each control outside
+    every bound; #4 and #2 launched once each in every DP, ZeRO-1 and MoE
+    step. (3) NCCL, the default backend, at world size 1 through
+    train_ava, resuming the ZeRO-1 checkpoint without ZeRO-1 for one more
+    step (one rank per card over NCCL at 2 ranks where the machine has
+    two cards)."""
+    ranks = ["cuda:0"] * DP_RANKS
+    # (1) the train CLI, DATA-only and ZeRO-1
+    data = _dp_train_cli(torch, train, "chip_smoke_dp", lambda c: None)
+    z = _dp_train_cli(torch, train, "chip_smoke_dp_zero1",
+                      lambda c: c["MESH"].update(ZERO1=True))
+    layouts = [_optimizer_layout(torch, r["ckpt"]) for r in (data, z)]
+    log(f"[dp] the ZeRO-1 checkpoint's optimizer layout (each group's keys "
+        f"and indices, each state entry's shapes) equals the DATA-only "
+        f"one's: {layouts[0] == layouts[1]} ({len(layouts[0]['state'])} "
+        f"state entries); train_ava wall {data['wall']:.1f} s DATA-only, "
+        f"{z['wall']:.1f} s ZeRO-1; {smi}")
+    if layouts[0] != layouts[1]:
+        raise AssertionError("dp: the ZeRO-1 checkpoint's optimizer layout "
+                             "differs from the DATA-only one's")
+    cfg_path = data["cfg_path"]
+
+    # (2) the DP steps against the one-process step, with their controls
     checks = {}
     for dtype, tol in DP_TOL.items():
         out_path = BUILD_DIR / f"chip_smoke_dp_check_{dtype}.pt"
-        extra = (["--timed-steps", "3"] if dtype == "bfloat16"
-                 else ["--float32"])
+        extra = (["--timed-steps", "3", "--zero1"] if dtype == "bfloat16"
+                 else ["--float32", "--moe", "--classifier"])
         text = _torchrun(
             DP_RANKS, "tubelet_transformer_tpu_torch.tools.dp_check",
             ["--config-file", cfg_path, "--device", "cuda:0",
@@ -3820,14 +3895,13 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
              "--out", out_path], f"chip_smoke_dp_check_{dtype}.log")
         _dist_lines(text, "gloo", DP_RANKS, ranks)
         res = checks[dtype] = torch.load(out_path, weights_only=False)
-        dp, control = res["readings"]["dp"], res["readings"]["control"]
-        held = {k: dp[k] <= v for k, v in tol.items()}
-        missed = {k: control[k] > v for k, v in tol.items()}
+        held, missed = _held(res["readings"], tol)
         launches = res["dp"]["launches"]
         log(f"[dp] dp_check {dtype}, {DP_RANKS} ranks x 2 clips against "
             f"one process on the 4 (deterministic algorithms): readings "
-            f"{dp}; control {control}; bounds {tol}: held {held}, control "
-            f"missed {missed}; the DP step's launches on rank 0 "
+            f"{res['readings']['dp']}; control "
+            f"{res['readings']['control']}; bounds {tol}: held {held}, "
+            f"control missed {missed}; the DP step's launches on rank 0 "
             f"{launches} and all-reduces {res['dp']['all_reduces']}; "
             f"total loss DP "
             f"{res['dp']['metrics']['total_loss']:.6f}, one process "
@@ -3846,13 +3920,77 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
             f"{[round(t, 2) for t in reduce_ms]} (one process at bs 2 in "
             f"phase 9: {train['steady_ms']:.2f} ms steady); {smi}")
 
-    # (3) NCCL: the default backend at world size 1 (a card per rank at 2)
+    # ZeRO-1 against the DATA-only step, on each rank
+    one_step = {"stem_stats": 1, "stem_pool": 1}
+    for r, zr in enumerate(checks["bfloat16"]["zero1"]):
+        t = zr["timings"]
+        log(f"[dp] rank {r} ZeRO-1 (gloo, cuda:0, bf16, bs 2, deterministic "
+            f"algorithms), two steps from one state: the model and the "
+            f"gathered optimizer state dicts bit-equal to the DATA-only "
+            f"step's after each step {zr['zero1_equal']}, the control "
+            f"without the all-gather {zr['control_equal']} (must be "
+            f"[False, False]); moment bytes {zr['zero1_moment_bytes']} "
+            f"(from the shapes {zr['zero1_predicted_bytes']}) against "
+            f"{zr['data_moment_bytes']} DATA-only (from the shapes "
+            f"{zr['data_predicted_bytes']}); the all-gather "
+            f"{t['all_gather_mb'][0]:.1f} MB sent, "
+            f"{t['all_gather_mb'][1]:.1f} MB gathered, ms "
+            f"{[round(v, 2) for v in t['all_gather_ms']]}; ZeRO-1 step ms "
+            f"{[round(v, 2) for v in t['step_ms']]} against DATA-only "
+            f"{[round(v, 2) for v in timings['step_ms'][r]]}; a ZeRO-1 "
+            f"step's launches {zr['zero1_launches']}; {smi}")
+        if not (zr["zero1_equal"] == [True, True]
+                and zr["control_equal"] == [False, False]
+                and zr["zero1_moment_bytes"] == zr["zero1_predicted_bytes"]
+                and zr["data_moment_bytes"] == zr["data_predicted_bytes"]
+                and zr["zero1_launches"] == [one_step, one_step]):
+            raise AssertionError(f"dp zero1 rank {r}: {zr}")
+
+    # MoE and the classifier, float32
+    f32 = checks["float32"]
+    for what, res, tol in (("MoE", f32["moe"]["readings"], MOE_DP_TOL),
+                           ("classifier", f32["classifier"],
+                            CLASSIFIER_DP_TOL)):
+        held, missed = _held(res, tol)
+        log(f"[dp] dp_check float32 {what} DP step, {DP_RANKS} ranks x 2 "
+            f"clips against one process on the 4: readings {res['dp']}; "
+            f"control {res['control']}; bounds {tol}: held {held}, control "
+            f"missed {missed}; one process against a repeat of itself "
+            f"{res.get('repeat', 'not read')}; {smi}")
+        if not (all(held.values()) and all(missed.values())):
+            raise AssertionError(f"dp {what}: held {held}, control missed "
+                                 f"{missed}")
+    moe = f32["moe"]
+    if moe["dp"]["launches"] != one_step or "loss_moe_aux" not in \
+            moe["dp"]["metrics"]:
+        raise AssertionError(f"dp MoE: launches {moe['dp']['launches']}, "
+                             f"metrics {sorted(moe['dp']['metrics'])}")
+
+    # (3) NCCL, the default backend, at world size 1: resumes the ZeRO-1
+    # run's checkpoint without ZeRO-1 for one more step (a card per rank
+    # at 2)
     one = write_config("chip_smoke_dp_nccl.yaml", lambda c: (
-        c["LOG"].update(EXP_NAME="chip_smoke_dp_nccl"),
+        c["LOG"].update(EXP_NAME="chip_smoke_dp_zero1"),
+        c["MODEL"].update(LOAD=True, PRETRAINED_PATH=""),
+        c["TRAIN"].update(EPOCH_NUM=2),
         c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
     text = _torchrun(1, "tubelet_transformer_tpu_torch.cli.train_ava",
                      ["--config-file", one], "chip_smoke_dp_nccl.log")
     nccl = _dist_lines(text, "cuda:nccl,cpu:gloo", 1, ["cuda:0"])
+    resumed = re.findall(r"resumed from (\S+) at epoch (\d+)", text)
+    epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
+    losses = [float(v) for v in re.findall(r" loss (\S+)",
+                                            "\n".join(epoch_lines))]
+    log(f"[dp] train_ava via torchrun with the default backend at world "
+        f"size 1, MODEL.LOAD without ZeRO-1: resumed {resumed} (the ZeRO-1 "
+        f"checkpoint {z['ckpt']}), epoch lines "
+        f"{[x.split(' data ')[0] for x in epoch_lines]}, losses {losses}; "
+        f"{smi}")
+    if ([(os.path.realpath(p), e) for p, e in resumed]
+            != [(os.path.realpath(z["ckpt"]), "1")]
+            or len(epoch_lines) != 1 or len(losses) != 1
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"dp resume: {resumed}, {epoch_lines}")
     if torch.cuda.device_count() >= 2:
         text = _torchrun(2, "tubelet_transformer_tpu_torch.cli.train_ava",
                          ["--config-file", cfg_path],
@@ -3865,6 +4003,9 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
     log(f"[dp] train_ava via torchrun with the default backend: {nccl}; "
         f"{smi}")
     return {"launches": checks["bfloat16"]["dp"]["launches"],
+            "zero1_launches": checks["bfloat16"]["zero1"][0][
+                "zero1_launches"][0],
+            "moe_launches": moe["dp"]["launches"],
             "readings": {k: v["readings"] for k, v in checks.items()},
             "timings": timings}
 
@@ -4041,6 +4182,8 @@ def main() -> int:
               launches_moe_serve=moe["serve_launches"]["stem_pool"],
               launches_prenorm_serve=prenorm["serve_launches"]["stem_pool"],
               launches_dp_step=dp["launches"]["stem_pool"],
+              launches_zero1_step=dp["zero1_launches"]["stem_pool"],
+              launches_moe_dp_step=dp["moe_launches"]["stem_pool"],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -4051,6 +4194,8 @@ def main() -> int:
               launches_accum=accum["launches"]["stem_stats"],
               launches_moe_train=moe["train_launches"]["stem_stats"],
               launches_dp_step=dp["launches"]["stem_stats"],
+              launches_zero1_step=dp["zero1_launches"]["stem_stats"],
+              launches_moe_dp_step=dp["moe_launches"]["stem_stats"],
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]},
               one_clip_case=stats_cases["ava_256px_clip"]),

@@ -21,8 +21,8 @@ environment set by hand).
 * ``run_training`` and ``run_eval`` over 2 ranks: rank 0 alone writes the
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
-* The refusals: ZERO1, MODEL > 1, PIPE > 1, SPATIAL, MoE x DATA,
-  FROZEN_CHUNK x DATA, DATA != world.
+* The refusals: MODEL > 1 (ZERO1 beside it too), PIPE > 1, SPATIAL,
+  INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA != world.
 * Slow tier: SIGTERM to one rank stops both at the epoch boundary, and
   the relaunch resumes both from rank 0's choice.
 
@@ -163,10 +163,10 @@ def jax_worker(job_path):
                f"{job['out']}.0")
 
 
-def _start(tmp, tasks, name, world=2, mode="worker"):
-    """Start ``world`` processes of ``mode`` on ``tasks``: the ranks of a
-    worker job, or the process of a JAX job; returns (procs, out
-    prefix)."""
+def _start(tmp, tasks, name, world=2, mode="worker", script=__file__):
+    """Start ``world`` processes of ``mode`` of ``script`` (this file by
+    default) on ``tasks``: the ranks of a worker job, or the process of a
+    JAX job; returns (procs, out prefix)."""
     job, out = tmp / f"{name}.job", tmp / f"{name}.out"
     torch.save({"tasks": tasks, "out": str(out)}, job)
     port = _free_port()
@@ -180,7 +180,7 @@ def _start(tmp, tasks, name, world=2, mode="worker"):
                     os.environ.get("PYTHONPATH", "")])}
         log = open(tmp / f"{name}.{rank}.log", "w+")
         procs.append((subprocess.Popen(
-            [sys.executable, __file__, mode, str(job)], cwd=ROOT,
+            [sys.executable, script, mode, str(job)], cwd=ROOT,
             env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log))
     return procs, out
 
@@ -277,7 +277,9 @@ def _jax_mesh_step(cfg, jmodel, tx, state, batch):
 
     from tubelet_transformer_tpu.parallel import mesh as jmesh
     from tubelet_transformer_tpu.train import engine as jengine
-    from tubelet_transformer_tpu.train.torch_convert import (
+    # the port's copy of the JAX package's conversion, which also names
+    # the MoE encoder FFNs
+    from tubelet_transformer_tpu_torch.convert import (
         tuber_torch_state_from_params)
 
     mesh = jmesh.create_mesh(data=2, devices=jax.devices()[:2])
@@ -522,21 +524,27 @@ def test_refusals_name_their_option():
 
     from tubelet_transformer_tpu_torch.models.tuber import build_model
 
-    for attr, value, name in (("zero1", True, "MESH.ZERO1"),
-                              ("model", 2, "MESH.MODEL"),
-                              ("pipe", 2, "MESH.PIPE"),
-                              ("spatial", True, "MESH.SPATIAL")):
+    # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py); beside a
+    # 'model' axis it is refused by that axis
+    for attrs, name in ((dict(zero1=True, model=2), "MESH.MODEL"),
+                        (dict(model=2), "MESH.MODEL"),
+                        (dict(pipe=2), "MESH.PIPE"),
+                        (dict(spatial=True), "MESH.SPATIAL")):
         cfg = small_cfg()
-        setattr(cfg.mesh, attr, value)
+        for attr, value in attrs.items():
+            setattr(cfg.mesh, attr, value)
         with pytest.raises(NotImplementedError, match=name):
             runner.check_supported(cfg)
     for model, pipe in ((2, 1), (1, 2)):
         with pytest.raises(NotImplementedError, match="MESH"):
             mesh_lib.create_mesh(-1, model, pipe)
+    # MoE runs with MESH.DATA > 1 (test_torch_zero1.py); INFER_CHUNK does
+    # not, on any mesh
     cfg = small_cfg()
     cfg.model.moe_experts, cfg.model.moe_top_k = 4, 2
     state = engine.create_train_state(cfg, build_model(cfg, train=True), 4)
-    with pytest.raises(NotImplementedError, match="MODEL.MOE_EXPERTS"):
+    cfg.model.infer_chunk = 2
+    with pytest.raises(NotImplementedError, match="MODEL.INFER_CHUNK"):
         engine.make_train_step(cfg, state, mesh=mesh_lib.Mesh(data=2))
     cfg = small_cfg()
     cfg.train.frozen_chunk, cfg.mesh.data = 1, 2

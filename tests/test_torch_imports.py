@@ -51,6 +51,7 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.cli.pack_data",
             "tubelet_transformer_tpu_torch.parallel",
             "tubelet_transformer_tpu_torch.parallel.mesh",
+            "tubelet_transformer_tpu_torch.parallel.zero",
             "tubelet_transformer_tpu_torch.tools.dp_check"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

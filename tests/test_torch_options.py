@@ -2,10 +2,11 @@
 and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
-model, and the options it leaves out still raise: the mesh options but
-MESH.DATA (which runs MoE with MESH.DATA > 1 refused), MODEL.INFER_CHUNK,
-and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which the JAX package
-refuses too."""
+model, as do MESH.ZERO1 and MoE with MESH.DATA > 1 (the 'data' axis), and
+the options it leaves out still raise: MESH.MODEL, MESH.PIPE and
+MESH.SPATIAL (with MESH.DATA or MESH.ZERO1 beside them too),
+MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which
+the JAX package refuses too."""
 
 import pytest
 import torch
@@ -25,7 +26,11 @@ def test_ported_options_reach_the_model():
     cfg.model.moe_capacity_factor = 2.0
     cfg.model.normalize_before = True
     cfg.model.compute_dtype = "bfloat16"
+    cfg.mesh.zero1 = True
     runner.check_supported(cfg)
+    moe_dp = small_cfg()
+    moe_dp.model.moe_experts, moe_dp.mesh.data = 4, 2
+    runner.check_supported(moe_dp)
     for train in (False, True):
         model = build_model(cfg, train=train)
         body = model.backbone.body
@@ -43,10 +48,13 @@ def test_ported_options_reach_the_model():
 
 
 REFUSED = {
+    # MESH.DATA runs (MoE too); a 'pipe' axis beside it does not
     "mesh_data": lambda c: (setattr(c.mesh, "data", 2),
-                            setattr(c.model, "moe_experts", 4)),
+                            setattr(c.mesh, "pipe", 2)),
     "mesh_model": lambda c: setattr(c.mesh, "model", 2),
-    "mesh_zero1": lambda c: setattr(c.mesh, "zero1", True),
+    # MESH.ZERO1 runs on the 'data' axis; with a 'model' axis it does not
+    "mesh_zero1": lambda c: (setattr(c.mesh, "zero1", True),
+                             setattr(c.mesh, "model", 2)),
     "mesh_spatial": lambda c: setattr(c.mesh, "spatial", True),
     "infer_chunk": lambda c: setattr(c.model, "infer_chunk", 2),
     "two_stream": lambda c: setattr(c, "two_stream", True),

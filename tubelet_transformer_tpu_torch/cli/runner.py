@@ -109,12 +109,14 @@ def make_loaders(cfg: Config, val_only: bool = False):
 
 
 def init_state(cfg: Config, steps_per_epoch: int, device: torch.device,
-               seed: int = 0) -> engine.TrainState:
+               seed: int = 0, mesh: mesh_lib.Mesh = mesh_lib.Mesh()
+               ) -> engine.TrainState:
     """The train build of the model (random weights from ``seed``, then any
-    configured pretrained weights), its optimizer and schedule."""
+    configured pretrained weights), its optimizer (ZeRO-1 over ``mesh``
+    with MESH.ZERO1) and schedule."""
     model = build_model(cfg, device=device, seed=seed, train=True,
                         pretrained=True)
-    return engine.create_train_state(cfg, model, steps_per_epoch)
+    return engine.create_train_state(cfg, model, steps_per_epoch, mesh)
 
 
 def _mesh(cfg: Config) -> mesh_lib.Mesh:
@@ -178,7 +180,7 @@ def _run_training_body(cfg: Config, device: torch.device, seed: int,
     writer = MetricsWriter(dirs["tb"], enabled=True) if is_main else None
     train_loader, val_loader = make_loaders(cfg)
     steps_per_epoch = len(train_loader)
-    state = init_state(cfg, steps_per_epoch, device, seed)
+    state = init_state(cfg, steps_per_epoch, device, seed, mesh)
 
     start_epoch = cfg.train.start_epoch
     if cfg.model.load and not cfg.model.pretrained_path:

@@ -144,7 +144,8 @@ class EncoderLayer(nn.Module):
     """DETR encoder layer, post-norm or, with ``normalize_before``, pre-norm
     (layers.py:216-222 of the JAX package). ``moe_experts > 0`` swaps the
     dense FFN for ``MoEFFN`` (``moe_ffn``), whose load-balance loss is
-    appended to the ``moe_aux`` list the caller passes."""
+    appended to the ``moe_aux`` list the caller passes, its counts summed
+    by ``moe_reduce`` (over ranks under data parallelism)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0, normalize_before: bool = False,
@@ -167,11 +168,11 @@ class EncoderLayer(nn.Module):
         self.dropout = Dropout(dropout)
 
     def _ffn(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
-             moe_aux: Optional[list]) -> torch.Tensor:
+             moe_aux: Optional[list], moe_reduce) -> torch.Tensor:
         if self.moe_ffn is None:
             return self.linear2(self.dropout(F.relu(self.linear1(x))))
         # padded tokens must not take expert capacity
-        y, aux = self.moe_ffn(x, pad_mask=key_padding_mask)
+        y, aux = self.moe_ffn(x, pad_mask=key_padding_mask, reduce=moe_reduce)
         if moe_aux is not None:
             moe_aux.append(aux)
         return y
@@ -179,19 +180,20 @@ class EncoderLayer(nn.Module):
     def forward(self, src: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
-                moe_aux: Optional[list] = None) -> torch.Tensor:
+                moe_aux: Optional[list] = None,
+                moe_reduce=None) -> torch.Tensor:
         drop = self.dropout
         if self.normalize_before:
             s2 = self.norm1(src)
             qk = _add_pos(s2, pos)
             src = src + drop(self.self_attn(qk, qk, s2, key_padding_mask))
             return src + drop(self._ffn(self.norm2(src), key_padding_mask,
-                                        moe_aux))
+                                        moe_aux, moe_reduce))
         qk = _add_pos(src, pos)
         src = self.norm1(src + drop(self.self_attn(qk, qk, src,
                                                    key_padding_mask)))
         return self.norm2(src + drop(self._ffn(src, key_padding_mask,
-                                               moe_aux)))
+                                               moe_aux, moe_reduce)))
 
 
 class DecoderLayer(nn.Module):

@@ -20,6 +20,14 @@ that the numerics follow the JAX package:
 * the Switch load-balance loss ``E * sum_e f_e * P_e`` over valid tokens,
   returned beside the output (the JAX module sows it into a collection).
 
+Under data parallelism (``reduce``: the sum over ranks, ``Mesh.count_sum``)
+the loss is the global batch's, as JAX's on a batch sharded over 'data':
+the first-choice counts behind ``f_e`` and the valid-token count carry no
+gradient, so with both summed over ranks the loss is linear in each
+rank's sum of router probabilities, and each rank returns its additive
+share ``E * sum_e f_e * (sum of its valid tokens' p_e) / N``. Routing and
+capacity are per row, so nothing else crosses ranks.
+
 The dense (B, S, E, C) dispatch and combine tensors grow as S^2 (C is
 proportional to S).
 """
@@ -27,7 +35,7 @@ proportional to S).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -79,9 +87,12 @@ class MoEFFN(nn.Module):
             s * self.capacity_factor * self.top_k / self.num_experts)))
 
     def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """x (B,S,D), pad_mask (B,S) True = pad -> (y (B,S,D), aux ())."""
+                pad_mask: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B,S,D), pad_mask (B,S) True = pad -> (y (B,S,D), aux ()).
+        ``reduce`` sums the load-balance counts over ranks (None: this
+        batch alone)."""
         b, s, _ = x.shape
         e, cap = self.num_experts, self.capacity(s)
         valid = (torch.ones((b, s), device=x.device) if pad_mask is None
@@ -123,7 +134,11 @@ class MoEFFN(nn.Module):
               + self.expert_b2.to(dt)[:, None, None, :])
         y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), yo)
 
-        n_valid = valid.sum() + 1e-9
-        f_e = slot_masks[0].sum(dim=(0, 1)) / n_valid             # (E,)
+        counts = torch.cat([slot_masks[0].sum(dim=(0, 1)),
+                            valid.sum()[None]])                   # (E+1,)
+        if reduce is not None:
+            counts = reduce(counts)
+        n_valid = counts[-1] + 1e-9
+        f_e = counts[:-1] / n_valid                               # (E,)
         p_e = (probs * valid[..., None]).sum(dim=(0, 1)) / n_valid
         return y, e * (f_e * p_e).sum()

@@ -40,14 +40,16 @@ class Transformer(nn.Module):
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],
                 query_embed: torch.Tensor, pos_embed: torch.Tensor,
-                moe_aux: Optional[list] = None) -> torch.Tensor:
+                moe_aux: Optional[list] = None,
+                moe_reduce=None) -> torch.Tensor:
         """src/pos_embed (B,S,E), mask (B,S) True = pad, query_embed (Q,E)
         -> (L,B,Q,E). Each MoE encoder layer appends its load-balance loss
-        to ``moe_aux`` when one is given."""
+        to ``moe_aux`` when one is given, its counts summed by
+        ``moe_reduce`` (``MoEFFN.forward``'s ``reduce``)."""
         memory = src
         for layer in self.encoder.layers:
             memory = layer(memory, key_padding_mask=mask, pos=pos_embed,
-                           moe_aux=moe_aux)
+                           moe_aux=moe_aux, moe_reduce=moe_reduce)
         if self.encoder.norm is not None:
             memory = self.encoder.norm(memory)
         b = src.shape[0]

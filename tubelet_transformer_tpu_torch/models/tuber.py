@@ -206,10 +206,13 @@ class TubeR(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None,
                 return_features: bool = False,
                 lfb_features: Optional[torch.Tensor] = None,
-                lfb_mask: Optional[torch.Tensor] = None) -> dict:
+                lfb_mask: Optional[torch.Tensor] = None,
+                moe_reduce=None) -> dict:
         """clips (B,T,H,W,3), pad_mask (B,H,W) True = pad; with
         ``use_lfb``, the memory ``lfb_features`` (B,L_mem,E) and
-        ``lfb_mask`` (B,L_mem) True = pad."""
+        ``lfb_mask`` (B,L_mem) True = pad. ``moe_reduce`` sums the MoE
+        load-balance counts over ranks (``Mesh.count_sum``; None: this
+        batch alone), so that ``moe_aux`` is this rank's share."""
         b, _, h_in, w_in, _ = clips.shape
         if clips.dtype != self.dtype:
             clips = clips.to(self.dtype)
@@ -231,7 +234,7 @@ class TubeR(nn.Module):
                               feat_mask_t.reshape(b, t * h * w),
                               self.query_embed.weight,
                               pos.reshape(b, t * h * w, e),
-                              moe_aux)                       # (L,B,Q,E)
+                              moe_aux, moe_reduce)           # (L,B,Q,E)
         lay_n, _, nq, _ = hs.shape
         if self.is_ava:
             outputs_class_b = self.class_embed_b(hs)      # (L,B,Q,3)

@@ -1,2 +1,3 @@
 """Multi-device runtime of the port: data parallelism over
-``torch.distributed`` (``mesh.py``)."""
+``torch.distributed`` (``mesh.py``) and ZeRO-1, the AdamW moments sharded
+over the 'data' axis (``zero.py``)."""

@@ -21,12 +21,12 @@ Shards are equal in size: the loaders pad each split to a multiple of the
 world size.
 
 Device tensors travel over the default process group (NCCL, or gloo, which
-carries ``all_reduce`` and ``broadcast`` of CUDA tensors); host data (eval
-detections, the stop flag, the run stamp, the resume path) over a CPU gloo
-group that ``init_distributed`` creates beside it. Like torch's default
-group, that group is process-wide state, held here until ``shutdown``.
-Without torchrun's environment nothing is initialised and every function
-below is the single-process identity.
+carries ``all_reduce``, ``broadcast`` and ``all_gather_into_tensor`` of
+CUDA tensors); host data (eval detections, the stop flag, the run stamp,
+the resume path) over a CPU gloo group that ``init_distributed`` creates
+beside it. Like torch's default group, that group is process-wide state,
+held here until ``shutdown``. Without torchrun's environment nothing is
+initialised and every function below is the single-process identity.
 """
 
 from __future__ import annotations
@@ -187,7 +187,11 @@ def barrier() -> None:
         dist.barrier(group=_HOST_GROUP)
 
 
-def _all_gather_objects(obj) -> list:
+def all_gather_objects(obj) -> list:
+    """Every process's picklable ``obj``, in rank order (``[obj]`` without
+    a process group)."""
+    if not dist.is_initialized():
+        return [obj]
     out = [None] * process_count()
     dist.all_gather_object(out, obj, group=_HOST_GROUP)
     return out
@@ -199,7 +203,7 @@ def all_gather_host(x) -> np.ndarray:
     process group."""
     if not dist.is_initialized():
         return x
-    return np.stack(_all_gather_objects(np.asarray(x)))
+    return np.stack(all_gather_objects(np.asarray(x)))
 
 
 def gather_global_tree(tree: dict) -> dict:
@@ -210,7 +214,7 @@ def gather_global_tree(tree: dict) -> dict:
              for k, v in tree.items()}
     if not dist.is_initialized():
         return local
-    parts = _all_gather_objects(local)
+    parts = all_gather_objects(local)
     return {k: np.concatenate([p[k] for p in parts]) for k in local}
 
 

@@ -33,6 +33,23 @@ during the step. ``readings`` compares ``dp`` and ``control`` with
 all-reduce counts to ``--out``. With ``--timed-steps`` N every rank then
 times N more steps and the gradient all-reduce alone.
 
+More checks join the same launch:
+
+* ``--zero1``: two consecutive steps from one state of the DATA-only DP
+  step, of the ZeRO-1 DP step (``MESH.ZERO1``, ``parallel/zero.py``) and
+  of a control that leaves out ZeRO-1's all-gather (each rank keeps stale
+  copies of the slices it does not own); after each step every rank holds
+  the state dict and the (gathered) optimizer state dict of each run
+  against the DATA-only run's, bit for bit, and reports the bytes of its
+  moments from the tensors beside the figure from the shapes, and with
+  ``--timed-steps`` the ZeRO-1 step's ms and the all-gather's ms and MB;
+* ``--moe``: the three steps again with ``MODEL.MOE_EXPERTS 4`` and
+  ``MOE_TOP_K 2`` (the load-balance loss read as ``loss_moe_aux``);
+* ``--classifier``: the classifier's DP step (``train/classify.py``,
+  CSN-152, 400 classes, 2 float32 clips of 32 x 224 x 224 a rank)
+  against the one-process step on the 4, with ``LocalMesh`` as the
+  control: the loss, the gradients and the running statistics.
+
 In bf16 the flagship model at random init parts from itself by as much as
 the control does in the gradients once the batch is split otherwise (the
 cause is not isolated: the kernels picked for 2 and for 4 clips round
@@ -44,6 +61,7 @@ from the control.
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import time
 from typing import Dict, Optional
@@ -56,8 +74,14 @@ from tubelet_transformer_tpu_torch.models.layers import Dropout
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.ops.cuda import stem as stem_ops
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
+from tubelet_transformer_tpu_torch.parallel import zero
 from tubelet_transformer_tpu_torch.train import engine
 from tubelet_transformer_tpu_torch.train.optimizer import trainable_params
+
+# the MoE of --moe, as the smoke's MoE phase runs it
+MOE = {"moe_experts": 4, "moe_top_k": 2}
+# the classifier of --classifier: phase 18's CSN-152 at 32 x 224 x 224
+CLASSIFIER = {"backbone": "CSN-152", "classes": 400, "clip": (32, 224, 224)}
 
 
 class LocalMesh(mesh_lib.Mesh):
@@ -127,7 +151,8 @@ def one_step(cfg: Config, model, initial: dict, batch: dict,
     received, the stem kernels' launches (statistics, pooled) and the
     step's all-reduces."""
     model.load_state_dict(initial)
-    state = engine.create_train_state(cfg, model, steps_per_epoch=10)
+    state = engine.create_train_state(cfg, model, steps_per_epoch=10,
+                                      mesh=mesh)
     step = engine.make_train_step(cfg, state, mesh=mesh)
     device = next(model.parameters()).device
     db = engine.device_batch(batch, device)
@@ -175,7 +200,8 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def readings(run: dict, single: dict, initial: dict) -> dict:
     """``run`` against ``single``: the largest relative difference of a
-    loss-dict entry, of the gradient norm, of the stem's mean and variance,
+    loss-dict entry (and of ``loss_moe_aux`` alone with MoE), of the
+    gradient norm, of the stem's mean and variance,
     and the relative L2 differences of all gradients together and of the
     running statistics' updates."""
     keys = [k for k in single["metrics"] if k not in ("finite", "grad_norm")]
@@ -186,14 +212,18 @@ def readings(run: dict, single: dict, initial: dict) -> dict:
     def cat(d, ks):
         return torch.cat([d[k].reshape(-1).double() for k in ks])
 
+    def rel(k):
+        return (abs(run["metrics"][k] - single["metrics"][k])
+                / max(abs(single["metrics"][k]), 1e-12))
+
     (m1, v1), (m2, v2) = run["stem_stats"][0], single["stem_stats"][0]
+    # with MoE, the load-balance loss apart from the rest
+    moe = ({"moe_aux_rel": rel("loss_moe_aux")}
+           if "loss_moe_aux" in single["metrics"] else {})
     return {
-        "loss_rel": max(abs(run["metrics"][k] - single["metrics"][k])
-                        / max(abs(single["metrics"][k]), 1e-12)
-                        for k in keys),
-        "grad_norm_rel": abs(run["metrics"]["grad_norm"]
-                             - single["metrics"]["grad_norm"])
-        / single["metrics"]["grad_norm"],
+        **moe,
+        "loss_rel": max(rel(k) for k in keys),
+        "grad_norm_rel": rel("grad_norm"),
         "grads_rel": _rel(cat(run["grads"], names),
                           cat(single["grads"], names)),
         "running_update_rel": _rel(
@@ -218,7 +248,8 @@ def timings(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh,
     """``steps`` more steps of this rank (each ended by a sync) from the
     model's state, then the gradient all-reduce alone, five times: ms."""
     device = next(model.parameters()).device
-    state = engine.create_train_state(cfg, model, steps_per_epoch=10)
+    state = engine.create_train_state(cfg, model, steps_per_epoch=10,
+                                      mesh=mesh)
     step = engine.make_train_step(cfg, state, mesh=mesh)
     db = engine.device_batch(batch, device)
     step_ms = [_timed(device, lambda: step(db, cfg.loss.dice_cof))
@@ -227,18 +258,171 @@ def timings(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh,
     reduce_ms = [_timed(device, lambda: engine.sync_gradients(params, mesh))
                  for _ in range(5)]
     n = sum(p.grad.numel() for p in params if p.grad is not None)
-    return {"step_ms": step_ms, "grad_all_reduce_ms": reduce_ms,
-            "grad_mb": n * 4 / 1e6}
+    out = {"step_ms": step_ms, "grad_all_reduce_ms": reduce_ms,
+           "grad_mb": n * 4 / 1e6}
+    opt = state.optimizer
+    if isinstance(opt, zero.ZeroAdamW):
+        out["all_gather_ms"] = [_timed(device, opt.all_gather_params)
+                                for _ in range(5)]
+        # what one rank sends and what every rank receives
+        sent = sum(leaf.numel() * leaf.element_size()
+                   for _, _, leaf in opt.slots)
+        out["all_gather_mb"] = (sent / 1e6, sent * mesh.data / 1e6)
+    return out
+
+
+def skip_all_gather(optimizer: zero.ZeroAdamW) -> None:
+    """The ZeRO-1 control: the step leaves out the all-gather, so that each
+    rank keeps stale copies of the slices other ranks own."""
+    optimizer.all_gather_params = lambda: None
+
+
+def _snapshot(state) -> tuple[dict, dict]:
+    """(the model's state dict, the optimizer's state dict), cloned on
+    their device; the optimizer's is a collective under ZeRO-1."""
+    sd = state.optimizer.state_dict()
+    return ({k: v.detach().clone() for k, v in state.model.state_dict()
+             .items()},
+            {i: {k: v.clone() for k, v in st.items()}
+             for i, st in sd["state"].items()})
+
+
+def _same(a: tuple, b: tuple) -> bool:
+    """Both snapshots bit for bit: every entry, of the same keys."""
+    (ma, oa), (mb, ob) = a, b
+    return (ma.keys() == mb.keys() and oa.keys() == ob.keys()
+            and all(torch.equal(ma[k], mb[k]) for k in ma)
+            and all(oa[i].keys() == ob[i].keys()
+                    and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i])
+                    for i in oa))
+
+
+def zero1_check(cfg: Config, model, initial: dict, batch: dict,
+                mesh: mesh_lib.Mesh, timed_steps: int = 0) -> dict:
+    """Two steps from ``initial`` of the DATA-only DP step, the ZeRO-1 DP
+    step and the control without the all-gather, on this rank's ``batch``:
+    per run, whether the model's and the optimizer's state dicts equal the
+    DATA-only run's bit for bit after each step, the stem kernels'
+    launches in each step, and this rank's moment bytes from the tensors
+    and from the shapes; with ``timed_steps`` the ZeRO-1 timings."""
+    device = next(model.parameters()).device
+    db = engine.device_batch(batch, device)
+    runs, out = {}, {}
+    for name in ("data", "zero1", "control"):
+        c = copy.deepcopy(cfg)
+        c.mesh.zero1 = name != "data"
+        model.load_state_dict(initial)
+        state = engine.create_train_state(c, model, steps_per_epoch=10,
+                                          mesh=mesh)
+        if name == "control":
+            skip_all_gather(state.optimizer)
+        step = engine.make_train_step(c, state, mesh=mesh)
+        snaps, launches = [], []
+        for _ in range(2):
+            before = _stem_launches()
+            step(db, c.loss.dice_cof)
+            after = _stem_launches()
+            launches.append({"stem_stats": after[0] - before[0],
+                             "stem_pool": after[1] - before[1]})
+            snaps.append(_snapshot(state))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out[f"{name}_launches"] = launches
+        if name == "data":
+            runs[name] = snaps
+        else:
+            out[f"{name}_equal"] = [_same(a, b) for a, b in
+                                    zip(snaps, runs["data"])]
+        params = trainable_params(state.optimizer)
+        out[f"{name}_moment_bytes"] = zero.moment_bytes(state.optimizer)
+        out[f"{name}_predicted_bytes"] = zero.predicted_moment_bytes(
+            params, mesh.data if c.mesh.zero1 else 1)
+        del state, step, snaps
+    del runs
+    if timed_steps:
+        c = copy.deepcopy(cfg)
+        c.mesh.zero1 = True
+        model.load_state_dict(initial)
+        out["timings"] = timings(c, model, batch, mesh, timed_steps)
+    return out
+
+
+def classifier_check(device: torch.device, mesh: mesh_lib.Mesh,
+                     seed: int = 0, batch_seed: int = 1) -> Optional[dict]:
+    """The classifier's DP step (this rank's 2 clips of the global 4), its
+    ``LocalMesh`` control and, on rank 0, the one-process step on the 4,
+    from one state (random weights from ``seed``): on rank 0 the readings
+    of each against the one process (the loss, all gradients, the running
+    statistics' updates, relative), and of a repeat of the one-process
+    step ("repeat", the noise floor), None on the others."""
+    from tubelet_transformer_tpu_torch.train import classify
+
+    b = 2
+    n = b * mesh.data
+    rng = np.random.default_rng(batch_seed)
+    clips = rng.normal(size=(n, *CLASSIFIER["clip"], 3)).astype(np.float32)
+    labels = rng.integers(0, CLASSIFIER["classes"], n)
+    model = classify.build_classifier(CLASSIFIER["backbone"],
+                                      CLASSIFIER["classes"], seed=seed,
+                                      device=device)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def one(rows: slice, m: mesh_lib.Mesh) -> dict:
+        model.load_state_dict(initial)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        step = classify.make_classification_train_step(
+            classify.create_classifier_state(model, opt), mesh=m)
+        loss = step(torch.from_numpy(clips[rows]).to(device),
+                    torch.from_numpy(labels[rows]).to(device))
+        return {"loss": float(loss),
+                "grads": torch.cat([p.grad.reshape(-1).double().cpu()
+                                    for p in model.parameters()]),
+                "stats": {k: v.detach().double().cpu() for k, v in
+                          model.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}}
+
+    # the trunk's 1x3x3 max-pool (stem_kernel=False) has no deterministic
+    # CUDA backward: under --deterministic it runs with a warning instead
+    strict = (torch.are_deterministic_algorithms_enabled()
+              and not torch.is_deterministic_algorithms_warn_only_enabled())
+    if strict:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        shard = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        got = {"dp": one(shard, mesh),
+               "control": one(shard, LocalMesh(mesh.data, mesh.rank))}
+        model.trunk.set_rank_mean(None)
+        if mesh.rank:
+            return None
+        want = one(slice(0, n), mesh_lib.Mesh())
+        # the noise floor: the one-process step again, from the same state
+        got["repeat"] = one(slice(0, n), mesh_lib.Mesh())
+    finally:
+        if strict:
+            torch.use_deterministic_algorithms(True)
+    stat_keys = sorted(want["stats"])
+
+    def moved(run):
+        return torch.cat([(run["stats"][k] - initial[k].double().cpu())
+                          .reshape(-1) for k in stat_keys])
+
+    return {k: {"loss_rel": abs(r["loss"] - want["loss"]) / abs(want["loss"]),
+                "grads_rel": _rel(r["grads"], want["grads"]),
+                "running_update_rel": _rel(moved(r), moved(want))}
+            for k, r in got.items()}
 
 
 def run(cfg: Config, device: torch.device, seed: int = 0,
         batch_seed: int = 1, initial: Optional[dict] = None,
-        timed_steps: int = 0, batch: Optional[dict] = None
-        ) -> Optional[dict]:
+        timed_steps: int = 0, batch: Optional[dict] = None,
+        zero1: bool = False) -> Optional[dict]:
     """The three steps on this rank (in a joined process group); on rank 0
     the recorded runs, the readings and every rank's timings, None on the
     others. ``initial``: the model's state dict (else random weights from
-    ``seed``); ``batch``: the global batch (else ``global_batch``)."""
+    ``seed``); ``batch``: the global batch (else ``global_batch``);
+    ``zero1``: also ``zero1_check``, every rank's result under "zero1"."""
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
     cfg.mesh.data = mesh.data
     model = build_model(cfg, device=device, seed=seed, train=True)
@@ -266,6 +450,23 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     every = mesh_lib.gather_global_tree(
         {k: np.asarray([v]) for k, v in times.items()
          if k != "grad_mb"}) if times else {}
+    if zero1:
+        z = zero1_check(cfg, model, initial, shard, mesh, timed_steps)
+        if timed_steps:
+            t = z["timings"]
+            print(f"dp_check rank {mesh.rank}: ZeRO-1 step ms "
+                  f"{[round(v, 2) for v in t['step_ms']]}, all-gather ms "
+                  f"{[round(v, 2) for v in t['all_gather_ms']]} "
+                  f"({t['all_gather_mb'][0]:.1f} MB sent, "
+                  f"{t['all_gather_mb'][1]:.1f} MB gathered)", flush=True)
+        print(f"dp_check rank {mesh.rank}: moment bytes DATA-only "
+              f"{z['data_moment_bytes']} (from the shapes "
+              f"{z['data_predicted_bytes']}), ZeRO-1 "
+              f"{z['zero1_moment_bytes']} (from the shapes "
+              f"{z['zero1_predicted_bytes']}); bit-equal to DATA-only "
+              f"after each step: ZeRO-1 {z['zero1_equal']}, control "
+              f"{z['control_equal']}", flush=True)
+        out["zero1"] = mesh_lib.all_gather_objects(z)
     if mesh.rank:
         return None
     out["single"] = one_step(cfg, model, initial, microbatch_major(
@@ -291,6 +492,12 @@ def main() -> None:
     p.add_argument("--float32", action="store_true",
                    help="MODEL.COMPUTE_DTYPE float32, TF32 off")
     p.add_argument("--timed-steps", type=int, default=0)
+    p.add_argument("--zero1", action="store_true",
+                   help="also ZeRO-1 against the DATA-only step")
+    p.add_argument("--moe", action="store_true",
+                   help="also the three steps with MoE encoder FFNs")
+    p.add_argument("--classifier", action="store_true",
+                   help="also the classifier's DP step")
     p.add_argument("--out", required=True)
     args = p.parse_args()
     if args.deterministic:
@@ -307,16 +514,39 @@ def main() -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mesh_lib.init_distributed(device, args.dist_backend)
+
+    def summary(out: dict) -> dict:
+        return {**{k: out[k] for k in ("readings", "timings", "world")
+                   if k in out},
+                **{k: {n: out[k][n]
+                       for n in ("metrics", "launches", "all_reduces")}
+                   for k in ("dp", "control", "single")},
+                **({"zero1": out["zero1"]} if "zero1" in out else {})}
+
     try:
         out = run(cfg, device, args.seed, args.batch_seed,
-                  timed_steps=args.timed_steps)
-        if out is not None:
-            out = {**{k: out[k] for k in ("readings", "timings", "world")},
-                   **{k: {n: out[k][n]
-                          for n in ("metrics", "launches", "all_reduces")}
-                      for k in ("dp", "control", "single")}}
-            torch.save(out, args.out)
-            print(f"dp_check: readings {out['readings']}", flush=True)
+                  timed_steps=args.timed_steps, zero1=args.zero1)
+        result = summary(out) if out is not None else {}
+        if args.moe:
+            moe_cfg = copy.deepcopy(cfg)
+            for k, v in MOE.items():
+                setattr(moe_cfg.model, k, v)
+            out = run(moe_cfg, device, args.seed, args.batch_seed)
+            if out is not None:
+                result["moe"] = summary(out)
+        if args.classifier:
+            out = classifier_check(device, mesh_lib.create_mesh(),
+                                   args.seed, args.batch_seed)
+            if out is not None:
+                result["classifier"] = out
+        if mesh_lib.is_main_process():
+            torch.save(result, args.out)
+            print(f"dp_check: readings {result['readings']}", flush=True)
+            for k in ("moe", "classifier"):
+                if k in result:
+                    print(f"dp_check: {k} readings "
+                          f"{result[k].get('readings', result[k])}",
+                          flush=True)
     finally:
         mesh_lib.shutdown()
 

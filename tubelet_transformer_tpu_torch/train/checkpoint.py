@@ -17,7 +17,10 @@ orbax directories are not read: the port imports torch only.
 
 Under data parallelism rank 0 alone writes a checkpoint (the ranks' states
 are equal), and every rank waits for it at a barrier; every rank loads the
-one path that rank 0 chose (``parallel.mesh.broadcast_string``).
+one path that rank 0 chose (``parallel.mesh.broadcast_string``). Under
+ZeRO-1 every rank first takes part in the optimizer's ``state_dict``,
+which gathers the sharded moments into ``torch.optim.AdamW``'s layout: the
+file is the same with ZeRO-1 or without, and loads into either.
 """
 
 from __future__ import annotations
@@ -52,17 +55,20 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     data parallelism rank 0 writes and deletes, and every rank returns the
     path once the file is there."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"ckpt_epoch_{epoch}"))
+    # a collective under ZeRO-1: every rank gathers the moments
+    optimizer = state.optimizer.state_dict()
     if mesh_lib.is_main_process():
-        _write_checkpoint(ckpt_dir, path, state, epoch, max_accuracy, keep)
+        _write_checkpoint(ckpt_dir, path, state, optimizer, epoch,
+                          max_accuracy, keep)
     mesh_lib.barrier()
     return path
 
 
 def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
-                      epoch: int, max_accuracy: float, keep: int) -> None:
+                      optimizer: dict, epoch: int, max_accuracy: float,
+                      keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
+    payload = {"model": state.model.state_dict(), "optimizer": optimizer,
                "step": state.step, "updates": state.updates, "epoch": epoch,
                "max_accuracy": float(max_accuracy)}
     tmp = f"{path}.{os.getpid()}.tmp"

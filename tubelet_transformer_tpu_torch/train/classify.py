@@ -17,6 +17,14 @@ device on display steps only, as the JAX loop does.
 
 The optimizer is the caller's: ``torch.optim.AdamW`` defaults to a weight
 decay of 1e-2 where ``optax.adamw`` has 1e-4, so pass it explicitly.
+
+Data parallelism (a ``parallel.mesh.Mesh`` of more than one rank, each
+rank on its shard of the clips): the step is the global batch's, as JAX's
+on clips sharded over a 'data' mesh. Every BN of the trunk takes the
+global batch's statistics (``CSN.set_rank_mean``), each rank's loss is its
+share (the sum over its rows over the global row count), the gradients
+are summed over ranks (``engine.sync_gradients``) and the step returns
+the global mean loss; ``train_classification`` logs from rank 0.
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ from torch import nn
 from tubelet_transformer_tpu_torch.models.csn import build_csn
 from tubelet_transformer_tpu_torch.models.layers import Linear
 from tubelet_transformer_tpu_torch.models.tuber import init_weights
-from tubelet_transformer_tpu_torch.train.engine import TrainState
+from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
+from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+from tubelet_transformer_tpu_torch.train.engine import (TrainState,
+                                                        sync_gradients)
 from tubelet_transformer_tpu_torch.utils import AverageMeter, MetricsWriter
 
 TRUNK_DIM = 2048    # irCSN output channels
@@ -73,23 +84,30 @@ def create_classifier_state(model: VideoClassifier,
                       seed=0)
 
 
-def make_classification_train_step(state: TrainState
+def make_classification_train_step(state: TrainState, mesh: Mesh = Mesh()
                                    ) -> Callable[[torch.Tensor, torch.Tensor],
                                                  torch.Tensor]:
     """step(clips, labels) -> the mean cross-entropy (a 0-dim tensor on the
-    device): forward in train mode, backward and the optimizer's step,
-    updating ``state`` in place."""
+    device; the global batch's under data parallelism): forward in train
+    mode, backward and the optimizer's step, updating ``state`` in place.
+    ``mesh``: this process's place on the 'data' axis; the clips are this
+    rank's shard."""
     model, opt = state.model, state.optimizer
+    model.trunk.set_rank_mean(mesh.batch_mean if mesh.data > 1 else None)
+    params = [p for g in opt.param_groups for p in g["params"]]
 
     def step(clips: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model.train()
         opt.zero_grad(set_to_none=True)
-        loss = F.cross_entropy(model(clips).float(), labels.long())
+        logits = model(clips).float()
+        rows = mesh.count_sum(logits.new_tensor(float(labels.shape[0])))
+        loss = F.cross_entropy(logits, labels.long(), reduction="sum") / rows
         loss.backward()
+        sync_gradients(params, mesh)
         opt.step()
         state.step += 1
         state.updates += 1
-        return loss.detach()
+        return mesh.share_sum(loss.detach())
 
     return step
 
@@ -98,11 +116,14 @@ def train_classification(base_iter: int, state: TrainState, train_step,
                          loader, epoch: int, display_freq: int = 20,
                          lr_fn: Optional[Callable[[int], float]] = None,
                          writer: Optional[MetricsWriter] = None,
-                         is_main: bool = True):
+                         is_main: Optional[bool] = None):
     """One classification epoch (reference video_action_recognition.py:
     26-75). ``loader`` yields dicts (or pairs) of ``clips`` (B, T, H, W, 3)
     and integer ``labels`` (B,), numpy arrays or tensors; they go to the
-    model's device. Returns (base_iter, state), as the JAX loop does."""
+    model's device. ``is_main`` (rank 0 by default) prints and writes the
+    metrics. Returns (base_iter, state), as the JAX loop does."""
+    if is_main is None:
+        is_main = mesh_lib.is_main_process()
     device = next(state.model.parameters()).device
     batch_time = AverageMeter("batch_time")
     data_time = AverageMeter("data_time")

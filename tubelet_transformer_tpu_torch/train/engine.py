@@ -36,6 +36,11 @@ all-reduce sums the ranks' gradients: the gradient of the global loss, on
 every rank. The clip, the NaN guard (on the global total) and AdamW then
 see the same values on every rank, and the metrics are the global ones.
 With ACCUM_STEPS, microbatch i is the union of every rank's local slice i.
+With MoE the load-balance counts are summed over ranks in each MoE layer
+(``MoEFFN.forward``'s ``reduce``), so ``loss_moe_aux`` is a share like the
+criterion's terms. With ``MESH.ZERO1`` the optimizer is
+``parallel.zero.ZeroAdamW``: the same all-reduced, clipped gradients, the
+moments sharded over ranks, one all-gather of the updated parameters.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from tubelet_transformer_tpu_torch.data.device_preprocess import (
 from tubelet_transformer_tpu_torch.models.csn import FoldableBN
 from tubelet_transformer_tpu_torch.models.tuber import TubeR, dataset_mode
 from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+from tubelet_transformer_tpu_torch.parallel.zero import ZeroAdamW
 from tubelet_transformer_tpu_torch.train import criterion as crit
 from tubelet_transformer_tpu_torch.train.optimizer import (
     build_optimizer, clip_by_global_norm, set_learning_rate,
@@ -77,11 +83,13 @@ class TrainState:
     updates: int = 0     # optimizer updates applied: the schedule's count
 
 
-def create_train_state(cfg: Config, model: TubeR, steps_per_epoch: int
-                       ) -> TrainState:
+def create_train_state(cfg: Config, model: TubeR, steps_per_epoch: int,
+                       mesh: Mesh = Mesh()) -> TrainState:
     """AdamW and the schedule for ``model`` (the train build), which gets
-    its frozen parameters frozen."""
-    return TrainState(model=model, optimizer=build_optimizer(cfg, model),
+    its frozen parameters frozen; with ``MESH.ZERO1`` and a ``mesh`` of
+    more than one rank, the ZeRO-1 AdamW over that mesh."""
+    return TrainState(model=model,
+                      optimizer=build_optimizer(cfg, model, mesh),
                       schedule=build_schedule(cfg, steps_per_epoch),
                       seed=cfg.train.seed)
 
@@ -102,27 +110,17 @@ def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             "lfb_mask": batch["lfb_mask"]}
 
 
-def check_supported(cfg: Config, data: int | None = None) -> None:
-    """Raise NotImplementedError for the step options not ported yet;
-    ``data`` is the mesh's 'data' size (``cfg.mesh.data`` when None)."""
-    data = cfg.mesh.data if data is None else data
+def check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for the step options not ported yet."""
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
         "MESH.MODEL > 1": cfg.mesh.model > 1,
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
-        "MESH.ZERO1": cfg.mesh.zero1,
         "MESH.SPATIAL": cfg.mesh.spatial,
     }
     for name, asked in unsupported.items():
         if asked:
             raise NotImplementedError(f"{name} is not ported yet")
-    if cfg.model.moe_experts > 0 and data > 1:
-        # the load-balance loss multiplies two means over the batch's
-        # tokens: no sum of per-rank shares gives its gradient
-        raise NotImplementedError(
-            "MODEL.MOE_EXPERTS with MESH.DATA > 1 is not ported yet: the "
-            "MoE auxiliary loss is a product of global means, not a sum of "
-            "per-rank shares")
 
 
 def is_ava_mode(cfg: Config) -> bool:
@@ -202,7 +200,14 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     (0-dim tensors, the global batch's under data parallelism), updating
     ``state`` in place. ``mesh``: this process's place on the 'data' axis
     (one device by default); the batch is this rank's shard."""
-    check_supported(cfg, mesh.data)
+    check_supported(cfg)
+    sharded = isinstance(state.optimizer, ZeroAdamW)
+    if sharded != (cfg.mesh.zero1 and mesh.data > 1) or (
+            sharded and state.optimizer.mesh.data != mesh.data):
+        raise ValueError(
+            f"MESH.ZERO1 {cfg.mesh.zero1} on a 'data' axis of {mesh.data}: "
+            f"the state's optimizer is {type(state.optimizer).__name__}; "
+            "build it with create_train_state(..., mesh=mesh)")
     model = state.model
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
@@ -218,7 +223,8 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
                    loss_ce_weight: float):
         """Forward, losses and backward of one microbatch: the total and
         the loss terms, detached."""
-        outputs = model(clips, batch.get("pad_mask"), **lfb_kwargs(batch))
+        outputs = model(clips, batch.get("pad_mask"), **lfb_kwargs(batch),
+                        moe_reduce=mesh.count_sum)
         loss_dict = compute_losses(cfg, outputs,
                                    _targets_from_batch(cfg, batch), mesh=mesh)
         total = weighted_total(cfg, loss_dict, loss_ce_weight)
@@ -287,7 +293,7 @@ def make_eval_step(cfg: Config, model: TubeR, mesh: Mesh = Mesh()):
     or postprocess_softmax for JHMDB/UCF) of this rank's shard and, unless
     VAL.COMPUTE_LOSSES is off, the criterion's losses of the global
     batch."""
-    check_supported(cfg, mesh.data)
+    check_supported(cfg)
     postprocess = postprocess_ava if is_ava_mode(cfg) else postprocess_softmax
 
     @torch.inference_mode()

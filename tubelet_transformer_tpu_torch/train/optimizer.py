@@ -9,6 +9,8 @@ backbone). Frozen parameters get ``requires_grad_(False)`` and no optimizer
 state; their BN statistics still update in train mode. ``torch.optim.AdamW``
 couples weight decay to the group's rate and decays every parameter, as the
 JAX chain does; the clip runs over the trainable gradients before Adam.
+With ``MESH.ZERO1`` on a 'data' axis of more than one rank the same AdamW
+keeps its moments sharded over the ranks (``parallel/zero.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from typing import Dict, Iterable, List
 
 import torch
 from torch import nn
+
+from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+from tubelet_transformer_tpu_torch.parallel.zero import ZeroAdamW
 
 BODY = "backbone.body."
 
@@ -48,10 +53,13 @@ def param_label(name: str, cfg) -> str:
     return "backbone"
 
 
-def build_optimizer(cfg, model: nn.Module) -> torch.optim.AdamW:
+def build_optimizer(cfg, model: nn.Module, mesh: Mesh = Mesh()
+                    ) -> torch.optim.AdamW | ZeroAdamW:
     """AdamW over the trainable parameters of ``model``, one group per
     label; each group's ``lr_scale`` multiplies the schedule's rate. Freezes
-    the frozen parameters in place."""
+    the frozen parameters in place. With ``MESH.ZERO1`` and a ``mesh`` of
+    more than one rank, the ZeRO-1 AdamW of the same groups; at one rank
+    ZERO1 changes nothing, as in the JAX package."""
     groups: Dict[str, List[nn.Parameter]] = {"main": [], "backbone": []}
     for name, p in model.named_parameters():
         label = param_label(name, cfg)
@@ -62,11 +70,13 @@ def build_optimizer(cfg, model: nn.Module) -> torch.optim.AdamW:
     scale = {"main": 1.0,
              "backbone": (cfg.train.lr_backbone / cfg.train.lr
                           if cfg.train.lr > 0 else 0.0)}
-    return torch.optim.AdamW(
-        [{"params": ps, "name": k, "lr_scale": scale[k]}
-         for k, ps in groups.items() if ps],
-        lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=cfg.train.w_decay)
+    groups = [{"params": ps, "name": k, "lr_scale": scale[k]}
+              for k, ps in groups.items() if ps]
+    hyper = dict(lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=cfg.train.w_decay)
+    if cfg.mesh.zero1 and mesh.data > 1:
+        return ZeroAdamW(groups, mesh, **hyper)
+    return torch.optim.AdamW(groups, **hyper)
 
 
 def trainable_params(optimizer: torch.optim.Optimizer
