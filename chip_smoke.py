@@ -157,7 +157,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
     normalisers outside every one, with each rank's step and gradient
     all-reduce times; and ``train_ava`` through torchrun with the default
     backend (NCCL) at world size 1, resuming the ZeRO-1 checkpoint
-    without ZeRO-1 for one more step.
+    without ZeRO-1 for one more step;
+24. the 'model' axis (``MESH.MODEL``) over ``torch.distributed``, the
+    ranks on the one card over gloo: ``train_ava`` through torchrun on
+    phase 9's YAML with ``MESH.MODEL 2`` (4 heads and FFN 1024 a peer, the
+    pool_decoder's 6144-row in-projection cut in two; the metrics, config
+    and checkpoint from rank 0 alone; the checkpoint in phase 9's
+    one-process layout, resumed by ``train_ava`` in one process for one
+    finite step); ``tools/tp_check`` through torchrun under deterministic
+    algorithms, the TP step against the one-process step on the same batch
+    from one state, with MODEL 2 in bf16 (each rank's step and model
+    all-reduce times) and in float32 (TF32 off), with MoE encoder FFNs (4
+    experts, top 2: 2 a peer) in float32, and on 4 ranks of MESH.DATA 2 x
+    MESH.MODEL 2 in float32 at the same width (the pool_decoder split
+    beside the data shards): each reading within its bound, the
+    control ("g" whose backward sums again) outside the gradient bounds,
+    the model peers' replicated parameters bit-equal after each of two
+    steps, #4 and #2 once on every rank a step.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -2840,9 +2856,9 @@ def phase_accum(torch, train: dict, smi: str) -> dict:
     pre_clip: dict = {}
     clip = engine.clip_by_global_norm
 
-    def recording_clip(params_, max_norm):
+    def recording_clip(params_, max_norm, *rest):
         pre_clip.update(_grads(model))
-        return clip(params_, max_norm)
+        return clip(params_, max_norm, *rest)
 
     engine.clip_by_global_norm = recording_clip
     try:
@@ -3784,12 +3800,14 @@ def _dist_lines(text: str, backend: str, world: int, devices) -> list:
     return lines
 
 
-def _dp_train_cli(torch, train: dict, name: str, edit) -> dict:
+def _dp_train_cli(torch, train: dict, name: str, edit,
+                  data: int = DP_RANKS) -> dict:
     """train_ava through torchrun, 2 ranks on cuda:0 over gloo, on phase
-    9's YAML with ``edit`` (2 steps a rank, a validation of 4 keyframes a
-    rank), as experiment ``name``: both exit 0, one run directory, one
-    checkpoint and the metrics from rank 0 alone. Returns the YAML, the
-    run directory, the checkpoint, the output and the wall seconds."""
+    9's YAML with ``edit`` (of ``data`` shards: 2 steps a shard at 2, and
+    a validation of 4 keyframes a shard), as experiment ``name``: both
+    exit 0, one run directory, one checkpoint and the metrics from rank 0
+    alone. Returns the YAML, the run directory, the checkpoint, the output
+    and the wall seconds."""
     ranks = ["cuda:0"] * DP_RANKS
     cfg_path = write_config(f"{name}.yaml", lambda c: (c["LOG"].update(
         EXP_NAME=name, DISPLAY_FREQ=1), edit(c)), source=train["cfg_path"])
@@ -3806,7 +3824,7 @@ def _dp_train_cli(torch, train: dict, name: str, edit) -> dict:
     tags = [json.loads(x)["tag"] for x in Path(
         runs[0], "tb_log", "metrics.jsonl").read_text().splitlines()] \
         if len(runs) == 1 else []
-    steps = TRAIN_STEPS // DP_RANKS
+    steps = TRAIN_STEPS // data
     epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
     ok = (len(runs) == 1 and len(ckpts) == 1
           and tags.count("train/total_loss") == steps
@@ -3817,7 +3835,8 @@ def _dp_train_cli(torch, train: dict, name: str, edit) -> dict:
         f"over gloo: {lines}; {wall:.1f} s (the processes included); one "
         f"run directory {len(runs) == 1}, checkpoints {len(ckpts)}, "
         f"train/total_loss lines {tags.count('train/total_loss')} (the "
-        f"{steps} global steps, rank 0 alone), val/val_mAP_epoch "
+        f"{steps} global steps of {data} data shard(s), rank 0 alone), "
+        f"val/val_mAP_epoch "
         f"{tags.count('val/val_mAP_epoch')}; rank 0's epoch lines: "
         f"{[x.split(' data ')[0] for x in epoch_lines]}")
     if not ok:
@@ -4010,6 +4029,186 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
             "timings": timings}
 
 
+# phase 24: tensor parallelism (MESH.MODEL) over torch.distributed, the
+# ranks on the one card over gloo: 2 model peers, and 2 x 2 (data x model)
+TP_RANKS = 2
+TP_BATCH = 2          # phase 9's BATCH_SIZE, each data shard's
+# the TP step against the one-process step on the same batch from one
+# state (tools/tp_check.py, flagship width, deterministic algorithms):
+# each reading's bound per case, between two seeds' readings and the
+# control's (seeds 0 and 2 on the H100, PERF.md). The control ("g"
+# summing again in its backward) has the step's own forward, so only the
+# gradient readings (TP_CONTROL_MISSES) can tell it apart, and its
+# forward readings must equal the step's. MODEL 2, float32: losses
+# 3.1e-7-4.1e-7, gradient norm 0-7.5e-7, gradients 2.8e-7-5.6e-5,
+# updates 3.7e-6-4.7e-4, running and stem statistics 0 (no batch split);
+# the control's gradient norm 20.6-31.8, gradients 1.31, updates
+# 1.17-1.21. bf16: losses 3.8e-3-5.4e-3, gradient norm 1.1e-3-5.7e-3,
+# gradients 0.022, updates 0.077-0.10 (the split partial sums round
+# otherwise); the control's 21.4-29.8, 1.31, 1.17-1.21. MoE (float32):
+# the load-balance loss 6.4e-8-2.3e-7, losses 4.7e-7-8.4e-7, gradient
+# norm 0-1.5e-7, gradients 7.3e-6-2.4e-5, updates 9.0e-5-2.3e-4; the
+# control's 12.8-15.2, 1.18-1.21, 1.12-1.14. DATA 2 x MODEL 2 (float32,
+# the batch split as in phase 23's DP step, whose float32 readings these
+# equal, so DP_TOL's float32 bounds): losses 1.1e-5-3.2e-5, gradient
+# norm 7.5e-5-1.9e-4, gradients 8.7e-3-9.0e-3, running statistics
+# 1.9e-5-2.2e-5, the stem's 3.9e-8-4.6e-8, updates 0.019-0.022; the
+# control's 20.3-26.2, 1.30-1.31, 1.16-1.22
+TP_TOL = {
+    "float32": {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grads_rel": 1e-3,
+                "update_rel": 0.01, "running_update_rel": 1e-6,
+                "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6},
+    "bfloat16": {"loss_rel": 0.02, "grad_norm_rel": 0.05, "grads_rel": 0.1,
+                 "update_rel": 0.4, "running_update_rel": 1e-6,
+                 "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6},
+    "moe": {"moe_aux_rel": 1e-5, "loss_rel": 1e-5, "grad_norm_rel": 1e-4,
+            "grads_rel": 1e-3, "update_rel": 0.01, "running_update_rel": 1e-6,
+            "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6},
+    "data_model": {"loss_rel": 1e-3, "grad_norm_rel": 1e-3,
+                   "grads_rel": 0.04, "update_rel": 0.1,
+                   "running_update_rel": 1e-3, "stem_mean_rel": 1e-6,
+                   "stem_var_rel": 1e-6},
+}
+TP_CONTROL_MISSES = ("grad_norm_rel", "grads_rel", "update_rel")
+
+
+def _tp_held(readings: dict, tol: dict) -> tuple[dict, dict, bool]:
+    """Each bounded reading of the TP step within its bound; the control's
+    gradient readings outside theirs; and the control's other readings
+    equal to the step's."""
+    tp, control = readings["tp"], readings["control"]
+    return ({k: tp[k] <= v for k, v in tol.items()},
+            {k: control[k] > tol[k] for k in TP_CONTROL_MISSES},
+            all(control[k] == tp[k] for k in tol
+                if k not in TP_CONTROL_MISSES))
+
+
+def _tp_check(torch, cfg_path: Path, name: str, ranks: int, smi: str,
+              argv: list) -> dict:
+    """tools/tp_check through torchrun, ``ranks`` ranks on cuda:0 over
+    gloo, deterministic algorithms, on ``cfg_path`` with ``argv``; every
+    case's readings within TP_TOL, the control outside its gradient
+    bounds, the model peers bit-equal after each of two steps, #4 and #2
+    once each on every rank. Returns the saved result."""
+    out_path = BUILD_DIR / f"{name}.pt"
+    t0 = time.perf_counter()
+    text = _torchrun(ranks, "tubelet_transformer_tpu_torch.tools.tp_check",
+                     ["--config-file", cfg_path, "--device", "cuda:0",
+                      "--dist-backend", "gloo", "--deterministic", *argv,
+                      "--out", out_path], f"{name}.log")
+    _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
+    res = torch.load(out_path, weights_only=False)
+    one_step = {"stem_stats": 1, "stem_pool": 1}
+    for case, r in res.items():
+        tol = TP_TOL["data_model" if r["mesh"][0] > 1 else case]
+        held, missed, same_forward = _tp_held(r["readings"], tol)
+        log(f"[tp] tp_check {case}, mesh {r['mesh'][0]} x {r['mesh'][1]} "
+            f"(data x model), {ranks} ranks on cuda:0 over gloo, "
+            f"{r['n_split']} split parameters, against one process on the "
+            f"same batch (deterministic algorithms): readings "
+            f"{r['readings']['tp']}; control (g summing again) "
+            f"{r['readings']['control']}; bounds {tol}: held {held}, the "
+            f"control's gradient readings missed {missed}, its forward "
+            f"readings the step's own {same_forward}; model peers' "
+            f"replicated parameters bit-equal after each of two steps "
+            f"{r['peers_equal']}; #4 and #2 launches per rank in one TP "
+            f"step {r['launches']}; all-reduces in a step: TP "
+            f"{r['tp']['all_reduces']}, control "
+            f"{r['control']['all_reduces']}; total loss TP "
+            f"{r['tp']['metrics']['total_loss']:.6f}, one process "
+            f"{r['single']['metrics']['total_loss']:.6f}; "
+            f"{r['wall_s']:.1f} s; {smi}")
+        for rank, t in enumerate(r["timings"]):
+            if t:
+                log(f"[tp] {case} rank {rank} (gloo, cuda:0, bs "
+                    f"{TP_BATCH}): step ms "
+                    f"{[round(v, 2) for v in t['step_ms']]}; the model "
+                    f"group's {t['model_all_reduces']} all-reduces of a "
+                    f"step ({t['model_all_reduce_mb']:.2f} MB), replayed, "
+                    f"ms {[round(v, 2) for v in t['model_all_reduce_ms']]}; "
+                    f"{smi}")
+        if not (all(held.values()) and all(missed.values()) and same_forward
+                and r["peers_equal"] == [True, True]
+                and all(x == one_step for x in r["launches"])
+                and r["tp"]["metrics"]["finite"] == 1.0):
+            raise AssertionError(f"tp check {case}: held {held}, control "
+                                 f"missed {missed}, same forward "
+                                 f"{same_forward}, peers {r['peers_equal']},"
+                                 f" launches {r['launches']}")
+    log(f"[tp] {name}: {time.perf_counter() - t0:.1f} s (the processes "
+        "included)")
+    return res
+
+
+def phase_tensor_parallel(torch, train: dict, smi: str) -> dict:
+    """The 'model' axis over torch.distributed, on cuda:0 over gloo.
+    (1) train_ava through torchrun on phase 9's YAML with MESH.MODEL 2 (2
+    model peers of one data shard: 4 steps at bs 2, a validation of 4
+    keyframes): one run directory, one checkpoint and the metrics from rank
+    0 alone; the checkpoint has the keys and shapes of phase 9's
+    one-process file (model and AdamW state); train_ava in one process
+    resumes it for one finite step. (2) tools/tp_check, 2 ranks of MESH.MODEL
+    2 (4 heads and FFN 1024 a peer, the pool_decoder's 6144-row
+    in-projection cut in two) against one process on the same batch of 2,
+    in bf16 (with each rank's step and model all-reduce times) and in
+    float32 with TF32 off, and in float32 with MoE encoder FFNs (4 experts,
+    top 2: 2 a peer); (3) 4 ranks of MESH.DATA 2 x MESH.MODEL 2 in
+    float32 against one process on the batch of 4, on the same YAML.
+    Each within TP_TOL, its control outside, the model peers bit-equal, #4
+    and #2 once on every rank a step."""
+    # (1) the train CLI under MESH.MODEL 2
+    tp = _dp_train_cli(torch, train, "chip_smoke_tp",
+                       lambda c: c["MESH"].update(MODEL=TP_RANKS), data=1)
+    layouts = {}
+    for what, path in (("tp", tp["ckpt"]), ("one", train["ckpt"])):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        layouts[what] = ({k: tuple(v.shape) for k, v in sd["model"].items()},
+                         _optimizer_layout(torch, path))
+        del sd
+    same = layouts["tp"] == layouts["one"]
+    one = write_config("chip_smoke_tp_resume.yaml", lambda c: (
+        c["LOG"].update(EXP_NAME="chip_smoke_tp"),
+        c["MODEL"].update(LOAD=True, PRETRAINED_PATH=""),
+        c["TRAIN"].update(EPOCH_NUM=2),
+        c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
+    res = _cli("train_ava", "--config-file", one, "--device", "cuda:0")
+    text = res.stdout + res.stderr
+    resumed = re.findall(r"resumed from (\S+) at epoch (\d+)", text)
+    epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
+    losses = [float(v) for v in re.findall(r" loss (\S+)",
+                                            "\n".join(epoch_lines))]
+    log(f"[tp] the MESH.MODEL 2 checkpoint's model keys and shapes and its "
+        f"optimizer layout equal phase 9's one-process file's: {same} "
+        f"({len(layouts['tp'][0])} model entries, "
+        f"{len(layouts['tp'][1]['state'])} AdamW state entries); train_ava "
+        f"in one process (exit {res.returncode}) resumed {resumed}, epoch "
+        f"lines {[x.split(' data ')[0] for x in epoch_lines]}, losses "
+        f"{losses}; train_ava wall {tp['wall']:.1f} s under MESH.MODEL 2; "
+        f"{smi}")
+    if not (same and res.returncode == 0
+            and [(os.path.realpath(q), e) for q, e in resumed]
+            == [(os.path.realpath(tp["ckpt"]), "1")]
+            and len(losses) == 1 and np.isfinite(losses).all()):
+        raise AssertionError(f"tp checkpoint: layout equal {same}, resume "
+                             f"{resumed}, {epoch_lines}: {text[-2000:]}")
+
+    # (2) MODEL 2 against one process: float32, bf16, MoE
+    cfg_path = tp["cfg_path"]
+    model2 = _tp_check(torch, cfg_path, "chip_smoke_tp_check", TP_RANKS,
+                       smi, ["--dtypes", "bfloat16,float32", "--moe",
+                             "--timed-steps", "3"])
+    # (3) DATA 2 x MODEL 2 over 4 ranks, float32
+    dm = _tp_check(torch, cfg_path, "chip_smoke_tp_check_2x2",
+                   2 * TP_RANKS, smi, ["--data", 2, "--model", TP_RANKS,
+                                       "--dtypes", "float32"])
+    return {"launches": model2["bfloat16"]["launches"],
+            "moe_launches": model2["moe"]["launches"],
+            "data_model_launches": dm["float32"]["launches"],
+            "readings": {**{k: v["readings"] for k, v in model2.items()},
+                         "data_model": dm["float32"]["readings"]},
+            "timings": model2["bfloat16"]["timings"]}
+
+
 def main() -> int:
     import torch
 
@@ -4108,6 +4307,10 @@ def main() -> int:
     t_dp = time.perf_counter()
     dp = phase_data_parallel(torch, train, smi)
     log(f"[dp] the data-parallel phase: {time.perf_counter() - t_dp:.1f} s")
+    t_tp = time.perf_counter()
+    tp = phase_tensor_parallel(torch, train, smi)
+    log(f"[tp] the tensor-parallel phase: {time.perf_counter() - t_tp:.1f} "
+        f"s")
 
     # the profiled windows last: a window slows the host work of its
     # process after it, so every time above is taken before the first
@@ -4184,6 +4387,11 @@ def main() -> int:
               launches_dp_step=dp["launches"]["stem_pool"],
               launches_zero1_step=dp["zero1_launches"]["stem_pool"],
               launches_moe_dp_step=dp["moe_launches"]["stem_pool"],
+              launches_tp_step=[x["stem_pool"] for x in tp["launches"]],
+              launches_tp_moe_step=[x["stem_pool"]
+                                    for x in tp["moe_launches"]],
+              launches_tp_data_model_step=[
+                  x["stem_pool"] for x in tp["data_model_launches"]],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -4196,6 +4404,11 @@ def main() -> int:
               launches_dp_step=dp["launches"]["stem_stats"],
               launches_zero1_step=dp["zero1_launches"]["stem_stats"],
               launches_moe_dp_step=dp["moe_launches"]["stem_stats"],
+              launches_tp_step=[x["stem_stats"] for x in tp["launches"]],
+              launches_tp_moe_step=[x["stem_stats"]
+                                    for x in tp["moe_launches"]],
+              launches_tp_data_model_step=[
+                  x["stem_stats"] for x in tp["data_model_launches"]],
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]},
               one_clip_case=stats_cases["ava_256px_clip"]),

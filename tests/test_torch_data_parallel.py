@@ -21,8 +21,9 @@ environment set by hand).
 * ``run_training`` and ``run_eval`` over 2 ranks: rank 0 alone writes the
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
-* The refusals: MODEL > 1 (ZERO1 beside it too), PIPE > 1, SPATIAL,
-  INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA != world.
+* The refusals: ZERO1 beside MODEL > 1, PIPE > 1, SPATIAL, a MODEL that
+  does not divide a split attention's heads, mesh serving, INFER_CHUNK x
+  DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world.
 * Slow tier: SIGTERM to one rank stops both at the epoch boundary, and
   the relaunch resumes both from rank 0's choice.
 
@@ -518,16 +519,23 @@ def test_run_eval_matches_one_process(dp_runs, one_torch_thread):
         np.testing.assert_allclose(va, vb, rtol=1e-5, atol=1e-6)
 
 
-def test_refusals_name_their_option():
-    """What MESH.DATA does not cover raises, naming the option."""
+def test_refusals_name_their_option(tmp_path):
+    """What the 'data' and 'model' axes do not cover raises, naming the
+    option."""
     from test_torch_tuber import small_cfg
 
+    from tubelet_transformer_tpu_torch.cli import serve_http
     from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.parallel import sharding_rules
 
-    # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py); beside a
-    # 'model' axis it is refused by that axis
-    for attrs, name in ((dict(zero1=True, model=2), "MESH.MODEL"),
-                        (dict(model=2), "MESH.MODEL"),
+    # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py) and
+    # MESH.MODEL alone on the 'model' axis (test_torch_tensor_parallel.py);
+    # the two together are refused, naming both
+    cfg = small_cfg()
+    cfg.mesh.model = 2
+    runner.check_supported(cfg)
+    for attrs, name in ((dict(zero1=True, model=2),
+                         "MESH.ZERO1 with MESH.MODEL"),
                         (dict(pipe=2), "MESH.PIPE"),
                         (dict(spatial=True), "MESH.SPATIAL")):
         cfg = small_cfg()
@@ -535,9 +543,25 @@ def test_refusals_name_their_option():
             setattr(cfg.mesh, attr, value)
         with pytest.raises(NotImplementedError, match=name):
             runner.check_supported(cfg)
-    for model, pipe in ((2, 1), (1, 2)):
-        with pytest.raises(NotImplementedError, match="MESH"):
-            mesh_lib.create_mesh(-1, model, pipe)
+    with pytest.raises(NotImplementedError, match="MESH.PIPE"):
+        mesh_lib.create_mesh(-1, 1, 2)
+    # one process cannot hold two model peers
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
+        mesh_lib.create_mesh(-1, 2, 1)
+    # a 'model' axis that does not divide a split attention's heads
+    with pytest.raises(ValueError, match="MESH.MODEL 3"):
+        sharding_rules.param_shardings(build_model(small_cfg(), train=True),
+                                       mesh_lib.Mesh(1, 0, 3))
+    # mesh serving
+    path = tmp_path / "mesh_serving.yaml"
+    path.write_text("MESH:\n  MODEL: 2\n")
+    argv = sys.argv
+    sys.argv = ["serve_http", "--config-file", str(path), "--device", "cpu"]
+    try:
+        with pytest.raises(NotImplementedError, match="MESH.MODEL"):
+            serve_http.main()
+    finally:
+        sys.argv = argv
     # MoE runs with MESH.DATA > 1 (test_torch_zero1.py); INFER_CHUNK does
     # not, on any mesh
     cfg = small_cfg()

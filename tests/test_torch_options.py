@@ -3,8 +3,8 @@ and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
 model, as do MESH.ZERO1 and MoE with MESH.DATA > 1 (the 'data' axis), and
-the options it leaves out still raise: MESH.MODEL, MESH.PIPE and
-MESH.SPATIAL (with MESH.DATA or MESH.ZERO1 beside them too),
+the options it leaves out still raise: MESH.PIPE and MESH.SPATIAL (with
+MESH.DATA or MESH.MODEL beside them too), MESH.ZERO1 beside MESH.MODEL,
 MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which
 the JAX package refuses too."""
 
@@ -51,7 +51,10 @@ REFUSED = {
     # MESH.DATA runs (MoE too); a 'pipe' axis beside it does not
     "mesh_data": lambda c: (setattr(c.mesh, "data", 2),
                             setattr(c.mesh, "pipe", 2)),
-    "mesh_model": lambda c: setattr(c.mesh, "model", 2),
+    # MESH.MODEL runs (tensor parallelism, test_torch_tensor_parallel.py);
+    # the clip's H axis over it (SPATIAL) does not
+    "mesh_model": lambda c: (setattr(c.mesh, "model", 2),
+                             setattr(c.mesh, "spatial", True)),
     # MESH.ZERO1 runs on the 'data' axis; with a 'model' axis it does not
     "mesh_zero1": lambda c: (setattr(c.mesh, "zero1", True),
                              setattr(c.mesh, "model", 2)),

@@ -19,7 +19,9 @@ rank, the train and eval runs shard both splits over the ranks
 (``BATCH_SIZE`` per rank, as the JAX package's per-chip batch), share rank
 0's run stamp and resume path, write the config, metrics and checkpoints
 from rank 0 alone, and stop at an epoch boundary when any rank was
-signalled.
+signalled. With ``MESH.MODEL`` the model peers of a data shard read the
+same shard (the loaders shard over ``MESH.DATA`` by data index) and split
+the model between them (``parallel/sharding_rules.py``).
 """
 
 from __future__ import annotations
@@ -90,11 +92,12 @@ def _base_dataset(cfg: Config, split: str):
 
 
 def make_loaders(cfg: Config, val_only: bool = False):
-    """(train_loader, val_loader) of this process's shard: BATCH_SIZE per
-    step and rank; each split padded to a multiple of the ranks, and the
-    val tail wrap-padded to full batches (the evaluators dedupe).
-    ``val_only`` builds no train set (None in its place)."""
-    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    """(train_loader, val_loader) of this process's data shard (MESH.MODEL
+    peers read the same one): BATCH_SIZE per step and shard; each split
+    padded to a multiple of the shards, and the val tail wrap-padded to
+    full batches (the evaluators dedupe). ``val_only`` builds no train set
+    (None in its place)."""
+    rank, world = mesh_lib.data_shard(cfg.mesh.model)
     train_loader = None
     if not val_only:
         train_loader = DataLoader(build_dataset(cfg, "train"),
@@ -112,16 +115,17 @@ def init_state(cfg: Config, steps_per_epoch: int, device: torch.device,
                seed: int = 0, mesh: mesh_lib.Mesh = mesh_lib.Mesh()
                ) -> engine.TrainState:
     """The train build of the model (random weights from ``seed``, then any
-    configured pretrained weights), its optimizer (ZeRO-1 over ``mesh``
-    with MESH.ZERO1) and schedule."""
+    configured pretrained weights, split over ``mesh``'s 'model' axis), its
+    optimizer (ZeRO-1 over ``mesh`` with MESH.ZERO1) and schedule."""
     model = build_model(cfg, device=device, seed=seed, train=True,
-                        pretrained=True)
+                        pretrained=True, mesh=mesh)
     return engine.create_train_state(cfg, model, steps_per_epoch, mesh)
 
 
 def _mesh(cfg: Config) -> mesh_lib.Mesh:
     """The mesh of MESH.* over the processes, MESH.DATA resolved to its
-    size so that the model's and the step's checks see it."""
+    size (what MESH.MODEL leaves of the world when -1) so that the model's
+    and the step's checks see it."""
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
     cfg.mesh.data = mesh.data
     return mesh
@@ -198,7 +202,8 @@ def _run_training_body(cfg: Config, device: torch.device, seed: int,
     eval_step = engine.make_eval_step(cfg, state.model, mesh=mesh)
     print(f"Start training on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"rank {mesh.rank} of {mesh.data}, "
+          f"rank {mesh.rank}: data shard {mesh.data_index} of "
+          f"{mesh.data}, model peer {mesh.model_index} of {mesh.model}, "
           f"{steps_per_epoch} steps/epoch", flush=True)
     result: dict = {"dirs": dirs, "val": {}}
     t0 = time.time()
@@ -238,7 +243,8 @@ def run_eval(cfg: Config, device: torch.device | str = "cuda",
     device = torch.device(device)
     mesh = _mesh(cfg)
     _, val_loader = make_loaders(cfg, val_only=True)
-    model = build_model(cfg, device=device, seed=seed, pretrained=True)
+    model = build_model(cfg, device=device, seed=seed, pretrained=True,
+                        mesh=mesh)
     eval_step = engine.make_eval_step(cfg, model, mesh=mesh)
     return {"val": _validate(cfg, eval_step, model, val_loader, epoch=0,
                              writer=None), "model": model}
@@ -252,6 +258,9 @@ def run_generate_lfb(cfg: Config, out_path: str = "lfb_bank.npz",
     ``out_path``; a slot is valid where its actor probability exceeds 0.8,
     as in the JAX package. Returns the path."""
     check_supported(cfg)
+    if cfg.mesh.model > 1:
+        raise NotImplementedError("generate_lfb under MESH.MODEL > 1 is not "
+                                  "ported yet")
     if mesh_lib.process_count() > 1:
         raise NotImplementedError("generate_lfb runs in one process; launch "
                                   "it without torchrun")

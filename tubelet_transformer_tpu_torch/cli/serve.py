@@ -71,6 +71,9 @@ def main() -> None:
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
     cfg = load_config(args.config_file)
+    if cfg.mesh.model > 1:
+        raise NotImplementedError("mesh serving (MESH.MODEL > 1) is not "
+                                  "ported yet")
     model = build_model(cfg, device=device, seed=args.seed,
                         pretrained=bool(cfg.model.load
                                         and cfg.model.pretrained_path))

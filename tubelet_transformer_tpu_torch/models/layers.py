@@ -13,6 +13,18 @@ probabilities are in the compute dtype while the softmax reduces in float32
 finite), and every LayerNorm has flax's epsilon of 1e-6. Weights are cast to
 the input's dtype at use. Dropout sits where the JAX layers put it and
 draws its masks from an explicit ``torch.Generator`` (``Dropout.generator``).
+
+Tensor parallelism (``MESH.MODEL``, ``parallel/sharding_rules.py``): a
+module whose ``tp`` is a ``parallel.mesh.Mesh`` holds this model peer's
+slice of its split weights. An attention then attends over its local
+heads and an FFN computes its local hidden columns: the replicated inputs
+enter through ``Mesh.copy_to_model``, the row-parallel output leaves
+through ``Mesh.reduce_from_model`` and its replicated bias is added once,
+after the sum; the replicated ``in_proj_bias`` and ``linear1`` bias pass
+through ``copy_to_model`` before they are sliced, so that their gradients
+are summed over the peers. Dropout in a split region draws the full
+one-process mask and keeps the local part, so every peer draws alike and
+the masks are the one-process step's.
 """
 
 from __future__ import annotations
@@ -58,19 +70,47 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+        """``shard`` (dim, n, i): ``x`` is part i of n along dim of the
+        tensor whose mask is drawn (tensor parallelism)."""
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        shape = list(x.shape)
+        if shard is not None:
+            dim, n, i = shard
+            shape[dim] *= n
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        if shard is not None:
+            u = u.narrow(dim, i * x.shape[dim], x.shape[dim])
         return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
+
+
+def _model_axis(tp) -> tuple[int, int]:
+    """(peers, this peer's index) of a module's 'model' axis."""
+    return (1, 0) if tp is None else (tp.model, tp.model_index)
+
+
+def _enter(tp, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k and v entering a split attention, each distinct tensor once,
+    so that shared inputs stay shared."""
+    qq = tp.copy_to_model(q)
+    kk = qq if k is q else tp.copy_to_model(k)
+    vv = kk if v is k else (qq if v is q else tp.copy_to_model(v))
+    return qq, kk, vv
 
 
 class MultiHeadAttention(nn.Module):
     """Multi-head attention over (B, S, E) tensors.
 
     Projections sharing an input run as one matmul: pass the same tensor
-    object for q and k (self-attention) or for k and v (cross-attention)."""
+    object for q and k (self-attention) or for k and v (cross-attention).
+    With ``tp`` set, ``in_proj_weight`` holds the q, k and v rows of this
+    peer's heads and ``out_proj.weight`` their columns."""
+
+    tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -87,8 +127,16 @@ class MultiHeadAttention(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """q (B,Sq,E), k/v (B,Sk,E); key_padding_mask (B,Sk), True = pad."""
-        e = q.shape[-1]
-        w, b3 = cast(self.in_proj_weight, q), cast(self.in_proj_bias, q)
+        tp = self.tp
+        n, i = _model_axis(tp)
+        # the width of the heads this peer attends over
+        e = self.in_proj_weight.shape[0] // 3
+        b3 = self.in_proj_bias
+        if tp is not None:
+            q, k, v = _enter(tp, q, k, v)
+            b3 = torch.cat([c.chunk(n)[i] for c in
+                            tp.copy_to_model(b3).chunk(3)])
+        w, b3 = cast(self.in_proj_weight, q), cast(b3, q)
         if q is k and k is v:
             qp, kp, vp = F.linear(q, w, b3).chunk(3, dim=-1)
         elif q is k:
@@ -104,7 +152,7 @@ class MultiHeadAttention(nn.Module):
 
         b, sq, _ = qp.shape
         sk = kp.shape[1]
-        h = self.num_heads
+        h = self.num_heads // n
         d = e // h
         qp = qp.reshape(b, sq, h, d) * (float(d) ** -0.5)
         kp = kp.reshape(b, sk, h, d)
@@ -115,9 +163,15 @@ class MultiHeadAttention(nn.Module):
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         NEG)
         # torch's softmax reduces in float32 for a bfloat16 input
-        attn = self.dropout(scores.softmax(dim=-1)).to(vp.dtype)
+        attn = self.dropout(scores.softmax(dim=-1),
+                            None if tp is None else (1, n, i)).to(vp.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vp.reshape(b, sk, h, d))
-        return self.out_proj(out.reshape(b, sq, e))
+        out = out.reshape(b, sq, e)
+        if tp is None:
+            return self.out_proj(out)
+        return (tp.reduce_from_model(F.linear(
+            out, cast(self.out_proj.weight, out)))
+            + cast(self.out_proj.bias, out))
 
 
 class MLP(nn.Module):
@@ -140,12 +194,31 @@ def _add_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
     return x if pos is None else x + pos
 
 
+def dense_ffn(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer.linear2(dropout(relu(layer.linear1(x))))``; with
+    ``layer.tp`` set, over this peer's hidden columns, summed over the
+    peers."""
+    tp, drop = layer.tp, layer.dropout
+    if tp is None:
+        return layer.linear2(drop(F.relu(layer.linear1(x))))
+    n, i = _model_axis(tp)
+    x = tp.copy_to_model(x)
+    b1 = tp.copy_to_model(layer.linear1.bias).chunk(n)[i]
+    hidden = drop(F.relu(F.linear(x, cast(layer.linear1.weight, x),
+                                  cast(b1, x))), (-1, n, i))
+    return (tp.reduce_from_model(F.linear(
+        hidden, cast(layer.linear2.weight, hidden)))
+        + cast(layer.linear2.bias, hidden))
+
+
 class EncoderLayer(nn.Module):
     """DETR encoder layer, post-norm or, with ``normalize_before``, pre-norm
     (layers.py:216-222 of the JAX package). ``moe_experts > 0`` swaps the
     dense FFN for ``MoEFFN`` (``moe_ffn``), whose load-balance loss is
     appended to the ``moe_aux`` list the caller passes, its counts summed
     by ``moe_reduce`` (over ranks under data parallelism)."""
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0, normalize_before: bool = False,
@@ -170,7 +243,7 @@ class EncoderLayer(nn.Module):
     def _ffn(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
              moe_aux: Optional[list], moe_reduce) -> torch.Tensor:
         if self.moe_ffn is None:
-            return self.linear2(self.dropout(F.relu(self.linear1(x))))
+            return dense_ffn(self, x)
         # padded tokens must not take expert capacity
         y, aux = self.moe_ffn(x, pad_mask=key_padding_mask, reduce=moe_reduce)
         if moe_aux is not None:
@@ -201,6 +274,8 @@ class DecoderLayer(nn.Module):
     memory, FFN; post-norm or, with ``normalize_before``, pre-norm
     (layers.py:271-281 of the JAX package)."""
 
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
@@ -221,7 +296,7 @@ class DecoderLayer(nn.Module):
         drop = self.dropout
 
         def ffn(x):
-            return self.linear2(drop(F.relu(self.linear1(x))))
+            return dense_ffn(self, x)
 
         if self.normalize_before:
             t2 = self.norm1(tgt)
@@ -246,6 +321,8 @@ class FactorizedSTEncoderLayer(nn.Module):
     As in the reference, ``self_attn_t`` attends over SPACE (within each
     frame) and ``self_attn_s`` over TIME (at each location)."""
 
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0):
         super().__init__()
@@ -267,12 +344,13 @@ class FactorizedSTEncoderLayer(nn.Module):
         xt = self.norm1_s(xt + drop(self.self_attn_s(xt, xt, xt)))
         cat = torch.cat([xs.reshape(b, t, hw, e),
                          xt.reshape(b, hw, t, e).transpose(1, 2)], dim=-1)
-        return self.norm2(src + drop(self.linear2(drop(F.relu(
-            self.linear1(cat))))))
+        return self.norm2(src + drop(dense_ffn(self, cat)))
 
 
 class LSTRDecoderLayer(nn.Module):
     """LSTR decoder layer of the learned temporal pooling."""
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0):
@@ -290,8 +368,7 @@ class LSTRDecoderLayer(nn.Module):
         drop = self.dropout
         tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt)))
         tgt = self.norm2(tgt + drop(self.multihead_attn(tgt, memory, memory)))
-        return self.norm3(tgt + drop(self.linear2(drop(F.relu(
-            self.linear1(tgt))))))
+        return self.norm3(tgt + drop(dense_ffn(self, tgt)))
 
 
 class LayerStack(nn.Module):

@@ -28,6 +28,15 @@ rank's sum of router probabilities, and each rank returns its additive
 share ``E * sum_e f_e * (sum of its valid tokens' p_e) / N``. Routing and
 capacity are per row, so nothing else crosses ranks.
 
+Expert parallelism (``MESH.MODEL``, ``tp`` set by
+``parallel/sharding_rules.py:shard_model``): the stacks hold this model
+peer's ``E / model`` experts. The router, the top-k, the capacity
+positions, ``combine`` and the load-balance loss stay replicated, from the
+full ``probs``; ``x`` and ``combine`` enter the experts through
+``Mesh.copy_to_model``, each peer takes its experts' slice of ``dispatch``
+and ``combine``, and the peers' partial outputs are summed by
+``Mesh.reduce_from_model``.
+
 The dense (B, S, E, C) dispatch and combine tensors grow as S^2 (C is
 proportional to S).
 """
@@ -63,6 +72,8 @@ def expert_init_(t: torch.Tensor, generator: torch.Generator) -> None:
 
 class MoEFFN(nn.Module):
     """(B, S, D) tokens -> (B, S, D), and the load-balance loss."""
+
+    tp = None
 
     def __init__(self, d_model: int, dim_feedforward: int, num_experts: int,
                  top_k: int = 1, capacity_factor: float = 1.25,
@@ -124,15 +135,26 @@ class MoEFFN(nn.Module):
             taken = taken + mask.sum(dim=1, keepdim=True)
         dt = x.dtype
         dispatch = (combine > 0.0).to(dt)
+        tp, xe, shard = self.tp, x, None
+        if tp is not None:
+            # this peer's experts
+            n, i = tp.model, tp.model_index
+            mine = slice(i * e // n, (i + 1) * e // n)
+            xe = tp.copy_to_model(x)
+            combine = tp.copy_to_model(combine)[:, :, mine]
+            dispatch = dispatch[:, :, mine]
+            shard = (0, n, i)
 
-        xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)         # (E,B,C,D)
+        xin = torch.einsum("bsec,bsd->ebcd", dispatch, xe)        # (E,B,C,D)
         h = F.relu(torch.einsum("ebcd,edf->ebcf", xin,
                                 self.expert_w1.to(dt))
                    + self.expert_b1.to(dt)[:, None, None, :])
-        h = self.dropout(h)
+        h = self.dropout(h, shard)
         yo = (torch.einsum("ebcf,efd->ebcd", h, self.expert_w2.to(dt))
               + self.expert_b2.to(dt)[:, None, None, :])
         y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), yo)
+        if tp is not None:
+            y = tp.reduce_from_model(y)
 
         counts = torch.cat([slot_masks[0].sum(dim=(0, 1)),
                             valid.sum()[None]])                   # (E+1,)

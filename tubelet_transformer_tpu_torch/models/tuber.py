@@ -96,7 +96,11 @@ class Backbone(nn.Module):
 
 
 class TubeR(nn.Module):
-    """Clips (B,T,H,W,3) normalised RGB + pad mask (B,H,W) -> detections."""
+    """Clips (B,T,H,W,3) normalised RGB + pad mask (B,H,W) -> detections.
+    ``tp``: the mesh whose 'model' axis the model is split over
+    (``parallel.sharding_rules.shard_model``), else None."""
+
+    tp = None
 
     def __init__(self, num_classes: int = 80, num_queries: int = 15,
                  hidden_dim: int = 256, nhead: int = 8, enc_layers: int = 6,
@@ -323,7 +327,7 @@ def dataset_mode(cfg: Config) -> str:
 
 def build_model(cfg: Config, device: torch.device | str = "cpu",
                 seed: int = 0, train: bool = False,
-                pretrained: bool = False) -> TubeR:
+                pretrained: bool = False, mesh=None) -> TubeR:
     """TubeR for ``cfg`` on ``device``, with random weights from ``seed``
     (drawn on the CPU, so equal on every device); it computes in
     ``MODEL.COMPUTE_DTYPE``. The eval build (``train=False``) is in eval mode
@@ -333,7 +337,10 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
     ``pretrained``, the weight files the config names
     (``train.checkpoint.load_pretrained``) replace the random weights, in
     float32, before the eval build's cast (which leaves the BN statistics
-    and the MoE routers float32)."""
+    and the MoE routers float32). With a ``mesh`` (``parallel.mesh.Mesh``)
+    whose 'model' axis has more than one peer, the full model is then
+    split over it (``parallel.sharding_rules.shard_model``): the weight
+    files load unchanged."""
     m = cfg.model
     if cfg.mesh.pipe > 1:
         raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
@@ -367,10 +374,17 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
 
         load_pretrained(cfg, model)
     if train:
-        return model.to(device).train()
-    # one cast here, not one per use: the serving path is host-bound
-    for mod in model.modules():
-        if not isinstance(mod, (FoldableBN, Router)):
-            for p in mod.parameters(recurse=False):
-                p.data = p.data.to(dtype)
-    return model.to(device).eval()
+        model = model.to(device).train()
+    else:
+        # one cast here, not one per use: the serving path is host-bound
+        for mod in model.modules():
+            if not isinstance(mod, (FoldableBN, Router)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(dtype)
+        model = model.to(device).eval()
+    if mesh is not None and mesh.model > 1:
+        from tubelet_transformer_tpu_torch.parallel.sharding_rules import (
+            shard_model)
+
+        shard_model(model, mesh)
+    return model

@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the port's counterpart of
-``tubelet_transformer_tpu/parallel/mesh.py`` for ``MESH.DATA``.
+"""Data and tensor parallelism over ``torch.distributed``: the port's
+counterpart of ``tubelet_transformer_tpu/parallel/mesh.py`` for
+``MESH.DATA`` and ``MESH.MODEL``.
 
 One process per rank, launched by ``python -m torch.distributed.run``
 (torchrun), each with one device. Under GSPMD the JAX step on a batch
@@ -18,7 +19,22 @@ port gets there by hand:
   values everywhere.
 
 Shards are equal in size: the loaders pad each split to a multiple of the
-world size.
+number of shards.
+
+The 'model' axis (``MESH.MODEL``, ``parallel/sharding_rules.py``): the
+ranks are laid out as JAX's ``devices.reshape(data, model, pipe)``, so
+global rank = data index * model + model index and the model peers are
+adjacent ranks. The model peers hold the same data shard and split the
+transformer's attention heads, FFN columns and MoE experts between them;
+GSPMD's collectives are written here by hand as Megatron's two operators,
+``Mesh.copy_to_model`` ("f": identity forward, the gradient summed over
+the model peers) at the entry of a split region and
+``Mesh.reduce_from_model`` ("g": the partial outputs summed forward,
+identity backward) at its exit.
+The three reductions above then run over the *data group* (the ranks of
+one model index): over the world they would count each shard ``model``
+times. ``create_mesh`` makes the data and model groups (every rank makes
+every group, in one order) and keeps them for the process.
 
 Device tensors travel over the default process group (NCCL, or gloo, which
 carries ``all_reduce``, ``broadcast`` and ``all_gather_into_tensor`` of
@@ -47,6 +63,8 @@ TIMEOUT = timedelta(minutes=10)
 
 # the CPU gloo group of this process, once init_distributed has run
 _HOST_GROUP: Optional[dist.ProcessGroup] = None
+# the data and model groups that create_mesh made, by their ranks
+_GROUPS: dict = {}
 
 
 def launch_env() -> Optional[tuple[int, int, int]]:
@@ -105,6 +123,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    _GROUPS.clear()
 
 
 def process_count() -> int:
@@ -119,67 +138,174 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
+def data_shard(model: int = 1) -> tuple[int, int]:
+    """(this process's data shard, the number of data shards) when each
+    shard is held by ``model`` peers of adjacent ranks (global rank =
+    ``data_index * model + model_index``, ``Mesh``'s layout): the one
+    place the loaders and validation's gather read the layout from."""
+    return process_index() // model, process_count() // model
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks of a device tensor; the gradient of each rank's input
-    is the sum over ranks of the gradients of the outputs, since every
-    rank's output feeds that rank's share of the loss."""
+    """Sum over a group's ranks of a device tensor; the gradient of each
+    rank's input is the sum over the ranks of the gradients of the outputs,
+    since every rank's output feeds that rank's share of the loss."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over ranks of a device tensor, differentiable (a new tensor;
-    ``t`` itself when no process group is joined)."""
-    return _AllReduceSum.apply(t) if dist.is_initialized() else t
+def all_reduce_sum(t: torch.Tensor,
+                   group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Sum over ``group``'s ranks (the world by default) of a device
+    tensor, differentiable (a new tensor; ``t`` itself when no process
+    group is joined)."""
+    return _AllReduceSum.apply(t, group) if dist.is_initialized() else t
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's "f": the identity forward; backward, the sum over the
+    model peers of their gradients, each a partial one from its own split
+    of the region the tensor enters."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's "g": the sum over the model peers of their partial
+    outputs; backward, the identity, since every peer computes the whole
+    loss from the sum (``_AllReduceSum``'s backward would count each
+    gradient ``model`` times)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _group(ranks: tuple) -> Optional[dist.ProcessGroup]:
+    """The group of ``ranks`` that ``create_mesh`` made; None (the default
+    group) for the whole world."""
+    if len(ranks) == process_count():
+        return None
+    if ranks not in _GROUPS:
+        raise RuntimeError(f"no process group of ranks {ranks}: build the "
+                           "mesh with create_mesh")
+    return _GROUPS[ranks]
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The 'data' axis: ``data`` ranks of equal shards, this process being
-    ``rank``. With ``data`` 1 every reduction is the identity. The three
-    methods are the three roles a reduction plays in the train step."""
+    """The ('data', 'model') axes: ``data`` shards of equal size, each
+    split over ``model`` peers; this process is global ``rank`` =
+    ``data_index * model + model_index``. With ``data`` 1 every data
+    reduction is the identity, with ``model`` 1 every model operator. The
+    first three methods are the three roles a reduction over the data
+    group plays in the train step, the last two Megatron's operators over
+    the model group."""
 
     data: int = 1
     rank: int = 0
+    model: int = 1
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def data_group(self) -> Optional[dist.ProcessGroup]:
+        """The ranks of this model index, one per data shard."""
+        m = self.model_index
+        return _group(tuple(d * self.model + m for d in range(self.data)))
+
+    @property
+    def model_group(self) -> Optional[dist.ProcessGroup]:
+        """The model peers of this data shard."""
+        base = self.data_index * self.model
+        return _group(tuple(range(base, base + self.model)))
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """Mean over ranks of a batch statistic (BN's mean and E[x^2])."""
-        return t if self.data == 1 else all_reduce_sum(t) / self.data
+        """Mean over the data shards of a batch statistic (BN's mean and
+        E[x^2])."""
+        return (t if self.data == 1
+                else all_reduce_sum(t, self.data_group) / self.data)
 
     def count_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over ranks of a loss normaliser."""
-        return t if self.data == 1 else all_reduce_sum(t)
+        """Sum over the data shards of a loss normaliser."""
+        return t if self.data == 1 else all_reduce_sum(t, self.data_group)
 
     def share_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over ranks of the ranks' shares of the loss, or of their
-        gradients: the global value."""
-        return t if self.data == 1 else all_reduce_sum(t)
+        """Sum over the data shards of their shares of the loss, or of
+        their gradients: the global value."""
+        return t if self.data == 1 else all_reduce_sum(t, self.data_group)
+
+    def copy_to_model(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering a split region ("f")."""
+        return (t if self.model == 1
+                else _CopyToModel.apply(t, self.model_group))
+
+    def reduce_from_model(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of the model peers' partial outputs leaving a split
+        region ("g")."""
+        return (t if self.model == 1
+                else _ReduceFromModel.apply(t, self.model_group))
+
+
+def _make_groups(data: int, model: int) -> None:
+    """Every data group and every model group of a data x model mesh,
+    made once per process; every rank makes them all, in one order, as
+    ``dist.new_group`` requires."""
+    groups = [tuple(d * model + m for d in range(data)) for m in range(model)]
+    groups += [tuple(range(d * model, (d + 1) * model)) for d in range(data)]
+    for ranks in groups:
+        if ranks not in _GROUPS:
+            _GROUPS[ranks] = dist.new_group(list(ranks), timeout=TIMEOUT)
 
 
 def create_mesh(data: int = -1, model: int = 1, pipe: int = 1) -> Mesh:
     """The mesh of ``MESH.DATA`` x ``MESH.MODEL`` x ``MESH.PIPE`` over the
-    processes: ``data`` -1 takes them all. Raises NotImplementedError for a
-    'model' or 'pipe' axis (not ported) and ValueError when the product is
-    not the number of processes, as the JAX package does."""
-    if model > 1:
-        raise NotImplementedError("MESH.MODEL > 1 is not ported yet")
+    processes: ``data`` -1 takes what ``model`` leaves. Raises
+    NotImplementedError for a 'pipe' axis (not ported) and ValueError when
+    the product is not the number of processes, as the JAX package does.
+    With both axes above 1, makes the data and model groups (a collective
+    call: every rank makes the same mesh)."""
     if pipe > 1:
         raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
     n = process_count()
     if data == -1:
         data = n // (model * pipe)
-    if data * model * pipe != n:
+    if data < 1 or model < 1 or data * model * pipe != n:
         raise ValueError(f"mesh {data}x{model}x{pipe} (MESH.DATA x MODEL x "
                          f"PIPE) != {n} processes")
-    return Mesh(data=data, rank=process_index())
+    if data > 1 and model > 1:
+        _make_groups(data, model)
+    return Mesh(data=data, rank=process_index(), model=model)
 
 
 def barrier() -> None:
@@ -206,15 +332,18 @@ def all_gather_host(x) -> np.ndarray:
     return np.stack(all_gather_objects(np.asarray(x)))
 
 
-def gather_global_tree(tree: dict) -> dict:
-    """Each rank's dict of numpy arrays (or CPU-copyable tensors), every
-    array concatenated over ranks on its leading axis in rank order: the
-    global batch, in ONE host collective."""
+def gather_global_tree(tree: dict, model: int = 1) -> dict:
+    """Each data shard's dict of numpy arrays (or CPU-copyable tensors),
+    every array concatenated over the shards on its leading axis in shard
+    order: the global batch, in ONE host collective. With a 'model' axis of
+    ``model`` peers, which hold the same shard, each shard is taken once,
+    from its model index 0 (``data_shard``'s layout)."""
     local = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
              for k, v in tree.items()}
     if not dist.is_initialized():
         return local
     parts = all_gather_objects(local)
+    parts = [parts[d * model] for d in range(data_shard(model)[1])]
     return {k: np.concatenate([p[k] for p in parts]) for k in local}
 
 

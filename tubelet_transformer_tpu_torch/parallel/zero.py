@@ -75,11 +75,14 @@ def moment_bytes(optimizer) -> int:
                for k, v in st.items() if k in MOMENTS)
 
 
-def all_gather_flat(flat: torch.Tensor, n: int) -> torch.Tensor:
+def all_gather_flat(flat: torch.Tensor, n: int,
+                    group: Optional[dist.ProcessGroup] = None
+                    ) -> torch.Tensor:
     """(n, len) of every rank's 1-d ``flat``, in rank order: one
-    ``all_gather_into_tensor`` over the default group."""
+    ``all_gather_into_tensor`` over ``group`` (of ``n`` ranks; the default
+    group when None)."""
     out = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
-    dist.all_gather_into_tensor(out, flat)
+    dist.all_gather_into_tensor(out, flat, group=group)
     return out.view(n, -1)
 
 

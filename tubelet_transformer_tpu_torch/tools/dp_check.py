@@ -74,7 +74,7 @@ from tubelet_transformer_tpu_torch.models.layers import Dropout
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.ops.cuda import stem as stem_ops
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
-from tubelet_transformer_tpu_torch.parallel import zero
+from tubelet_transformer_tpu_torch.parallel import sharding_rules, zero
 from tubelet_transformer_tpu_torch.train import engine
 from tubelet_transformer_tpu_torch.train.optimizer import trainable_params
 
@@ -145,12 +145,13 @@ def _stem_launches() -> tuple[int, int]:
 
 def one_step(cfg: Config, model, initial: dict, batch: dict,
              mesh: mesh_lib.Mesh) -> dict:
-    """One train step of ``model`` from ``initial`` (its state dict, a
-    fresh optimizer) on ``batch`` (numpy) with ``mesh``: the metrics, the
-    clipped gradients, the state after, the stem statistics the BN affine
-    received, the stem kernels' launches (statistics, pooled) and the
-    step's all-reduces."""
-    model.load_state_dict(initial)
+    """One train step of ``model`` from ``initial`` (its one-process state
+    dict, a fresh optimizer) on ``batch`` (numpy) with ``mesh``: the
+    metrics, the clipped gradients, the state after (both gathered to the
+    one-process layout when the model is split over a 'model' axis), the
+    stem statistics the BN affine received, the stem kernels' launches
+    (statistics, pooled) and the step's all-reduces."""
+    sharding_rules.load_full_state(model, initial)
     state = engine.create_train_state(cfg, model, steps_per_epoch=10,
                                       mesh=mesh)
     step = engine.make_train_step(cfg, state, mesh=mesh)
@@ -180,12 +181,12 @@ def one_step(cfg: Config, model, initial: dict, batch: dict,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     after = _stem_launches()
+    grads = sharding_rules.gather_tensors(model, {
+        n: p.grad for n, p in model.named_parameters() if p.grad is not None})
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": {n: p.grad.detach().cpu().clone()
-                      for n, p in model.named_parameters()
-                      if p.grad is not None},
-            "state": {k: v.detach().cpu().clone()
-                      for k, v in model.state_dict().items()},
+            "grads": {n: g.detach().cpu().clone() for n, g in grads.items()},
+            "state": {k: v.detach().cpu().clone() for k, v in
+                      sharding_rules.gather_state(model).items()},
             "stem_stats": [(m.cpu(), v.cpu()) for m, v in stats],
             "launches": {"stem_stats": after[0] - before[0],
                          "stem_pool": after[1] - before[1]},
@@ -423,6 +424,9 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     others. ``initial``: the model's state dict (else random weights from
     ``seed``); ``batch``: the global batch (else ``global_batch``);
     ``zero1``: also ``zero1_check``, every rank's result under "zero1"."""
+    if cfg.mesh.model > 1:
+        raise ValueError("MESH.MODEL > 1: tools/tp_check.py checks the "
+                         "'model' axis")
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
     cfg.mesh.data = mesh.data
     model = build_model(cfg, device=device, seed=seed, train=True)

@@ -20,7 +20,12 @@ are equal), and every rank waits for it at a barrier; every rank loads the
 one path that rank 0 chose (``parallel.mesh.broadcast_string``). Under
 ZeRO-1 every rank first takes part in the optimizer's ``state_dict``,
 which gathers the sharded moments into ``torch.optim.AdamW``'s layout: the
-file is the same with ZeRO-1 or without, and loads into either.
+file is the same with ZeRO-1 or without, and loads into either. Under
+tensor parallelism (``MESH.MODEL``) every rank first takes part in
+gathering the split parameters and their AdamW moments
+(``parallel/sharding_rules.py``): rank 0 writes the one-process layout,
+and every rank loads the whole file and keeps its slices, so a file
+resumes at any ``MESH.MODEL``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from tubelet_transformer_tpu_torch import convert
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
+from tubelet_transformer_tpu_torch.parallel import sharding_rules
 from tubelet_transformer_tpu_torch.train.engine import TrainState
 
 
@@ -55,20 +61,23 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     data parallelism rank 0 writes and deletes, and every rank returns the
     path once the file is there."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"ckpt_epoch_{epoch}"))
-    # a collective under ZeRO-1: every rank gathers the moments
-    optimizer = state.optimizer.state_dict()
+    # collectives under ZeRO-1 and MESH.MODEL: every rank gathers the
+    # moments and the split parameters
+    optimizer = sharding_rules.gather_optimizer_state(state.model,
+                                                      state.optimizer)
+    model = sharding_rules.gather_state(state.model)
     if mesh_lib.is_main_process():
-        _write_checkpoint(ckpt_dir, path, state, optimizer, epoch,
+        _write_checkpoint(ckpt_dir, path, state, model, optimizer, epoch,
                           max_accuracy, keep)
     mesh_lib.barrier()
     return path
 
 
 def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
-                      optimizer: dict, epoch: int, max_accuracy: float,
-                      keep: int) -> None:
+                      model: dict, optimizer: dict, epoch: int,
+                      max_accuracy: float, keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": optimizer,
+    payload = {"model": model, "optimizer": optimizer,
                "step": state.step, "updates": state.updates, "epoch": epoch,
                "max_accuracy": float(max_accuracy)}
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -84,12 +93,13 @@ def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
 
 def load_checkpoint(path: str, state: TrainState
                     ) -> tuple[TrainState, int, float]:
-    """Restore ``path`` into ``state`` in place; returns (state, epoch,
-    max_accuracy)."""
+    """Restore ``path`` into ``state`` in place (this model peer's slices
+    under MESH.MODEL); returns (state, epoch, max_accuracy)."""
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    sharding_rules.load_full_state(state.model, payload["model"])
+    state.optimizer.load_state_dict(sharding_rules.shard_optimizer_state(
+        state.model, state.optimizer, payload["optimizer"]))
     state.step, state.updates = payload["step"], payload["updates"]
     return state, payload["epoch"], payload["max_accuracy"]
 

@@ -22,10 +22,10 @@ running statistics, which the forward has already updated in place and are
 put back from a copy taken before it.
 
 Randomness is a ``torch.Generator`` on the model's device, reseeded at each
-step from ``TRAIN.SEED``, the step number and the data-parallel rank, so
-that a resumed run draws what the uninterrupted one would have (the JAX step
-folds the step into its key the same way), and two ranks never draw the same
-jitter or dropout masks.
+step from ``TRAIN.SEED``, the step number and the data index, so that a
+resumed run draws what the uninterrupted one would have (the JAX step
+folds the step into its key the same way), two data shards never draw the
+same jitter or dropout masks, and the model peers of one shard draw alike.
 
 Data parallelism (``MESH.DATA``, a ``parallel.mesh.Mesh`` of more than one
 rank): each rank runs the step on its shard of the global batch. The BN
@@ -41,6 +41,18 @@ With MoE the load-balance counts are summed over ranks in each MoE layer
 criterion's terms. With ``MESH.ZERO1`` the optimizer is
 ``parallel.zero.ZeroAdamW``: the same all-reduced, clipped gradients, the
 moments sharded over ranks, one all-gather of the updated parameters.
+
+Tensor parallelism (``MESH.MODEL``, a mesh whose 'model' axis has more than
+one peer, the model split over it by ``build_model(..., mesh=mesh)``): the
+model peers of a data shard run the step on the same shard, the
+replicated parts alike and the split parts on their own slices, with the
+model group's collectives in the forward (``parallel/mesh.py``'s "f" and
+"g"). Each peer then holds the whole loss of its shard, the gradients of
+the replicated parameters equal on every peer and of its own slices; the
+data reductions above run over the data group, and the clip sums the
+squared norm of the split gradients over the model group. Every peer of
+a shard draws the same jitter and dropout, so the matcher picks the same
+matches and the replicated parameters stay equal.
 """
 
 from __future__ import annotations
@@ -114,7 +126,8 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the step options not ported yet."""
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
-        "MESH.MODEL > 1": cfg.mesh.model > 1,
+        "MESH.ZERO1 with MESH.MODEL > 1": (cfg.mesh.zero1
+                                           and cfg.mesh.model > 1),
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
         "MESH.SPATIAL": cfg.mesh.spatial,
     }
@@ -195,12 +208,25 @@ def _bn_stats(model: torch.nn.Module) -> List[torch.Tensor]:
             for t in (m.running_mean, m.running_var)]
 
 
+def check_model_mesh(model: TubeR, mesh: Mesh) -> None:
+    """Raise ValueError unless ``model`` is split over ``mesh``'s 'model'
+    axis exactly when that axis has more than one peer."""
+    tp = getattr(model, "tp", None)
+    split = tp.model if tp is not None else 1
+    if split != mesh.model:
+        raise ValueError(
+            f"MESH.MODEL {mesh.model}: the model is split over {split} "
+            "peers; build it with build_model(..., mesh=mesh)")
+
+
 def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     """The train step: (batch on the device, loss_ce weight) -> metrics
     (0-dim tensors, the global batch's under data parallelism), updating
-    ``state`` in place. ``mesh``: this process's place on the 'data' axis
-    (one device by default); the batch is this rank's shard."""
+    ``state`` in place. ``mesh``: this process's place on the 'data' and
+    'model' axes (one device by default); the batch is this rank's data
+    shard."""
     check_supported(cfg)
+    check_model_mesh(state.model, mesh)
     sharded = isinstance(state.optimizer, ZeroAdamW)
     if sharded != (cfg.mesh.zero1 and mesh.data > 1) or (
             sharded and state.optimizer.mesh.data != mesh.data):
@@ -237,10 +263,10 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     def train_step(batch: Dict[str, torch.Tensor], loss_ce_weight: float
                    ) -> Dict[str, torch.Tensor]:
         model.train()
-        # the rank by an odd 32-bit multiplier: the CPU generator keeps
-        # the low 32 bits of a seed
+        # the data index by an odd 32-bit multiplier: the CPU generator
+        # keeps the low 32 bits of a seed
         generator.manual_seed(state.seed * 1_000_003 + state.step
-                              + mesh.rank * 2_654_435_761)
+                              + mesh.data_index * 2_654_435_761)
         clips = device_preprocess(batch["clips"], dtype=model.dtype,
                                   pad_mask=batch.get("pad_mask"),
                                   jitter=True, generator=generator)
@@ -270,7 +296,8 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
                                  if p.grad is not None], inv)
             total = total * inv
             loss_dict = {k: v * inv for k, v in loss_dict.items()}
-        grad_norm = clip_by_global_norm(params, cfg.loss.clips_max_norm)
+        grad_norm = clip_by_global_norm(params, cfg.loss.clips_max_norm,
+                                        mesh)
         finite = bool(torch.isfinite(total))
         if finite:
             set_learning_rate(state.optimizer, state.schedule(state.updates))
@@ -294,6 +321,7 @@ def make_eval_step(cfg: Config, model: TubeR, mesh: Mesh = Mesh()):
     VAL.COMPUTE_LOSSES is off, the criterion's losses of the global
     batch."""
     check_supported(cfg)
+    check_model_mesh(model, mesh)
     postprocess = postprocess_ava if is_ava_mode(cfg) else postprocess_softmax
 
     @torch.inference_mode()

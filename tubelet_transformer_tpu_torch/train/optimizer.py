@@ -8,7 +8,8 @@ decoder are 'main' as in the JAX package, where they sit outside its
 backbone). Frozen parameters get ``requires_grad_(False)`` and no optimizer
 state; their BN statistics still update in train mode. ``torch.optim.AdamW``
 couples weight decay to the group's rate and decays every parameter, as the
-JAX chain does; the clip runs over the trainable gradients before Adam.
+JAX chain does; the clip runs over the trainable gradients before Adam
+(over the model peers' slices too under ``MESH.MODEL``).
 With ``MESH.ZERO1`` on a 'data' axis of more than one rank the same AdamW
 keeps its moments sharded over the ranks (``parallel/zero.py``).
 """
@@ -85,14 +86,27 @@ def trainable_params(optimizer: torch.optim.Optimizer
 
 
 def clip_by_global_norm(params: Iterable[nn.Parameter],
-                        max_norm: float) -> torch.Tensor:
+                        max_norm: float, mesh: Mesh = Mesh()
+                        ) -> torch.Tensor:
     """The global L2 norm of the gradients (float32, on their device);
     when ``max_norm`` > 0 and the norm reaches it, scales the gradients by
-    max_norm / norm in place, as ``optax.clip_by_global_norm`` does."""
-    grads = [p.grad for p in params if p.grad is not None]
+    max_norm / norm in place, as ``optax.clip_by_global_norm`` does. Split
+    over ``mesh``'s 'model' axis (``tp_split``), a parameter's gradient is
+    this peer's slice: the squares of those are summed over the model
+    group, the replicated ones counted once."""
+    with_grad = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in with_grad]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch.stack(torch._foreach_norm(grads))
+    split = [getattr(p, "tp_split", None) is not None for p in with_grad]
+    if mesh.model == 1 or not any(split):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        split = torch.tensor(split, device=norms.device)
+        norm = (torch.linalg.vector_norm(norms[~split]).square()
+                + mesh.reduce_from_model(
+                    torch.linalg.vector_norm(norms[split]).square())).sqrt()
     if max_norm > 0:
         scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
         torch._foreach_mul_(grads, scale)
