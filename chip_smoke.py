@@ -157,7 +157,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
     normalisers outside every one, with each rank's step and gradient
     all-reduce times; and ``train_ava`` through torchrun with the default
     backend (NCCL) at world size 1, resuming the ZeRO-1 checkpoint
-    without ZeRO-1 for one more step;
+    without ZeRO-1 for one more step (phases 23 and 24 run as one,
+    ``phase_mesh``, in three stages whose jobs run at once, the timed
+    checks alone; the 2-rank checks of both axes in one torchrun launch
+    of ``tools/mesh_checks`` per stage);
 24. the 'model' axis (``MESH.MODEL``) over ``torch.distributed``, the
     ranks on the one card over gloo: ``train_ava`` through torchrun on
     phase 9's YAML with ``MESH.MODEL 2`` (4 heads and FFN 1024 a peer, the
@@ -170,10 +173,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
     all-reduce times) and in float32 (TF32 off), with MoE encoder FFNs (4
     experts, top 2: 2 a peer) in float32, and on 4 ranks of MESH.DATA 2 x
     MESH.MODEL 2 in float32 at the same width (the pool_decoder split
-    beside the data shards): each reading within its bound, the
+    beside the data shards), where ZeRO-1 beside the 'model' axis runs
+    too, bit for bit against the DATA x MODEL step over two steps, its
+    control without the all-gather missing, each rank's moment bytes beside
+    the DATA x MODEL step's: each reading within its bound, the
     control ("g" whose backward sums again) outside the gradient bounds,
     the model peers' replicated parameters bit-equal after each of two
-    steps, #4 and #2 once on every rank a step.
+    steps, #4 and #2 once on every rank a step; and ``generate_lfb``
+    through torchrun with MESH.MODEL 2 on phase 10's YAML: one bank, from
+    rank 0, with phase 10's one-process bank's keys, its features and
+    actor probabilities within a bound from bf16's rounding, a control
+    (the bank's keyframes shifted) outside it.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -2381,12 +2391,26 @@ def phase_lfb(torch, eval_cfg: Path, train: dict) -> dict:
     bank_path = BUILD_DIR / "chip_smoke_lfb_bank.npz"
     zero_counts()
     t0 = time.perf_counter()
-    _run_cli(generate_lfb, ["--config-file", str(eval_cfg), "--out",
-                            str(bank_path), "--device", "cuda", "--seed",
-                            "0"])
+    # every query's actor probability by keyframe (sorted), for
+    # generate_lfb over the mesh (phase_mesh)
+    probs, add = {}, FeatureBank.add
+
+    def adding(self, key, features, actor_prob, threshold=0.8):
+        probs[key] = np.sort(np.asarray(actor_prob))[::-1]
+        return add(self, key, features, actor_prob, threshold)
+
+    FeatureBank.add = adding
+    try:
+        _run_cli(generate_lfb, ["--config-file", str(eval_cfg), "--out",
+                                str(bank_path), "--device", "cuda", "--seed",
+                                "0"])
+    finally:
+        FeatureBank.add = add
     gen_s = time.perf_counter() - t0
     gen_launches = launch_counts()
     bank = FeatureBank.load(str(bank_path))
+    one_process = {"feats": dict(bank._bank), "valid": dict(bank._valid),
+                   "probs": probs}
     keys = runner.build_dataset(load_config(str(eval_cfg)), "val").keys
     valid = sum(int(v.sum()) for v in bank._valid.values())
     log(f"[lfb] generate_lfb on {eval_cfg.name}: {len(bank)} keys, "
@@ -2470,7 +2494,7 @@ def phase_lfb(torch, eval_cfg: Path, train: dict) -> dict:
         raise AssertionError(f"USE_LFB train: steps {steps}, loaded "
                              f"{loaded}, unchanged {still}")
     return {"generate_launches": gen_launches, "train_launches": launches,
-            "steps": steps}
+            "steps": steps, "bank": one_process}
 
 
 def phase_http(torch, cfg_path: Path, per_forward: dict, smi: str) -> dict:
@@ -3763,29 +3787,64 @@ CLASSIFIER_DP_TOL = {"loss_rel": 1e-3, "grads_rel": 0.5,
                      "running_update_rel": 1e-3}
 
 
-def _torchrun(nproc: int, module: str, argv: list, log_name: str) -> str:
-    """``python -m torch.distributed.run --standalone --nproc_per_node
-    nproc -m module argv`` from the repository root in a session of its
-    own, its output in build/<log_name>; the whole session is killed when
-    DP_TIMEOUT runs out. Raises unless it exits 0; returns the output."""
+def _torchrun_start(nproc: int, module: str, argv: list, log_name: str,
+                    script: bool = False) -> dict:
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node nproc -m module argv`` (``module`` a script's path
+    with ``script``) from the repository root in a session of its own, its
+    output in build/<log_name>; ``_torchrun_wait`` ends it."""
     path = BUILD_DIR / log_name
-    with open(path, "w") as f:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", str(nproc), "-m", module, *map(str, argv)],
-            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
-            env={**os.environ, "PYTHONPATH": str(ROOT)},
-            start_new_session=True)
-        try:
-            rc = proc.wait(timeout=DP_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            rc = "timeout"
-    text = path.read_text()
+    f = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), *([] if script else ["-m"]),
+         module, *map(str, argv)],
+        cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        start_new_session=True)
+    return {"proc": proc, "file": f, "path": path, "name": log_name,
+            "nproc": nproc, "t0": time.perf_counter()}
+
+
+def _torchrun_wait(job: dict) -> str:
+    """Wait for a job of ``_torchrun_start``; the whole session is killed
+    when DP_TIMEOUT (from its start) runs out. Raises unless it exits 0;
+    logs its wall seconds and rank 0's ``[time]`` marks; returns the
+    output."""
+    proc = job["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, DP_TIMEOUT - (
+            time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    job["file"].close()
+    job["wall"] = time.perf_counter() - job["t0"]
+    text = job["path"].read_text()
     if rc != 0:
-        raise AssertionError(f"{log_name}: exit {rc}:\n{text[-3000:]}")
+        raise AssertionError(f"{job['name']}: exit {rc}:\n{text[-3000:]}")
+    log(f"[time] torchrun {job['name']} ({job['nproc']} processes): "
+        f"{job['wall']:.1f} s; rank 0's marks: "
+        f"{[x[7:] for x in text.splitlines() if x.startswith('[time] ')]}")
     return text
+
+
+def _torchrun(nproc: int, module: str, argv: list, log_name: str,
+              script: bool = False) -> str:
+    """``_torchrun_start`` then ``_torchrun_wait``."""
+    return _torchrun_wait(_torchrun_start(nproc, module, argv, log_name,
+                                          script))
+
+
+def _kill_jobs(jobs) -> None:
+    """Kill every job of ``_torchrun_start`` still running (a stage that
+    failed leaves none behind)."""
+    for job in jobs:
+        if job["proc"].poll() is None:
+            os.killpg(job["proc"].pid, signal.SIGKILL)
+            job["proc"].wait()
+        job["file"].close()
 
 
 def _dist_lines(text: str, backend: str, world: int, devices) -> list:
@@ -3800,25 +3859,33 @@ def _dist_lines(text: str, backend: str, world: int, devices) -> list:
     return lines
 
 
-def _dp_train_cli(torch, train: dict, name: str, edit,
-                  data: int = DP_RANKS) -> dict:
-    """train_ava through torchrun, 2 ranks on cuda:0 over gloo, on phase
-    9's YAML with ``edit`` (of ``data`` shards: 2 steps a shard at 2, and
-    a validation of 4 keyframes a shard), as experiment ``name``: both
-    exit 0, one run directory, one checkpoint and the metrics from rank 0
-    alone. Returns the YAML, the run directory, the checkpoint, the output
-    and the wall seconds."""
-    ranks = ["cuda:0"] * DP_RANKS
+def _dp_train_start(train: dict, name: str, edit) -> dict:
+    """Start train_ava through torchrun, 2 ranks on cuda:0 over gloo, on
+    phase 9's YAML with ``edit``, as experiment ``name``."""
     cfg_path = write_config(f"{name}.yaml", lambda c: (c["LOG"].update(
         EXP_NAME=name, DISPLAY_FREQ=1), edit(c)), source=train["cfg_path"])
-    t0 = time.perf_counter()
-    text = _torchrun(DP_RANKS, "tubelet_transformer_tpu_torch.cli.train_ava",
-                     ["--config-file", cfg_path, "--device", "cuda:0",
-                      "--dist-backend", "gloo", "--seed", "0"],
-                     f"{name}_train.log")
-    wall = time.perf_counter() - t0
+    job = _torchrun_start(DP_RANKS,
+                          "tubelet_transformer_tpu_torch.cli.train_ava",
+                          ["--config-file", cfg_path, "--device", "cuda:0",
+                           "--dist-backend", "gloo", "--seed", "0"],
+                          f"{name}_train.log")
+    return {**job, "cfg_path": cfg_path, "exp": name}
+
+
+def _dp_train_cli(torch, job: dict, data: int = DP_RANKS) -> dict:
+    """A train_ava job of ``_dp_train_start`` (of ``data`` shards: 2 steps
+    a shard at 2, and a validation of 4 keyframes a shard): both exit 0,
+    one run directory, one checkpoint and the metrics from rank 0 alone.
+    Returns the YAML, the run directory, the checkpoint, the output and
+    the wall seconds."""
+    ranks = ["cuda:0"] * DP_RANKS
+    name = job["exp"]
+    text = _torchrun_wait(job)
+    wall = job["wall"]
     lines = _dist_lines(text, "gloo", DP_RANKS, ranks)
-    runs = glob.glob(str(BUILD_DIR / "chip_smoke_runs" / f"{name}_*"))
+    # the run directory <name>_<stamp>: not another experiment's whose
+    # name starts with this one's (chip_smoke_dp_zero1 runs at once)
+    runs = glob.glob(str(BUILD_DIR / "chip_smoke_runs" / f"{name}_[0-9]*"))
     ckpts = glob.glob(str(Path(runs[0], "checkpoints", "ckpt_*"))) \
         if len(runs) == 1 else []
     tags = [json.loads(x)["tag"] for x in Path(
@@ -3842,7 +3909,7 @@ def _dp_train_cli(torch, train: dict, name: str, edit,
     if not ok:
         raise AssertionError(f"dp train {name}: runs {runs}, ckpts {ckpts}, "
                              f"tags {tags}, epoch lines {epoch_lines}")
-    return {"cfg_path": cfg_path, "run": runs[0], "ckpt": ckpts[0],
+    return {"cfg_path": job["cfg_path"], "run": runs[0], "ckpt": ckpts[0],
             "text": text, "wall": wall}
 
 
@@ -3862,34 +3929,49 @@ def _held(readings: dict, tol: dict) -> tuple[dict, dict]:
             {k: readings["control"][k] > v for k, v in tol.items()})
 
 
-def phase_data_parallel(torch, train: dict, smi: str) -> dict:
-    """The 'data' axis over torch.distributed, 2 ranks on cuda:0 over gloo.
-    (1) train_ava through torchrun on phase 9's YAML (2 steps a rank, a
-    validation of 4 keyframes a rank), MESH.DATA alone and with
-    MESH.ZERO1: one run directory, one checkpoint and the metrics from
-    rank 0 alone each; the ZeRO-1 file has the DATA-only file's optimizer
-    layout. (2) tools/dp_check through torchrun, 2 ranks x 2 clips against
-    the one-process step on the global batch of 4 from one state,
-    deterministic algorithms: in bf16 the stem's global statistics (#4 on
-    each shard, reduced) against #4 over the whole batch, each rank's step
-    and gradient all-reduce times, and ZeRO-1 against the DATA-only step
-    over two steps, bit for bit in the parameters, the BN statistics and
-    the gathered moments, its control without the all-gather missing, the
-    moment bytes per rank against the figure from the shapes, the
-    all-gather's MB and ms and the ZeRO-1 step's ms; in float32 every
-    reading of the DP step within DP_TOL, of the MoE DP step (MOE, its
-    load-balance loss among them) within MOE_DP_TOL and of the
-    classifier's DP step within CLASSIFIER_DP_TOL, each control outside
-    every bound; #4 and #2 launched once each in every DP, ZeRO-1 and MoE
-    step. (3) NCCL, the default backend, at world size 1 through
-    train_ava, resuming the ZeRO-1 checkpoint without ZeRO-1 for one more
-    step (one rank per card over NCCL at 2 ranks where the machine has
-    two cards)."""
-    ranks = ["cuda:0"] * DP_RANKS
-    # (1) the train CLI, DATA-only and ZeRO-1
-    data = _dp_train_cli(torch, train, "chip_smoke_dp", lambda c: None)
-    z = _dp_train_cli(torch, train, "chip_smoke_dp_zero1",
-                      lambda c: c["MESH"].update(ZERO1=True))
+def _mesh_checks_start(nproc: int, checks: list, log_name: str) -> dict:
+    """Start ``tools/mesh_checks`` through torchrun, ``nproc`` ranks on
+    cuda:0 over gloo with deterministic algorithms: ``checks`` a list of
+    (tool, its arguments beyond those), each check's result written to
+    its ``--out``."""
+    argv = []
+    for i, (tool, extra) in enumerate(checks):
+        argv += [*(["--then"] if i else []), tool, "--device", "cuda:0",
+                 "--dist-backend", "gloo", "--deterministic", *extra]
+    return _torchrun_start(nproc, "tubelet_transformer_tpu_torch.tools."
+                           "mesh_checks", argv, log_name)
+
+
+def _dp_check_result(torch, dtype: str, out_path: Path, text: str,
+                     smi: str) -> dict:
+    """dp_check's result in ``dtype``: every reading of the DP step
+    within DP_TOL[dtype], its control outside, #4 and #2 once each."""
+    tol = DP_TOL[dtype]
+    _dist_lines(text, "gloo", DP_RANKS, ["cuda:0"] * DP_RANKS)
+    res = torch.load(out_path, weights_only=False)
+    held, missed = _held(res["readings"], tol)
+    launches = res["dp"]["launches"]
+    log(f"[dp] dp_check {dtype}, {DP_RANKS} ranks x 2 clips against "
+        f"one process on the 4 (deterministic algorithms): readings "
+        f"{res['readings']['dp']}; control "
+        f"{res['readings']['control']}; bounds {tol}: held {held}, "
+        f"control missed {missed}; the DP step's launches on rank 0 "
+        f"{launches} and all-reduces {res['dp']['all_reduces']}; "
+        f"total loss DP "
+        f"{res['dp']['metrics']['total_loss']:.6f}, one process "
+        f"{res['single']['metrics']['total_loss']:.6f}, control "
+        f"{res['control']['metrics']['total_loss']:.6f}; {smi}")
+    if not (all(held.values()) and all(missed.values())
+            and launches == {"stem_stats": 1, "stem_pool": 1}
+            and res["dp"]["metrics"]["finite"] == 1.0):
+        raise AssertionError(f"dp check {dtype}: held {held}, control "
+                             f"missed {missed}, launches {launches}")
+    return res
+
+
+def _dp_layouts(torch, data: dict, z: dict, smi: str) -> None:
+    """The ZeRO-1 train run's checkpoint has the DATA-only one's optimizer
+    layout."""
     layouts = [_optimizer_layout(torch, r["ckpt"]) for r in (data, z)]
     log(f"[dp] the ZeRO-1 checkpoint's optimizer layout (each group's keys "
         f"and indices, each state entry's shapes) equals the DATA-only "
@@ -3899,38 +3981,13 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
     if layouts[0] != layouts[1]:
         raise AssertionError("dp: the ZeRO-1 checkpoint's optimizer layout "
                              "differs from the DATA-only one's")
-    cfg_path = data["cfg_path"]
 
-    # (2) the DP steps against the one-process step, with their controls
-    checks = {}
-    for dtype, tol in DP_TOL.items():
-        out_path = BUILD_DIR / f"chip_smoke_dp_check_{dtype}.pt"
-        extra = (["--timed-steps", "3", "--zero1"] if dtype == "bfloat16"
-                 else ["--float32", "--moe", "--classifier"])
-        text = _torchrun(
-            DP_RANKS, "tubelet_transformer_tpu_torch.tools.dp_check",
-            ["--config-file", cfg_path, "--device", "cuda:0",
-             "--dist-backend", "gloo", "--deterministic", *extra,
-             "--out", out_path], f"chip_smoke_dp_check_{dtype}.log")
-        _dist_lines(text, "gloo", DP_RANKS, ranks)
-        res = checks[dtype] = torch.load(out_path, weights_only=False)
-        held, missed = _held(res["readings"], tol)
-        launches = res["dp"]["launches"]
-        log(f"[dp] dp_check {dtype}, {DP_RANKS} ranks x 2 clips against "
-            f"one process on the 4 (deterministic algorithms): readings "
-            f"{res['readings']['dp']}; control "
-            f"{res['readings']['control']}; bounds {tol}: held {held}, "
-            f"control missed {missed}; the DP step's launches on rank 0 "
-            f"{launches} and all-reduces {res['dp']['all_reduces']}; "
-            f"total loss DP "
-            f"{res['dp']['metrics']['total_loss']:.6f}, one process "
-            f"{res['single']['metrics']['total_loss']:.6f}, control "
-            f"{res['control']['metrics']['total_loss']:.6f}; {smi}")
-        if not (all(held.values()) and all(missed.values())
-                and launches == {"stem_stats": 1, "stem_pool": 1}
-                and res["dp"]["metrics"]["finite"] == 1.0):
-            raise AssertionError(f"dp check {dtype}: held {held}, control "
-                                 f"missed {missed}, launches {launches}")
+
+def _dp_bf16_logs(checks: dict, train: dict, smi: str) -> dict:
+    """Each rank's DP step and gradient all-reduce times in bf16, and
+    ZeRO-1 against the DATA-only step on each rank: bit for bit over two
+    steps, the control missing, the moment bytes, #4 and #2 once a
+    step. Returns the timings."""
     timings = checks["bfloat16"]["timings"]
     for r, (step_ms, reduce_ms) in enumerate(zip(
             timings["step_ms"], timings["grad_all_reduce_ms"])):
@@ -3964,9 +4021,13 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
                 and zr["data_moment_bytes"] == zr["data_predicted_bytes"]
                 and zr["zero1_launches"] == [one_step, one_step]):
             raise AssertionError(f"dp zero1 rank {r}: {zr}")
+    return timings
 
-    # MoE and the classifier, float32
-    f32 = checks["float32"]
+
+def _dp_f32_logs(f32: dict, smi: str) -> None:
+    """The MoE and classifier DP steps in float32 within MOE_DP_TOL and
+    CLASSIFIER_DP_TOL, each control outside; #4 and #2 once a MoE step."""
+    one_step = {"stem_stats": 1, "stem_pool": 1}
     for what, res, tol in (("MoE", f32["moe"]["readings"], MOE_DP_TOL),
                            ("classifier", f32["classifier"],
                             CLASSIFIER_DP_TOL)):
@@ -3985,16 +4046,24 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
         raise AssertionError(f"dp MoE: launches {moe['dp']['launches']}, "
                              f"metrics {sorted(moe['dp']['metrics'])}")
 
-    # (3) NCCL, the default backend, at world size 1: resumes the ZeRO-1
-    # run's checkpoint without ZeRO-1 for one more step (a card per rank
-    # at 2)
+
+def _nccl_start(train: dict) -> dict:
+    """Start train_ava through torchrun with the default backend (NCCL) at
+    world size 1, MODEL.LOAD on the ZeRO-1 run's experiment without
+    ZeRO-1, for one more step."""
     one = write_config("chip_smoke_dp_nccl.yaml", lambda c: (
         c["LOG"].update(EXP_NAME="chip_smoke_dp_zero1"),
         c["MODEL"].update(LOAD=True, PRETRAINED_PATH=""),
         c["TRAIN"].update(EPOCH_NUM=2),
         c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
-    text = _torchrun(1, "tubelet_transformer_tpu_torch.cli.train_ava",
-                     ["--config-file", one], "chip_smoke_dp_nccl.log")
+    return _torchrun_start(1, "tubelet_transformer_tpu_torch.cli.train_ava",
+                           ["--config-file", one], "chip_smoke_dp_nccl.log")
+
+
+def _nccl_check(job: dict, z: dict, cfg_path: Path, smi: str) -> None:
+    """The NCCL job resumed the ZeRO-1 checkpoint for one finite step (a
+    card per rank at 2 ranks where the machine has two cards)."""
+    text = _torchrun_wait(job)
     nccl = _dist_lines(text, "cuda:nccl,cpu:gloo", 1, ["cuda:0"])
     resumed = re.findall(r"resumed from (\S+) at epoch (\d+)", text)
     epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
@@ -4010,6 +4079,8 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
             or len(epoch_lines) != 1 or len(losses) != 1
             or not np.isfinite(losses).all()):
         raise AssertionError(f"dp resume: {resumed}, {epoch_lines}")
+    import torch
+
     if torch.cuda.device_count() >= 2:
         text = _torchrun(2, "tubelet_transformer_tpu_torch.cli.train_ava",
                          ["--config-file", cfg_path],
@@ -4021,12 +4092,6 @@ def phase_data_parallel(torch, train: dict, smi: str) -> dict:
             "refuses two ranks of one communicator on one device")
     log(f"[dp] train_ava via torchrun with the default backend: {nccl}; "
         f"{smi}")
-    return {"launches": checks["bfloat16"]["dp"]["launches"],
-            "zero1_launches": checks["bfloat16"]["zero1"][0][
-                "zero1_launches"][0],
-            "moe_launches": moe["dp"]["launches"],
-            "readings": {k: v["readings"] for k, v in checks.items()},
-            "timings": timings}
 
 
 # phase 24: tensor parallelism (MESH.MODEL) over torch.distributed, the
@@ -4083,21 +4148,18 @@ def _tp_held(readings: dict, tol: dict) -> tuple[dict, dict, bool]:
                 if k not in TP_CONTROL_MISSES))
 
 
-def _tp_check(torch, cfg_path: Path, name: str, ranks: int, smi: str,
-              argv: list) -> dict:
-    """tools/tp_check through torchrun, ``ranks`` ranks on cuda:0 over
-    gloo, deterministic algorithms, on ``cfg_path`` with ``argv``; every
-    case's readings within TP_TOL, the control outside its gradient
-    bounds, the model peers bit-equal after each of two steps, #4 and #2
-    once each on every rank. Returns the saved result."""
-    out_path = BUILD_DIR / f"{name}.pt"
-    t0 = time.perf_counter()
-    text = _torchrun(ranks, "tubelet_transformer_tpu_torch.tools.tp_check",
-                     ["--config-file", cfg_path, "--device", "cuda:0",
-                      "--dist-backend", "gloo", "--deterministic", *argv,
-                      "--out", out_path], f"{name}.log")
+def _tp_check_result(torch, name: str, ranks: int, text: str,
+                     smi: str) -> dict:
+    """tools/tp_check's result (build/<name>.pt) of ``ranks`` ranks on
+    cuda:0 over gloo, deterministic algorithms: every case's readings
+    within TP_TOL, the control outside its gradient bounds, the model
+    peers bit-equal after each of two steps, #4 and #2 once each on every
+    rank; with ZeRO-1 beside a 'model' axis (``--zero1``), on every rank
+    the ZeRO-1 x MODEL step bit-equal to the DATA x MODEL step after each
+    of two steps, the control without the all-gather missing, the moment
+    bytes those from the shapes. Returns the saved result."""
     _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
-    res = torch.load(out_path, weights_only=False)
+    res = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
     one_step = {"stem_stats": 1, "stem_pool": 1}
     for case, r in res.items():
         tol = TP_TOL["data_model" if r["mesh"][0] > 1 else case]
@@ -4135,30 +4197,178 @@ def _tp_check(torch, cfg_path: Path, name: str, ranks: int, smi: str,
                                  f"missed {missed}, same forward "
                                  f"{same_forward}, peers {r['peers_equal']},"
                                  f" launches {r['launches']}")
-    log(f"[tp] {name}: {time.perf_counter() - t0:.1f} s (the processes "
-        "included)")
+        for rank, zr in enumerate(r.get("zero1", ())):
+            log(f"[tp] rank {rank} ZeRO-1 x MODEL ({case}, mesh "
+                f"{r['mesh'][0]} x {r['mesh'][1]}, gloo, cuda:0, "
+                f"deterministic algorithms), two steps from one state: the "
+                f"model and optimizer state dicts bit-equal to the DATA x "
+                f"MODEL step's after each step {zr['zero1_equal']}, the "
+                f"control without the all-gather {zr['control_equal']} "
+                f"(must be [False, False]); moment bytes "
+                f"{zr['zero1_moment_bytes']} (from the shapes "
+                f"{zr['zero1_predicted_bytes']}) beside the DATA x MODEL "
+                f"step's {zr['data_moment_bytes']} (from the shapes "
+                f"{zr['data_predicted_bytes']}); a ZeRO-1 x MODEL step's "
+                f"launches {zr['zero1_launches']}; {smi}")
+            if not (zr["zero1_equal"] == [True, True]
+                    and zr["control_equal"] == [False, False]
+                    and zr["zero1_moment_bytes"]
+                    == zr["zero1_predicted_bytes"]
+                    and zr["data_moment_bytes"] == zr["data_predicted_bytes"]
+                    and zr["zero1_moment_bytes"] < zr["data_moment_bytes"]
+                    and zr["zero1_launches"] == [one_step, one_step]):
+                raise AssertionError(f"tp zero1 {case} rank {rank}: {zr}")
     return res
 
 
-def phase_tensor_parallel(torch, train: dict, smi: str) -> dict:
-    """The 'model' axis over torch.distributed, on cuda:0 over gloo.
-    (1) train_ava through torchrun on phase 9's YAML with MESH.MODEL 2 (2
-    model peers of one data shard: 4 steps at bs 2, a validation of 4
-    keyframes): one run directory, one checkpoint and the metrics from rank
-    0 alone; the checkpoint has the keys and shapes of phase 9's
-    one-process file (model and AdamW state); train_ava in one process
-    resumes it for one finite step. (2) tools/tp_check, 2 ranks of MESH.MODEL
-    2 (4 heads and FFN 1024 a peer, the pool_decoder's 6144-row
-    in-projection cut in two) against one process on the same batch of 2,
-    in bf16 (with each rank's step and model all-reduce times) and in
-    float32 with TF32 off, and in float32 with MoE encoder FFNs (4 experts,
-    top 2: 2 a peer); (3) 4 ranks of MESH.DATA 2 x MESH.MODEL 2 in
-    float32 against one process on the batch of 4, on the same YAML.
-    Each within TP_TOL, its control outside, the model peers bit-equal, #4
-    and #2 once on every rank a step."""
-    # (1) the train CLI under MESH.MODEL 2
-    tp = _dp_train_cli(torch, train, "chip_smoke_tp",
-                       lambda c: c["MESH"].update(MODEL=TP_RANKS), data=1)
+# generate_lfb over the mesh: the bank of MODEL 2 against the one-process
+# bank of phase_lfb, both from phase 10's YAML and phase 9's checkpoint in
+# bf16. The bound, in bf16 ulps (2^-8), on a slot's features (relative to
+# the bank's largest feature) and on its actor probability: the model
+# peers sum their heads' and FFN columns' partial outputs in another
+# order than one process. On the H100 (PERF.md) they read 0.0065 and
+# 0.0047 (under 2 ulps), and the control's features 0.036: 4 ulps sit
+# between
+LFB_MESH_ULPS = 4
+BF16_EPS = 2.0 ** -8
+# the probe that runs generate_lfb's CLI under torchrun and keeps, on each
+# rank, every query's actor probability (sorted) and the pooled stem's
+# launches (written by the smoke to build/)
+LFB_PROBE = """import json, os
+import numpy as np
+from tubelet_transformer_tpu_torch.cli import generate_lfb
+from tubelet_transformer_tpu_torch.eval import lfb
+from tubelet_transformer_tpu_torch.ops.cuda import stem
+from tubelet_transformer_tpu_torch.parallel import mesh
+
+probs, add, shutdown = {}, lfb.FeatureBank.add, mesh.shutdown
+
+def adding(self, key, features, actor_prob, threshold=0.8):
+    probs[key] = np.sort(np.asarray(actor_prob))[::-1].tolist()
+    return add(self, key, features, actor_prob, threshold)
+
+def record():
+    path = os.environ["LFB_PROBE_OUT"] + "." + str(mesh.process_index())
+    with open(path, "w") as f:
+        json.dump({"probs": probs, "launches": stem.LAUNCHES}, f)
+    shutdown()
+
+lfb.FeatureBank.add, mesh.shutdown = adding, record
+generate_lfb.main()
+"""
+
+
+def _mesh_lfb_start(evaluated: dict) -> dict:
+    """Start generate_lfb's CLI (through ``LFB_PROBE``) under torchrun with
+    MESH.MODEL 2, 2 ranks on cuda:0 over gloo, on phase 10's YAML."""
+    cfg_path = write_config("chip_smoke_lfb_mesh.yaml", lambda c: c[
+        "MESH"].update(MODEL=TP_RANKS), source=evaluated["cfg_path"])
+    out = BUILD_DIR / "chip_smoke_lfb_mesh" / "bank.npz"
+    out.parent.mkdir(exist_ok=True)
+    for old in out.parent.iterdir():
+        old.unlink()
+    probe = BUILD_DIR / "lfb_probe.py"
+    probe.write_text(LFB_PROBE)
+    os.environ["LFB_PROBE_OUT"] = str(BUILD_DIR / "lfb_probe.json")
+    try:
+        job = _torchrun_start(TP_RANKS, str(probe),
+                              ["--config-file", cfg_path, "--out", out,
+                               "--device", "cuda:0", "--dist-backend",
+                               "gloo"], "chip_smoke_lfb_mesh.log",
+                              script=True)
+    finally:
+        del os.environ["LFB_PROBE_OUT"]
+    return {**job, "out": out}
+
+
+def _mesh_lfb_check(job: dict, lfb: dict, smi: str) -> dict:
+    """The job of ``_mesh_lfb_start``: rank 0 alone wrote the bank; its
+    keys are phase_lfb's one-process bank's, every slot's features and
+    actor probability within LFB_MESH_ULPS bf16 ulps of it, the validity
+    the same where the probability is not within that of the 0.8 gate;
+    the control (each keyframe's features from the next keyframe of the
+    one-process bank) misses; #2 once per val forward on each rank. The
+    probabilities of the queries the bank leaves out are logged beside
+    the control: this checkpoint (4 steps from random heads) gives every
+    query much the same actor probability, so no probability of another
+    query misses a bound that bf16's rounding passes."""
+    from tubelet_transformer_tpu_torch.eval.lfb import FeatureBank
+
+    text = _torchrun_wait(job)
+    _dist_lines(text, "gloo", TP_RANKS, ["cuda:0"] * TP_RANKS)
+    ranks = [json.loads(Path(f"{BUILD_DIR / 'lfb_probe.json'}.{r}")
+                        .read_text()) for r in range(TP_RANKS)]
+    out = job["out"]
+    files = sorted(x.name for x in out.parent.iterdir())
+    got = FeatureBank.load(str(out))
+    want = lfb["bank"]
+    keys = sorted(want["feats"])
+    slots = got.slots
+    scale = max(float(np.abs(v).max()) for v in want["feats"].values())
+    bound = LFB_MESH_ULPS * BF16_EPS
+
+    def worst(feats, probs, ref=lambda k: want["probs"][k][:slots]):
+        return (max(float(np.abs(feats[k] - want["feats"][k]).max())
+                    for k in keys) / scale,
+                max(float(np.abs(np.asarray(probs[k][:slots]) - ref(k))
+                          .max()) for k in keys))
+
+    readings = [worst(got._bank, r["probs"]) for r in ranks]
+    rolled = dict(zip(keys, keys[1:] + keys[:1]))
+    control = worst({k: want["feats"][rolled[k]] for k in keys},
+                    ranks[0]["probs"],
+                    ref=lambda k: want["probs"][k][-slots:])
+    gate = {k: np.abs(want["probs"][k][:slots] - 0.8) > bound for k in keys}
+    valid_same = all(np.array_equal(got._valid[k][gate[k]],
+                                    want["valid"][k][gate[k]])
+                     for k in keys)
+    launches = [r["launches"] for r in ranks]
+    log(f"[tp] generate_lfb via torchrun with MESH.MODEL {TP_RANKS} "
+        f"({TP_RANKS} ranks on cuda:0 over gloo, bf16) on phase 10's YAML "
+        f"and checkpoint: files {files} (rank 0 alone); {len(got)} keys, "
+        f"phase_lfb's {len(keys)}, equal {sorted(got._bank) == keys}; the "
+        f"largest difference from the one-process bank (features of the "
+        f"largest feature, actor probabilities) per rank "
+        f"{[(round(a, 6), round(b, 6)) for a, b in readings]}, bound "
+        f"{bound:.6g} ({LFB_MESH_ULPS} bf16 ulps); the control (each "
+        f"keyframe's features the next keyframe's) {control[0]:.6g}, and "
+        f"beside it the probabilities of the queries the bank leaves out "
+        f"{control[1]:.6g}; validity equal away from the 0.8 gate "
+        f"{valid_same}; #2 launches per rank {launches} ({VAL_FORWARDS} "
+        f"val forwards); {job['wall']:.1f} s; {smi}")
+    if not (files == ["bank.npz"] and sorted(got._bank) == keys
+            and all(max(r) <= bound for r in readings)
+            and control[0] > bound and valid_same
+            and launches == [VAL_FORWARDS] * TP_RANKS):
+        raise AssertionError(f"generate_lfb over the mesh: files {files}, "
+                             f"readings {readings}, control {control}, "
+                             f"validity {valid_same}, launches {launches}")
+    return {"launches": launches, "readings": readings, "control": control}
+
+
+def _tp_resume_start(train: dict) -> dict:
+    """Start train_ava in one process on the MODEL 2 run's experiment
+    (MODEL.LOAD without PRETRAINED_PATH), for one more step."""
+    one = write_config("chip_smoke_tp_resume.yaml", lambda c: (
+        c["LOG"].update(EXP_NAME="chip_smoke_tp"),
+        c["MODEL"].update(LOAD=True, PRETRAINED_PATH=""),
+        c["TRAIN"].update(EPOCH_NUM=2),
+        c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
+    path = BUILD_DIR / "chip_smoke_tp_resume.log"
+    f = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tubelet_transformer_tpu_torch.cli.train_ava",
+         "--config-file", str(one), "--device", "cuda:0"], cwd=ROOT,
+        stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    return {"proc": proc, "file": f, "path": path,
+            "t0": time.perf_counter()}
+
+
+def _tp_layouts_and_resume(torch, tp: dict, train: dict, job: dict,
+                           smi: str) -> None:
+    """The MODEL 2 checkpoint has the keys and shapes of phase 9's
+    one-process file, and train_ava in one process (``job``) resumed it
+    for one finite step."""
     layouts = {}
     for what, path in (("tp", tp["ckpt"]), ("one", train["ckpt"])):
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -4166,13 +4376,16 @@ def phase_tensor_parallel(torch, train: dict, smi: str) -> dict:
                          _optimizer_layout(torch, path))
         del sd
     same = layouts["tp"] == layouts["one"]
-    one = write_config("chip_smoke_tp_resume.yaml", lambda c: (
-        c["LOG"].update(EXP_NAME="chip_smoke_tp"),
-        c["MODEL"].update(LOAD=True, PRETRAINED_PATH=""),
-        c["TRAIN"].update(EPOCH_NUM=2),
-        c["DATA"].update(SYNTHETIC_SIZE=2)), source=train["cfg_path"])
-    res = _cli("train_ava", "--config-file", one, "--device", "cuda:0")
-    text = res.stdout + res.stderr
+    try:
+        rc = job["proc"].wait(timeout=max(1.0, DP_TIMEOUT - (
+            time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(job["proc"].pid, signal.SIGKILL)
+        rc = job["proc"].wait()
+    job["file"].close()
+    text = job["path"].read_text()
+    log(f"[time] train_ava in one process (the MODEL 2 file resumed): "
+        f"{time.perf_counter() - job['t0']:.1f} s")
     resumed = re.findall(r"resumed from (\S+) at epoch (\d+)", text)
     epoch_lines = [x for x in text.splitlines() if x.startswith("Epoch:")]
     losses = [float(v) for v in re.findall(r" loss (\S+)",
@@ -4181,32 +4394,167 @@ def phase_tensor_parallel(torch, train: dict, smi: str) -> dict:
         f"optimizer layout equal phase 9's one-process file's: {same} "
         f"({len(layouts['tp'][0])} model entries, "
         f"{len(layouts['tp'][1]['state'])} AdamW state entries); train_ava "
-        f"in one process (exit {res.returncode}) resumed {resumed}, epoch "
+        f"in one process (exit {rc}) resumed {resumed}, epoch "
         f"lines {[x.split(' data ')[0] for x in epoch_lines]}, losses "
         f"{losses}; train_ava wall {tp['wall']:.1f} s under MESH.MODEL 2; "
         f"{smi}")
-    if not (same and res.returncode == 0
+    if not (same and rc == 0
             and [(os.path.realpath(q), e) for q, e in resumed]
             == [(os.path.realpath(tp["ckpt"]), "1")]
             and len(losses) == 1 and np.isfinite(losses).all()):
         raise AssertionError(f"tp checkpoint: layout equal {same}, resume "
                              f"{resumed}, {epoch_lines}: {text[-2000:]}")
 
-    # (2) MODEL 2 against one process: float32, bf16, MoE
-    cfg_path = tp["cfg_path"]
-    model2 = _tp_check(torch, cfg_path, "chip_smoke_tp_check", TP_RANKS,
-                       smi, ["--dtypes", "bfloat16,float32", "--moe",
-                             "--timed-steps", "3"])
-    # (3) DATA 2 x MODEL 2 over 4 ranks, float32
-    dm = _tp_check(torch, cfg_path, "chip_smoke_tp_check_2x2",
-                   2 * TP_RANKS, smi, ["--data", 2, "--model", TP_RANKS,
-                                       "--dtypes", "float32"])
-    return {"launches": model2["bfloat16"]["launches"],
-            "moe_launches": model2["moe"]["launches"],
-            "data_model_launches": dm["float32"]["launches"],
-            "readings": {**{k: v["readings"] for k, v in model2.items()},
-                         "data_model": dm["float32"]["readings"]},
-            "timings": model2["bfloat16"]["timings"]}
+
+def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
+               smi: str) -> tuple[dict, dict]:
+    """The 'data' and 'model' axes over torch.distributed (phases 23 and
+    24), ranks on cuda:0 over gloo, in three stages of jobs; the jobs of a
+    stage run at once, and the timed checks alone.
+    Stage 1: train_ava through torchrun on phase 9's YAML (2 steps a rank,
+    a validation of 4 keyframes a rank) with MESH.DATA alone, with
+    MESH.ZERO1 and with MESH.MODEL 2 (4 steps of 2 clips): one run
+    directory, one checkpoint and the metrics from rank 0 alone each, the
+    ZeRO-1 file in the DATA-only file's optimizer layout; generate_lfb's
+    CLI with MESH.MODEL 2 on phase 10's YAML (``_mesh_lfb_check``).
+    Stage 2: NCCL, the default backend, at world size 1 through
+    train_ava, resuming the ZeRO-1 checkpoint without ZeRO-1 for one more
+    step; train_ava in one process resuming the MODEL 2 checkpoint (which
+    has phase 9's keys and shapes) for one more step; tools/mesh_checks
+    on 2 ranks in float32 with TF32 off: dp_check (2 ranks x 2 clips
+    against the one-process step on the global batch of 4 from one state,
+    deterministic algorithms) of the dense, MoE (MOE, its load-balance
+    loss among the readings) and classifier DP steps within DP_TOL,
+    MOE_DP_TOL and CLASSIFIER_DP_TOL, and tp_check (MESH.MODEL 2: 4 heads
+    and FFN 1024 a peer, the pool_decoder's 6144-row in-projection cut in
+    two; against one process on the same batch of 2) of the dense and MoE
+    (2 experts a peer) TP steps within TP_TOL; tp_check on 4 ranks of
+    MESH.DATA 2 x MESH.MODEL 2 in float32 against one process on the batch
+    of 4, and ZeRO-1 beside it bit for bit against it.
+    Stage 3, alone: tools/mesh_checks on 2 ranks in bf16 with each rank's
+    step times: dp_check with the stem's global statistics (#4 on each
+    shard, reduced) against #4 over the whole batch, the gradient
+    all-reduce's times, and ZeRO-1 against the DATA-only step over two
+    steps, bit for bit in the parameters, the BN statistics and the
+    gathered moments, its control without the all-gather missing, the
+    moment bytes per rank against the figure from the shapes, the
+    all-gather's MB and ms and the ZeRO-1 step's ms; tp_check with the
+    model group's all-reduces of a step replayed.
+    Every control outside its bounds, the model peers bit-equal, #4 and
+    #2 once each on every rank in every DP, ZeRO-1, MoE and TP step.
+    Returns what phases 23 and 24 returned before them."""
+    jobs: list = []
+
+    def out(name: str) -> str:
+        return str(BUILD_DIR / f"{name}.pt")
+
+    try:
+        t0 = time.perf_counter()
+        started = {
+            "dp": _dp_train_start(train, "chip_smoke_dp", lambda c: None),
+            "zero1": _dp_train_start(train, "chip_smoke_dp_zero1",
+                                     lambda c: c["MESH"].update(ZERO1=True)),
+            "tp": _dp_train_start(train, "chip_smoke_tp", lambda c: c[
+                "MESH"].update(MODEL=TP_RANKS)),
+            "lfb": _mesh_lfb_start(evaluated)}
+        jobs += started.values()
+        data = _dp_train_cli(torch, started["dp"])
+        z = _dp_train_cli(torch, started["zero1"])
+        tp_train = _dp_train_cli(torch, started["tp"], data=1)
+        lfb_mesh = _mesh_lfb_check(started["lfb"], lfb, smi)
+        _dp_layouts(torch, data, z, smi)
+        log(f"[time] stage 1 of the mesh phases (train_ava under DATA 2, "
+            f"ZeRO-1 and MODEL 2, generate_lfb under MODEL 2, at once): "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t1 = time.perf_counter()
+        cfg_path, tp_cfg = data["cfg_path"], tp_train["cfg_path"]
+        f32 = _mesh_checks_start(DP_RANKS, [
+            ("dp_check", ["--config-file", cfg_path, "--float32", "--moe",
+                          "--classifier", "--out",
+                          out("chip_smoke_dp_check_float32")]),
+            ("tp_check", ["--config-file", tp_cfg, "--dtypes", "float32",
+                          "--moe", "--out",
+                          out("chip_smoke_tp_check_float32")])],
+            "chip_smoke_mesh_float32.log")
+        dm = _torchrun_start(
+            2 * TP_RANKS, "tubelet_transformer_tpu_torch.tools.tp_check",
+            ["--config-file", tp_cfg, "--device", "cuda:0", "--dist-backend",
+             "gloo", "--deterministic", "--data", 2, "--model", TP_RANKS,
+             "--dtypes", "float32", "--zero1", "--out",
+             out("chip_smoke_tp_check_2x2")], "chip_smoke_tp_check_2x2.log")
+        nccl = _nccl_start(train)
+        resume = _tp_resume_start(train)
+        jobs += [f32, dm, nccl, resume]
+        _tp_layouts_and_resume(torch, tp_train, train, resume, smi)
+        _nccl_check(nccl, z, cfg_path, smi)
+        text = _torchrun_wait(f32)
+        checks = {"float32": _dp_check_result(
+            torch, "float32", out("chip_smoke_dp_check_float32"), text, smi)}
+        _dp_f32_logs(checks["float32"], smi)
+        tp32 = _tp_check_result(torch, "chip_smoke_tp_check_float32",
+                                TP_RANKS, text, smi)
+        dm_res = _tp_check_result(torch, "chip_smoke_tp_check_2x2",
+                                  2 * TP_RANKS, _torchrun_wait(dm), smi)
+        log(f"[time] stage 2 of the mesh phases (NCCL at world size 1, the "
+            f"MODEL 2 file resumed in one process, the float32 checks on 2 "
+            f"ranks, DATA 2 x MODEL 2 with ZeRO-1 on 4, at once): "
+            f"{time.perf_counter() - t1:.1f} s")
+
+        t2 = time.perf_counter()
+        bf = _mesh_checks_start(DP_RANKS, [
+            ("dp_check", ["--config-file", cfg_path, "--timed-steps", "3",
+                          "--zero1", "--out",
+                          out("chip_smoke_dp_check_bfloat16")]),
+            ("tp_check", ["--config-file", tp_cfg, "--dtypes", "bfloat16",
+                          "--timed-steps", "3", "--out",
+                          out("chip_smoke_tp_check_bfloat16")])],
+            "chip_smoke_mesh_bfloat16.log")
+        jobs.append(bf)
+        text = _torchrun_wait(bf)
+        checks["bfloat16"] = _dp_check_result(
+            torch, "bfloat16", out("chip_smoke_dp_check_bfloat16"), text, smi)
+        timings = _dp_bf16_logs(checks, train, smi)
+        tp16 = _tp_check_result(torch, "chip_smoke_tp_check_bfloat16",
+                                TP_RANKS, text, smi)
+        log(f"[time] stage 3 of the mesh phases (the timed bf16 checks on "
+            f"2 ranks, alone): {time.perf_counter() - t2:.1f} s")
+    finally:
+        _kill_jobs(jobs)
+    model2 = {**tp16, **tp32}
+    dp = {"launches": checks["bfloat16"]["dp"]["launches"],
+          "zero1_launches": checks["bfloat16"]["zero1"][0][
+              "zero1_launches"][0],
+          "moe_launches": checks["float32"]["moe"]["dp"]["launches"],
+          "readings": {k: v["readings"] for k, v in checks.items()},
+          "timings": timings}
+    tp = {"launches": model2["bfloat16"]["launches"],
+          "moe_launches": model2["moe"]["launches"],
+          "data_model_launches": dm_res["float32"]["launches"],
+          "zero1_launches": [zr["zero1_launches"][0]
+                             for zr in dm_res["float32"]["zero1"]],
+          "lfb_launches": lfb_mesh["launches"],
+          "readings": {**{k: v["readings"] for k, v in model2.items()},
+                       "data_model": dm_res["float32"]["readings"]},
+          "timings": model2["bfloat16"]["timings"]}
+    return dp, tp
+
+
+def _time_phases() -> None:
+    """Every ``phase_*`` function of this script logs its wall seconds as
+    it returns ("[time] phase_...: s"), each call of it."""
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+        return run
+
+    module = globals()
+    for name in [n for n in module if n.startswith("phase_")]:
+        module[name] = timed(name, module[name])
 
 
 def main() -> int:
@@ -4218,6 +4566,7 @@ def main() -> int:
         return 1
     from tubelet_transformer_tpu_torch.ops.cuda import stem
 
+    _time_phases()
     smi = phase_environment(torch)
     phase_build()
     pools = phase_kernels(torch, stem)
@@ -4304,13 +4653,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[surfaces] the classify, segmentation, streaming, export, plots "
         f"and pack phases: {time.perf_counter() - t_slice:.1f} s; {smi}")
-    t_dp = time.perf_counter()
-    dp = phase_data_parallel(torch, train, smi)
-    log(f"[dp] the data-parallel phase: {time.perf_counter() - t_dp:.1f} s")
-    t_tp = time.perf_counter()
-    tp = phase_tensor_parallel(torch, train, smi)
-    log(f"[tp] the tensor-parallel phase: {time.perf_counter() - t_tp:.1f} "
-        f"s")
+    t_mesh = time.perf_counter()
+    dp, tp = phase_mesh(torch, train, evaluated, lfb, smi)
+    log(f"[time] the data- and tensor-parallel phases: "
+        f"{time.perf_counter() - t_mesh:.1f} s")
 
     # the profiled windows last: a window slows the host work of its
     # process after it, so every time above is taken before the first
@@ -4392,6 +4738,9 @@ def main() -> int:
                                     for x in tp["moe_launches"]],
               launches_tp_data_model_step=[
                   x["stem_pool"] for x in tp["data_model_launches"]],
+              launches_tp_zero1_step=[x["stem_pool"]
+                                      for x in tp["zero1_launches"]],
+              launches_lfb_generate_tp=tp["lfb_launches"],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -4409,6 +4758,8 @@ def main() -> int:
                                     for x in tp["moe_launches"]],
               launches_tp_data_model_step=[
                   x["stem_stats"] for x in tp["data_model_launches"]],
+              launches_tp_zero1_step=[x["stem_stats"]
+                                      for x in tp["zero1_launches"]],
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]},
               one_clip_case=stats_cases["ava_256px_clip"]),

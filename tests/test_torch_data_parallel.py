@@ -21,20 +21,27 @@ environment set by hand).
 * ``run_training`` and ``run_eval`` over 2 ranks: rank 0 alone writes the
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
-* The refusals: ZERO1 beside MODEL > 1, PIPE > 1, SPATIAL, a MODEL that
-  does not divide a split attention's heads, mesh serving, INFER_CHUNK x
-  DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world.
+* The refusals: PIPE > 1 (beside ZERO1 and MODEL too), SPATIAL, a MODEL
+  that does not divide a split attention's heads, mesh serving,
+  INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1
+  beside MODEL passes the check.
 * Slow tier: SIGTERM to one rank stops both at the epoch boundary, and
   the relaunch resumes both from rank 0's choice.
 
-Every subprocess runs under a timeout of at most 300 s and is killed when
-it runs out.
+The JAX steps run in processes of their own (at ``JAX_XLA_FLAGS``), each
+writing a case's initial variables before its step, so that the port's
+ranks start on them at once; the checks against JAX's step run on the
+ranks' rank 0, which hands back the readings, not the states. Every
+subprocess runs under a timeout of at most 300 s and is killed when it
+runs out; the temporary files go when the module's tests end.
 """
 
+import contextlib
 import glob
 import json
 import os
 import re
+import shutil
 import signal
 import socket
 import subprocess
@@ -60,6 +67,11 @@ TIMEOUT = 300
 # moments per rank, then over ranks; the gradients per rank, then over
 # ranks), so they part at float32 rounding, ~1e-6 of each quantity
 SELF_TOL = 2e-5
+# the JAX processes compile without LLVM's expensive passes: a step's
+# compile then takes about 30% less CPU time, and its results are the
+# default compile's bit for bit (the initial variables, the metrics and
+# the state after a step, checked on the AVA and JHMDB TP cases)
+JAX_XLA_FLAGS = "--xla_llvm_disable_expensive_passes=true"
 
 
 # ---------------------------------------------------------------- worker
@@ -118,56 +130,197 @@ def _eval_task(cfg, dump_dir):
     return {"val": out["val"], "cfg": cfg}
 
 
-def _step_task(cfg, initial, batch):
-    return dp_check.run(cfg, torch.device("cpu"), initial=initial,
-                        batch=batch)
+def _step_task(cfg, initial_path, batch, want_path):
+    """``dp_check.run`` from the JAX case's initial variables (the port's
+    state dict, which its JAX process wrote to ``initial_path``); on rank
+    0 the metrics, the all-reduce counts and the readings, and the checks
+    of the DP and control steps against JAX's step (``want_path``), run
+    here once JAX has written it, with JAX's metrics."""
+    initial = _load(initial_path)["initial"]
+    out = dp_check.run(cfg, torch.device("cpu"), initial=initial,
+                       batch=batch)
+    if out is None:
+        return None
+    return {"missed": Deferred(want_path, _missed, cfg, initial,
+                               {k: out[k] for k in ("dp", "control")}),
+            "jax_metrics": Deferred(want_path, lambda want: want[0]),
+            "readings": out["readings"],
+            **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
+               for k in ("dp", "control")}}
 
 
 TASKS = {"step": _step_task, "jitter": _jitter_task, "train": _train_task,
          "eval": _eval_task}
 
 
-def worker(job_path):
-    """Run the job's tasks in order on this rank; each rank writes its
-    results to <out>.<rank>."""
+def _load(path):
+    return torch.load(path, weights_only=False)
+
+
+def _save(obj, path):
+    """``torch.save`` under a temporary name, then renamed: a process that
+    polls for ``path`` never reads a partial file."""
+    torch.save(obj, f"{path}.tmp")
+    os.replace(f"{path}.tmp", path)
+
+
+def _failed(path) -> None:
+    """Raise when a JAX process of ``path``'s directory failed (it leaves
+    <out>.failed with its traceback)."""
+    for marker in glob.glob(os.path.join(os.path.dirname(path), "*.failed")):
+        raise RuntimeError(f"{marker}:\n{Path(marker).read_text()[-3000:]}")
+
+
+def _ready(paths, timeout=TIMEOUT) -> None:
+    """Wait until every one of ``paths`` exists; raises when a JAX process
+    failed or ``timeout`` runs out."""
+    deadline = time.time() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        for p in paths:
+            _failed(p)
+        if time.time() > deadline:
+            raise TimeoutError(f"waited {timeout} s for {paths}")
+        time.sleep(0.2)
+
+
+class Deferred:
+    """A check that needs another process's output: ``fn(want, *args)``
+    with ``want`` the object saved at ``path``, run once the job's tasks
+    are done, so that waiting for it holds up no task."""
+
+    def __init__(self, path, fn, *args):
+        self.path, self.fn, self.args = path, fn, args
+
+    def resolve(self):
+        _ready([self.path])
+        return self.fn(_load(self.path), *self.args)
+
+
+def _missed(want, cfg, initial, runs):
+    """``_check_against_jax`` of each of ``runs`` against JAX's step."""
+    return {k: _check_against_jax(cfg, initial, run, want)
+            for k, run in runs.items()}
+
+
+@contextlib.contextmanager
+def _timed(name):
+    """Print the wall and CPU seconds of a task to the process's log."""
+    wall, cpu = time.perf_counter(), time.process_time()
+    yield
+    print(f"task {name}: {time.perf_counter() - wall:.1f} s, CPU "
+          f"{time.process_time() - cpu:.1f} s", flush=True)
+
+
+def run_job(job_path, tasks):
+    """Run the job's tasks on this rank, each from ``tasks`` by its kind;
+    each rank writes its results to <out>.<rank>. A task whose arguments
+    name files under "after" (another process's output) waits for them:
+    the ranks take the tasks in the order rank 0 finds them ready. The
+    ``Deferred`` checks in the results run last."""
     torch.set_num_threads(1)
-    job = torch.load(job_path, weights_only=False)
+    job = _load(job_path)
     mesh_lib.init_distributed("cpu", "gloo")
     try:
-        results = {name: TASKS[kind](**kw) for name, (kind, kw)
-                   in job["tasks"].items()}
+        pending, results = dict(job["tasks"]), {}
+        while pending:
+            name = _next_ready(pending) if mesh_lib.is_main_process() else ""
+            name = mesh_lib.broadcast_string(name)
+            kind, kw = pending.pop(name)
+            with _timed(name):
+                results[name] = tasks[kind](**{k: v for k, v in kw.items()
+                                               if k != "after"})
+        for r in results.values():
+            for k, v in (r.items() if isinstance(r, dict) else ()):
+                if isinstance(v, Deferred):
+                    r[k] = v.resolve()
         torch.save(results, f"{job['out']}.{mesh_lib.process_index()}")
     finally:
         mesh_lib.shutdown()
 
 
-# ---------------------------------------------------------------- parent
+def _next_ready(pending, timeout=TIMEOUT) -> str:
+    """The first of the ``pending`` tasks whose "after" files all exist,
+    once one does."""
+    deadline = time.time() + timeout
+    while True:
+        for name, (_, kw) in pending.items():
+            after = kw.get("after", ())
+            if all(os.path.exists(p) for p in after):
+                return name
+            _failed(after[0])
+        if time.time() > deadline:
+            raise TimeoutError(f"waited {timeout} s for {list(pending)}")
+        time.sleep(0.2)
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+
+def worker(job_path):
+    run_job(job_path, TASKS)
 
 
-def jax_worker(job_path):
-    """JAX's step on a data-2 mesh for the job's case, from the initial
-    variables ``_jax_init`` makes for ``init_cfg`` (the parent makes the
-    same for the port), written to <out>.0: a process of its own, so that
-    its compile overlaps the parent's."""
+def run_jax_job(job_path, tasks):
+    """Run the job's JAX tasks in order in this process, with one dict
+    that they share (the initial variables of each case, made once); each
+    saves what the port's ranks wait for under <out>.<name>.*, and the
+    summaries they return go to <out>.0. A failure leaves <out>.failed
+    with its traceback, which ends the ranks' waits."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    job = torch.load(job_path, weights_only=False)
-    (kind, kw), = job["tasks"].values()
-    init = _jax_init(kw["init_cfg"], kw["batch"])
-    torch.save(_jax_mesh_step(kw["cfg"], *init[:3], kw["step_batch"]),
-               f"{job['out']}.0")
+    job = _load(job_path)
+    try:
+        memo, summary = {}, {}
+        for name, (kind, kw) in job["tasks"].items():
+            with _timed(name):
+                summary[name] = tasks[kind](memo, f"{job['out']}.{name}",
+                                            **kw)
+        torch.save(summary, f"{job['out']}.0")
+    except BaseException:
+        import traceback
+
+        Path(f"{job['out']}.failed").write_text(traceback.format_exc())
+        raise
+
+
+# the ports handed to this process's jobs: jobs started at once could be
+# given the same free port before the first of them binds it
+_PORTS: set = set()
+
+
+def _free_port():
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS:
+            _PORTS.add(port)
+            return port
+
+
+def _jax_init_task(memo, out, cfg, batch):
+    """JAX's initial variables for ``cfg`` (``_jax_init``), kept for the
+    process's later tasks; the port's state dict of them saved to
+    <out>.init at once, for the port's ranks."""
+    memo[out] = _jax_init(cfg, batch)
+    _save({"initial": memo[out][3]}, f"{out}.init")
+
+
+def _jax_step_task(memo, out, init, cfg, batch):
+    """JAX's step on a data-2 mesh from the variables of the ``init``
+    task (its <out>), saved to <out>.want."""
+    _save(_jax_mesh_step(cfg, *memo[init][:3], batch), f"{out}.want")
+
+
+JAX_TASKS = {"init": _jax_init_task, "step": _jax_step_task}
+
+
+def jax_worker(job_path):
+    run_jax_job(job_path, JAX_TASKS)
 
 
 def _start(tmp, tasks, name, world=2, mode="worker", script=__file__):
     """Start ``world`` processes of ``mode`` of ``script`` (this file by
     default) on ``tasks``: the ranks of a worker job, or the process of a
-    JAX job; returns (procs, out prefix)."""
+    JAX job (at ``JAX_XLA_FLAGS``); returns (procs, out prefix)."""
     job, out = tmp / f"{name}.job", tmp / f"{name}.out"
     torch.save({"tasks": tasks, "out": str(out)}, job)
     port = _free_port()
@@ -179,6 +332,9 @@ def _start(tmp, tasks, name, world=2, mode="worker", script=__file__):
                "PYTHONPATH": os.pathsep.join(
                    [str(ROOT), str(ROOT / "tests"),
                     os.environ.get("PYTHONPATH", "")])}
+        if mode == "jax":
+            env["XLA_FLAGS"] = " ".join([env.get("XLA_FLAGS", ""),
+                                         JAX_XLA_FLAGS]).strip()
         log = open(tmp / f"{name}.{rank}.log", "w+")
         procs.append((subprocess.Popen(
             [sys.executable, script, mode, str(job)], cwd=ROOT,
@@ -306,17 +462,15 @@ def _jax_mesh_step(cfg, jmodel, tx, state, batch):
 
 @pytest.fixture(scope="module")
 def dp_runs(tmp_path_factory):
-    """Every multi-process run of the fast tier, in two launches of two
-    ranks that run while the JAX steps compute: the jitter draws, the train
-    run and the eval of its checkpoint, started first; and per case (ava,
-    ucf, accum) the port's recorded runs (``dp_check.run``), beside JAX's
-    metrics and state after, and the initial state."""
+    """Every multi-process run of the fast tier, started at once: a JAX
+    process a case, which writes the case's initial variables first and
+    then JAX's data-2 mesh step (accum from AVA's variables); and two
+    ranks that run each case's
+    ``dp_check.run`` as soon as its initial variables are written (and
+    check it against JAX's step once that is written), and the jitter
+    draws, the train run and the eval of its checkpoint while none is.
+    The temporary files go when the module's tests end."""
     tmp = tmp_path_factory.mktemp("dp")
-    runs = _start(tmp, {
-        "jitter": ("jitter", {"cfg": _ava_cfg(), "seed": 5}),
-        "train": ("train", {"cfg": _run_cfg(tmp / "runs")}),
-        "eval": ("eval", {"cfg": _run_cfg(tmp / "runs"),
-                          "dump_dir": str(tmp / "dump_dp")})}, "runs")
     cases = {"ava": (_ava_cfg(), None), "ucf": (_ucf_cfg(), 2),
              "accum": (_ava_cfg(accum=2), None)}
     batches = {k: dp_check.global_batch(cfg, 4, seed=3, boxless_from=nb)
@@ -329,38 +483,53 @@ def dp_runs(tmp_path_factory):
     # next to PAD_COST, which test_torch_criterion.py states
     batches["ucf"]["valid"][:2] = True
     batches["ucf"]["vis"][:2] = 1
-    # JAX's ACCUM_STEPS step, from AVA's initial variables, in a process
-    # of its own; its global batch in microbatch-major order: rows 0, 2,
-    # 1, 3 of the ranks' concatenation
-    accum = _start(tmp, {"accum": ("jax", {
-        "cfg": cases["accum"][0], "init_cfg": cases["ava"][0],
-        "batch": batches["ava"],
-        "step_batch": dp_check.microbatch_major(batches["accum"], 2, 2)})},
-        "accum_jax", world=1, mode="jax")
-    steps = None
+    # JAX's ACCUM_STEPS step from AVA's initial variables, its global
+    # batch in microbatch-major order: rows 0, 2, 1, 3 of the ranks'
+    # concatenation
+    # one JAX process a case, each making the case's initial variables
+    # (accum's from AVA's config: ava's) and then its step, so that no
+    # process holds two steps' compiles (under a whole run's load they
+    # came near the 300 s timeout)
+    init_cfg = {"ava": "ava", "ucf": "ucf", "accum": "ava"}
+    step_batch = {**batches,
+                  "accum": dp_check.microbatch_major(batches["accum"], 2, 2)}
+    jax_tasks = {f"jax_{k}": {
+        "init": ("init", {"cfg": cases[init_cfg[k]][0],
+                          "batch": batches[init_cfg[k]]}),
+        "step": ("step", {"init": str(tmp / f"jax_{k}.out.init"),
+                          "cfg": cases[k][0], "batch": step_batch[k]})}
+        for k in cases}
+    init = {k: f"jax_{k}.out.init" for k in cases}
+    want = {k: f"jax_{k}.out.step" for k in cases}
+    launched = []
     try:
-        inits = {k: _jax_init(cases[k][0], batches[k])
-                 for k in ("ava", "ucf")}
-        inits["accum"] = inits["ava"]
-        steps = _start(tmp, {k: ("step", {
-            "cfg": cases[k][0], "initial": inits[k][3],
-            "batch": batches[k]}) for k in cases}, "steps")
-        want = {k: _jax_mesh_step(cases[k][0], *inits[k][:3], batches[k])
-                for k in ("ava", "ucf")}
+        for name, tasks in jax_tasks.items():
+            launched.append(_start(tmp, tasks, name, world=1, mode="jax"))
+        # each step as soon as its initial variables are written; the
+        # train and eval runs while none is
+        launched.append(_start(tmp, {
+            **{k: ("step", {
+                "cfg": cases[k][0],
+                "initial_path": str(tmp / f"{init[k]}.init"),
+                "batch": batches[k], "want_path": str(tmp / f"{want[k]}.want"),
+                "after": [str(tmp / f"{init[k]}.init")]}) for k in cases},
+            "jitter": ("jitter", {"cfg": _ava_cfg(), "seed": 5}),
+            "train": ("train", {"cfg": _run_cfg(tmp / "runs")}),
+            "eval": ("eval", {"cfg": _run_cfg(tmp / "runs"),
+                              "dump_dir": str(tmp / "dump_dp")})}, "ranks"))
+        bns = _bn_counts(cases["ava"][0])
     except BaseException:
-        for launched in (runs, accum, steps):
-            if launched:
-                _kill(launched[0])
+        for procs, _ in launched:
+            _kill(procs)
         raise
-    bns = _bn_counts(cases["ava"][0])
-    results, logs = _wait(*runs)
-    got, _ = _wait(*steps)
-    want["accum"] = _wait(*accum)[0][0]
-    return {"cases": cases, "inits": inits, "want": want, "got": got[0],
-            "bns": bns,
-            "runs": results, "logs": logs, "tmp": tmp,
-            "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
-                                  "ckpt_*"))}
+    for job in launched[:3]:
+        _wait(*job)
+    results, logs = _wait(*launched[3])
+    yield {"cases": cases, "got": results[0], "bns": bns,
+           "runs": results, "logs": logs, "tmp": tmp,
+           "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
+                                 "ckpt_*"))}
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _bn_counts(cfg):
@@ -427,14 +596,14 @@ def _check_against_jax(cfg, initial, run, want):
 @pytest.mark.parametrize("case", ["ava", "ucf", "accum"])
 def test_dp_step_matches_jax_mesh_step(dp_runs, case):
     """The DP step of 2 ranks against JAX's step on a data-2 mesh, with
-    test_torch_train_step.py's tolerances; the control misses them."""
-    cfg = dp_runs["cases"][case][0]
-    initial = dp_runs["inits"][case][3]
-    got, want = dp_runs["got"][case], dp_runs["want"][case]
-    dp = got["dp"]
-    assert dp["metrics"]["finite"] == 1.0
-    assert _check_against_jax(cfg, initial, dp, want) == []
-    assert _check_against_jax(cfg, initial, got["control"], want) != []
+    test_torch_train_step.py's tolerances (``_check_against_jax``, run
+    where both steps' states are, on rank 0 of the ranks' job); the
+    control misses them."""
+    got = dp_runs["got"][case]
+    assert got["dp"]["metrics"]["finite"] == 1.0
+    # _check_against_jax of each run, on the worker's rank 0 (_step_task)
+    assert got["missed"]["dp"] == []
+    assert got["missed"]["control"] != []
 
 
 @pytest.mark.parametrize("case", ["ava", "ucf", "accum"])
@@ -528,14 +697,16 @@ def test_refusals_name_their_option(tmp_path):
     from tubelet_transformer_tpu_torch.models.tuber import build_model
     from tubelet_transformer_tpu_torch.parallel import sharding_rules
 
-    # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py) and
-    # MESH.MODEL alone on the 'model' axis (test_torch_tensor_parallel.py);
-    # the two together are refused, naming both
-    cfg = small_cfg()
-    cfg.mesh.model = 2
-    runner.check_supported(cfg)
-    for attrs, name in ((dict(zero1=True, model=2),
-                         "MESH.ZERO1 with MESH.MODEL"),
+    # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py), MESH.MODEL
+    # on the 'model' axis, and the two together
+    # (test_torch_tensor_parallel.py); a 'pipe' axis or SPATIAL beside
+    # them is refused, naming the option
+    for attrs in (dict(model=2), dict(zero1=True, model=2, data=2)):
+        cfg = small_cfg()
+        for attr, value in attrs.items():
+            setattr(cfg.mesh, attr, value)
+        runner.check_supported(cfg)
+    for attrs, name in ((dict(zero1=True, model=2, pipe=2), "MESH.PIPE"),
                         (dict(pipe=2), "MESH.PIPE"),
                         (dict(spatial=True), "MESH.SPATIAL")):
         cfg = small_cfg()

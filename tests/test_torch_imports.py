@@ -52,7 +52,9 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.parallel",
             "tubelet_transformer_tpu_torch.parallel.mesh",
             "tubelet_transformer_tpu_torch.parallel.zero",
-            "tubelet_transformer_tpu_torch.tools.dp_check"} <= set(modules)
+            "tubelet_transformer_tpu_torch.tools.dp_check",
+            "tubelet_transformer_tpu_torch.tools.tp_check",
+            "tubelet_transformer_tpu_torch.tools.mesh_checks"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

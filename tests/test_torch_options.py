@@ -2,11 +2,11 @@
 and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
-model, as do MESH.ZERO1 and MoE with MESH.DATA > 1 (the 'data' axis), and
-the options it leaves out still raise: MESH.PIPE and MESH.SPATIAL (with
-MESH.DATA or MESH.MODEL beside them too), MESH.ZERO1 beside MESH.MODEL,
-MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which
-the JAX package refuses too."""
+model, as do MESH.ZERO1 (beside MESH.MODEL too) and MoE with MESH.DATA >
+1 (the 'data' axis), and the options it leaves out still raise:
+MESH.PIPE and MESH.SPATIAL (with MESH.DATA, MESH.MODEL or MESH.ZERO1
+beside them too), MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and
+CONFIG.USE_LOCATION, which the JAX package refuses too."""
 
 import pytest
 import torch
@@ -31,6 +31,9 @@ def test_ported_options_reach_the_model():
     moe_dp = small_cfg()
     moe_dp.model.moe_experts, moe_dp.mesh.data = 4, 2
     runner.check_supported(moe_dp)
+    zero1_model = small_cfg()
+    zero1_model.mesh.zero1, zero1_model.mesh.model = True, 2
+    runner.check_supported(zero1_model)
     for train in (False, True):
         model = build_model(cfg, train=train)
         body = model.backbone.body
@@ -55,9 +58,11 @@ REFUSED = {
     # the clip's H axis over it (SPATIAL) does not
     "mesh_model": lambda c: (setattr(c.mesh, "model", 2),
                              setattr(c.mesh, "spatial", True)),
-    # MESH.ZERO1 runs on the 'data' axis; with a 'model' axis it does not
+    # MESH.ZERO1 runs on the 'data' axis and beside a 'model' axis; with a
+    # 'pipe' axis beside them it does not
     "mesh_zero1": lambda c: (setattr(c.mesh, "zero1", True),
-                             setattr(c.mesh, "model", 2)),
+                             setattr(c.mesh, "model", 2),
+                             setattr(c.mesh, "pipe", 2)),
     "mesh_spatial": lambda c: setattr(c.mesh, "spatial", True),
     "infer_chunk": lambda c: setattr(c.model, "infer_chunk", 2),
     "two_stream": lambda c: setattr(c, "two_stream", True),

@@ -30,18 +30,32 @@ data shard.
   once; the TP checkpoint resumes in one
   process, and a one-process checkpoint resumes under TP, where the next
   step (dropout on) equals the one-process step's.
+* ZeRO-1 beside the 'model' axis (MESH.ZERO1 on DATA 2 x MODEL 2): two
+  steps against JAX's ZeRO-1 step after ``shard_train_state(zero1=True)``
+  on the same mesh (losses, parameters, the gathered moments against
+  ``mu``/``nu``), bit for bit against the port's DATA x MODEL step on
+  every rank with the control without the all-gather missing, each
+  rank's moment bytes JAX device 0's; its checkpoint resumes in one
+  process, a DATA x MODEL file and a one-process file under it.
+* generate_lfb under MODEL 2 and under DATA 2 x MODEL 2: every rank fills
+  the one-process bank, rank 0 alone writes it.
 * The 'model' axis' refusals: a step whose model is not split over the
-  mesh, the serving CLI and generate_lfb under MESH.MODEL.
+  mesh, the serving CLI under MESH.MODEL, generate_lfb with a 'pipe'
+  axis.
 
-Every subprocess runs under a timeout of at most 300 s and is killed when
-it runs out.
+The JAX steps run in processes of their own, as
+tests/test_torch_data_parallel.py runs them, and the checks against them
+on the ranks' rank 0. Every subprocess runs under a timeout of at most
+300 s and is killed when it runs out; the temporary files go when the
+module's tests end.
 """
 
+import copy
 import glob
 import json
 import os
+import shutil
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -50,14 +64,18 @@ import torch
 from torch_fixtures import one_torch_thread  # noqa: F401
 
 from test_torch_data_parallel import (
-    SELF_TOL, TIMEOUT, _ava_cfg, _check_against_jax, _jax_init, _kill,
-    _run_cfg, _start, _ucf_cfg, _wait)
+    SELF_TOL, Deferred, _ava_cfg, _jax_init_task, _kill, _load, _missed,
+    _run_cfg, _save, _start, _ucf_cfg, _wait, run_jax_job, run_job)
+from test_torch_zero1 import (
+    _jax_zero1_task, _zero1_against_jax, _zero1_task,
+    check_resume_in_one_process)
 from tubelet_transformer_tpu_torch.cli import runner
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.parallel import sharding_rules
 from tubelet_transformer_tpu_torch.tools import dp_check, tp_check
 from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
 from tubelet_transformer_tpu_torch.train import engine
+from tubelet_transformer_tpu_torch.train.optimizer import param_label
 
 # the parameters' updates of the TP step against one process: AdamW's
 # first update is lr * g / (|g| + eps), so a gradient within a few eps of
@@ -69,18 +87,26 @@ CASES = ("ava", "ucf", "moe", "data_model")
 
 # ---------------------------------------------------------------- worker
 
-def _step_task(cfg, initial, batch):
-    """tools/tp_check.run on this rank; on rank 0 what the tests read: the
-    TP and control records (metrics, gathered gradients and state), the
-    one-process metrics, the readings, the peers' equality, the split
-    names and the all-reduce counts."""
+def _step_task(cfg, initial_path, batch, want_path):
+    """tools/tp_check.run on this rank from the JAX case's initial
+    variables (``initial_path``); on rank 0 what the tests read: the
+    metrics and all-reduce counts of the TP and control steps, their
+    checks against JAX's step (``want_path``, run here once JAX has
+    written it) with JAX's metrics, the one-process metrics, the readings,
+    the peers' equality, the split names and the launches."""
+    initial = _load(initial_path)["initial"]
     out = tp_check.run(cfg, torch.device("cpu"), initial=initial,
                        batch=batch)
     if out is None:
         return None
-    return {**{k: out[k] for k in ("tp", "control", "readings",
-                                   "peers_equal", "split", "launches")},
-            "single": {"metrics": out["single"]["metrics"]}}
+    return {**{k: out[k] for k in ("readings", "peers_equal", "split",
+                                   "launches")},
+            **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
+               for k in ("tp", "control")},
+            "single": {"metrics": out["single"]["metrics"]},
+            "missed": Deferred(want_path, _missed, cfg, initial,
+                               {k: out[k] for k in ("tp", "control")}),
+            "jax_metrics": Deferred(want_path, lambda want: want[0])}
 
 
 def _train_task(cfg):
@@ -118,12 +144,19 @@ def _eval_task(cfg, dump_dir, path=None):
     return {"val": out["val"], "cfg": cfg, "rows": rows}
 
 
-def _resume_task(cfg, path, batch):
-    """A one-process checkpoint into the TP train state: whether the
-    gathered model and optimizer state equal the file's bit for bit, and
-    the metrics of one more step on ``batch``."""
+def _resume_task(cfg, path, batch, no_dropout=False):
+    """A one-process checkpoint into the TP train state (with MESH.ZERO1
+    beside it too): whether the gathered model and optimizer state equal
+    the file's bit for bit, and the metrics of one more step on
+    ``batch``, the global batch (this rank's data shard of it), every
+    dropout off with ``no_dropout``."""
     mesh = runner._mesh(cfg)
+    b = len(next(iter(batch.values()))) // mesh.data
+    batch = {k: v[mesh.data_index * b:(mesh.data_index + 1) * b]
+             for k, v in batch.items()}
     state = runner.init_state(cfg, 4, torch.device("cpu"), mesh=mesh)
+    if no_dropout:
+        tp_check._no_dropout(state.model)
     ckpt_lib.load_checkpoint(path, state)
     want = torch.load(path, weights_only=True)
     model = sharding_rules.gather_state(state.model)
@@ -164,45 +197,111 @@ def _lfb_forward_task(cfg, seed):
                      for k in want}}
 
 
+def _bank_task(cfg, out):
+    """``run_generate_lfb`` of the checkpoint of MODEL.LOAD: this rank's
+    bank (``_recorded_bank``) and how often it saved one."""
+    return _recorded_bank(lambda: runner.run_generate_lfb(cfg, out,
+                                                          device="cpu"))
+
+
+def _recorded_bank(run):
+    """``run()``, recording the bank that ``generate_bank`` returns, the
+    actor probabilities of the slots that ``FeatureBank.add`` keeps, and
+    the number of ``FeatureBank.save`` calls: {"feats", "valid", "probs"}
+    by key, and "saves"."""
+    from tubelet_transformer_tpu_torch.eval import lfb
+
+    banks, probs, saves = [], {}, [0]
+    generate, add, save = lfb.generate_bank, lfb.FeatureBank.add, \
+        lfb.FeatureBank.save
+
+    def generating(*a, **k):
+        banks.append(generate(*a, **k))
+        return banks[-1]
+
+    def adding(self, key, features, actor_prob, threshold=0.8):
+        probs[key] = np.sort(np.asarray(actor_prob))[::-1][:self.slots]
+        return add(self, key, features, actor_prob, threshold)
+
+    def saving(self, path):
+        saves[0] += 1
+        return save(self, path)
+
+    lfb.generate_bank, lfb.FeatureBank.add = generating, adding
+    lfb.FeatureBank.save = saving
+    try:
+        run()
+    finally:
+        lfb.generate_bank, lfb.FeatureBank.add = generate, add
+        lfb.FeatureBank.save = save
+    bank, = banks
+    return {"feats": dict(bank._bank), "valid": dict(bank._valid),
+            "probs": probs, "saves": saves[0]}
+
+
+def _zero1_model_task(**kw):
+    """``_zero1_task`` on the DATA 2 x MODEL 2 mesh, its steps checked
+    by ``_zero1_against_jax_mesh``."""
+    out = _zero1_task(**kw)
+    if isinstance(out.get("jax"), Deferred):
+        out["jax"].fn = _zero1_against_jax_mesh
+    return out
+
+
+def _zero1_against_jax_mesh(want, cfg, initial, steps):
+    """The recorded ZeRO-1 x MODEL steps against JAX's ZeRO-1 steps on the
+    data-2 x model-2 mesh (``_zero1_against_jax``), with the parameters
+    whose mu JAX makes twice the port's set apart: each one's norm ratio
+    of JAX's first-step mu to the port's ("parted", those of the moment
+    errors whose ratio is 2 within 1e-3), their moment errors left out;
+    and each parameter's largest difference from JAX's after the second
+    step, in its group's learning rate ("second_update_lr")."""
+    out = _zero1_against_jax(want, cfg, initial, steps)
+    first = want["steps"][0]["mu"]
+    parted = {}
+    for name in out["steps"][0]["moment_errors"]:
+        ratio = float(np.linalg.norm(first[name])
+                      / np.linalg.norm(steps[0]["moments"][name][0].numpy()))
+        if abs(ratio - 2.0) <= 1e-3:
+            parted[name] = ratio
+    for st in out["steps"]:
+        st["moment_errors"] = {n: e for n, e in st["moment_errors"].items()
+                               if n not in parted}
+    lr = {"main": cfg.train.lr, "backbone": cfg.train.lr_backbone}
+    second = want["steps"][1]["state"]
+    out["second_update_lr"] = {
+        n: float(np.abs(steps[1]["state"][n].numpy() - second[n]).max()
+                 / lr[param_label(n, cfg)]) for n in steps[1]["grads"]}
+    return {**out, "parted": parted}
+
+
 TASKS = {"step": _step_task, "train": _train_task, "eval": _eval_task,
-         "resume": _resume_task, "lfb": _lfb_forward_task}
+         "resume": _resume_task, "lfb": _lfb_forward_task,
+         "bank": _bank_task, "zero1": _zero1_model_task}
 
 
 def worker(job_path):
-    """Run the job's tasks in order on this rank; each rank writes its
-    results to <out>.<rank>."""
-    torch.set_num_threads(1)
-    job = torch.load(job_path, weights_only=False)
-    mesh_lib.init_distributed("cpu", "gloo")
-    try:
-        results = {name: TASKS[kind](**kw) for name, (kind, kw)
-                   in job["tasks"].items()}
-        torch.save(results, f"{job['out']}.{mesh_lib.process_index()}")
-    finally:
-        mesh_lib.shutdown()
+    run_job(job_path, TASKS)
+
+
+def _jax_tp_init_task(memo, out, cfg, batch):
+    """``_jax_init_task``; returns the names JAX splits (``_jax_split_names``)."""
+    _jax_init_task(memo, out, cfg, batch)
+    return _jax_split_names(cfg, memo[out][2])
+
+
+def _jax_tp_step_task(memo, out, init, cfg, batch):
+    """``_jax_tp_step`` from the variables of the ``init`` task, saved to
+    <out>.want."""
+    _save(_jax_tp_step(cfg, *memo[init][:3], batch), f"{out}.want")
+
+
+JAX_TASKS = {"init": _jax_tp_init_task, "step": _jax_tp_step_task,
+             "zero1": _jax_zero1_task}
 
 
 def jax_worker(job_path):
-    """For each of the job's cases the initial variables (``_jax_init``)
-    and the names JAX splits, written at once to <out>.<case> for the
-    parent, which starts the port's ranks on them; then JAX's step on the
-    case's ('data', 'model') mesh from those variables, every case's
-    written to <out>.0."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    job = torch.load(job_path, weights_only=False)
-    out, inits = {}, {}
-    for name, (cfg, batch) in job["tasks"].items():
-        inits[name] = _jax_init(cfg, batch)
-        path = f"{job['out']}.{name}"
-        torch.save({"initial": inits[name][3],
-                    "split": _jax_split_names(cfg, inits[name][2])},
-                   f"{path}.tmp")
-        os.replace(f"{path}.tmp", path)
-    for name, (cfg, batch) in job["tasks"].items():
-        out[name] = _jax_tp_step(cfg, *inits[name][:3], batch)
-    torch.save(out, f"{job['out']}.0")
+    run_jax_job(job_path, JAX_TASKS)
 
 
 # ---------------------------------------------------------------- parent
@@ -311,11 +410,17 @@ def _one_process_checkpoint(tmp):
 
 @pytest.fixture(scope="module")
 def tp_runs(tmp_path_factory):
-    """Every multi-process run of this file: the JAX cases in two
-    processes of their own, the train, eval and resume run of 2 ranks and
-    the DATA 2 x MODEL 2 eval run of 4, started first; the port's ranks of
-    each step case, launched as soon as its JAX process has written the
-    case's initial variables."""
+    """Every multi-process run of this file, started at once: a JAX process
+    a case, which writes the case's initial variables first and then
+    JAX's step on the case's ('data', 'model') mesh (DATA 2 x MODEL 2's
+    process ZeRO-1 beside it too); then
+    the train, eval, resume, USE_LFB and generate_lfb runs of 2
+    ranks under MODEL 2; the TP step of each 2-rank case on 2 more ranks;
+    and on 4 ranks of DATA 2 x MODEL 2 the eval, generate_lfb and
+    ZeRO-1 resume runs of a one-process checkpoint, then the case's TP
+    step and ZeRO-1 beside it. A step starts as soon as its initial
+    variables are written, and is checked against JAX's once that is
+    written. The temporary files go when the module's tests end."""
     tmp = tmp_path_factory.mktemp("tp")
     cases = _cases()
     batches = {k: dp_check.global_batch(c, 2 * c.mesh.data, seed=3)
@@ -325,86 +430,126 @@ def tp_runs(tmp_path_factory):
     # as this random init's)
     batches["ucf"]["valid"][:] = True
     batches["ucf"]["vis"][:] = 1
-    one_ckpt, resume_batch = _one_process_checkpoint(tmp)
+    batch3 = dp_check.global_batch(cases["data_model"], 4, seed=4)
+    job = {"ava": "jax_a", "ucf": "jax_d", "moe": "jax_b",
+           "data_model": "jax_c"}
 
-    def run_cfg():
-        cfg = _run_cfg(tmp / "runs")
-        cfg.mesh.model = 2
-        return cfg
+    def out(case, what, step=""):
+        return str(tmp / f"{job[case]}.out.{case}{step}.{what}")
 
-    lfb_cfg = run_cfg()
-    lfb_cfg.use_lfb = True
-
-    launched = [_start(tmp, {
-        "train": ("train", {"cfg": run_cfg()}),
-        "eval": ("eval", {"cfg": run_cfg(),
-                          "dump_dir": str(tmp / "dump_tp")}),
-        "resume": ("resume", {"cfg": run_cfg(), "path": one_ckpt,
-                              "batch": resume_batch}),
-        "lfb": ("lfb", {"cfg": lfb_cfg, "seed": 10})}, "runs",
-        script=__file__)]
-    dm_cfg = run_cfg()
-    dm_cfg.mesh.data = 2
-    launched.append(_start(tmp, {"eval": ("eval", {
-        "cfg": dm_cfg, "dump_dir": str(tmp / "dump_dm"),
-        "path": one_ckpt})}, "runs_dm", world=4, script=__file__))
-    inits, steps = {}, {}
+    jax_jobs = {}
+    for case, name in job.items():
+        jax_jobs.setdefault(name, {})[case] = (
+            "init", {"cfg": cases[case], "batch": batches[case]})
+    for case, name in job.items():
+        jax_jobs[name][f"{case}_step"] = ("step", {
+            "init": str(tmp / f"{name}.out.{case}"), "cfg": cases[case],
+            "batch": batches[case]})
+    jax_jobs["jax_c"]["zero1_step"] = ("zero1", {
+        "init": str(tmp / "jax_c.out.data_model"),
+        "cfg": cases["data_model"], "batch": batches["data_model"],
+        "model": 2})
+    launched = []
     try:
-        jax_jobs = [_start(tmp, {k: (cases[k], batches[k]) for k in ks},
-                           name, world=1, mode="jax", script=__file__)
-                    for name, ks in (("jax_a", ("ava", "ucf")),
-                                     ("jax_b", ("moe", "data_model")))]
-        launched += jax_jobs
-        deadline = time.time() + TIMEOUT
-        while len(steps) < len(cases):
-            for k, cfg in cases.items():
-                path = tmp / f"jax_{'a' if k in ('ava', 'ucf') else 'b'}" \
-                    f".out.{k}"
-                if k in steps or not path.exists():
-                    continue
-                inits[k] = torch.load(path, weights_only=False)
-                steps[k] = _start(tmp, {k: ("step", {
-                    "cfg": cfg, "initial": inits[k]["initial"],
-                    "batch": batches[k]})}, f"step_{k}",
-                    world=cfg.mesh.data * cfg.mesh.model, script=__file__)
-                launched.append(steps[k])
-            if len(steps) < len(cases):
-                dead = [p.returncode for procs, _ in jax_jobs
-                        for p, _ in procs if p.poll() not in (None, 0)]
-                assert not dead and time.time() < deadline, \
-                    f"JAX processes exited {dead} or timed out"
-                time.sleep(0.5)
+        for name, tasks in jax_jobs.items():
+            launched.append(_start(tmp, tasks, name, world=1, mode="jax",
+                                   script=__file__))
     except BaseException:
         for procs, _ in launched:
             _kill(procs)
         raise
-    runs, logs = _wait(*launched[0])
-    dm_eval = _wait(*launched[1])[0][0]["eval"]
-    want = {**_wait(*jax_jobs[0])[0][0], **_wait(*jax_jobs[1])[0][0]}
-    got = {k: _wait(*steps[k])[0][0][k] for k in cases}
-    return {"cases": cases,
-            "initial": {k: v["initial"] for k, v in inits.items()},
-            "jax_split": {k: v["split"] for k, v in inits.items()},
-            "want": want, "got": got,
-            "runs": runs, "logs": logs, "dm_eval": dm_eval, "tmp": tmp,
-            "one_ckpt": one_ckpt,
-            "resume_batch": resume_batch,
-            "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
-                                  "ckpt_*"))}
+    one_ckpt, resume_batch = _one_process_checkpoint(tmp)
+
+    def run_cfg(data=1):
+        cfg = _run_cfg(tmp / "runs")
+        cfg.mesh.data, cfg.mesh.model = data, 2
+        return cfg
+
+    def bank_cfg(data=1):
+        cfg = run_cfg(data)
+        cfg.model.load, cfg.model.pretrained_path = True, one_ckpt
+        return cfg
+
+    lfb_cfg = run_cfg()
+    lfb_cfg.use_lfb = True
+    zero1_cfg = run_cfg(data=2)
+    zero1_cfg.mesh.zero1 = True
+
+    def step(case):
+        return ("step", {"cfg": cases[case],
+                         "initial_path": out(case, "init"),
+                         "batch": batches[case],
+                         "want_path": out(case, "want", "_step"),
+                         "after": [out(case, "init")]})
+
+    for d in ("bank_tp", "bank_dm"):
+        (tmp / d).mkdir()
+    try:
+        launched.append(_start(tmp, {
+            "train": ("train", {"cfg": run_cfg()}),
+            "eval": ("eval", {"cfg": run_cfg(),
+                              "dump_dir": str(tmp / "dump_tp")}),
+            "resume": ("resume", {"cfg": run_cfg(), "path": one_ckpt,
+                                  "batch": resume_batch}),
+            "lfb": ("lfb", {"cfg": lfb_cfg, "seed": 10}),
+            "bank": ("bank", {"cfg": bank_cfg(),
+                              "out": str(tmp / "bank_tp" / "bank.npz")})},
+            "runs", script=__file__))
+        launched.append(_start(tmp, {k: step(k) for k in ("ava", "ucf",
+                                                          "moe")},
+                               "steps", script=__file__))
+        launched.append(_start(tmp, {
+            "eval": ("eval", {"cfg": run_cfg(data=2),
+                              "dump_dir": str(tmp / "dump_dm"),
+                              "path": one_ckpt}),
+            "bank": ("bank", {"cfg": bank_cfg(data=2),
+                              "out": str(tmp / "bank_dm" / "bank.npz")}),
+            "resume": ("resume", {"cfg": zero1_cfg, "path": one_ckpt,
+                                  "batch": dp_check.global_batch(
+                                      zero1_cfg, 2, seed=9),
+                                  "no_dropout": True}),
+            "data_model": step("data_model"),
+            "zero1": ("zero1", {
+                "cfg": cases["data_model"],
+                "initial_path": out("data_model", "init"),
+                "batch": batches["data_model"], "batch3": batch3,
+                "ckpt_dir": str(tmp / "zero1_ckpt"),
+                "want_path": str(tmp / "jax_c.out.zero1_step.want"),
+                "after": [out("data_model", "init")]})},
+            "dm", world=4, script=__file__))
+    except BaseException:
+        for procs, _ in launched:
+            _kill(procs)
+        raise
+    splits = {}
+    for jax_job in launched[:4]:
+        splits.update(_wait(*jax_job)[0][0])
+    runs, logs = _wait(*launched[4])
+    steps = _wait(*launched[5])[0][0]
+    dm = _wait(*launched[6])[0]
+    yield {"cases": cases,
+           "jax_split": {k: splits[k] for k in cases},
+           "got": {**steps, "data_model": dm[0]["data_model"]},
+           "runs": runs, "logs": logs, "dm": dm, "tmp": tmp,
+           "one_ckpt": one_ckpt, "resume_batch": resume_batch,
+           "zero1_cfg": zero1_cfg, "batch3": batch3,
+           "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
+                                 "ckpt_*"))}
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_tp_step_matches_jax_mesh_step(tp_runs, case):
     """The TP step against JAX's step on the same ('data', 'model') mesh,
-    with test_torch_train_step.py's tolerances; the control misses them."""
-    cfg = tp_runs["cases"][case]
-    initial = tp_runs["initial"][case]
-    got, want = tp_runs["got"][case], tp_runs["want"][case]
+    with test_torch_train_step.py's tolerances (``_check_against_jax``,
+    run where both steps' states are, on rank 0 of the ranks' job); the
+    control misses them."""
+    got = tp_runs["got"][case]
     assert got["tp"]["metrics"]["finite"] == 1.0
     if case == "moe":
-        assert "loss_moe_aux" in want[0]
-    assert _check_against_jax(cfg, initial, got["tp"], want) == []
-    assert _check_against_jax(cfg, initial, got["control"], want) != []
+        assert "loss_moe_aux" in got["jax_metrics"]
+    assert got["missed"]["tp"] == []
+    assert got["missed"]["control"] != []
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -541,7 +686,7 @@ def test_run_eval_under_data_and_model_matches_one_process(
     over the 2 data shards, each gather hands rank 0 DATA x VAL.BATCH_SIZE
     rows (each shard once, from its model index 0), and the validation
     equals one process's, detection for detection."""
-    got = tp_runs["dm_eval"]
+    got = tp_runs["dm"][0]["eval"]
     cfg = got["cfg"]
     assert (cfg.mesh.data, cfg.mesh.model) == (2, 2)
     # two validations of 3 keyframes a shard
@@ -604,10 +749,177 @@ def test_one_process_checkpoint_resumes_under_tp(tp_runs, one_torch_thread):
                 float(want[k])), (k, g["metrics"][k], float(want[k]))
 
 
+def _zero1_checks(tp_runs):
+    """Every rank's ``dp_check.zero1_check`` of ZeRO-1 beside MESH.MODEL."""
+    dm = tp_runs["dm"]
+    return [dm[0]["zero1"]["check"]] + [r["zero1"] for r in dm[1:]]
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_zero1_with_model_matches_jax_zero1_mesh_step(tp_runs, step):
+    """Each of two ZeRO-1 steps on DATA 2 x MODEL 2 (4 ranks) against JAX's
+    ZeRO-1 step after ``shard_train_state(zero1=True)`` on a data-2 x
+    model-2 mesh with ``state_shardings(..., zero1=True)`` pinned: the
+    metrics, every parameter and every running statistic at
+    test_torch_train_step.py's tolerances (each update from the state
+    before this step), and the gathered moments (the replicated
+    parameters' over the data group, the split ones' over the model
+    group) against ``mu`` and ``nu`` through ``convert.py``, as
+    tests/test_torch_zero1.py holds the DATA-only ZeRO-1 step; run where
+    both steps' states are, on rank 0 of the ranks' job. Two things set
+    apart, each with its reading: the moments of the two parameters whose
+    gradient JAX's mesh step counts twice (the next test), and the second
+    step's parameters, held within 2.2 lr of JAX's (_check_against_jax's
+    own bound): the batch split parts layers 3-4's gradients by ~0.8%
+    (their train-mode BNs amplify the rounding of the statistics'
+    reduction; the moments hold at 1e-2), and where a second Adam
+    update's m cancels that moves it by up to 1.3 lr (measured), past the
+    1e-3 lr that holds the first step, as test_torch_train_step.py holds
+    one step."""
+    z = tp_runs["dm"][0]["zero1"]
+    got = z["jax"]["steps"][step]
+    assert z["finite"][step] == 1.0
+    missed = got["missed"]
+    if step:
+        assert max(z["jax"]["second_update_lr"].values()) <= 2.2
+        missed = [m for m in missed if not m.startswith("update of ")]
+    assert missed == []
+    assert got["names"] == got["want_names"]
+    assert got["moment_errors"] == {}
+
+
+def test_jax_mesh_step_counts_the_strided_depthwise_gradients_twice(
+        tp_runs):
+    """JAX's step on the data-2 x model-2 mesh gives the two strided
+    depthwise convs (layer3.0 and layer4.0 ``conv3``) twice their
+    gradient, and so twice the port's first mu, and no other parameter;
+    the port's ZeRO-1 x MODEL step is bit-equal to its DATA x MODEL step,
+    which equals its one process (``test_tp_step_matches_one_process``).
+    (JAX's own steps on a data-1 x model-2, a data-2 x model-1 and a
+    one-device mesh agree with the port there: a fault of the reference's
+    partitioning of that conv's weight gradient, which the first step's
+    sign-only Adam update hides from ``_check_against_jax``.)"""
+    assert tp_runs["dm"][0]["zero1"]["jax"]["parted"].keys() == {
+        "backbone.body.layer3.0.conv3.weight",
+        "backbone.body.layer4.0.conv3.weight"}
+
+
+def test_zero1_with_model_bit_equal_to_data_model_and_control_misses(
+        tp_runs):
+    """On each of the 4 ranks, after each of two steps: the ZeRO-1 x MODEL
+    run's model and optimizer state dicts (the moments gathered over the
+    data group, this peer's slices of the split ones) equal the DATA x
+    MODEL run's bit for bit; the control without the all-gather
+    differs."""
+    checks = _zero1_checks(tp_runs)
+    assert len(checks) == 4
+    for check in checks:
+        assert check["zero1_equal"] == [True, True]
+        assert check["control_equal"] == [False, False]
+
+
+def test_zero1_with_model_moment_bytes_are_jax_per_device_share(tp_runs):
+    """Each rank's moment bytes (from its tensors) are JAX device 0's
+    bytes of mu and nu over the trainable leaves and the figure from the
+    shapes: half of each replicated parameter's two moments that the data
+    axis shards, all of this peer's slice of each split one; so between
+    half and all of the DATA x MODEL step's bytes."""
+    jax_bytes = tp_runs["dm"][0]["zero1"]["jax"]["bytes"]
+    for check in _zero1_checks(tp_runs):
+        assert check["zero1_moment_bytes"] == jax_bytes
+        assert check["zero1_moment_bytes"] == check["zero1_predicted_bytes"]
+        assert check["data_moment_bytes"] == check["data_predicted_bytes"]
+        assert check["control_moment_bytes"] == check["zero1_moment_bytes"]
+        assert check["data_moment_bytes"] / 2 < check[
+            "zero1_moment_bytes"] < check["data_moment_bytes"]
+
+
+def test_zero1_with_model_checkpoint_resumes_in_one_process(
+        tp_runs, one_torch_thread):
+    """The checkpoint the 4 ranks wrote under ZeRO-1 x MODEL after two
+    steps is one file in the one-process layout, and one process without
+    ZeRO-1 loads it into the 4-rank run's state bit for bit; its step on
+    the global batch against the 4-rank run's third step, with
+    tests/test_torch_zero1.py's bounds (``check_resume_in_one_process``)."""
+    check_resume_in_one_process(tp_runs["cases"]["data_model"],
+                                tp_runs["dm"][0]["zero1"], tp_runs["batch3"])
+
+
+def test_zero1_with_model_resumes_from_a_file_saved_without_it(tp_runs):
+    """The DATA x MODEL run's file, loaded by a fresh ZeRO-1 x MODEL state
+    of 4 ranks, gives the uninterrupted ZeRO-1 x MODEL run's third step
+    bit for bit (compared on rank 0 of the ranks' job)."""
+    assert tp_runs["dm"][0]["zero1"]["resumed_equal"] == {
+        "metrics": True, "state": True, "moments": True}
+
+
+def test_one_process_checkpoint_resumes_under_zero1_with_model(
+        tp_runs, one_torch_thread):
+    """A one-process checkpoint loads under MESH.ZERO1 with DATA 2 x
+    MODEL 2: on every rank the model and AdamW state gathered over the
+    data and model groups equal the file's bit for bit, and the next step
+    (every dropout off: the data shards draw other masks than one
+    process) on the global batch of 2 equals the one-process step's from
+    the same file within SELF_TOL."""
+    got = [r["resume"] for r in tp_runs["dm"]]
+    assert all(g["same"] for g in got)
+    cfg = copy.deepcopy(tp_runs["zero1_cfg"])
+    cfg.mesh.data, cfg.mesh.model, cfg.mesh.zero1 = 1, 1, False
+    state = runner.init_state(cfg, 4, torch.device("cpu"))
+    tp_check._no_dropout(state.model)
+    ckpt_lib.load_checkpoint(tp_runs["one_ckpt"], state)
+    want = engine.make_train_step(cfg, state)(engine.device_batch(
+        dp_check.global_batch(cfg, 2, seed=9), torch.device("cpu")), 1.0)
+    for k in ("total_loss", "loss_ce", "loss_bbox", "grad_norm"):
+        for g in got:
+            assert abs(g["metrics"][k] - float(want[k])) <= SELF_TOL * abs(
+                float(want[k])), (k, g["metrics"][k], float(want[k]))
+
+
+@pytest.mark.parametrize("mesh", ["tp", "dm"])
+def test_generate_lfb_over_the_mesh_matches_one_process(
+        tp_runs, mesh, one_torch_thread):
+    """generate_lfb of a one-process checkpoint under MESH.MODEL 2 (2
+    ranks, "tp") and under DATA 2 x MODEL 2 (4 ranks, "dm") against one
+    process on it: every rank's bank holds every keyframe of the
+    one-process bank, each slot's features and actor probability within
+    SELF_TOL, its validity the same except where a probability lies
+    within SELF_TOL of the 0.8 gate; rank 0 alone saved, and its file
+    holds its bank."""
+    from tubelet_transformer_tpu_torch.eval.lfb import FeatureBank
+
+    got = [r["bank"] for r in tp_runs["runs" if mesh == "tp" else "dm"]]
+    cfg = _run_cfg(tp_runs["tmp"] / "one")
+    cfg.model.load, cfg.model.pretrained_path = True, tp_runs["one_ckpt"]
+    want = _recorded_bank(lambda: runner.run_generate_lfb(
+        cfg, str(tp_runs["tmp"] / f"bank_one_{mesh}.npz"), device="cpu"))
+    assert len(want["feats"]) == 6
+    for rank, g in enumerate(got):
+        assert g["saves"] == (rank == 0), rank
+        assert g["feats"].keys() == want["feats"].keys()
+        for key, w in want["feats"].items():
+            scale = max(1.0, float(np.abs(w).max()))
+            assert np.abs(g["feats"][key] - w).max() <= SELF_TOL * scale
+            p = want["probs"][key]
+            assert np.abs(g["probs"][key] - p).max() <= SELF_TOL, key
+            far = np.abs(p - 0.8) > SELF_TOL
+            assert np.array_equal(g["valid"][key][:len(p)][far],
+                                  want["valid"][key][:len(p)][far]), key
+    folder = tp_runs["tmp"] / f"bank_{mesh}"
+    assert sorted(os.listdir(folder)) == ["bank.npz"]
+    saved = FeatureBank.load(str(folder / "bank.npz"))
+    assert saved._bank.keys() == got[0]["feats"].keys()
+    for key, feats in got[0]["feats"].items():
+        assert np.array_equal(saved._bank[key], feats)
+        assert np.array_equal(saved._valid[key], got[0]["valid"][key])
+
+
 def test_model_axis_refusals(tmp_path):
     """A train or eval step whose model is not split over the mesh's
-    'model' axis raises ValueError naming MESH.MODEL; the serving CLI and
-    generate_lfb under MESH.MODEL raise NotImplementedError naming it
+    'model' axis raises ValueError naming MESH.MODEL; the serving CLI
+    under MESH.MODEL raises NotImplementedError naming it; generate_lfb
+    under MESH.MODEL gets past its checks to the mesh (which one process
+    cannot hold), and with a 'pipe' axis is refused naming MESH.PIPE
     (tests/test_torch_data_parallel.py holds the other refusals)."""
     from test_torch_tuber import small_cfg
 
@@ -624,7 +936,11 @@ def test_model_axis_refusals(tmp_path):
         engine.make_eval_step(cfg, model, mesh=mesh)
     cfg.mesh.model = 2
     cfg.model.load, cfg.model.pretrained_path = True, "unused.pth"
-    with pytest.raises(NotImplementedError, match="MESH.MODEL"):
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
+        runner.run_generate_lfb(cfg, str(tmp_path / "bank.npz"),
+                                device="cpu")
+    cfg.mesh.pipe = 2
+    with pytest.raises(NotImplementedError, match="MESH.PIPE"):
         runner.run_generate_lfb(cfg, str(tmp_path / "bank.npz"),
                                 device="cpu")
     path = tmp_path / "mesh_serving.yaml"

@@ -12,7 +12,7 @@ clean exit), and the eval run of a checkpoint (``MODEL.LOAD`` with
 ``PRETRAINED_PATH``). With ``CONFIG.USE_LFB`` every sample carries its
 keyframe's long-term memory window from the bank at ``LFB.BANK_PATH``;
 ``run_generate_lfb`` writes such a bank from a checkpoint (the
-``generate_lfb`` CLI).
+``generate_lfb`` CLI), under torchrun too.
 
 Data parallelism (``MESH.DATA``): launched by torchrun, one process per
 rank, the train and eval runs shard both splits over the ranks
@@ -256,14 +256,11 @@ def run_generate_lfb(cfg: Config, out_path: str = "lfb_bank.npz",
     """The long-term feature bank of the val split, from the checkpoint of
     MODEL.LOAD with PRETRAINED_PATH in ``generate_lfb`` mode, saved to
     ``out_path``; a slot is valid where its actor probability exceeds 0.8,
-    as in the JAX package. Returns the path."""
+    as in the JAX package. Under torchrun each process runs its data shard
+    with the model split over MESH.MODEL, every process fills the full
+    bank, rank 0 writes it and the others wait at a barrier. Returns the
+    path."""
     check_supported(cfg)
-    if cfg.mesh.model > 1:
-        raise NotImplementedError("generate_lfb under MESH.MODEL > 1 is not "
-                                  "ported yet")
-    if mesh_lib.process_count() > 1:
-        raise NotImplementedError("generate_lfb runs in one process; launch "
-                                  "it without torchrun")
     if not (cfg.model.load and cfg.model.pretrained_path):
         # a bank from random weights poisons every later USE_LFB run
         raise ValueError(
@@ -272,13 +269,17 @@ def run_generate_lfb(cfg: Config, out_path: str = "lfb_bank.npz",
     from tubelet_transformer_tpu_torch.eval.lfb import generate_bank
 
     cfg.model.generate_lfb = True
+    mesh = _mesh(cfg)
     _, val_loader = make_loaders(cfg, val_only=True)
     model = build_model(cfg, device=torch.device(device), seed=seed,
-                        pretrained=True)
-    bank = generate_bank(cfg, model, val_loader)
-    bank.save(out_path)
-    print(f"saved feature bank ({len(bank)} keyframes) to {out_path}",
-          flush=True)
+                        pretrained=True, mesh=mesh)
+    bank = generate_bank(cfg, model, val_loader,
+                         mesh=mesh if mesh_lib.process_count() > 1 else None)
+    if mesh_lib.is_main_process():
+        bank.save(out_path)
+        print(f"saved feature bank ({len(bank)} keyframes) to {out_path}",
+              flush=True)
+    mesh_lib.barrier()
     return out_path
 
 

@@ -1,16 +1,20 @@
 """ctypes bindings for the native clip decoder (native/clipdec.cpp).
 
 Auto-builds the shared library on first use if a toolchain is available;
-falls back cleanly to the PIL path when not (``is_available()``). ctypes
-foreign calls release the GIL, so the thread-pool DataLoader parallelizes
-decodes across cores.
+falls back cleanly to the PIL path when not (``is_available()``). The
+build runs in a directory of its own and the library is renamed into
+place, so that processes building at once (the test workers of one run)
+never load a half-written file. ctypes foreign calls release the GIL, so
+the thread-pool DataLoader parallelizes decodes across cores.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 from typing import Optional, Tuple
 
@@ -35,8 +39,7 @@ def _load() -> Optional[ctypes.CDLL]:
         _tried = True
         if not os.path.exists(_LIB_PATH):
             try:
-                subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-                               check=True, capture_output=True)
+                _build()
             except Exception:
                 return None
         try:
@@ -48,6 +51,20 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.tuber_decode_to_canvas.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def _build() -> None:
+    """native/build.sh on copies of its sources in a directory of its own
+    under native/, then the library renamed into place (atomic)."""
+    work = tempfile.mkdtemp(prefix=".build-", dir=_NATIVE_DIR)
+    try:
+        for name in ("build.sh", "clipdec.cpp"):
+            shutil.copy(os.path.join(_NATIVE_DIR, name), work)
+        subprocess.run(["sh", os.path.join(work, "build.sh")], check=True,
+                       capture_output=True)
+        os.replace(os.path.join(work, "libclipdec.so"), _LIB_PATH)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def is_available() -> bool:

@@ -8,10 +8,13 @@ alone: per keyframe the final-layer query features of the confident actors
 the keyframes of +-``half_window`` seconds around a key into a fixed-shape
 (L_mem, D) memory with a True-is-pad mask.
 
-``generate_bank`` runs the model's ``generate_lfb`` mode over a loader on one
-device, the eval build under ``torch.inference_mode`` with the validation's
-``device_preprocess``; the JAX version's gather over a mesh has no
-counterpart (one process feeds one device).
+``generate_bank`` runs the model's ``generate_lfb`` mode over a loader, the
+eval build under ``torch.inference_mode`` with the validation's
+``device_preprocess``. Under torchrun (``MESH.DATA``, ``MESH.MODEL``) each
+process runs its data shard and every batch's features, actor
+probabilities and keyframe indices are gathered over the data shards, as
+the JAX version's ``gather_global`` does, so that every process fills the
+full bank.
 """
 
 from __future__ import annotations
@@ -114,16 +117,21 @@ class BankAttachDataset:
         return sample
 
 
-def generate_bank(cfg, model, loader, threshold: float = 0.8
+def generate_bank(cfg, model, loader, threshold: float = 0.8, mesh=None
                   ) -> FeatureBank:
     """Run ``model`` (the eval build of a ``generate_lfb`` config) over
     ``loader`` and fill a bank: each sample's query features under its
     keyframe's key, with its actor probabilities (softmax of the actorness
-    logits, class 1). One device-to-host copy per batch."""
+    logits, class 1). One device-to-host copy per batch. With ``mesh``
+    (``parallel.mesh.Mesh``; ``loader`` this process's data shard) each
+    batch's features, probabilities and keyframe indices of every data
+    shard, in ONE host collective (``gather_global_tree``, each shard from
+    its model index 0): every process fills the full bank."""
     import torch
 
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
         device_preprocess)
+    from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 
     device = next(model.parameters()).device
     bank = FeatureBank(feat_dim=cfg.model.d_model,
@@ -141,8 +149,14 @@ def generate_bank(cfg, model, loader, threshold: float = 0.8
             flat = torch.cat([feats.reshape(-1), prob.reshape(-1)]).cpu()
         feats, prob = (a.numpy().reshape(t.shape) for a, t in zip(
             flat.split([feats.numel(), prob.numel()]), (feats, prob)))
+        key_idx = np.asarray(batch["key_idx"])
+        if mesh is not None:
+            g = mesh_lib.gather_global_tree(
+                {"feats": feats, "prob": prob, "key_idx": key_idx},
+                mesh.model)
+            feats, prob, key_idx = g["feats"], g["prob"], g["key_idx"]
         for i in range(feats.shape[0]):
-            idx = int(batch["key_idx"][i])
+            idx = int(key_idx[i])
             key = dataset.keys[idx] if hasattr(dataset, "keys") else str(idx)
             bank.add(key, feats[i], prob[i], threshold)
     return bank

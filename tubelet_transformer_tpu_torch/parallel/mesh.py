@@ -88,11 +88,12 @@ def init_distributed(device: torch.device | str,
     for ``device``'s type when None), create the CPU gloo group for host
     data, and check both with one ``all_reduce`` each: a backend that
     cannot run here fails now, not at the first step. A no-op without
-    torchrun's environment. Prints the backend, world size, rank and device
-    of this process."""
+    torchrun's environment, and once this process has joined (several
+    tools run in one launch, ``tools/mesh_checks.py``). Prints the
+    backend, world size, rank and device of this process."""
     global _HOST_GROUP
     env = launch_env()
-    if env is None:
+    if env is None or dist.is_initialized():
         return
     rank, world, _ = env
     device = torch.device(device)

@@ -6,20 +6,24 @@ The port's counterpart of the ``zero1`` branch of
 after the data all-reduce; each of the n 'data' shards owns 1/n of the
 ``mu``/``nu`` of every replicated parameter, along the largest axis that n
 divides (the lower axis on a tie), and updates it shard-locally; a
-parameter with no such axis keeps replicated moments; one all-gather
-returns the updated parameters to every rank.
+parameter with no such axis keeps replicated moments, and a parameter
+split over 'model' (``MESH.MODEL``) keeps its moments in the parameter's
+layout, the model peer's slice; one all-gather returns the updated
+parameters to every rank.
 
 ``ZeroAdamW`` does the same by hand: a ``torch.optim.AdamW`` with the
 groups and hyperparameters of ``train/optimizer.py:build_optimizer`` runs
-over leaf tensors that hold this rank's slices (``narrow(axis, rank * k,
-k)``) of the sharded parameters, and over the unsharded parameters
-themselves, which every rank updates alike. ``step`` copies the slices of
+over leaf tensors that hold this rank's slices (``narrow(axis, d * k,
+k)`` for data index d) of the sharded parameters, and over the unsharded
+parameters themselves (those split over 'model' among them), which every
+rank of a data group updates alike. ``step`` copies the slices of
 the parameters as they are (so that a load between steps holds) and of
 the summed, clipped gradients into the leaves and their ``.grad``, steps, packs
 every owned slice into one flat buffer and makes ONE
-``all_gather_into_tensor`` over the default group (NCCL, or gloo, which
-carries it for CUDA tensors), then unpacks the ranks' slices into the
-parameters.
+``all_gather_into_tensor`` over the data group (the ranks of this model
+index, the whole world without a 'model' axis; NCCL, or gloo, which
+carries it for CUDA tensors), then unpacks the data shards' slices into
+the parameters.
 
 The axis sizes of a port tensor are a permutation of its JAX leaf's
 (torch's (out, in) against flax's (in, out), and so on), so the same
@@ -31,7 +35,11 @@ port's optimizer has none of.
 the layout of ``torch.optim.AdamW.state_dict()`` over the full parameters,
 and ``load_state_dict`` takes that layout and keeps this rank's slices, so
 a checkpoint is the same file with ZeRO-1 or without, and resumes at any
-world size with ZeRO-1 on or off.
+world size with ZeRO-1 on or off. Under ``MESH.MODEL`` the moments of
+the split parameters stay the peer's slices here:
+``parallel/sharding_rules.py:gather_optimizer_state`` gathers them over
+the model group after this ``state_dict``, and ``shard_optimizer_state``
+cuts them before this ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -58,12 +66,22 @@ def shard_axis(shape: Sequence[int], n: int) -> Optional[int]:
     return None
 
 
+def data_axis(p: torch.Tensor, n: int) -> Optional[int]:
+    """The axis of parameter ``p`` whose moments shard over ``n`` data
+    shards: ``shard_axis`` of its shape, or None for a parameter split over
+    'model' (``tp_split``), whose moments keep the parameter's layout."""
+    if getattr(p, "tp_split", None) is not None:
+        return None
+    return shard_axis(p.shape, n)
+
+
 def predicted_moment_bytes(params: Iterable[torch.Tensor], n: int) -> int:
-    """The bytes of one rank's two moments over ``params`` from their
-    shapes: 1/n of each sharded parameter's, all of an unsharded one's."""
+    """The bytes of one rank's two moments over ``params`` (this model
+    peer's slices of the split ones) from their shapes: 1/n of each
+    sharded parameter's, all of an unsharded one's."""
     total = 0
     for p in params:
-        share = n if shard_axis(p.shape, n) is not None else 1
+        share = n if data_axis(p, n) is not None else 1
         total += 2 * p.numel() // share * p.element_size()
     return total
 
@@ -89,25 +107,25 @@ def all_gather_flat(flat: torch.Tensor, n: int,
 class ZeroAdamW:
     """AdamW over ``groups`` (``torch.optim.AdamW``'s group dicts) with the
     moments sharded over ``mesh``'s 'data' axis. ``param_groups`` holds the
-    full parameters and the hyperparameters, as AdamW's does: the clip and
-    the gradient all-reduce read the parameters there, the schedule writes
-    each group's ``lr``."""
+    full parameters (this model peer's slices of the split ones) and the
+    hyperparameters, as AdamW's does: the clip and the gradient all-reduce
+    read the parameters there, the schedule writes each group's ``lr``."""
 
     def __init__(self, groups: List[dict], mesh: Mesh, **defaults):
         self.mesh = mesh
-        n, rank = mesh.data, mesh.rank
+        n, d = mesh.data, mesh.data_index
         # (parameter, axis, this rank's slice) of every sharded parameter
         self.slots: list = []
         inner_groups = []
         for g in groups:
             leaves = []
             for p in g["params"]:
-                axis = shard_axis(p.shape, n)
+                axis = data_axis(p, n)
                 if axis is None:
                     leaves.append(p)
                     continue
                 k = p.shape[axis] // n
-                leaf = p.detach().narrow(axis, rank * k, k).clone()
+                leaf = p.detach().narrow(axis, d * k, k).clone()
                 self.slots.append((p, axis, leaf))
                 leaves.append(leaf)
             inner_groups.append({**g, "params": leaves})
@@ -148,9 +166,10 @@ class ZeroAdamW:
             # the slice of the parameter as it is now (a checkpoint's load
             # writes the parameters), and of its gradient
             k = leaf.shape[axis]
-            leaf.copy_(p.narrow(axis, self.mesh.rank * k, k))
+            d = self.mesh.data_index
+            leaf.copy_(p.narrow(axis, d * k, k))
             leaf.grad = None if p.grad is None else p.grad.narrow(
-                axis, self.mesh.rank * k, k).clone(
+                axis, d * k, k).clone(
                     memory_format=torch.contiguous_format)
         self.inner.step()
         self.all_gather_params()
@@ -158,12 +177,13 @@ class ZeroAdamW:
     def _gather(self, parts: List[torch.Tensor], slots: list
                 ) -> List[torch.Tensor]:
         """The full tensors of ``parts`` (this rank's slices of ``slots``'
-        parameters) from every rank's, in one all-gather."""
+        parameters) from every data shard's, in one all-gather over the
+        data group."""
         if not parts:
             return []
         n = self.mesh.data
         flat = torch.cat([t.reshape(-1) for t in parts])
-        segs = all_gather_flat(flat, n).split([t.numel() for t in parts],
+        segs = all_gather_flat(flat, n, self.mesh.data_group).split([t.numel() for t in parts],
                                               dim=1)
         return [seg.reshape(n, *t.shape).movedim(0, axis).reshape(p.shape)
                 for seg, t, (p, axis, _) in zip(segs, parts, slots)]
@@ -198,7 +218,8 @@ class ZeroAdamW:
             if slot is not None:
                 _, axis, leaf = slot
                 k = leaf.shape[axis]
-                st = {key: (v.narrow(axis, self.mesh.rank * k, k).clone()
+                d = self.mesh.data_index
+                st = {key: (v.narrow(axis, d * k, k).clone()
                             if key in MOMENTS else v)
                       for key, v in st.items()}
             state[i] = st

@@ -234,6 +234,27 @@ def readings(run: dict, single: dict, initial: dict) -> dict:
     }
 
 
+def since_start() -> float:
+    """Seconds since this process started (Linux's /proc; 0 elsewhere)."""
+    try:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+    except OSError:
+        return 0.0
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def log_time(what: str) -> None:
+    """Rank 0's "[time]" line: ``what`` at this many seconds since the
+    process started (imports, the process group, each build and check)."""
+    env = mesh_lib.launch_env()
+    if (env[0] if env else 0) == 0:
+        print(f"[time] {what}: {since_start():.1f} s since the process "
+              "started", flush=True)
+
+
 def _timed(device: torch.device, fn) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -300,19 +321,22 @@ def _same(a: tuple, b: tuple) -> bool:
 
 def zero1_check(cfg: Config, model, initial: dict, batch: dict,
                 mesh: mesh_lib.Mesh, timed_steps: int = 0) -> dict:
-    """Two steps from ``initial`` of the DATA-only DP step, the ZeRO-1 DP
-    step and the control without the all-gather, on this rank's ``batch``:
-    per run, whether the model's and the optimizer's state dicts equal the
-    DATA-only run's bit for bit after each step, the stem kernels'
-    launches in each step, and this rank's moment bytes from the tensors
-    and from the shapes; with ``timed_steps`` the ZeRO-1 timings."""
+    """Two steps from ``initial`` (the one-process state dict) of the
+    DATA-only DP step, the ZeRO-1 DP step and the control without the
+    all-gather, on this rank's ``batch``: per run, whether the model's and
+    the optimizer's state dicts equal the DATA-only run's bit for bit after
+    each step, the stem kernels' launches in each step, and this rank's
+    moment bytes from the tensors and from the shapes; with
+    ``timed_steps`` the ZeRO-1 timings. With a model split over a 'model'
+    axis (``tools/tp_check.py --zero1``) the DATA-only run is the DATA x
+    MODEL step and each rank compares its own slices."""
     device = next(model.parameters()).device
     db = engine.device_batch(batch, device)
     runs, out = {}, {}
     for name in ("data", "zero1", "control"):
         c = copy.deepcopy(cfg)
         c.mesh.zero1 = name != "data"
-        model.load_state_dict(initial)
+        sharding_rules.load_full_state(model, initial)
         state = engine.create_train_state(c, model, steps_per_epoch=10,
                                           mesh=mesh)
         if name == "control":
@@ -343,7 +367,7 @@ def zero1_check(cfg: Config, model, initial: dict, batch: dict,
     if timed_steps:
         c = copy.deepcopy(cfg)
         c.mesh.zero1 = True
-        model.load_state_dict(initial)
+        sharding_rules.load_full_state(model, initial)
         out["timings"] = timings(c, model, batch, mesh, timed_steps)
     return out
 
@@ -430,6 +454,7 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
     cfg.mesh.data = mesh.data
     model = build_model(cfg, device=device, seed=seed, train=True)
+    log_time("dp_check: the model built")
     for m in model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
@@ -443,6 +468,7 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     out = {"dp": one_step(cfg, model, initial, shard, mesh),
            "control": one_step(cfg, model, initial, shard,
                                LocalMesh(mesh.data, mesh.rank))}
+    log_time("dp_check: the DP step and its control")
     times = {}
     if timed_steps:
         times = timings(cfg, model, shard, mesh, timed_steps)
@@ -454,8 +480,11 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     every = mesh_lib.gather_global_tree(
         {k: np.asarray([v]) for k, v in times.items()
          if k != "grad_mb"}) if times else {}
+    if times:
+        log_time("dp_check: the timed steps")
     if zero1:
         z = zero1_check(cfg, model, initial, shard, mesh, timed_steps)
+        log_time("dp_check: the ZeRO-1 check")
         if timed_steps:
             t = z["timings"]
             print(f"dp_check rank {mesh.rank}: ZeRO-1 step ms "
@@ -475,6 +504,7 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
         return None
     out["single"] = one_step(cfg, model, initial, microbatch_major(
         batch, mesh.data, max(1, cfg.train.accum_steps)), mesh_lib.Mesh())
+    log_time("dp_check: the one-process step")
     out["readings"] = {k: readings(out[k], out["single"], initial)
                        for k in ("dp", "control")}
     out["timings"] = {k: v.tolist() for k, v in every.items()}
@@ -482,7 +512,10 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     return out
 
 
-def main() -> None:
+def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
+    """The command line (``argv``, else ``sys.argv``); with
+    ``keep_group`` the process group stays joined for the next tool of
+    the launch (``tools/mesh_checks.py``)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config-file", required=True)
     p.add_argument("--device", default=None,
@@ -503,7 +536,7 @@ def main() -> None:
     p.add_argument("--classifier", action="store_true",
                    help="also the classifier's DP step")
     p.add_argument("--out", required=True)
-    args = p.parse_args()
+    args = p.parse_args(argv)
     if args.deterministic:
         # cuBLAS reads this when its first handle is made
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -517,7 +550,9 @@ def main() -> None:
         cfg.model.compute_dtype = "float32"
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    log_time("dp_check: imports")
     mesh_lib.init_distributed(device, args.dist_backend)
+    log_time("dp_check: the process group joined")
 
     def summary(out: dict) -> dict:
         return {**{k: out[k] for k in ("readings", "timings", "world")
@@ -541,6 +576,7 @@ def main() -> None:
         if args.classifier:
             out = classifier_check(device, mesh_lib.create_mesh(),
                                    args.seed, args.batch_seed)
+            log_time("dp_check: the classifier check")
             if out is not None:
                 result["classifier"] = out
         if mesh_lib.is_main_process():
@@ -552,7 +588,8 @@ def main() -> None:
                           f"{result[k].get('readings', result[k])}",
                           flush=True)
     finally:
-        mesh_lib.shutdown()
+        if not keep_group:
+            mesh_lib.shutdown()
 
 
 if __name__ == "__main__":

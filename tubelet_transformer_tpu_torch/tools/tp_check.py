@@ -43,6 +43,16 @@ the sizes one step makes them, the all-reduces of its model group.
 off; ``--timed-steps`` times the first), ``--moe`` once more with
 ``MODEL.MOE_EXPERTS 4`` and ``MOE_TOP_K 2`` (expert parallelism: 2 experts
 a peer at MODEL 2), in float32 when it is among the dtypes.
+
+``--zero1`` (with ``--data`` above 1): each case also runs
+``dp_check.zero1_check`` on the mesh, from the same state and on the same
+shard: two steps of the DATA x MODEL step, of the same step with
+``MESH.ZERO1`` (the moments of the replicated parameters sharded over the
+data group, the split ones the model peer's slices) and of the ZeRO-1
+control without the all-gather; on every rank whether the model's and the
+optimizer's state dicts equal the DATA x MODEL step's bit for bit after
+each step, and this rank's moment bytes from the tensors beside the
+figure from the shapes.
 """
 
 from __future__ import annotations
@@ -185,18 +195,20 @@ def tp_readings(run: dict, single: dict, initial: dict) -> dict:
 
 def run(cfg: Config, device: torch.device, seed: int = 0,
         batch_seed: int = 1, initial: Optional[dict] = None,
-        batch: Optional[dict] = None, timed_steps: int = 0
-        ) -> Optional[dict]:
+        batch: Optional[dict] = None, timed_steps: int = 0,
+        zero1: bool = False) -> Optional[dict]:
     """The check on this rank (in a joined process group); on rank 0 the
     recorded runs, the readings, the peers' equality, every rank's
     launches and timings, None on the others. ``initial``: the one-process
     state dict (else random weights from ``seed``); ``batch``: the global
-    batch (else ``dp_check.global_batch``)."""
+    batch (else ``dp_check.global_batch``); ``zero1`` (at MESH.DATA > 1):
+    also ``dp_check.zero1_check``, every rank's result under "zero1"."""
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
     if mesh.model == 1:
         raise ValueError("MESH.MODEL 1: no 'model' axis to check (--model)")
     cfg.mesh.data = mesh.data
     model = build_model(cfg, device=device, seed=seed, train=True, mesh=mesh)
+    dp_check.log_time("tp_check: the split model built")
     _no_dropout(model)
     if initial is None:
         initial = {k: v.detach().cpu().clone() for k, v in
@@ -211,7 +223,20 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     _rebind(model, control)
     out["control"] = dp_check.one_step(cfg, model, initial, shard, control)
     _rebind(model, mesh)
+    dp_check.log_time("tp_check: the TP step and its control")
     peers = peer_check(cfg, model, initial, shard, mesh)
+    dp_check.log_time("tp_check: the peers' two steps")
+    if zero1 and mesh.data > 1:
+        z = dp_check.zero1_check(cfg, model, initial, shard, mesh)
+        print(f"tp_check rank {mesh.rank}: ZeRO-1 x MODEL moment bytes "
+              f"{z['zero1_moment_bytes']} (from the shapes "
+              f"{z['zero1_predicted_bytes']}) against "
+              f"{z['data_moment_bytes']} in the DATA x MODEL step (from the "
+              f"shapes {z['data_predicted_bytes']}); bit-equal to the DATA x "
+              f"MODEL step after each step: ZeRO-1 {z['zero1_equal']}, "
+              f"control {z['control_equal']}", flush=True)
+        out["zero1"] = mesh_lib.all_gather_objects(z)
+        dp_check.log_time("tp_check: the ZeRO-1 check")
     times = timings(cfg, model, shard, mesh, timed_steps) \
         if timed_steps else {}
     if times:
@@ -232,6 +257,7 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
         cfg, full, initial, dp_check.microbatch_major(
             batch, mesh.data, max(1, cfg.train.accum_steps)),
         mesh_lib.Mesh())
+    dp_check.log_time("tp_check: the one-process step")
     out["readings"] = {k: tp_readings(out[k], out["single"], initial)
                        for k in ("tp", "control")}
     out["peers_equal"] = peers
@@ -246,13 +272,16 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
 def summary(out: dict) -> dict:
     """What the smoke reads of ``run``'s result: no tensors."""
     return {**{k: out[k] for k in ("readings", "peers_equal", "launches",
-                                   "timings", "mesh")},
+                                   "timings", "mesh", "zero1") if k in out},
             "n_split": len(out["split"]),
             **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
                for k in ("tp", "control", "single")}}
 
 
-def main() -> None:
+def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
+    """The command line (``argv``, else ``sys.argv``); with
+    ``keep_group`` the process group stays joined for the next tool of
+    the launch (``tools/mesh_checks.py``)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config-file", required=True)
     p.add_argument("--data", type=int, default=None,
@@ -274,8 +303,11 @@ def main() -> None:
                    help="also the check with MoE encoder FFNs (float32 "
                         "when among --dtypes)")
     p.add_argument("--timed-steps", type=int, default=0)
+    p.add_argument("--zero1", action="store_true",
+                   help="also ZeRO-1 against the DATA x MODEL step (at "
+                        "--data > 1)")
     p.add_argument("--out", required=True)
-    args = p.parse_args()
+    args = p.parse_args(argv)
     if args.deterministic:
         # cuBLAS reads this when its first handle is made
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -302,14 +334,16 @@ def main() -> None:
             cases["float32" if "float32" in dtypes else dtypes[0]])
         for k, v in dp_check.MOE.items():
             setattr(moe.model, k, v)
+    dp_check.log_time("tp_check: imports")
     mesh_lib.init_distributed(device, args.dist_backend)
+    dp_check.log_time("tp_check: the process group joined")
     try:
         result = {}
         for name, c in cases.items():
             t0 = time.perf_counter()
             out = run(c, device, args.seed, args.batch_seed,
                       timed_steps=args.timed_steps if name == dtypes[0]
-                      else 0)
+                      else 0, zero1=args.zero1)
             if out is not None:
                 result[name] = summary(out)
                 result[name]["wall_s"] = time.perf_counter() - t0
@@ -321,7 +355,8 @@ def main() -> None:
         if mesh_lib.is_main_process():
             torch.save(result, args.out)
     finally:
-        mesh_lib.shutdown()
+        if not keep_group:
+            mesh_lib.shutdown()
 
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ tensor parallelism (``MESH.MODEL``) every rank first takes part in
 gathering the split parameters and their AdamW moments
 (``parallel/sharding_rules.py``): rank 0 writes the one-process layout,
 and every rank loads the whole file and keeps its slices, so a file
-resumes at any ``MESH.MODEL``.
+resumes at any ``MESH.MODEL``. With both (ZeRO-1 beside ``MESH.MODEL``) the
+save gathers the moments over the data group first, then the split ones
+over the model group; the load cuts the split moments to the peer's slice
+first, then keeps the data slice.
 """
 
 from __future__ import annotations

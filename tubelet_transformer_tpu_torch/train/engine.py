@@ -40,7 +40,9 @@ With MoE the load-balance counts are summed over ranks in each MoE layer
 (``MoEFFN.forward``'s ``reduce``), so ``loss_moe_aux`` is a share like the
 criterion's terms. With ``MESH.ZERO1`` the optimizer is
 ``parallel.zero.ZeroAdamW``: the same all-reduced, clipped gradients, the
-moments sharded over ranks, one all-gather of the updated parameters.
+moments sharded over the data group, one all-gather of the updated
+parameters over it (beside a 'model' axis too, where the split
+parameters' moments stay the model peer's slices).
 
 Tensor parallelism (``MESH.MODEL``, a mesh whose 'model' axis has more than
 one peer, the model split over it by ``build_model(..., mesh=mesh)``): the
@@ -126,8 +128,6 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the step options not ported yet."""
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
-        "MESH.ZERO1 with MESH.MODEL > 1": (cfg.mesh.zero1
-                                           and cfg.mesh.model > 1),
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
         "MESH.SPATIAL": cfg.mesh.spatial,
     }
@@ -229,7 +229,8 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     check_model_mesh(state.model, mesh)
     sharded = isinstance(state.optimizer, ZeroAdamW)
     if sharded != (cfg.mesh.zero1 and mesh.data > 1) or (
-            sharded and state.optimizer.mesh.data != mesh.data):
+            sharded and (state.optimizer.mesh.data, state.optimizer.mesh.model)
+            != (mesh.data, mesh.model)):
         raise ValueError(
             f"MESH.ZERO1 {cfg.mesh.zero1} on a 'data' axis of {mesh.data}: "
             f"the state's optimizer is {type(state.optimizer).__name__}; "

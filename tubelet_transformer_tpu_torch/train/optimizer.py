@@ -11,7 +11,8 @@ couples weight decay to the group's rate and decays every parameter, as the
 JAX chain does; the clip runs over the trainable gradients before Adam
 (over the model peers' slices too under ``MESH.MODEL``).
 With ``MESH.ZERO1`` on a 'data' axis of more than one rank the same AdamW
-keeps its moments sharded over the ranks (``parallel/zero.py``).
+keeps its moments sharded over the data shards (``parallel/zero.py``),
+beside a 'model' axis too.
 """
 
 from __future__ import annotations
