@@ -179,11 +179,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
     the DATA x MODEL step's: each reading within its bound, the
     control ("g" whose backward sums again) outside the gradient bounds,
     the model peers' replicated parameters bit-equal after each of two
-    steps, #4 and #2 once on every rank a step; and ``generate_lfb``
+    steps, #4 and #2 once on every rank a step; ``generate_lfb``
     through torchrun with MESH.MODEL 2 on phase 10's YAML: one bank, from
     rank 0, with phase 10's one-process bank's keys, its features and
     actor probabilities within a bound from bf16's rounding, a control
-    (the bank's keyframes shifted) outside it.
+    (the bank's keyframes shifted) outside it; and mesh serving
+    (``tools/serve_check``, in the launches of tp_check's float32 checks
+    on 2 ranks and of DATA 2 x MODEL 2 on 4) under MESH.MODEL 2 and
+    under MESH.DATA 2 x MESH.MODEL 2 on the stage path's YAML (full depth
+    and width, bf16): rank 0's pool (warmup, then one forward of each of
+    buckets 8, 4, 2 and 1, those that 'data' divides split over it) and
+    HTTP server (3 streams from a client thread of rank 0's process, two
+    keyframes each), the other ranks following; each forward and stream
+    against the one-process pool's and detectors' within
+    SERVE_MESH_ULPS, the control ("g" left out) outside, the model peers
+    bit-equal, every follower back after the stop, #2, #5 and #8 (1, 3
+    and 3) in every forward of every rank, and the send, the rows'
+    forward and the gather per bucket, beside the bucket sent whole and
+    as each data shard's rows.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -4406,7 +4419,76 @@ def _tp_layouts_and_resume(torch, tp: dict, train: dict, job: dict,
                              f"{resumed}, {epoch_lines}: {text[-2000:]}")
 
 
+# mesh serving (tools/serve_check.py): each pool forward over the mesh
+# against the one-process pool's on the same batch, and the HTTP streams
+# against one-process detectors, in bf16 ulps (2^-8) of the largest
+# difference of scores, actor probabilities and boxes over the canvas (or
+# the source's longer side). The model peers sum their heads' and FFN
+# columns' partial outputs in another order than one process; a data
+# split changes nothing here (each clip's row is its own). On the H100
+# (PERF.md, mesh serving) MODEL 2 and DATA 2 x MODEL 2 read 0.0028-0.0080
+# (the same to the digit), HTTP 0.0078, the control ("g" left out)
+# 0.084-0.354: 4 ulps sit between
+SERVE_MESH_ULPS = 4
+
+
+def _serve_check_result(torch, name: str, ranks: int, per_forward: dict,
+                        smi: str) -> dict:
+    """tools/serve_check's result (build/<name>.pt) of ``ranks`` ranks on
+    cuda:0 over gloo: every pool forward and every HTTP stream within
+    SERVE_MESH_ULPS of one process, the control outside it in every
+    reading, the model peers bit-equal, every follower through as many
+    forwards as rank 0 led and back, and ``per_forward`` launches (#2, #5,
+    #8) in every forward of every rank. Returns, by kernel, each rank's
+    launches in each pool forward (warmup, then buckets 8, 4, 2, 1)."""
+    r = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
+    tol = SERVE_MESH_ULPS * BF16_EPS
+    worst = max(max(v.values()) for v in r["pool"].values())
+    control = min(min(v.values()) for v in r["control"].values())
+    http = max(v for k, v in r["http"].items() if k != "same_keyframes")
+    leads = {ph: sum(f["phase"] == ph for f in r["forwards"][0])
+             for ph in ("pool", "control", "http")}
+    followed = [leads["pool"], leads["control"], leads["http"]]
+    launches = {f["phase"]: f["launches"] for fw in r["forwards"]
+                for f in fw if f["launches"] != per_forward}
+    for t in r["timing"]:
+        b = t["bucket"]
+        log(f"[serve] {name}, mesh {r['mesh'][0]} x {r['mesh'][1]}, "
+            f"bucket {t['bucket']} ({t['streams']} streams): send "
+            f"{t['broadcast_ms']:.2f} ms, the rows' forward "
+            f"{t['exec_fetch_ms']:.2f} ms, gather {t['gather_ms']:.2f} ms, "
+            f"assembly {t['assemble_ms']:.2f} ms; replayed until every rank "
+            f"has it ({r['send_ms'][b]['mb']:.1f} MB): the bucket "
+            f"{statistics.median(r['send_ms'][b]['bucket']):.2f} ms, each "
+            f"data shard's rows "
+            f"{statistics.median(r['send_ms'][b].get('rows', [math.nan])):.2f}"
+            f" ms; {smi}")
+    log(f"[serve] {name}: serve_check, mesh {r['mesh'][0]} x "
+        f"{r['mesh'][1]} (data x model), {ranks} ranks on cuda:0 over gloo, "
+        f"the flagship stage path in bf16: pool forwards against one "
+        f"process {r['pool']}; control (g left out) {r['control']}; HTTP "
+        f"streams against one-process detectors {r['http']} (keyframes "
+        f"{r['http_keyframes']}, errors {r['http_errors']}); bound "
+        f"{tol:.4f}: worst {worst:.4f}, HTTP {http:.4f}, the control's "
+        f"least {control:.4f}; model peers bit-equal {r['peers_equal']}; "
+        f"forwards rank 0 led {followed}, each follower's {r['followed'][1:]}"
+        f"; launches other than {per_forward}: {launches}; "
+        f"{r['wall_s']:.1f} s; {smi}")
+    if not (worst <= tol < control and http <= tol
+            and r["http"]["same_keyframes"] and not r["http_errors"]
+            and r["http_keyframes"] == [2, 2, 2] and r["peers_equal"]
+            and all(f == followed for f in r["followed"][1:])
+            and not launches and len(r["timing"]) == 4):
+        raise AssertionError(f"serve check {name}: worst {worst}, control "
+                             f"{control}, http {r['http']}, peers "
+                             f"{r['peers_equal']}, followed {r['followed']}"
+                             f", launches {launches}")
+    return {k: [[f["launches"][k] for f in fw if f["phase"] == "pool"]
+                for fw in r["forwards"]] for k in per_forward}
+
+
 def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
+               stages_cfg: Path, stage_forward: dict,
                smi: str) -> tuple[dict, dict]:
     """The 'data' and 'model' axes over torch.distributed (phases 23 and
     24), ranks on cuda:0 over gloo, in three stages of jobs; the jobs of a
@@ -4425,12 +4507,16 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     against the one-process step on the global batch of 4 from one state,
     deterministic algorithms) of the dense, MoE (MOE, its load-balance
     loss among the readings) and classifier DP steps within DP_TOL,
-    MOE_DP_TOL and CLASSIFIER_DP_TOL, and tp_check (MESH.MODEL 2: 4 heads
+    MOE_DP_TOL and CLASSIFIER_DP_TOL, tp_check (MESH.MODEL 2: 4 heads
     and FFN 1024 a peer, the pool_decoder's 6144-row in-projection cut in
     two; against one process on the same batch of 2) of the dense and MoE
-    (2 experts a peer) TP steps within TP_TOL; tp_check on 4 ranks of
-    MESH.DATA 2 x MESH.MODEL 2 in float32 against one process on the batch
-    of 4, and ZeRO-1 beside it bit for bit against it.
+    (2 experts a peer) TP steps within TP_TOL, then serve_check (mesh
+    serving under MESH.MODEL 2 on the stage path's YAML in bf16:
+    ``_serve_check_result``); tools/mesh_checks on 4 ranks of MESH.DATA 2 x
+    MESH.MODEL 2: tp_check in float32 against one process on the batch of
+    4, and ZeRO-1 beside it bit for bit against it, then serve_check
+    (buckets 8, 4 and 2 split over 'data', bucket 1 whole on each data
+    group).
     Stage 3, alone: tools/mesh_checks on 2 ranks in bf16 with each rank's
     step times: dp_check with the stem's global statistics (#4 on each
     shard, reduced) against #4 over the whole batch, the gradient
@@ -4475,14 +4561,19 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                           out("chip_smoke_dp_check_float32")]),
             ("tp_check", ["--config-file", tp_cfg, "--dtypes", "float32",
                           "--moe", "--out",
-                          out("chip_smoke_tp_check_float32")])],
+                          out("chip_smoke_tp_check_float32")]),
+            ("serve_check", ["--config-file", stages_cfg, "--model",
+                             TP_RANKS, "--out",
+                             out("chip_smoke_serve_check_model2")])],
             "chip_smoke_mesh_float32.log")
-        dm = _torchrun_start(
-            2 * TP_RANKS, "tubelet_transformer_tpu_torch.tools.tp_check",
-            ["--config-file", tp_cfg, "--device", "cuda:0", "--dist-backend",
-             "gloo", "--deterministic", "--data", 2, "--model", TP_RANKS,
-             "--dtypes", "float32", "--zero1", "--out",
-             out("chip_smoke_tp_check_2x2")], "chip_smoke_tp_check_2x2.log")
+        dm = _mesh_checks_start(2 * TP_RANKS, [
+            ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
+                          TP_RANKS, "--dtypes", "float32", "--zero1",
+                          "--out", out("chip_smoke_tp_check_2x2")]),
+            ("serve_check", ["--config-file", stages_cfg, "--data", 2,
+                             "--model", TP_RANKS, "--out",
+                             out("chip_smoke_serve_check_2x2")])],
+            "chip_smoke_tp_check_2x2.log")
         nccl = _nccl_start(train)
         resume = _tp_resume_start(train)
         jobs += [f32, dm, nccl, resume]
@@ -4494,11 +4585,18 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         _dp_f32_logs(checks["float32"], smi)
         tp32 = _tp_check_result(torch, "chip_smoke_tp_check_float32",
                                 TP_RANKS, text, smi)
+        serve = {"model2": _serve_check_result(
+            torch, "chip_smoke_serve_check_model2", TP_RANKS, stage_forward,
+            smi)}
         dm_res = _tp_check_result(torch, "chip_smoke_tp_check_2x2",
                                   2 * TP_RANKS, _torchrun_wait(dm), smi)
+        serve["data_model"] = _serve_check_result(
+            torch, "chip_smoke_serve_check_2x2", 2 * TP_RANKS, stage_forward,
+            smi)
         log(f"[time] stage 2 of the mesh phases (NCCL at world size 1, the "
-            f"MODEL 2 file resumed in one process, the float32 checks on 2 "
-            f"ranks, DATA 2 x MODEL 2 with ZeRO-1 on 4, at once): "
+            f"MODEL 2 file resumed in one process, the float32 checks and "
+            f"mesh serving on 2 ranks, DATA 2 x MODEL 2 with ZeRO-1 and "
+            f"mesh serving on 4, at once): "
             f"{time.perf_counter() - t1:.1f} s")
 
         t2 = time.perf_counter()
@@ -4534,6 +4632,7 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
           "zero1_launches": [zr["zero1_launches"][0]
                              for zr in dm_res["float32"]["zero1"]],
           "lfb_launches": lfb_mesh["launches"],
+          "serve": serve,
           "readings": {**{k: v["readings"] for k, v in model2.items()},
                        "data_model": dm_res["float32"]["readings"]},
           "timings": model2["bfloat16"]["timings"]}
@@ -4654,7 +4753,8 @@ def main() -> int:
     log(f"[surfaces] the classify, segmentation, streaming, export, plots "
         f"and pack phases: {time.perf_counter() - t_slice:.1f} s; {smi}")
     t_mesh = time.perf_counter()
-    dp, tp = phase_mesh(torch, train, evaluated, lfb, smi)
+    dp, tp = phase_mesh(torch, train, evaluated, lfb, stages_cfg,
+                        stage_forward, smi)
     log(f"[time] the data- and tensor-parallel phases: "
         f"{time.perf_counter() - t_mesh:.1f} s")
 
@@ -4741,6 +4841,9 @@ def main() -> int:
               launches_tp_zero1_step=[x["stem_pool"]
                                       for x in tp["zero1_launches"]],
               launches_lfb_generate_tp=tp["lfb_launches"],
+              launches_serve_model2=tp["serve"]["model2"]["stem_pool"],
+              launches_serve_data_model=tp["serve"]["data_model"][
+                  "stem_pool"],
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -4774,6 +4877,9 @@ def main() -> int:
               launches_full_backprop_step=remat["launches_plain"],
               launches_moe_serve=moe["serve_launches"]["depthwise"],
               launches_prenorm_serve=prenorm["serve_launches"]["depthwise"],
+              launches_serve_model2=tp["serve"]["model2"]["depthwise"],
+              launches_serve_data_model=tp["serve"]["data_model"][
+                  "depthwise"],
               b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
@@ -4787,6 +4893,8 @@ def main() -> int:
               launches_http=http["launches"]["chain"],
               launches_moe_serve=moe["serve_launches"]["chain"],
               launches_prenorm_serve=prenorm["serve_launches"]["chain"],
+              launches_serve_model2=tp["serve"]["model2"]["chain"],
+              launches_serve_data_model=tp["serve"]["data_model"]["chain"],
               b8_case=chain_totals(chains, "_b8"),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",

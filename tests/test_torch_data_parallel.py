@@ -22,8 +22,8 @@ environment set by hand).
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
 * The refusals: PIPE > 1 (beside ZERO1 and MODEL too), SPATIAL, a MODEL
-  that does not divide a split attention's heads, mesh serving,
-  INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1
+  that does not divide a split attention's heads, mesh serving in one
+  process (the mesh needs its processes), INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1
   beside MODEL passes the check.
 * Slow tier: SIGTERM to one rank stops both at the epoch boundary, and
   the relaunch resumes both from rank 0's choice.
@@ -723,13 +723,14 @@ def test_refusals_name_their_option(tmp_path):
     with pytest.raises(ValueError, match="MESH.MODEL 3"):
         sharding_rules.param_shardings(build_model(small_cfg(), train=True),
                                        mesh_lib.Mesh(1, 0, 3))
-    # mesh serving
+    # mesh serving runs under torchrun (test_torch_mesh_serving.py): one
+    # process cannot hold its model peers
     path = tmp_path / "mesh_serving.yaml"
     path.write_text("MESH:\n  MODEL: 2\n")
     argv = sys.argv
     sys.argv = ["serve_http", "--config-file", str(path), "--device", "cpu"]
     try:
-        with pytest.raises(NotImplementedError, match="MESH.MODEL"):
+        with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
             serve_http.main()
     finally:
         sys.argv = argv

@@ -296,13 +296,22 @@ def test_warmup_runs_every_bucket(model, monkeypatch):
     assert buckets(8) == [1, 2, 4, 8]
 
 
-@pytest.mark.parametrize("knob", ["mesh", "infer_chunk", "cfg_infer_chunk"])
+def test_pool_mesh_needs_its_processes(model):
+    """A pool over a mesh of 2 data shards in one process is refused,
+    naming MESH.DATA x MODEL (mesh serving runs under torchrun:
+    test_torch_mesh_serving.py)."""
+    from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
+        StreamingDetectorPool(small_cfg(), model, device="cpu",
+                              mesh=Mesh(data=2))
+
+
+@pytest.mark.parametrize("knob", ["infer_chunk", "cfg_infer_chunk"])
 def test_pool_refuses_unported_options(model, knob):
     cfg = small_cfg()
     kw = {}
-    if knob == "mesh":
-        kw["mesh"] = object()
-    elif knob == "infer_chunk":
+    if knob == "infer_chunk":
         kw["infer_chunk"] = 2
     else:
         cfg.model.infer_chunk = 2

@@ -87,16 +87,25 @@ def test_default_threshold_filters_detections():
         assert r.latency_ms > 0
 
 
-@pytest.mark.parametrize("knob", ["mesh", "infer_chunk"])
+@pytest.mark.parametrize("knob", ["infer_chunk"])
 def test_unported_serving_options_raise(knob):
     cfg = small_cfg()
-    kw = {"device": "cpu"}
-    if knob == "mesh":
-        kw["mesh"] = object()
-    else:
-        cfg.model.infer_chunk = 2
+    cfg.model.infer_chunk = 2
     with pytest.raises(NotImplementedError):
-        StreamingDetector(cfg, **kw)
+        StreamingDetector(cfg, device="cpu")
+
+
+def test_serving_mesh_needs_its_processes():
+    """A mesh of 2 model peers in one process is refused, naming MESH.DATA
+    x MODEL (mesh serving runs under torchrun: test_torch_mesh_serving.py);
+    a mesh of one process is no mesh."""
+    from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
+        StreamingDetector(small_cfg(), device="cpu", mesh=Mesh(1, 0, 2))
+    det = StreamingDetector(small_cfg(), device="cpu", mesh=Mesh())
+    assert det.mesh is None and getattr(det.model, "tp", None) is None
+    det.stop_followers()                            # a no-op
 
 
 def _write_cfg(tmp_path):

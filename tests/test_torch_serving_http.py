@@ -324,5 +324,7 @@ def test_cli_refuses_missing_cuda_and_mesh(tmp_path, monkeypatch):
         cli_serve_http.main()
     monkeypatch.setattr("sys.argv", ["serve_http", "--config-file",
                                      str(path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh serving runs under torchrun (test_torch_mesh_serving.py): in one
+    # process the mesh of MESH.MODEL 2 does not fit
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
         cli_serve_http.main()

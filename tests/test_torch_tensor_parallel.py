@@ -40,8 +40,9 @@ data shard.
 * generate_lfb under MODEL 2 and under DATA 2 x MODEL 2: every rank fills
   the one-process bank, rank 0 alone writes it.
 * The 'model' axis' refusals: a step whose model is not split over the
-  mesh, the serving CLI under MESH.MODEL, generate_lfb with a 'pipe'
-  axis.
+  mesh, the serving CLI under MESH.MODEL in one process (mesh serving
+  runs under torchrun, test_torch_mesh_serving.py), generate_lfb with a
+  'pipe' axis.
 
 The JAX steps run in processes of their own, as
 tests/test_torch_data_parallel.py runs them, and the checks against them
@@ -917,7 +918,8 @@ def test_generate_lfb_over_the_mesh_matches_one_process(
 def test_model_axis_refusals(tmp_path):
     """A train or eval step whose model is not split over the mesh's
     'model' axis raises ValueError naming MESH.MODEL; the serving CLI
-    under MESH.MODEL raises NotImplementedError naming it; generate_lfb
+    under MESH.MODEL in one process raises ValueError naming MESH.DATA x
+    MODEL (the mesh has more peers than processes); generate_lfb
     under MESH.MODEL gets past its checks to the mesh (which one process
     cannot hold), and with a 'pipe' axis is refused naming MESH.PIPE
     (tests/test_torch_data_parallel.py holds the other refusals)."""
@@ -948,7 +950,7 @@ def test_model_axis_refusals(tmp_path):
     argv = sys.argv
     sys.argv = ["serve", "--config-file", str(path), "--device", "cpu"]
     try:
-        with pytest.raises(NotImplementedError, match="MESH.MODEL"):
+        with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
             serve.main()
     finally:
         sys.argv = argv

@@ -9,10 +9,19 @@ files the config names (``train.checkpoint.load_pretrained``: a TubeR
 ``.pth`` or the port's own ``ckpt_epoch_N``), else random weights from
 ``--seed``.
 
+Under torchrun (``--dist-backend`` as the train CLI takes it) with
+``MESH.MODEL > 1`` the detector serves over the mesh of ``MESH.DATA`` x
+``MESH.MODEL`` (``serving.py``): every rank loads the weights, then
+splits the model; rank 0 reads the frames and prints, the other ranks
+follow its forwards and print only their "distributed:" line.
+
 Usage:
   python -m tubelet_transformer_tpu_torch.cli.serve --config-file <yaml> \
       [--frames-dir DIR | --num-frames N] [--fps 30] [--detect-every N] \
       [--device cuda] [--seed 0]
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m tubelet_transformer_tpu_torch.cli.serve --config-file <yaml with
+      MESH.MODEL 2> [--dist-backend gloo]
 """
 
 from __future__ import annotations
@@ -46,7 +55,9 @@ def main() -> None:
 
     from tubelet_transformer_tpu_torch.config import load_config
     from tubelet_transformer_tpu_torch.models.tuber import build_model
-    from tubelet_transformer_tpu_torch.serving import StreamingDetector
+    from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
+    from tubelet_transformer_tpu_torch.serving import (StreamingDetector,
+                                                       follow)
 
     parser = argparse.ArgumentParser(description="TubeR streaming serve "
                                                  "(PyTorch)")
@@ -60,27 +71,47 @@ def main() -> None:
                         help="frames between detections (default: one/sec)")
     parser.add_argument("--top-k", type=int, default=3,
                         help="action classes reported per detection")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device; 'cpu' only when asked for")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda:<LOCAL_RANK>); "
+                             "'cpu' only when asked for")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process group backend under torchrun "
+                             "(default: cuda:nccl,cpu:gloo on the card, "
+                             "gloo on the CPU)")
     args = parser.parse_args()
 
-    device = torch.device(args.device)
+    device = (torch.device(args.device) if args.device
+              else mesh_lib.default_device())
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is "
+        raise SystemExit(f"--device {device}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
     cfg = load_config(args.config_file)
-    if cfg.mesh.model > 1:
-        raise NotImplementedError("mesh serving (MESH.MODEL > 1) is not "
-                                  "ported yet")
-    model = build_model(cfg, device=device, seed=args.seed,
-                        pretrained=bool(cfg.model.load
-                                        and cfg.model.pretrained_path))
-    detector = StreamingDetector(cfg, model, fps=args.fps,
-                                 detect_every=args.detect_every,
-                                 rng_seed=args.seed, device=device)
+    mesh_lib.init_distributed(device, args.dist_backend)
+    try:
+        mesh = (mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model)
+                if cfg.mesh.model > 1 else None)
+        model = build_model(cfg, device=device, seed=args.seed,
+                            pretrained=bool(cfg.model.load
+                                            and cfg.model.pretrained_path),
+                            mesh=mesh)
+        detector = StreamingDetector(cfg, model, fps=args.fps,
+                                     detect_every=args.detect_every,
+                                     rng_seed=args.seed, device=device,
+                                     mesh=mesh)
+        if mesh_lib.is_main_process():
+            _serve(args, detector)
+            detector.stop_followers()
+        else:
+            follow(detector)
+    finally:
+        mesh_lib.shutdown()
 
+
+def _serve(args, detector) -> None:
+    """Rank 0: the frames through ``detector``, one JSON line a keyframe,
+    then the summary line."""
     n_frames = 0
     n_keyframes = 0
     latencies = []

@@ -43,6 +43,17 @@ the resume path) over a CPU gloo group that ``init_distributed`` creates
 beside it. Like torch's default group, that group is process-wide state,
 held here until ``shutdown``. Without torchrun's environment nothing is
 initialised and every function below is the single-process identity.
+
+Mesh serving (``serving.py``): rank 0 leads and every other rank follows.
+Each step the leader sends a header of ints and a list of numpy arrays
+(``broadcast_batch``), every rank runs its rows, and the rows of each data
+shard come back to rank 0 (``gather_rows``). The CPU gloo group carries
+the header and the arrays: the batch is host data on the leader (the
+streams' frame windows), each rank uploads its own rows to its device,
+and no device copy is made on the leader for ranks that may sit on other
+cards. A follower waits for a step on the default group's store
+(``receive_batch``), not inside a collective, so a server without traffic
+for longer than the groups' TIMEOUT keeps its followers.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -120,11 +131,12 @@ def init_distributed(device: torch.device | str,
 
 def shutdown() -> None:
     """Leave the process group (a no-op when none was joined)."""
-    global _HOST_GROUP
+    global _HOST_GROUP, _serve_steps
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
     _GROUPS.clear()
+    _serve_steps = 0
 
 
 def process_count() -> int:
@@ -373,3 +385,131 @@ def any_process(flag: bool) -> bool:
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_HOST_GROUP)
     return bool(t.item())
 
+
+# -- mesh serving: the leader's batch out, each data shard's rows back ------
+
+# a follower's wait for the next step, renewed for as long as it idles
+SERVE_POLL = timedelta(hours=1)
+_SERVE_WORDS = 64                     # int64 words of a step's header
+_SERVE_DTYPES = (np.dtype(np.uint8), np.dtype(np.bool_),
+                 np.dtype(np.float32))
+# the steps this process has sent or read: like the host group,
+# process-wide state of the process group, zeroed by shutdown
+_serve_steps = 0
+
+
+def _serve_key(step: int) -> str:
+    return f"tuber_serve/{step}"
+
+
+def _rows(a: np.ndarray, mesh: Mesh, rank: int) -> np.ndarray:
+    """The rows of ``rank``'s data shard of ``a`` (equal blocks of its
+    leading axis, one a shard)."""
+    b = a.shape[0] // mesh.data
+    d = rank // mesh.model
+    return a[d * b:(d + 1) * b]
+
+
+def _as_bytes(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``a``'s memory; bool as uint8."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.uint8) if a.dtype == np.bool_ else a)
+
+
+def _move(a: Optional[np.ndarray], shape: tuple, dtype: np.dtype,
+          mesh: Mesh, split: bool) -> np.ndarray:
+    """One array from the leader (``a``, None on a follower) to every rank
+    over the host group: the whole array by broadcast, or with ``split``
+    each data shard's rows by scatter. Returns this rank's part."""
+    if not split:
+        out = np.empty(shape, dtype) if a is None else np.ascontiguousarray(a)
+        dist.broadcast(_as_bytes(out), src=0, group=_HOST_GROUP)
+        return out
+    out = np.empty((shape[0] // mesh.data, *shape[1:]), dtype)
+    parts = (None if a is None else [_as_bytes(_rows(a, mesh, r))
+                                     for r in range(process_count())])
+    dist.scatter(_as_bytes(out), parts, src=0, group=_HOST_GROUP)
+    return out
+
+
+def broadcast_batch(header: Sequence[int], arrays: Sequence[np.ndarray],
+                    mesh: Mesh, split: bool = False) -> List[np.ndarray]:
+    """Rank 0, the leader: one step to every rank. The step is announced
+    on the store, then ``header`` (small ints the caller reads back from
+    ``receive_batch``) and the arrays' dtypes and shapes go out in one
+    broadcast, then the arrays (uint8, bool or float32): whole to every
+    rank, or with ``split`` (their leading axis divisible by
+    ``mesh.data``) each data shard's rows alone to its ranks. Returns
+    rank 0's part of each array."""
+    global _serve_steps
+    words = [len(header), *header, int(split), len(arrays)]
+    for a in arrays:
+        words += [_SERVE_DTYPES.index(a.dtype), a.ndim, *a.shape]
+    if len(words) > _SERVE_WORDS:
+        raise ValueError(f"a serving header of {len(words)} words: "
+                         f"{_SERVE_WORDS} at most")
+    _serve_steps += 1
+    dist.distributed_c10d._get_default_store().set(
+        _serve_key(_serve_steps), "1")
+    head = torch.zeros(_SERVE_WORDS, dtype=torch.int64)
+    head[:len(words)] = torch.tensor(words)
+    dist.broadcast(head, src=0, group=_HOST_GROUP)
+    return [_move(a, a.shape, a.dtype, mesh, split) for a in arrays]
+
+
+def receive_batch(mesh: Mesh) -> tuple[List[int], List[np.ndarray], bool]:
+    """A follower: the next step of ``broadcast_batch``, as (its header,
+    this rank's part of each array, whether the arrays were split over the
+    data shards). The wait for it is a wait on the default group's store,
+    renewed every SERVE_POLL for as long as the leader idles: inside a
+    collective it would end at the groups' TIMEOUT. The last follower to
+    see a step removes its key."""
+    global _serve_steps
+    _serve_steps += 1
+    key = _serve_key(_serve_steps)
+    store = dist.distributed_c10d._get_default_store()
+    while True:
+        try:
+            store.wait([key], SERVE_POLL)
+            break
+        except dist.DistStoreError:     # timed out, not lost: wait on
+            continue
+    if store.add(f"{key}/seen", 1) == process_count() - 1:
+        store.delete_key(key)
+        store.delete_key(f"{key}/seen")
+    head = torch.empty(_SERVE_WORDS, dtype=torch.int64)
+    dist.broadcast(head, src=0, group=_HOST_GROUP)
+    words = head.tolist()
+    n = words[0]
+    header, split, count = words[1:1 + n], bool(words[1 + n]), words[2 + n]
+    pos, arrays = 3 + n, []
+    for _ in range(count):
+        dtype, ndim = _SERVE_DTYPES[words[pos]], words[pos + 1]
+        shape = tuple(words[pos + 2:pos + 2 + ndim])
+        pos += 2 + ndim
+        arrays.append(_move(None, shape, dtype, mesh, split))
+    return header, arrays, split
+
+
+def gather_rows(arrays: Sequence[np.ndarray], mesh: Mesh
+                ) -> Optional[List[np.ndarray]]:
+    """After a split step: each data shard's float32 ``arrays`` (their
+    rows of the step's batch) to rank 0, from the shard's model index 0
+    over the data group of that index, in ONE gather. Rank 0 gets each
+    array concatenated over the shards on its leading axis, in shard
+    order; the other ranks get None."""
+    if mesh.model_index != 0:
+        return None
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(a, np.float32).reshape(-1) for a in arrays]))
+    parts = ([torch.empty_like(flat) for _ in range(mesh.data)]
+             if mesh.rank == 0 else None)
+    dist.gather(flat, parts, dst=0, group=mesh.data_group)
+    if parts is None:
+        return None
+    out, pos = [], 0
+    for a in arrays:
+        out.append(np.concatenate([p[pos:pos + a.size].numpy().reshape(
+            a.shape) for p in parts]))
+        pos += a.size
+    return out

@@ -22,8 +22,23 @@ whose keyframe is due is detected in one padded forward per bucket (powers
 of two up to ``max_batch``, and ``max_batch``), scheduled by priority class
 and then by deadline slack, with the pool lock held for the host work only.
 Unlike the JAX pool it runs each bucket as one forward: ``infer_chunk``
-(``MODEL.INFER_CHUNK``), a TPU conv-emitter workaround, is refused, as is
-mesh serving.
+(``MODEL.INFER_CHUNK``), a TPU conv-emitter workaround, is refused.
+
+Mesh serving (``mesh``: ``parallel.mesh.create_mesh`` under torchrun): the
+model is split over the 'model' axis (``parallel/sharding_rules.py``), as
+JAX's ``param_shardings`` splits the detector's variables. JAX's detector
+is one controller over its devices; here every rank is a process, so rank
+0 leads and the other ranks follow. Rank 0 alone holds the host state (the
+streams, their frame windows and memories, the HTTP server) and calls the
+forward; each of its forwards (``_detect_core``) first sends every rank a
+header (run or stop, the bucket, whether the memory is on) and the batch
+(``parallel.mesh.broadcast_batch``), then runs the split forward on its
+rows, then takes each data shard's rows back (``gather_rows``). A bucket
+that ``MESH.DATA`` divides is split over the data shards, as JAX shards it
+over 'data' (each shard's model peers run its rows); any other bucket runs
+whole on every data group. The other ranks call ``follow``, which runs the
+same steps until rank 0's ``stop_followers``. Every rank builds its
+detector with the same arguments.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.data.device_preprocess import (
     device_preprocess)
 from tubelet_transformer_tpu_torch.models.tuber import TubeR, build_model
+from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.train.postprocess import (
     postprocess_ava, postprocess_softmax)
 
@@ -53,6 +69,23 @@ def _per_query_binary(binary_row: np.ndarray, n_queries: int) -> np.ndarray:
     if b.shape[0] == n_queries:
         return b
     return np.full((n_queries,), float(b[0]), np.float32)
+
+
+# the first word of a mesh step's header
+_STOP, _RUN = 0, 1
+
+
+def _serving_mesh(mesh: Optional[mesh_lib.Mesh]) -> Optional[mesh_lib.Mesh]:
+    """``mesh``, or None for a mesh of one process; ValueError when it does
+    not span this launch's processes."""
+    if mesh is None or mesh.data * mesh.model == 1:
+        return None
+    n = mesh_lib.process_count()
+    if mesh.data * mesh.model != n:
+        raise ValueError(f"mesh {mesh.data}x{mesh.model} (MESH.DATA x MODEL)"
+                         f" != {n} processes: serve over a mesh under "
+                         "torchrun")
+    return mesh
 
 
 def _to_host(outs: Sequence[torch.Tensor]) -> List[np.ndarray]:
@@ -132,6 +165,9 @@ class StreamingDetector:
       actor_threshold: actor probability a detection (and a valid memory
         slot) must exceed.
       device: where the model runs; the model's device when it is given.
+      mesh: a ``parallel.mesh.Mesh`` of this launch's processes: the model
+        (built here, or the one given) is split over its 'model' axis, and
+        rank 0's forwards lead every rank's (module docstring).
     """
 
     def __init__(self, cfg: Config, model: Optional[TubeR] = None, *,
@@ -140,8 +176,6 @@ class StreamingDetector:
                  actor_threshold: float = 0.8, rng_seed: int = 0,
                  device: torch.device | str = "cuda", mesh=None,
                  infer_chunk: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         if (cfg.model.infer_chunk if infer_chunk is None else infer_chunk):
             raise NotImplementedError("MODEL.INFER_CHUNK is not ported")
         self.cfg = cfg
@@ -153,8 +187,19 @@ class StreamingDetector:
         self.actor_threshold = actor_threshold
         # serving runs the sequential encoder, as the JAX detector does
         cfg.mesh.pipe = 1
+        self.mesh = _serving_mesh(mesh)
         if model is None:
-            model = build_model(cfg, device=device, seed=rng_seed)
+            model = build_model(cfg, device=device, seed=rng_seed,
+                                mesh=self.mesh)
+        elif (self.mesh is not None and self.mesh.model > 1
+              and getattr(model, "tp", None) is None):
+            from tubelet_transformer_tpu_torch.parallel.sharding_rules import (
+                shard_model)
+
+            shard_model(model, self.mesh)
+        self._followers_stopped = False
+        # under a mesh, the last forward's send, rows and gather, in ms
+        self.last_exchange: Dict[str, float] = {}
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.memory = (_Memory(memory_slots, memory_keyframes,
@@ -169,12 +214,65 @@ class StreamingDetector:
 
     def _detect_core(self, clip_u8, pad_mask, lfb_feats, lfb_mask
                      ) -> List[np.ndarray]:
-        """One forward of a batch (numpy arrays, or tensors on the device):
-        (B,T,H,W,3) uint8 clips, (B,H,W) pad masks and the (B,L_mem,E)
-        memories with their (B,L_mem) masks (read only with the long-term
-        memory on) -> scores, boxes, actor probabilities and the final-layer
-        query features, as numpy arrays from one device-to-host copy. The
-        caller enters inference mode."""
+        """One forward of a batch (numpy arrays, or without a mesh tensors
+        on the device): (B,T,H,W,3) uint8 clips, (B,H,W) pad masks and the
+        (B,L_mem,E) memories with their (B,L_mem) masks (read only with the
+        long-term memory on) -> scores, boxes, actor probabilities and the
+        final-layer query features, as numpy arrays. Under a mesh, rank 0's
+        lead of every rank's forward (``_lead``). The caller enters
+        inference mode."""
+        if self.mesh is None:
+            return self._forward(clip_u8, pad_mask, lfb_feats, lfb_mask)
+        return self._lead(clip_u8, pad_mask, lfb_feats, lfb_mask)
+
+    def _header(self, run: int, bucket: int) -> List[int]:
+        """A mesh step's header: run or stop, the bucket, and what every
+        rank must agree on: the memory on or off, the canvas, and the actor
+        threshold's bits (the postprocess gates at it)."""
+        return [run, bucket, int(self.memory is not None), self.img_size,
+                int(np.float64(self.actor_threshold).view(np.int64))]
+
+    def _lead(self, clip_u8, pad_mask, lfb_feats, lfb_mask
+              ) -> List[np.ndarray]:
+        """Rank 0's forward under the mesh: the header and the batch to
+        every rank (each data shard's rows alone when MESH.DATA divides the
+        bucket), the split forward on its own rows, and each shard's
+        outputs back in row order. ``last_exchange`` takes the times."""
+        if self._followers_stopped:
+            raise RuntimeError("the followers were stopped")
+        arrays = [np.asarray(clip_u8, np.uint8), np.asarray(pad_mask, bool)]
+        if self.memory is not None:
+            arrays += [np.asarray(lfb_feats, np.float32),
+                       np.asarray(lfb_mask, bool)]
+        bucket = arrays[0].shape[0]
+        split = self.mesh.data > 1 and bucket % self.mesh.data == 0
+        t0 = time.perf_counter()
+        rows = mesh_lib.broadcast_batch(self._header(_RUN, bucket), arrays,
+                                        self.mesh, split)
+        t1 = time.perf_counter()
+        outs = self._forward(*rows, *[None] * (4 - len(rows)))
+        t2 = time.perf_counter()
+        if split:
+            outs = mesh_lib.gather_rows(outs, self.mesh)
+        self.last_exchange = {"broadcast_ms": (t1 - t0) * 1e3,
+                              "rows_ms": (t2 - t1) * 1e3,
+                              "gather_ms": (time.perf_counter() - t2) * 1e3}
+        return outs
+
+    def stop_followers(self) -> None:
+        """Rank 0 under a mesh: the stop header, on which every rank's
+        ``follow`` returns. Once; a no-op without a mesh."""
+        if self.mesh is None or self._followers_stopped:
+            return
+        self._followers_stopped = True
+        mesh_lib.broadcast_batch(self._header(_STOP, 0), [], self.mesh)
+        # the followers' last reads of the store precede this
+        mesh_lib.barrier()
+
+    def _forward(self, clip_u8, pad_mask, lfb_feats, lfb_mask
+                 ) -> List[np.ndarray]:
+        """This process's forward of a batch (``_detect_core``'s
+        arguments), the outputs from one device-to-host copy."""
         dev = self.device
         clips_u8 = torch.as_tensor(clip_u8, device=dev)
         pad = torch.as_tensor(pad_mask, device=dev)
@@ -328,7 +426,16 @@ class StreamingDetectorPool:
 
     ``instrument=True`` splits each forward's latency into host assembly,
     upload (fenced by a device synchronisation) and execute + fetch; one
-    dict per chunk lands in ``last_timing`` after every ``step()``.
+    dict per chunk lands in ``last_timing`` after every ``step()``. Under a
+    mesh the upload is the rows' own, inside execute + fetch, and the batch's
+    send (``broadcast_ms``) and the outputs' gather (``gather_ms``) stand
+    beside them.
+
+    Under a mesh (``StreamingDetector``'s ``mesh``) the pool lives on rank
+    0, whose ``step`` and ``warmup`` lead every rank's forwards; the other
+    ranks ``follow`` a detector of their own; ``stop_followers`` releases
+    them. A forward that raises leaves the ranks out of step: end every
+    process.
     """
 
     def __init__(self, cfg: Config, model: Optional[TubeR] = None, *,
@@ -356,7 +463,8 @@ class StreamingDetectorPool:
     def warmup(self) -> None:
         """One forward of every bucket ``step()`` can run, so that the first
         live keyframe pays for no kernel build, no cuBLAS or cuDNN handle
-        and no algorithm choice against its deadline."""
+        and no algorithm choice against its deadline (on every rank of a
+        mesh, which follows these forwards)."""
         t = self._tpl
         l_mem = (t.memory.keyframes * t.memory.slots
                  if t.memory is not None else 1)
@@ -368,6 +476,10 @@ class StreamingDetectorPool:
                     np.zeros((n, t.img_size, t.img_size), bool),
                     np.zeros((n, l_mem, t.cfg.model.d_model), np.float32),
                     np.ones((n, l_mem), bool))
+
+    def stop_followers(self) -> None:
+        """``StreamingDetector.stop_followers`` of the pool's model."""
+        self._tpl.stop_followers()
 
     def _stream(self, sid) -> StreamingDetector:
         if sid not in self._streams:
@@ -492,7 +604,7 @@ class StreamingDetectorPool:
             t_assemble = time.perf_counter() - t0
             with torch.inference_mode():
                 t_up = 0.0
-                if self.instrument:
+                if self.instrument and t.mesh is None:
                     t1 = time.perf_counter()
                     batch = [torch.as_tensor(a, device=t.device)
                              for a in batch]
@@ -502,10 +614,18 @@ class StreamingDetectorPool:
                 t2 = time.perf_counter()
                 outs = t._detect_core(*batch)
             lat = (time.perf_counter() - t0) * 1e3
-            self.last_timing.append({
-                "bucket": bucket, "streams": n,
-                "assemble_ms": t_assemble * 1e3, "upload_ms": t_up * 1e3,
-                "exec_fetch_ms": (time.perf_counter() - t2) * 1e3})
+            timing = {"bucket": bucket, "streams": n,
+                      "assemble_ms": t_assemble * 1e3,
+                      "upload_ms": t_up * 1e3,
+                      "exec_fetch_ms": (time.perf_counter() - t2) * 1e3}
+            if t.mesh is not None:
+                # the rows' upload, forward and fetch on rank 0, beside the
+                # batch's send and the outputs' gather
+                x = t.last_exchange
+                timing.update(exec_fetch_ms=x["rows_ms"],
+                              broadcast_ms=x["broadcast_ms"],
+                              gather_ms=x["gather_ms"])
+            self.last_timing.append(timing)
             now = time.perf_counter()
             with self._lock:
                 for i, snap in enumerate(snaps):
@@ -526,3 +646,31 @@ class StreamingDetectorPool:
                         memory_size=snap["mem_size"], waited_ms=waited,
                         deadline_met=None if dl is None else waited <= dl)
         return results
+
+
+def follow(detector) -> int:
+    """A rank other than 0 under a mesh: run rank 0's forwards, each on
+    this rank's rows (``detector``: a ``StreamingDetector`` or a pool, on
+    the same mesh and built with rank 0's arguments), until rank 0's
+    ``stop_followers``. The header, batch, forward and gather of every
+    step come in the order rank 0 sends them, warmup and padded buckets
+    included; between steps the wait has no bound
+    (``parallel.mesh.receive_batch``). Returns the number of forwards."""
+    det = getattr(detector, "_tpl", detector)
+    if det.mesh is None or mesh_lib.is_main_process():
+        raise ValueError("follow runs on the ranks other than 0 of a mesh")
+    n = 0
+    while True:
+        header, rows, split = mesh_lib.receive_batch(det.mesh)
+        if header[0] == _STOP:
+            mesh_lib.barrier()
+            return n
+        if header[2:] != det._header(_RUN, 0)[2:]:
+            raise ValueError(f"rank {det.mesh.rank}: rank 0's detector "
+                             f"differs from this one ({header} against "
+                             f"{det._header(_RUN, header[1])})")
+        with torch.inference_mode():
+            outs = det._forward(*rows, *[None] * (4 - len(rows)))
+        if split:
+            mesh_lib.gather_rows(outs, det.mesh)
+        n += 1

@@ -15,7 +15,11 @@ Architecture:
     forward per bucket, so concurrent HTTP clients share the card instead
     of serializing on it; a failed warmup or step is printed
     (``scheduler: warmup failed`` / ``scheduler: step failed``) and the
-    server keeps serving, the failed step's streams still due;
+    server keeps serving, the failed step's streams still due; under a
+    mesh the failure ends the process instead (exit code 1): the other
+    ranks wait inside a collective that this rank will not enter, and its
+    closed connections end their wait, so that every rank exits non-zero
+    and none retries out of step with the others;
   * results are fanned out to bounded per-stream queues that clients drain
     with (long-)polling ``GET .../results``.
 
@@ -30,6 +34,10 @@ API (JSON unless noted):
   GET    /healthz                         {"status", "backend" ("cuda" or
                                            "cpu"), "device", "devices"}
 
+Under a mesh (``mesh``, ``serving.py``'s module docstring) the server
+lives on rank 0, whose scheduler thread is the one caller of the forward;
+the other ranks run ``serving.follow``, and ``stop()`` releases them.
+
 Run it: ``python -m tubelet_transformer_tpu_torch.cli.serve_http
 --config-file configuration/tuber_csn152_ava22.yaml --port 8000``.
 """
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import re
 import threading
 import time
@@ -51,6 +60,7 @@ import torch
 
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.models.tuber import TubeR
+from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.serving import (KeyframeResult,
                                                    StreamingDetectorPool)
 
@@ -124,6 +134,9 @@ class DetectionServer:
                  warmup: bool = True, memory_keyframes: int = 10,
                  memory_slots: int = 5, device: torch.device | str = "cuda",
                  rng_seed: int = 0):
+        if mesh is not None and not mesh_lib.is_main_process():
+            raise ValueError("DetectionServer runs on rank 0; the other "
+                             "ranks call serving.follow")
         self._warmup = warmup
         self.pool = StreamingDetectorPool(
             cfg, model, max_batch=max_batch, detect_every=detect_every,
@@ -175,12 +188,24 @@ class DetectionServer:
             self.stop()
 
     def stop(self) -> None:
+        """Stop serving; under a mesh, once the scheduler's last step has
+        ended, release the followers."""
         self._stop.set()
         self._ready.set()           # unblock any start(wait_ready=True)
         self.httpd.shutdown()
         self.httpd.server_close()
+        mesh = self.pool._tpl.mesh
         if self._sched_thread is not None:
-            self._sched_thread.join(timeout=30)
+            # under a mesh, a step's collectives end at the groups' TIMEOUT
+            self._sched_thread.join(timeout=None if mesh else 30)
+        self.pool.stop_followers()
+
+    def _failed(self, what: str, e: Exception) -> None:
+        """Print a failed warmup or step; under a mesh, end the process."""
+        print(f"scheduler: {what} failed: {type(e).__name__}: {e}\n"
+              f"{traceback.format_exc()}", flush=True)
+        if self.pool._tpl.mesh is not None:
+            os._exit(1)
 
     # -- scheduler ---------------------------------------------------------
 
@@ -193,16 +218,14 @@ class DetectionServer:
             try:
                 self.pool.warmup()
             except Exception as e:  # the first live step builds instead
-                print(f"scheduler: warmup failed: {type(e).__name__}: {e}\n"
-                      f"{traceback.format_exc()}", flush=True)
+                self._failed("warmup", e)
         self._ready.set()
         while not self._stop.is_set():
             t0 = time.perf_counter()
             try:
                 results = self.pool.step()
             except Exception as e:  # keep serving; streams stay due
-                print(f"scheduler: step failed: {type(e).__name__}: {e}\n"
-                      f"{traceback.format_exc()}", flush=True)
+                self._failed("step", e)
                 self._stop.wait(0.1)
                 continue
             if results:

@@ -2,8 +2,8 @@
 starts, imports and joins the process group once for all of them.
 
 Run under torchrun, the checks separated by ``--then``, each named by its
-tool (``dp_check``, ``tp_check``) and followed by that tool's own
-arguments, as its command line takes them:
+tool (``dp_check``, ``tp_check``, ``serve_check``) and followed by that
+tool's own arguments, as its command line takes them:
 
   python -m torch.distributed.run --nproc_per_node 2 \\
       -m tubelet_transformer_tpu_torch.tools.mesh_checks \\
@@ -26,9 +26,10 @@ import sys
 from typing import List, Optional
 
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
-from tubelet_transformer_tpu_torch.tools import dp_check, tp_check
+from tubelet_transformer_tpu_torch.tools import dp_check, serve_check, tp_check
 
-TOOLS = {"dp_check": dp_check.main, "tp_check": tp_check.main}
+TOOLS = {"dp_check": dp_check.main, "tp_check": tp_check.main,
+         "serve_check": serve_check.main}
 
 
 def split(argv: List[str]) -> List[tuple]:
