@@ -23,7 +23,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    with the ReLU, max-pooled, bit for bit against the pooled stem; the
    pooled stem, the depthwise and the chain's three tails also at the
    serving pool's largest bucket of 8 clips, each clip's output bit-equal
-   whatever the other clips hold), with
+   whatever the other clips hold; the pooled stem and the statistics
+   kernel on each model peer's row window of the clip (MESH.SPATIAL, 2
+   and 4 peers, bf16 and float32), the pooled rows bit for bit against
+   the same rows of the whole clip's launch), with
    CUDA-event times (``tools/timing.py``) of calls back to back for both
    (``ms``, host work included) and of the kernel on the device alone
    (``device_ms``), of the one PyTorch call that computes the same
@@ -196,7 +199,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
     bit-equal, every follower back after the stop, #2, #5 and #8 (1, 3
     and 3) in every forward of every rank, and the send, the rows'
     forward and the gather per bucket, beside the bucket sent whole and
-    as each data shard's rows.
+    as each data shard's rows; and spatial parallelism (MESH.SPATIAL, the
+    clip's rows split over the model peers through the trunk):
+    ``train_ava`` through torchrun with MESH.MODEL 2 and SPATIAL, and
+    ``tools/tp_check --spatial`` (the spatial step against the one-process
+    step, beside the one-process step's own spread on the batch
+    reversed, its zero-halo control and its control without the trunk's
+    gradient sum, the peers bit-equal, #4 and #2 once on every rank on
+    its window, each rank's peak memory against the MODEL-only step's) in
+    bf16 and float32 on 2 ranks, with the stage path's eval forward (#2,
+    #5 and the chains, cut to the peer's rows, on every rank; within 4
+    bf16 ulps of one process), and in float32 on 4 ranks of DATA 2 x
+    MODEL 2.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -253,6 +267,16 @@ STATS_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16"),
                "jhmdb_224x400_train": ((2, 32, 224, 400, 3), "bfloat16"),
                "ragged_bf16": ((2, 32, 250, 230, 3), "bfloat16"),
                "ragged_f32": ((2, 3, 37, 45, 3), "float32")}
+# The stem kernels on a model peer's row window (MESH.SPATIAL): the clip's
+# rows split over `model` peers, each peer's slab of its rows and their
+# halo; #2's pooled rows of a window must equal the same rows of the whole
+# clip's launch bit for bit, #4's window statistics the plain version's
+# within STATS_*_TOL
+WINDOW_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16", 2),
+                "ava_256px_clip": ((1, 32, 256, 256, 3), "bfloat16", 2),
+                "ava_256px_train_model4": ((2, 32, 256, 256, 3), "bfloat16",
+                                           4),
+                "ragged_f32": ((2, 3, 64, 45, 3), "float32", 2)}
 BUILD_DIR = ROOT / "build"
 # The weight files the smoke writes in the released formats, and the name
 # of the released IG65M CSN-152 backbone export they stand for.
@@ -637,6 +661,108 @@ def phase_stats_kernel(torch, stem) -> dict:
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None,
                          "device_ms": device_ms}
+    return results
+
+
+def phase_window_kernels(torch, stem) -> dict:
+    """#2 and #4 on each model peer's row window (WINDOW_CASES): the
+    pooled rows of each peer's slab bit for bit against the same rows of
+    the whole clip's launch, and against the windowed plain version; each
+    window's statistics against the windowed plain version, and the peers'
+    statistics averaged against the whole clip's; the times of peer 0's
+    window (the kernel, the device alone, the plain version, the bound)."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    results = {}
+    for name, (shape, dtype_name, model) in WINDOW_CASES.items():
+        dtype = getattr(torch, dtype_name)
+        xs, ws = _stats_inputs(shape, seed=2)
+        x, w = _dev(torch, xs, dtype), _dev(torch, ws, dtype)
+        scale = _dev(torch, rng.uniform(0.5, 2.0, 64), torch.float32)
+        bias = _dev(torch, rng.normal(size=64), torch.float32)
+        b, t, h, wd, _ = shape
+        full = stem.stem_forward(x, w, scale, bias)
+        full_mean, full_var = stem.stem_batch_stats(x, w)
+        rows = h // model
+        equal, pool_err, means, msqs, windows = [], 0.0, [], [], []
+        stat_err = [0.0, 0.0]             # of the means, of the variances
+        for i in range(model):
+            first = i * rows
+            pw = stem.peer_window(first, rows, h, pooled=True)
+            sw = stem.peer_window(first, rows, h, pooled=False)
+            end = min(h, first + rows + stem.POOL_HALO[1])
+            pslab = x[:, :, pw.row0:end].contiguous()
+            sslab = x[:, :, sw.row0:end].contiguous()
+            got = stem.stem_forward(pslab, w, scale, bias, pw)
+            ref = stem.stem_reference(pslab, w, scale, bias, pw)
+            mean, var = stem.stem_batch_stats(sslab, w, sw)
+            ref_mean, ref_var = stem.stem_batch_stats_reference(sslab, w, sw)
+            torch.cuda.synchronize()
+            equal.append(torch.equal(
+                got, full[:, :, pw.out0:pw.out0 + pw.out_rows]))
+            span = ref.float().abs().max().item()
+            pool_err = max(pool_err, (got.float() - ref.float()).abs().max()
+                           .item() / span)
+            std = ref_var.sqrt().max().item()
+            stat_err = [max(stat_err[0],
+                            (mean - ref_mean).abs().max().item() / std),
+                        max(stat_err[1],
+                            ((var - ref_var).abs() / ref_var).max().item())]
+            means.append(mean)
+            msqs.append(var + mean.square())
+            windows.append((pslab, pw, got, sslab, sw, mean, var))
+        mean = torch.stack(means).mean(0)
+        var = torch.stack(msqs).mean(0) - mean.square()
+        avg_err = [(mean - full_mean).abs().max().item()
+                   / full_var.sqrt().max().item(),
+                   ((var - full_var).abs() / full_var).max().item()]
+        pslab, pw, got, sslab, sw, mean, var = windows[0]
+        c0, c1 = stem.pool_conv_rows(pw)
+        wc = (wd - 1) // 2 + 1
+        timed = {
+            "stem_pool": (lambda: stem.stem_forward(pslab, w, scale, bias,
+                                                    pw),
+                          lambda: stem.stem_reference(pslab, w, scale, bias,
+                                                      pw),
+                          nbytes(pslab, w, scale, bias, got),
+                          2 * b * t * (c1 - c0) * wc * 64 * 441),
+            "stem_stats": (lambda: stem.stem_batch_stats(sslab, w, sw),
+                           lambda: stem.stem_batch_stats_reference(sslab, w,
+                                                                   sw),
+                           nbytes(sslab, w, mean, var),
+                           2 * b * t * sw.out_rows * wc * 64 * 441)}
+        case = {"peers": model, "pool_bit_equal": equal,
+                "pool_rel_err": pool_err, "stats_rel_err": stat_err,
+                "stats_average_rel_err": avg_err}
+        for kernel, (fn, plain, nb, ops) in timed.items():
+            bound_ms, bound_by = bound(nb, ops, dtype_name)
+            case[kernel] = {
+                "shape": tuple((pslab if kernel == "stem_pool" else sslab)
+                               .shape),
+                "ms": time_ms(torch, fn),
+                "device_ms": time_ms(torch, fn, queued=True),
+                "plain_ms": time_ms(torch, plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+        tol_pool = STEM_POOL_TOL[dtype_name]
+        tol_stats = [STATS_MEAN_TOL[dtype_name], STATS_VAR_TOL[dtype_name]]
+        log(f"[kernel] window {name} {shape} {dtype_name} over {model} "
+            f"peers: #2 each peer's pooled rows bit-equal to the whole "
+            f"clip's {equal}, against the windowed plain version "
+            f"{pool_err:.3g} of max|ref| (tol {tol_pool:.3g}); #4 each "
+            f"window against the windowed plain version, the mean (of the "
+            f"max std) and the variance (relative) {stat_err} (tol "
+            f"{tol_stats}), the peers' statistics averaged against the "
+            f"whole clip's {avg_err}; peer 0: "
+            + "; ".join(f"{k} {v['shape']} kernel {v['ms']:.4f} ms (the "
+                        f"device alone {v['device_ms']:.4f}), plain "
+                        f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+                        f"ms ({v['bound_by']})"
+                        for k, v in case.items() if isinstance(v, dict)))
+        if not (all(equal) and pool_err <= tol_pool
+                and all(e <= t for e, t in zip(stat_err + avg_err,
+                                               tol_stats * 2))):
+            raise AssertionError(f"window {name}: {case}")
+        results[name] = case
     return results
 
 
@@ -1186,6 +1312,21 @@ def flagship_chains() -> int:
 
     return sum(-(-tail // S.max_chain(shape[2] * shape[3], shape[4], cm))
                for shape, cm, tail in FLAGSHIP_TAILS.values()
+               if S.chain_supported(shape, cm))
+
+
+def spatial_chains(model: int) -> int:
+    """Chain launches per flagship forward on each rank with the clip's
+    rows split over ``model`` peers (MESH.SPATIAL): each identity tail in
+    chains of at most the peer's rows at that stage, the halo a chain of k
+    blocks reads from each neighbour (``CSN.stage``)."""
+    from tubelet_transformer_tpu_torch.models.csn import spatial_rows
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+    rows = spatial_rows(256, (3, 8, 36, 3), False, model)
+    return sum(-(-tail // min(rows[s + 3], S.max_chain(
+        shape[2] * shape[3], shape[4], cm)))
+               for s, (shape, cm, tail) in enumerate(FLAGSHIP_TAILS.values())
                if S.chain_supported(shape, cm))
 
 
@@ -4487,6 +4628,134 @@ def _serve_check_result(torch, name: str, ranks: int, per_forward: dict,
                 for fw in r["forwards"]] for k in per_forward}
 
 
+# the spatial train step (tools/tp_check.py --spatial: the clip's rows
+# split over the model peers through the trunk) against the one-process
+# step on the same batch from one state, flagship width, deterministic
+# algorithms, seed 0: each reading's bound, in bf16 and in float32 (TF32
+# off) on MODEL 2 and in float32 on DATA 2 x MODEL 2, from the flagship's
+# own readings on the H100 (PERF.md). At random init the trunk's
+# gradients part from one process's under any change of rounding: one
+# process on the batch reversed (the same sums in another order, the
+# "reversed" floor) parts them by 0.116-0.118 in float32 and 1.408 in
+# bf16, and its bf16 step from its float32 step by 1.411. The spatial
+# step reads the floor's own: trunk gradients 0.107-0.115 in float32,
+# 1.405 in bf16; losses 1.1e-5-2.6e-5 (floor 1.6e-5-2.3e-5) and 0.0111
+# (floor 0.0131); gradients 0.0083-0.0131 (0.0091-0.0134) and 0.169
+# (0.170); updates 0.018-0.021 (0.019-0.021) and 0.319 (0.328); running
+# statistics 2.1e-5-3.4e-5 (2.5e-5-3.6e-5) and 0.0257 (0.0261); the
+# stem's statistics 4e-8-6e-8. Each bound sits above the step and the
+# reversed floor; each control is held to miss where it acts: zero halo
+# rows move the stem's statistics (0.044-0.088) and the losses (0.0104-
+# 0.0145 float32, 0.0198 bf16), in float32 the gradients (0.114-0.168),
+# the running statistics (0.034-0.043) and the trunk's gradients
+# (1.36-1.37); the trunk's gradients left unsummed leave each peer its
+# share, so the peers part after the update and in float32 the gradients
+# (0.065-0.095) and the trunk's (0.83-0.84) miss. In bf16 the trunk's
+# gradients carry no signal (both controls 1.30-1.36, inside the floor):
+# their bound holds them to the floor's level, and the float32 step on
+# the same 2 ranks holds them where rounding does not drown them
+SPATIAL_TOL = {
+    "bfloat16": {"loss_rel": 0.016, "grad_norm_rel": 0.02,
+                 "grads_rel": 0.25, "update_rel": 0.5,
+                 "running_update_rel": 0.05, "stem_mean_rel": 1e-6,
+                 "stem_var_rel": 1e-6, "trunk_grads_rel": 1.6},
+    "float32": {"loss_rel": 1e-3, "grad_norm_rel": 1e-3, "grads_rel": 0.04,
+                "update_rel": 0.1, "running_update_rel": 1e-3,
+                "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6,
+                "trunk_grads_rel": 0.2},
+}
+SPATIAL_CONTROL_MISSES = {
+    "bfloat16": {"zero_halo": ("stem_mean_rel", "loss_rel"),
+                 "no_trunk_sum": ()},
+    "float32": {"zero_halo": ("stem_mean_rel", "loss_rel", "grads_rel",
+                              "running_update_rel", "trunk_grads_rel"),
+                "no_trunk_sum": ("grads_rel", "trunk_grads_rel")}}
+
+
+def _spatial_check_result(torch, name: str, ranks: int, text: str,
+                          smi: str) -> dict:
+    """tools/tp_check --spatial's result (build/<name>.pt) of ``ranks``
+    ranks on cuda:0 over gloo: the step's readings within SPATIAL_TOL,
+    and so the one-process step's on the batch reversed (``--floors``: the
+    bounds no tighter than one process's own spread), each control
+    outside its bound where it acts (SPATIAL_CONTROL_MISSES), the model
+    peers bit-equal after each of two steps and after the step and the
+    zero-halo control, not after the control without the trunk's
+    gradient sum, #4 and #2 once each on every rank (on its window), each
+    rank's peak memory of a spatial step below the MODEL-only step's; with
+    the
+    stage path's eval forward, every rank's #2, #5 and #8 launches
+    (spatial_chains), rank 0's outputs within SERVE_MESH_ULPS of one
+    process's and the zero-halo control's outside it somewhere. Returns
+    the saved result."""
+    _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
+    res = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
+    one_step = {"stem_stats": 1, "stem_pool": 1}
+    for case, r in res.items():
+        tol = SPATIAL_TOL[case]
+        got = r["readings"]
+        held = {k: got["tp"][k] <= v for k, v in tol.items()}
+        floors = r["floors"]
+        floor_held = {k: floors["reversed"][k] <= v for k, v in tol.items()}
+        missed = {c: {k: got[c][k] > tol[k] for k in ks}
+                  for c, ks in SPATIAL_CONTROL_MISSES[case].items()}
+        agree = r["peers_agree"]
+        memory = r["memory"]
+        lower = [m["spatial"] < m["model_only"] for m in memory]
+        log(f"[spatial] tp_check --spatial {case}, mesh {r['mesh'][0]} x "
+            f"{r['mesh'][1]} (data x model), the clip's rows split over the "
+            f"model peers, {ranks} ranks on cuda:0 over gloo, against one "
+            f"process on the same batch (deterministic algorithms): "
+            f"readings {got['tp']}; zero-halo control {got['zero_halo']}; "
+            f"control without the trunk's gradient sum "
+            f"{got['no_trunk_sum']}; the one-process step's floors "
+            f"{floors}; bounds {tol}: held {held}, by the reversed floor "
+            f"{floor_held}, the controls missed {missed}; trunk gradients "
+            f"step {got['tp']['trunk_grads_rel']:.4f}, zero halo "
+            f"{got['zero_halo']['trunk_grads_rel']:.4f}, unsummed "
+            f"{got['no_trunk_sum']['trunk_grads_rel']:.4f}, floors "
+            f"{ {k: round(v['trunk_grads_rel'], 4) for k, v in floors.items()} }"
+            f"; model peers' replicated parameters "
+            f"bit-equal after each of two steps {r['peers_equal']}, after "
+            f"the step and each control {agree} (the control without the "
+            f"trunk's sum must part them); #4 and "
+            f"#2 launches per rank in one step {r['launches']}; peak device "
+            f"memory above the step's start per rank, spatial against "
+            f"MODEL-only: "
+            f"{[(m['spatial'], m['model_only']) for m in memory]} bytes, "
+            f"lower {lower}; total loss {r['tp']['metrics']['total_loss']:.6f}"
+            f", one process {r['single']['metrics']['total_loss']:.6f}; "
+            f"{r['wall_s']:.1f} s; {smi}")
+        ok = (all(held.values()) and all(floor_held.values())
+              and all(all(m.values()) for m in missed.values())
+              and r["peers_equal"] == [True, True] and all(lower)
+              and agree == {"tp": True, "zero_halo": True,
+                            "no_trunk_sum": False}
+              and all(x == one_step for x in r["launches"])
+              and r["tp"]["metrics"]["finite"] == 1.0)
+        if "eval" in r:
+            ev = r["eval"]
+            bound = SERVE_MESH_ULPS * BF16_EPS
+            per = {"stem_pool": 1, "depthwise": 3,
+                   "chain": spatial_chains(r["mesh"][1])}
+            worst = max(ev["differences"]["spatial"].values())
+            control = max(ev["differences"]["zero_halo"].values())
+            log(f"[spatial] the stage path's eval forward (bf16, "
+                f"PALLAS_KERNELS and FUSED_STAGES) with the rows split, "
+                f"{ranks} ranks: rank 0's outputs against one process "
+                f"{ev['differences']['spatial']}, the zero-halo control "
+                f"{ev['differences']['zero_halo']}; bound {bound:.4f}: "
+                f"worst {worst:.4f}, the control's largest {control:.4f}; "
+                f"#2, #5, #8 launches per rank {ev['launches']} (want "
+                f"{per}); {smi}")
+            ok = ok and worst <= bound < control and all(
+                e[k] == per for e in ev["launches"] for k in e)
+        if not ok:
+            raise AssertionError(f"spatial check {case}: held {held}, "
+                                 f"missed {missed}, {r}")
+    return res
+
+
 def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                stages_cfg: Path, stage_forward: dict,
                smi: str) -> tuple[dict, dict]:
@@ -4495,10 +4764,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     stage run at once, and the timed checks alone.
     Stage 1: train_ava through torchrun on phase 9's YAML (2 steps a rank,
     a validation of 4 keyframes a rank) with MESH.DATA alone, with
-    MESH.ZERO1 and with MESH.MODEL 2 (4 steps of 2 clips): one run
-    directory, one checkpoint and the metrics from rank 0 alone each, the
-    ZeRO-1 file in the DATA-only file's optimizer layout; generate_lfb's
-    CLI with MESH.MODEL 2 on phase 10's YAML (``_mesh_lfb_check``).
+    MESH.ZERO1, with MESH.MODEL 2 (4 steps of 2 clips) and with MESH.MODEL
+    2 and MESH.SPATIAL (the same, every rank on its rows of the clips):
+    one run directory, one checkpoint and the metrics from rank 0 alone
+    each, the ZeRO-1 file in the DATA-only file's optimizer layout;
+    generate_lfb's CLI with MESH.MODEL 2 on phase 10's YAML
+    (``_mesh_lfb_check``).
     Stage 2: NCCL, the default backend, at world size 1 through
     train_ava, resuming the ZeRO-1 checkpoint without ZeRO-1 for one more
     step; train_ava in one process resuming the MODEL 2 checkpoint (which
@@ -4512,11 +4783,18 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     two; against one process on the same batch of 2) of the dense and MoE
     (2 experts a peer) TP steps within TP_TOL, then serve_check (mesh
     serving under MESH.MODEL 2 on the stage path's YAML in bf16:
-    ``_serve_check_result``); tools/mesh_checks on 4 ranks of MESH.DATA 2 x
-    MESH.MODEL 2: tp_check in float32 against one process on the batch of
-    4, and ZeRO-1 beside it bit for bit against it, then serve_check
-    (buckets 8, 4 and 2 split over 'data', bucket 1 whole on each data
-    group).
+    ``_serve_check_result``), then tp_check --spatial in bf16 with the
+    stage path's eval forward and in float32 (``_spatial_check_result``:
+    the spatial step against one process within SPATIAL_TOL, and so one
+    process on the batch reversed, its zero-halo control and its control
+    without the trunk's gradient sum outside it, each rank's peak memory
+    below the MODEL-only step's, #2, #5 and #8 per eval forward on every
+    rank, the eval outputs within 4 bf16 ulps of one process);
+    tools/mesh_checks on 4 ranks of MESH.DATA 2 x MESH.MODEL 2: tp_check in
+    float32 against one process on the batch of 4, and ZeRO-1 beside it
+    bit for bit against it, then serve_check (buckets 8, 4 and 2 split over
+    'data', bucket 1 whole on each data group), then tp_check --spatial in
+    float32.
     Stage 3, alone: tools/mesh_checks on 2 ranks in bf16 with each rank's
     step times: dp_check with the stem's global statistics (#4 on each
     shard, reduced) against #4 over the whole batch, the gradient
@@ -4527,7 +4805,8 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     all-gather's MB and ms and the ZeRO-1 step's ms; tp_check with the
     model group's all-reduces of a step replayed.
     Every control outside its bounds, the model peers bit-equal, #4 and
-    #2 once each on every rank in every DP, ZeRO-1, MoE and TP step.
+    #2 once each on every rank in every DP, ZeRO-1, MoE, TP and spatial
+    step (the spatial step's on each rank's window of the clips' rows).
     Returns what phases 23 and 24 returned before them."""
     jobs: list = []
 
@@ -4542,15 +4821,26 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                                      lambda c: c["MESH"].update(ZERO1=True)),
             "tp": _dp_train_start(train, "chip_smoke_tp", lambda c: c[
                 "MESH"].update(MODEL=TP_RANKS)),
+            "spatial": _dp_train_start(
+                train, "chip_smoke_spatial",
+                lambda c: c["MESH"].update(MODEL=TP_RANKS, SPATIAL=True)),
             "lfb": _mesh_lfb_start(evaluated)}
         jobs += started.values()
         data = _dp_train_cli(torch, started["dp"])
         z = _dp_train_cli(torch, started["zero1"])
         tp_train = _dp_train_cli(torch, started["tp"], data=1)
+        sp_train = _dp_train_cli(torch, started["spatial"], data=1)
+        split = sp_train["text"].count("(the clip rows split)")
+        log(f"[spatial] train_ava under MESH.MODEL {TP_RANKS} with "
+            f"SPATIAL: ranks that split the clip's rows {split}; {smi}")
+        if split != DP_RANKS:
+            raise AssertionError(f"train_ava with SPATIAL: {split} ranks "
+                                 "split the rows")
         lfb_mesh = _mesh_lfb_check(started["lfb"], lfb, smi)
         _dp_layouts(torch, data, z, smi)
         log(f"[time] stage 1 of the mesh phases (train_ava under DATA 2, "
-            f"ZeRO-1 and MODEL 2, generate_lfb under MODEL 2, at once): "
+            f"ZeRO-1, MODEL 2 and MODEL 2 with SPATIAL, generate_lfb under "
+            f"MODEL 2, at once): "
             f"{time.perf_counter() - t0:.1f} s")
 
         t1 = time.perf_counter()
@@ -4564,7 +4854,10 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                           out("chip_smoke_tp_check_float32")]),
             ("serve_check", ["--config-file", stages_cfg, "--model",
                              TP_RANKS, "--out",
-                             out("chip_smoke_serve_check_model2")])],
+                             out("chip_smoke_serve_check_model2")]),
+            ("tp_check", ["--config-file", tp_cfg, "--spatial", "--dtypes",
+                          "bfloat16,float32", "--eval-stages", "--floors",
+                          "--out", out("chip_smoke_tp_check_spatial")])],
             "chip_smoke_mesh_float32.log")
         dm = _mesh_checks_start(2 * TP_RANKS, [
             ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
@@ -4572,7 +4865,11 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                           "--out", out("chip_smoke_tp_check_2x2")]),
             ("serve_check", ["--config-file", stages_cfg, "--data", 2,
                              "--model", TP_RANKS, "--out",
-                             out("chip_smoke_serve_check_2x2")])],
+                             out("chip_smoke_serve_check_2x2")]),
+            ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
+                          TP_RANKS, "--spatial", "--dtypes", "float32",
+                          "--floors", "--out",
+                          out("chip_smoke_tp_check_spatial_2x2")])],
             "chip_smoke_tp_check_2x2.log")
         nccl = _nccl_start(train)
         resume = _tp_resume_start(train)
@@ -4588,15 +4885,24 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         serve = {"model2": _serve_check_result(
             torch, "chip_smoke_serve_check_model2", TP_RANKS, stage_forward,
             smi)}
+        spatial = _spatial_check_result(
+            torch, "chip_smoke_tp_check_spatial", TP_RANKS, text,
+            smi)["bfloat16"]
+        text = _torchrun_wait(dm)
         dm_res = _tp_check_result(torch, "chip_smoke_tp_check_2x2",
-                                  2 * TP_RANKS, _torchrun_wait(dm), smi)
+                                  2 * TP_RANKS, text, smi)
         serve["data_model"] = _serve_check_result(
             torch, "chip_smoke_serve_check_2x2", 2 * TP_RANKS, stage_forward,
             smi)
+        spatial_dm = _spatial_check_result(
+            torch, "chip_smoke_tp_check_spatial_2x2", 2 * TP_RANKS, text,
+            smi)["float32"]
         log(f"[time] stage 2 of the mesh phases (NCCL at world size 1, the "
-            f"MODEL 2 file resumed in one process, the float32 checks and "
-            f"mesh serving on 2 ranks, DATA 2 x MODEL 2 with ZeRO-1 and "
-            f"mesh serving on 4, at once): "
+            f"MODEL 2 file resumed in one process, the float32 checks, mesh "
+            f"serving and the bf16 and float32 spatial steps on 2 ranks, "
+            f"DATA 2 x MODEL 2 "
+            f"with ZeRO-1, mesh serving and the float32 spatial step on 4, "
+            f"at once): "
             f"{time.perf_counter() - t1:.1f} s")
 
         t2 = time.perf_counter()
@@ -4633,6 +4939,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                              for zr in dm_res["float32"]["zero1"]],
           "lfb_launches": lfb_mesh["launches"],
           "serve": serve,
+          "spatial_launches": spatial["launches"],
+          "spatial_data_model_launches": spatial_dm["launches"],
+          "spatial_eval_launches": [e["spatial"] for e in
+                                    spatial["eval"]["launches"]],
+          "spatial_memory": {"model2": spatial["memory"],
+                             "data_model": spatial_dm["memory"]},
           "readings": {**{k: v["readings"] for k, v in model2.items()},
                        "data_model": dm_res["float32"]["readings"]},
           "timings": model2["bfloat16"]["timings"]}
@@ -4672,6 +4984,7 @@ def main() -> int:
     pool = pools["ava_256px_train"]
     stats_cases = phase_stats_kernel(torch, stem)
     stats = stats_cases["ava_256px_train"]
+    windows = phase_window_kernels(torch, stem)
     dw_cases = phase_depthwise_kernel(torch)
     dw, dw_b8 = dw_cases["layer1_256px"], dw_cases["layer1_256px_b8"]
     bn = phase_bottleneck_kernel(torch)["layer2_256px"]
@@ -4844,6 +5157,16 @@ def main() -> int:
               launches_serve_model2=tp["serve"]["model2"]["stem_pool"],
               launches_serve_data_model=tp["serve"]["data_model"][
                   "stem_pool"],
+              launches_tp_spatial_step=[x["stem_pool"]
+                                        for x in tp["spatial_launches"]],
+              launches_tp_spatial_data_model_step=[
+                  x["stem_pool"] for x in tp["spatial_data_model_launches"]],
+              launches_spatial_eval=[x["stem_pool"]
+                                     for x in tp["spatial_eval_launches"]],
+              window_cases={k: {**v["stem_pool"], "peers": v["peers"],
+                                "bit_equal_to_whole_clip":
+                                    v["pool_bit_equal"]}
+                            for k, v in windows.items()},
               jhmdb_cases={k: pools[k] for k in ("jhmdb_224x400",
                                                  "jhmdb_224x400_train")}),
         entry("stem_stats", "stem_stats.cu", "stem.py:388",
@@ -4863,6 +5186,14 @@ def main() -> int:
                   x["stem_stats"] for x in tp["data_model_launches"]],
               launches_tp_zero1_step=[x["stem_stats"]
                                       for x in tp["zero1_launches"]],
+              launches_tp_spatial_step=[x["stem_stats"]
+                                        for x in tp["spatial_launches"]],
+              launches_tp_spatial_data_model_step=[
+                  x["stem_stats"] for x in tp["spatial_data_model_launches"]],
+              window_cases={k: {**v["stem_stats"], "peers": v["peers"],
+                                "rel_err_against_plain":
+                                    v["stats_rel_err"]}
+                            for k, v in windows.items()},
               jhmdb_cases={"jhmdb_224x400_train":
                            stats_cases["jhmdb_224x400_train"]},
               one_clip_case=stats_cases["ava_256px_clip"]),
@@ -4880,6 +5211,8 @@ def main() -> int:
               launches_serve_model2=tp["serve"]["model2"]["depthwise"],
               launches_serve_data_model=tp["serve"]["data_model"][
                   "depthwise"],
+              launches_spatial_eval=[x["depthwise"]
+                                     for x in tp["spatial_eval_launches"]],
               b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
@@ -4895,6 +5228,8 @@ def main() -> int:
               launches_prenorm_serve=prenorm["serve_launches"]["chain"],
               launches_serve_model2=tp["serve"]["model2"]["chain"],
               launches_serve_data_model=tp["serve"]["data_model"]["chain"],
+              launches_spatial_eval=[x["chain"]
+                                     for x in tp["spatial_eval_launches"]],
               b8_case=chain_totals(chains, "_b8"),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",

@@ -15,8 +15,11 @@ elements, so both frameworks add in the same order.
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu_torch.models import csn as C
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EPS32 = float(np.finfo(np.float32).eps)
 

@@ -11,9 +11,12 @@ is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import bottleneck as B
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _args(b=2, t=5, h=8, w=8, ci=512, cm=128, seed=0):

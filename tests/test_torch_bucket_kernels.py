@@ -11,6 +11,7 @@ skip elsewhere:
 
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_depthwise import _inputs as dw_inputs
 from test_torch_stage import _stream_on
 from test_torch_stem import _inputs as stem_inputs
@@ -18,6 +19,8 @@ from test_torch_stem import _inputs as stem_inputs
 from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
 from tubelet_transformer_tpu_torch.ops.cuda import stage as S
 from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B = 8
 

@@ -8,12 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.config import Config
 from tubelet_transformer_tpu.ops import matcher as jm
 from tubelet_transformer_tpu.train import criterion as jc
 from tubelet_transformer_tpu_torch.ops import matcher as tm
 from tubelet_transformer_tpu_torch.train import criterion as tcrit
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _boxes(rng, *shape):

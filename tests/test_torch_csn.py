@@ -6,10 +6,13 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.models.csn import build_csn as jbuild_csn
 from tubelet_transformer_tpu.train import torch_convert as tc
 from tubelet_transformer_tpu_torch.models import csn as tcsn
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def randomize_bn(params, stats, rng):

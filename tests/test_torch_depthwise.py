@@ -12,9 +12,12 @@ installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import depthwise as D
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RAGGED = (2, 5, 7, 9, 64)
 # Shapes that the kernel's blocks (16x16 pixels, 32 bf16 or 16 float

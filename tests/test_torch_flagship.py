@@ -18,12 +18,15 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import randomize_bn
 
 from tubelet_transformer_tpu.config import load_config
 from tubelet_transformer_tpu.models.tuber import build_model as jbuild_model
 from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "configuration"
             / "tuber_csn152_ava22.yaml")

@@ -16,10 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import csn_state, randomize_bn
 
 from tubelet_transformer_tpu.models.csn import build_csn as jbuild_csn
 from tubelet_transformer_tpu_torch.models import csn as tcsn
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @functools.lru_cache(maxsize=None)

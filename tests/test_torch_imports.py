@@ -14,6 +14,9 @@ from pathlib import Path
 import pytest
 
 import tubelet_transformer_tpu_torch as port
+from torch_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_PACKAGE = "tubelet_transformer_tpu"

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import randomize_bn
 
 from tubelet_transformer_tpu.config import Config as JConfig
@@ -41,6 +42,8 @@ from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.tools import fixtures
 from tubelet_transformer_tpu_torch.train import criterion as tcrit
 from tubelet_transformer_tpu_torch.train import engine, loop, postprocess
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 Q, T, C = 3, 4, 5          # queries per frame, frames, classes
 

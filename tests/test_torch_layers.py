@@ -8,12 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.models import layers as jl
 from tubelet_transformer_tpu.models.transformer import Transformer as JTr
 from tubelet_transformer_tpu.train import torch_convert as tc
 from tubelet_transformer_tpu_torch.models import layers as tl
 from tubelet_transformer_tpu_torch.models.transformer import Transformer
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 E, H, FF = 32, 4, 48
 

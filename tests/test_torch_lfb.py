@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import randomize_bn
 from test_torch_tuber import small_cfg
 
@@ -39,6 +40,8 @@ from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.train import engine
 from tubelet_transformer_tpu_torch.train.optimizer import (
     build_optimizer, param_label)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 L_MEM = 6
 LFB_MODULES = ("lfb_proj", "lfb_attn", "lfb_norm")

@@ -53,9 +53,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from test_torch_data_parallel import (
     SELF_TOL, TIMEOUT, _kill, _load, _ready, _save, _start, _wait)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MESHES = {"model2": (1, 2), "data2_model2": (2, 2)}
 KW = dict(fps=8.0, detect_every=8, actor_threshold=-1.0,

@@ -9,12 +9,15 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_tuber import small_cfg
 
 from tubelet_transformer_tpu.models.moe import MoEFFN as JMoEFFN
 from tubelet_transformer_tpu_torch.convert import _put_moe
 from tubelet_transformer_tpu_torch.models.moe import MoEFFN
 from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, S, D, F = 2, 16, 8, 32
 HEADS = ("pred_logits", "pred_boxes", "pred_logits_b")

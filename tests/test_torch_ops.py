@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.data import device_preprocess as jdp
 from tubelet_transformer_tpu.models import tuber as jtuber
@@ -17,6 +18,8 @@ from tubelet_transformer_tpu_torch.models import tuber as ttuber
 from tubelet_transformer_tpu_torch.ops import box_ops as tbox
 from tubelet_transformer_tpu_torch.ops import position_encoding as tpos
 from tubelet_transformer_tpu_torch.train import postprocess as tpost
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _boxes(rng, n):

@@ -8,6 +8,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from torch import nn
 
 from tubelet_transformer_tpu.config import Config
@@ -15,6 +16,8 @@ from tubelet_transformer_tpu.train import optimizer as jopt
 from tubelet_transformer_tpu.train import schedule as jsched
 from tubelet_transformer_tpu_torch.train import optimizer as topt
 from tubelet_transformer_tpu_torch.train import schedule as tsched
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # port name -> JAX path of the same parameter, and its label for TUNE_POINT 4
 NAMES = {

@@ -2,18 +2,23 @@
 and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
-model, as do MESH.ZERO1 (beside MESH.MODEL too) and MoE with MESH.DATA >
-1 (the 'data' axis), and the options it leaves out still raise:
-MESH.PIPE and MESH.SPATIAL (with MESH.DATA, MESH.MODEL or MESH.ZERO1
-beside them too), MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and
-CONFIG.USE_LOCATION, which the JAX package refuses too."""
+model, as do MESH.ZERO1 (beside MESH.MODEL too), MoE with MESH.DATA > 1
+(the 'data' axis) and MESH.SPATIAL beside MESH.MODEL, and what it leaves
+out still raises: MESH.PIPE (with MESH.DATA or MESH.ZERO1 and MESH.MODEL
+beside it too), MESH.SPATIAL where the clip's rows do not split evenly
+over MESH.MODEL at some stage (ValueError), MODEL.INFER_CHUNK, and
+CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which the JAX package refuses
+too."""
 
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_tuber import small_cfg
 
 from tubelet_transformer_tpu_torch.cli import runner
 from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_ported_options_reach_the_model():
@@ -34,6 +39,10 @@ def test_ported_options_reach_the_model():
     zero1_model = small_cfg()
     zero1_model.mesh.zero1, zero1_model.mesh.model = True, 2
     runner.check_supported(zero1_model)
+    # the clip's 64 rows split over 2 model peers at every stage
+    spatial = small_cfg()
+    spatial.mesh.model, spatial.mesh.spatial = 2, True
+    runner.check_supported(spatial)
     for train in (False, True):
         model = build_model(cfg, train=train)
         body = model.backbone.body
@@ -52,29 +61,42 @@ def test_ported_options_reach_the_model():
 
 REFUSED = {
     # MESH.DATA runs (MoE too); a 'pipe' axis beside it does not
-    "mesh_data": lambda c: (setattr(c.mesh, "data", 2),
-                            setattr(c.mesh, "pipe", 2)),
-    # MESH.MODEL runs (tensor parallelism, test_torch_tensor_parallel.py);
-    # the clip's H axis over it (SPATIAL) does not
-    "mesh_model": lambda c: (setattr(c.mesh, "model", 2),
-                             setattr(c.mesh, "spatial", True)),
+    "mesh_data": (lambda c: (setattr(c.mesh, "data", 2),
+                             setattr(c.mesh, "pipe", 2)),
+                  NotImplementedError),
+    # MESH.MODEL runs (tensor parallelism, test_torch_tensor_parallel.py),
+    # and the clip's H axis over it (SPATIAL, test_torch_spatial.py)
+    # where its rows split evenly at every stage: 48 rows over 2 peers
+    # leave layer3's strided conv 3 rows a peer
+    "mesh_model": (lambda c: (setattr(c.mesh, "model", 2),
+                              setattr(c.mesh, "spatial", True),
+                              setattr(c.data, "img_size", 48)),
+                   ValueError),
     # MESH.ZERO1 runs on the 'data' axis and beside a 'model' axis; with a
     # 'pipe' axis beside them it does not
-    "mesh_zero1": lambda c: (setattr(c.mesh, "zero1", True),
-                             setattr(c.mesh, "model", 2),
-                             setattr(c.mesh, "pipe", 2)),
-    "mesh_spatial": lambda c: setattr(c.mesh, "spatial", True),
-    "infer_chunk": lambda c: setattr(c.model, "infer_chunk", 2),
-    "two_stream": lambda c: setattr(c, "two_stream", True),
-    "use_location": lambda c: setattr(c, "use_location", True),
+    "mesh_zero1": (lambda c: (setattr(c.mesh, "zero1", True),
+                              setattr(c.mesh, "model", 2),
+                              setattr(c.mesh, "pipe", 2)),
+                   NotImplementedError),
+    # SPATIAL whose clip of 64 rows does not split over 3 model peers
+    "mesh_spatial": (lambda c: (setattr(c.mesh, "spatial", True),
+                                setattr(c.mesh, "model", 3)),
+                     ValueError),
+    "infer_chunk": (lambda c: setattr(c.model, "infer_chunk", 2),
+                    NotImplementedError),
+    "two_stream": (lambda c: setattr(c, "two_stream", True),
+                   NotImplementedError),
+    "use_location": (lambda c: setattr(c, "use_location", True),
+                     NotImplementedError),
 }
 
 
 @pytest.mark.parametrize("knob", REFUSED)
 def test_left_out_options_still_raise(knob):
     cfg = small_cfg()
-    REFUSED[knob](cfg)
-    with pytest.raises(NotImplementedError):
+    edit, refusal = REFUSED[knob]
+    edit(cfg)
+    with pytest.raises(refusal):
         runner.check_supported(cfg)
 
 

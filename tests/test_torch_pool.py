@@ -21,6 +21,9 @@ from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.serving import (
     StreamingDetector, StreamingDetectorPool, buckets)
+from torch_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # streams of three geometries, starting at ticks 0, 8 and 12: with steps
 # only at the ticks of STEP_AT the pool runs bucket 1 (a), bucket 2 (a, b)

@@ -9,9 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.data import device_preprocess as J
 from tubelet_transformer_tpu_torch.data import device_preprocess as P
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _clips(shape=(3, 2, 6, 7, 3), seed=0):

@@ -7,11 +7,15 @@ run untraced. On the CPU."""
 import glob
 import json
 
+import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_train_step import _cfg
 
 from tubelet_transformer_tpu_torch import profiling
 from tubelet_transformer_tpu_torch.cli import runner
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_run_training_writes_a_trace(tmp_path, capsys):

@@ -9,13 +9,17 @@ the JAX package's remat step is test_torch_accum.py's
 test_accum_step_matches_jax, which runs it. CSN-TINY with the avg temporal
 pooling, float32 on the CPU."""
 
+import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_accum import port_only_model, step_cfg
 from test_torch_train_step import _batch
 
 from tubelet_transformer_tpu_torch.models import csn
 from tubelet_transformer_tpu_torch.ops.cuda import depthwise
 from tubelet_transformer_tpu_torch.train import engine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _remat_cfg(remat):

@@ -8,6 +8,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 
 from tubelet_transformer_tpu.config import Config
 from tubelet_transformer_tpu.serving import StreamingDetector as JDetector
@@ -15,6 +16,8 @@ from tubelet_transformer_tpu_torch.cli import serve as cli_serve
 from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.serving import StreamingDetector
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def small_cfg():

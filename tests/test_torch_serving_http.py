@@ -16,6 +16,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_serving import small_cfg
 
 from tubelet_transformer_tpu import serving_http as jserving_http
@@ -26,6 +27,8 @@ from tubelet_transformer_tpu_torch.cli import serve_http as cli_serve_http
 from tubelet_transformer_tpu_torch.client import DetectionClient, ServingError
 from tubelet_transformer_tpu_torch.serving import Detection, KeyframeResult
 from tubelet_transformer_tpu_torch.serving_http import DetectionServer
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HTTP_TIMEOUT_S = 60       # every request's socket timeout
 POLL_S = 30               # every long-poll's server-side wait

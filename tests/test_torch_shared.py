@@ -14,6 +14,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+from torch_fixtures import one_torch_thread  # noqa: F401
 import pytest
 
 from tubelet_transformer_tpu import config as jconfig
@@ -31,6 +32,8 @@ from tubelet_transformer_tpu_torch import config, convert, serving_http
 from tubelet_transformer_tpu_torch.data import loader, synthetic
 from tubelet_transformer_tpu_torch.eval import (ava_eval, lfb, np_box,
                                                 ucf_eval, video_map)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(ROOT / "configuration" / "*.yaml")))

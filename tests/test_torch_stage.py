@@ -12,9 +12,12 @@ is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _args(k=3, b=2, t=5, h=8, w=8, ci=32, cm=16, seed=0):

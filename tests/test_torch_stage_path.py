@@ -12,7 +12,9 @@ model takes its composite at every place.
 
 import jax
 import numpy as np
+import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import randomize_bn
 from test_torch_kernel_path import _kernel_cfg
 from test_torch_tuber import HEADS, small_cfg
@@ -22,6 +24,8 @@ from tubelet_transformer_tpu_torch.convert import load_jax_variables
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck, depthwise,
                                                     stage)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_stage_path_matches_jax():

@@ -9,9 +9,12 @@ runs where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from torch_fixtures import cuda  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _inputs(shape, seed=0):

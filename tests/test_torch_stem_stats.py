@@ -10,9 +10,12 @@ is not installed:
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_stem import _inputs, _torch, cuda, interpret, jax_stem  # noqa: F401
 
 from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _structured_inputs(shape, seed=1):

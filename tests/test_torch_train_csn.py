@@ -12,11 +12,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import csn_state, randomize_bn
 
 from tubelet_transformer_tpu.models.csn import build_csn as jbuild_csn
 from tubelet_transformer_tpu_torch.models import csn as tcsn
 from tubelet_transformer_tpu_torch.ops.cuda import stem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _pair(last_stride, stop_grad_stage, seed=0):

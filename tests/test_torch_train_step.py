@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_csn import randomize_bn
 from test_torch_tuber import small_cfg
 
@@ -30,6 +31,8 @@ from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
 from tubelet_transformer_tpu_torch.train import engine
 from tubelet_transformer_tpu_torch.train.optimizer import param_label
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _cfg():

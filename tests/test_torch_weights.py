@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_fixtures import one_torch_thread  # noqa: F401
 import yaml
 from test_torch_tuber import small_cfg
 
@@ -29,6 +30,8 @@ from tubelet_transformer_tpu_torch.cli import runner
 from tubelet_transformer_tpu_torch.models.tuber import build_model
 from tubelet_transformer_tpu_torch.tools import fixtures
 from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _cfg(backbone="CSN-TINY"):

@@ -21,11 +21,15 @@ rank, the train and eval runs shard both splits over the ranks
 from rank 0 alone, and stop at an epoch boundary when any rank was
 signalled. With ``MESH.MODEL`` the model peers of a data shard read the
 same shard (the loaders shard over ``MESH.DATA`` by data index) and split
-the model between them (``parallel/sharding_rules.py``).
+the model between them (``parallel/sharding_rules.py``); with
+``MESH.SPATIAL`` beside it the train and eval runs split the clip's rows
+over them through the trunk too (``train/engine.py``), and
+``generate_lfb``, as the JAX package's, ignores it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import time
@@ -125,8 +129,10 @@ def init_state(cfg: Config, steps_per_epoch: int, device: torch.device,
 def _mesh(cfg: Config) -> mesh_lib.Mesh:
     """The mesh of MESH.* over the processes, MESH.DATA resolved to its
     size (what MESH.MODEL leaves of the world when -1) so that the model's
-    and the step's checks see it."""
-    mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
+    and the step's checks see it, and MESH.SPATIAL's split of the clip's
+    rows."""
+    mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe,
+                                cfg.mesh.spatial)
     cfg.mesh.data = mesh.data
     return mesh
 
@@ -203,7 +209,8 @@ def _run_training_body(cfg: Config, device: torch.device, seed: int,
     print(f"Start training on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
           f"rank {mesh.rank}: data shard {mesh.data_index} of "
-          f"{mesh.data}, model peer {mesh.model_index} of {mesh.model}, "
+          f"{mesh.data}, model peer {mesh.model_index} of {mesh.model}"
+          f"{' (the clip rows split)' if mesh.spatial else ''}, "
           f"{steps_per_epoch} steps/epoch", flush=True)
     result: dict = {"dirs": dirs, "val": {}}
     t0 = time.time()
@@ -259,7 +266,9 @@ def run_generate_lfb(cfg: Config, out_path: str = "lfb_bank.npz",
     as in the JAX package. Under torchrun each process runs its data shard
     with the model split over MESH.MODEL, every process fills the full
     bank, rank 0 writes it and the others wait at a barrier. Returns the
-    path."""
+    path. MESH.SPATIAL is ignored, as the JAX package ignores it there."""
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                            spatial=False))
     check_supported(cfg)
     if not (cfg.model.load and cfg.model.pretrained_path):
         # a bank from random weights poisons every later USE_LFB run

@@ -26,8 +26,18 @@
 // kept in shared memory in bf16 and max-pooled there: rounding is monotone,
 // so the max of bf16-rounded values equals the bf16 rounding of the max.
 //
-// float32 (stem_pool_kernel, tests only): the direct conv on the CUDA cores
-// in f32 (stem_conv.cuh), a 17x17 conv tile per block.
+// float32 (stem_pool_kernel, float32 models and tests): the direct conv on
+// the CUDA cores in f32 (stem_conv.cuh), a 17x17 conv tile per block.
+//
+// Both pooled kernels run on a row window (spatial parallelism, where each
+// model peer holds a band of the clip's rows): x is a slab of the clip's
+// global input rows [row0, row0 + rows) (tuber_stem::Slab), the launch
+// writes the global pooled rows [out0, out0 + out_rows), and the zero
+// padding of the conv and the 0 that stands for the pool's -inf padding
+// stay at the clip's border, where a peer's edge finds its halo rows
+// instead. A pooled row p reads input rows 4p - 5 .. 4p + 5. Every output
+// pixel is summed in the same order wherever its tile starts, so the rows
+// of a window equal the same rows of the whole clip bit for bit.
 //
 // The unpooled kernels here are the same conv with the affine (and the ReLU
 // when asked) and no pool, channels-mid out: x (B,T,H,W,3) -> out
@@ -92,15 +102,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, T* __restrict__ out,
-                 int frames, int H, int W, int Hc, int Wc, int Hp, int Wp,
-                 int tiles_x) {
+                 int frames, Slab slab, int W, int Hc, int Wc, int Wp,
+                 int out0, int out_rows, int tiles_x) {
   extern __shared__ __align__(16) float smem[];
   float* conv_s = smem;            // [kConvPix][64], after the accumulation
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y;       // b * frames + t
   const int t = bt % frames;
-  const int py0 = (blockIdx.x / tiles_x) * kPT;
+  const int py0 = out0 + (blockIdx.x / tiles_x) * kPT;   // a global row
   const int px0 = (blockIdx.x % tiles_x) * kPT;
   const int cy0 = 2 * py0 - 1;     // first conv row of the tile
   const int cx0 = 2 * px0 - 1;
@@ -108,7 +118,7 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int pg = tid / kChanGroups;
 
   float acc[kPixPerThread][8];
-  conv_tile<kCT>(x, w, smem, bt, t, frames, H, W, cy0, cx0, acc);
+  conv_tile<kCT>(x, w, smem, bt, t, frames, slab, W, cy0, cx0, acc);
 
   float sc[8], bi[8];
 #pragma unroll
@@ -148,7 +158,7 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int v = pix % kPT;
     const int py = py0 + u;
     const int px = px0 + v;
-    if (py >= Hp || px >= Wp) continue;
+    if (py >= out0 + out_rows || px >= Wp) continue;
     float m0 = 0.f, m1 = 0.f;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -159,20 +169,20 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
         m0 = nan_max(m0, q.x);
         m1 = nan_max(m1, q.y);
       }
-    store2(out + ((static_cast<size_t>(bt) * Hp + py) * Wp + px) * kCout +
-               2 * cp,
+    store2(out + ((static_cast<size_t>(bt) * out_rows + py - out0) * Wp +
+                  px) * kCout + 2 * cp,
            m0, m1);
   }
 }
 
 template <typename T>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
-           void* out, int batch, int frames, int H, int W, void* stream) {
+           void* out, int batch, int frames, int H, int W, int row0, int rows,
+           int out0, int out_rows, void* stream) {
   const int Hc = (H - 1) / 2 + 1;   // conv 7 / stride 2 / pad 3
   const int Wc = (W - 1) / 2 + 1;
-  const int Hp = (Hc - 1) / 2 + 1;  // pool 3 / stride 2 / pad 1
-  const int Wp = (Wc - 1) / 2 + 1;
-  const int tiles_y = (Hp + kPT - 1) / kPT;
+  const int Wp = (Wc - 1) / 2 + 1;  // pool 3 / stride 2 / pad 1
+  const int tiles_y = (out_rows + kPT - 1) / kPT;
   const int tiles_x = (Wp + kPT - 1) / kPT;
   const size_t smem = kSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -184,7 +194,8 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), frames, H, W, Hc, Wc, Hp, Wp, tiles_x);
+      static_cast<T*>(out), frames, make_slab(row0, rows, H), W, Hc, Wc, Wp,
+      out0, out_rows, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,19 +212,21 @@ constexpr size_t kSmemTc = kWBytes + HaloP::kBytes + kConvBytes + kTabBytes;
 static_assert(kConvBytes % 16 == 0, "shared sub-buffers stay 16-byte aligned");
 static_assert(4 * kWarpTiles >= kMTiles, "four warp rows cover the tile");
 
-// First input row and column of pooled tile `rem` of a frame: 2 * (first
-// conv row 2 py0 - 1) - 3.
-__device__ __forceinline__ int2 pool_halo_origin(int rem, int tiles_x) {
-  return make_int2(4 * ((rem / tiles_x) * kPT) - 5,
+// First input row and column of pooled tile `rem` of a frame, whose tiles
+// start at global pooled row out0: 2 * (first conv row 2 py0 - 1) - 3.
+__device__ __forceinline__ int2 pool_halo_origin(int rem, int tiles_x,
+                                                 int out0) {
+  return make_int2(4 * (out0 + (rem / tiles_x) * kPT) - 5,
                    4 * ((rem % tiles_x) * kPT) - 5);
 }
 
 __device__ __forceinline__ void fetch_pool_halo(
     unsigned short (&r)[HaloP::kPerThread], const unsigned short* x,
-    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
+    int tile, int kt, int tiles_x, int tiles_hw, int frames, const Slab& slab,
+    int W, int out0) {
   const int bt = tile / tiles_hw;
-  const int2 o = pool_halo_origin(tile - bt * tiles_hw, tiles_x);
-  fetch_halo<kCT>(r, x, bt, kt, o.x, o.y, frames, H, W);
+  const int2 o = pool_halo_origin(tile - bt * tiles_hw, tiles_x, out0);
+  fetch_halo<kCT>(r, x, bt, kt, o.x, o.y, frames, slab, W);
 }
 
 // Persistent: block i takes tiles i, i + gridDim.x, ... of the B*T*tiles_hw
@@ -223,8 +236,9 @@ __global__ void __launch_bounds__(kThreadsTc, 1)
 stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, bf16* __restrict__ out,
-                    int frames, int H, int W, int Hc, int Wc, int Hp, int Wp,
-                    int tiles_x, int tiles_hw, int tiles) {
+                    int frames, Slab slab, int W, int Hc, int Wc, int Wp,
+                    int out0, int out_rows, int tiles_x, int tiles_hw,
+                    int tiles) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* w_s = reinterpret_cast<bf16*>(smem_tc);                     // [480][72]
   unsigned short* halo =
@@ -256,7 +270,8 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 
   unsigned short pre[HaloP::kPerThread];
-  fetch_pool_halo(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H, W);
+  fetch_pool_halo(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, slab, W,
+                  out0);
   stash_halo<kCT>(pre, halo);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kWarpTiles][2][4];
@@ -272,7 +287,8 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nt = kt < 2 ? tile : tile + gridDim.x;
       const int nkt = kt < 2 ? kt + 1 : 0;
       if (nt < tiles)
-        fetch_pool_halo(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H, W);
+        fetch_pool_halo(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, slab, W,
+                        out0);
       tuber_mma::cp_async_wait<0>();
       __syncthreads();              // frame kt's halo (and the weights) are in
       frame_products<kWarpTiles, kMTiles>(
@@ -287,7 +303,7 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // the reference's -inf padding), into the bf16 conv tile
     const int bt = tile / tiles_hw;
     const int rem = tile - bt * tiles_hw;
-    const int py0 = (rem / tiles_x) * kPT;
+    const int py0 = out0 + (rem / tiles_x) * kPT;   // a global row
     const int px0 = (rem % tiles_x) * kPT;
 #pragma unroll
     for (int i = 0; i < kWarpTiles; ++i) {
@@ -321,7 +337,7 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int v = pix % kPT;
       const int py = py0 + u;
       const int px = px0 + v;
-      if (py >= Hp || px >= Wp) continue;
+      if (py >= out0 + out_rows || px >= Wp) continue;
       float q0 = 0.f, q1 = 0.f;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -333,8 +349,8 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
           q0 = nan_max(q0, q.x);
           q1 = nan_max(q1, q.y);
         }
-      store2(out + ((static_cast<size_t>(bt) * Hp + py) * Wp + px) * kCout +
-                 2 * cp,
+      store2(out + ((static_cast<size_t>(bt) * out_rows + py - out0) * Wp +
+                    px) * kCout + 2 * cp,
              q0, q1);
     }
   }
@@ -342,13 +358,13 @@ stem_pool_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 int launch_tc(const void* x, const void* w, const void* scale,
               const void* bias, void* out, int batch, int frames, int H,
-              int W, void* stream) {
+              int W, int row0, int rows, int out0, int out_rows,
+              void* stream) {
   const int Hc = (H - 1) / 2 + 1;   // conv 7 / stride 2 / pad 3
   const int Wc = (W - 1) / 2 + 1;
-  const int Hp = (Hc - 1) / 2 + 1;  // pool 3 / stride 2 / pad 1
-  const int Wp = (Wc - 1) / 2 + 1;
+  const int Wp = (Wc - 1) / 2 + 1;  // pool 3 / stride 2 / pad 1
   const int tiles_x = (Wp + kPT - 1) / kPT;
-  const int tiles_hw = ((Hp + kPT - 1) / kPT) * tiles_x;
+  const int tiles_hw = ((out_rows + kPT - 1) / kPT) * tiles_x;
   const long long tiles = static_cast<long long>(batch) * frames * tiles_hw;
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<int> cache[kMaxDevices];
@@ -361,8 +377,8 @@ int launch_tc(const void* x, const void* w, const void* scale,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), frames, H, W, Hc, Wc, Hp, Wp, tiles_x,
-      tiles_hw, static_cast<int>(tiles));
+      static_cast<bf16*>(out), frames, make_slab(row0, rows, H), W, Hc, Wc,
+      Wp, out0, out_rows, tiles_x, tiles_hw, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,7 +409,8 @@ stem_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int pg = tid / kChanGroups;
 
   float acc[pix_per_thread(kCTc)][8];
-  conv_tile<kCTc>(x, w, smem, bt, t, frames, H, W, cy0, cx0, acc);
+  conv_tile<kCTc>(x, w, smem, bt, t, frames, make_slab(0, H, H), W, cy0,
+                  cx0, acc);
 
   float sc[8], bi[8];
 #pragma unroll
@@ -504,8 +521,9 @@ stem_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 
   unsigned short pre[HaloC::kPerThread];
-  fetch_tile_halo<kCTc>(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames, H,
-                        W);
+  const Slab clip = make_slab(0, H, H);
+  fetch_tile_halo<kCTc>(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames,
+                        clip, W, 0);
   stash_halo<kCTc>(pre, halo);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kWarpTilesC][2][4];
@@ -521,8 +539,8 @@ stem_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nt = kt < 2 ? tile : tile + gridDim.x;
       const int nkt = kt < 2 ? kt + 1 : 0;
       if (nt < tiles)
-        fetch_tile_halo<kCTc>(pre, xs, nt, nkt, tiles_x, tiles_hw, frames, H,
-                              W);
+        fetch_tile_halo<kCTc>(pre, xs, nt, nkt, tiles_x, tiles_hw, frames,
+                              clip, W, 0);
       tuber_mma::cp_async_wait<0>();
       // frame kt's halo (and the weights) are in; the previous tile's stage
       // has been read
@@ -604,19 +622,26 @@ int launch_conv_tc(const void* x, const void* w, const void* scale,
 // name; scale and bias are float32; every pointer is device memory, w
 // 16-byte aligned. The launch goes on `stream` and does not synchronise.
 // Returns a cudaError_t. The bf16 pooled stem runs on the tensor cores, the
-// float32 one on the CUDA cores.
+// float32 one on the CUDA cores. The pooled stems take a row window: x
+// (B,T,rows,W,3) holds the global input rows [row0, row0 + rows) of a clip
+// of height H, out (B,T,out_rows,Wp,64) the global pooled rows [out0, out0 +
+// out_rows); the whole clip is row0 0, rows H, out0 0, out_rows Hp.
 extern "C" int tuber_stem_pool_bf16(const void* x, const void* w,
                                     const void* scale, const void* bias,
                                     void* out, int batch, int frames, int H,
-                                    int W, void* stream) {
-  return launch_tc(x, w, scale, bias, out, batch, frames, H, W, stream);
+                                    int W, int row0, int rows, int out0,
+                                    int out_rows, void* stream) {
+  return launch_tc(x, w, scale, bias, out, batch, frames, H, W, row0, rows,
+                   out0, out_rows, stream);
 }
 
 extern "C" int tuber_stem_pool_f32(const void* x, const void* w,
                                    const void* scale, const void* bias,
                                    void* out, int batch, int frames, int H,
-                                   int W, void* stream) {
-  return launch<float>(x, w, scale, bias, out, batch, frames, H, W, stream);
+                                   int W, int row0, int rows, int out0,
+                                   int out_rows, void* stream) {
+  return launch<float>(x, w, scale, bias, out, batch, frames, H, W, row0,
+                       rows, out0, out_rows, stream);
 }
 
 // The unpooled kernels: out (B,T,64,Hc,Wc) in x's type; relu 0 or 1. bf16

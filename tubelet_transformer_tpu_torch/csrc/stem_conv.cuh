@@ -23,6 +23,20 @@ constexpr int kThreads = 256;
 constexpr int kChanGroups = 8;                // 8 channels per thread
 constexpr int kPixGroups = kThreads / kChanGroups;   // 32
 
+// The input rows that a launch holds (spatial parallelism: a model peer's
+// rows of the clip and their halo): x holds global rows [row0, row0 + rows)
+// of a clip of height H, and a halo row is read where it lies in [lo, hi) =
+// [max(0, row0), min(H, row0 + rows)), zero elsewhere, so the zero padding
+// stays at the clip's border. The whole clip is {0, H, 0, H}.
+struct Slab {
+  int row0, rows, lo, hi;
+};
+
+__host__ __device__ inline Slab make_slab(int row0, int rows, int H) {
+  return Slab{row0, rows, row0 > 0 ? row0 : 0,
+              row0 + rows < H ? row0 + rows : H};
+}
+
 // input halo edge and conv pixels per thread of a kCT x kCT conv tile
 __host__ __device__ constexpr int halo_edge(int ct) { return 2 * (ct - 1) + 7; }
 __host__ __device__ constexpr int pix_per_thread(int ct) {
@@ -46,14 +60,14 @@ __device__ __forceinline__ int channel_of(int cg, int j) {
 }
 
 // The bare conv of conv pixels pg, pg+32, ... of the tile whose first conv
-// pixel is (cy0, cx0), in frame `bt` (= b * frames + t) of x (B,T,H,W,3);
-// w is (3,7,7,3,64). A slot past the tile's last pixel computes pixel 0 and
-// is left to the caller to ignore. Ends with a barrier-free accumulation:
-// the caller syncs before it reuses `smem`.
+// pixel is (cy0, cx0) (a global row), in frame `bt` (= b * frames + t) of x
+// (B,T,slab.rows,W,3); w is (3,7,7,3,64). A slot past the tile's last pixel
+// computes pixel 0 and is left to the caller to ignore. Ends with a
+// barrier-free accumulation: the caller syncs before it reuses `smem`.
 template <int kCT, typename T>
 __device__ __forceinline__ void conv_tile(
     const T* __restrict__ x, const T* __restrict__ w, float* smem, int bt,
-    int t, int frames, int H, int W, int cy0, int cx0,
+    int t, int frames, const Slab& slab, int W, int cy0, int cx0,
     float (&acc)[pix_per_thread(kCT)][8]) {
   constexpr int kIT = halo_edge(kCT);
   constexpr int kInElems = kIT * kIT * 3;
@@ -85,7 +99,7 @@ __device__ __forceinline__ void conv_tile(
     __syncthreads();               // the previous frame's reads are done
     const T* wk = w + kt * kWElems;
     for (int i = tid; i < kWElems; i += kThreads) w_s[i] = to_f32(wk[i]);
-    const T* xf = x + static_cast<size_t>(bt + kt - 1) * H * W * 3;
+    const T* xf = x + static_cast<size_t>(bt + kt - 1) * slab.rows * W * 3;
     for (int i = tid; i < kInElems; i += kThreads) {
       const int r = i / (kIT * 3);
       const int rem = i - r * (kIT * 3);
@@ -94,8 +108,9 @@ __device__ __forceinline__ void conv_tile(
       const int iy = iy0 + r;
       const int ix = ix0 + s;
       float v = 0.f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = to_f32(xf[(static_cast<size_t>(iy) * W + ix) * 3 + c]);
+      if (iy >= slab.lo && iy < slab.hi && ix >= 0 && ix < W)
+        v = to_f32(
+            xf[(static_cast<size_t>(iy - slab.row0) * W + ix) * 3 + c]);
       in_s[i] = v;
     }
     __syncthreads();

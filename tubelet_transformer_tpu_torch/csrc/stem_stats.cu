@@ -30,9 +30,16 @@
 // eight pixel rows of a warp, shared memory the four warps of each channel
 // group, and the block writes one partial: one per block, not per tile.
 //
-// float32 (stem_stats_partial_kernel, tests only): the direct conv of
-// stem_conv.cuh on the CUDA cores, one 16x16 conv tile per block, a 37x37x3
-// halo, 8 conv pixels per thread, one partial per tile.
+// float32 (stem_stats_partial_kernel, float32 models and tests): the direct
+// conv of stem_conv.cuh on the CUDA cores, one 16x16 conv tile per block, a
+// 37x37x3 halo, 8 conv pixels per thread, one partial per tile.
+//
+// Both kernels run on a row window (spatial parallelism, where each model
+// peer holds a band of the clip's rows): x is a slab of the clip's global
+// input rows [row0, row0 + rows) (tuber_stem::Slab), and the statistics are
+// those of the global conv rows [out0, out0 + out_rows) alone, the peer's
+// own, so that the peers' statistics average to the clip's; a conv row c
+// reads input rows 2c - 3 .. 2c + 3, zero-padded at the clip's border only.
 //
 // The variance keeps the JAX formula, E[y^2] - E[y]^2 in float32, so that
 // the port matches it; it cancels when |mean| >> std. The cross-block sums are
@@ -54,20 +61,20 @@ constexpr int kFinalSlices = 8;               // threads per output value
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 stem_stats_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          float* __restrict__ partial, int frames, int H,
-                          int W, int Hc, int Wc, int tiles_x) {
+                          float* __restrict__ partial, int frames, Slab slab,
+                          int W, int c_end, int Wc, int c0, int tiles_x) {
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y;       // b * frames + t
   const int t = bt % frames;
-  const int cy0 = (blockIdx.x / tiles_x) * kCT;
+  const int cy0 = c0 + (blockIdx.x / tiles_x) * kCT;    // a global row
   const int cx0 = (blockIdx.x % tiles_x) * kCT;
   const int cg = tid % kChanGroups;
   const int pg = tid / kChanGroups;
 
   float acc[kPixPerThread][8];
-  conv_tile<kCT>(x, w, smem, bt, t, frames, H, W, cy0, cx0, acc);
+  conv_tile<kCT>(x, w, smem, bt, t, frames, slab, W, cy0, cx0, acc);
 
   float s[8], q[8];
 #pragma unroll
@@ -75,7 +82,7 @@ stem_stats_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     const int p = pg + k * kPixGroups;
-    if (cy0 + p / kCT >= Hc || cx0 + p % kCT >= Wc) continue;
+    if (cy0 + p / kCT >= c_end || cx0 + p % kCT >= Wc) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       s[j] += acc[k][j];
@@ -156,11 +163,12 @@ static_assert(tc::kTabBytes % 8 == 0, "the reduction stays 8-byte aligned");
 // (b, t, 16x16 conv) tiles. Warp w owns channels 16 (w % 4).. and conv rows
 // 4 (w / 4).. of the tile; lane (g, t4) the columns g and g + 8 and the
 // channels 2 t4, 2 t4 + 1 of each n8 half. Writes partial[block] =
-// (sum[64], sum of squares[64]).
+// (sum[64], sum of squares[64]) over the conv rows [c0, c_end).
 __global__ void __launch_bounds__(tc::kThreadsTc, 1)
 stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     float* __restrict__ partial, int frames, int H, int W,
-                     int Hc, int Wc, int tiles_x, int tiles_hw, int tiles) {
+                     float* __restrict__ partial, int frames, Slab slab,
+                     int W, int c_end, int Wc, int c0, int tiles_x,
+                     int tiles_hw, int tiles) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* w_s = reinterpret_cast<bf16*>(smem_tc);                   // [480][72]
   unsigned short* halo =
@@ -186,7 +194,7 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   unsigned short pre[HaloS::kPerThread];
   tc::fetch_tile_halo<kCT>(pre, xs, blockIdx.x, 0, tiles_x, tiles_hw, frames,
-                           H, W);
+                           slab, W, c0);
   tc::stash_halo<kCT>(pre, halo);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kWarpTilesS][2][4];
@@ -203,7 +211,7 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nkt = kt < 2 ? kt + 1 : 0;
       if (nt < tiles)
         tc::fetch_tile_halo<kCT>(pre, xs, nt, nkt, tiles_x, tiles_hw, frames,
-                                 H, W);
+                                 slab, W, c0);
       tuber_mma::cp_async_wait<0>();
       __syncthreads();              // frame kt's halo (and the weights) are in
       tc::frame_products<kWarpTilesS, kMTilesS>(
@@ -218,12 +226,12 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // this tile's sums over its conv pixels inside the image, in float32,
     // then into the block's running sums in double
     const int rem = tile % tiles_hw;
-    const int cy0 = (rem / tiles_x) * kCT;
+    const int cy0 = c0 + (rem / tiles_x) * kCT;         // a global row
     const int cx0 = (rem % tiles_x) * kCT;
     float s[2][2] = {}, q[2][2] = {};
 #pragma unroll
     for (int i = 0; i < kWarpTilesS; ++i) {
-      if (cy0 + mg * kWarpTilesS + i >= Hc) continue;
+      if (cy0 + mg * kWarpTilesS + i >= c_end) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (cx0 + g + 8 * h >= Wc) continue;
@@ -278,16 +286,16 @@ stem_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 struct Geometry {
-  int Hc, Wc, tiles_x, tiles_hw;
+  int Wc, tiles_x, tiles_hw;
   long long tiles;                  // of every frame: B * T * tiles_hw
 };
 
-Geometry geometry(int batch, int frames, int H, int W) {
+// The tiles of `out_rows` conv rows of every frame.
+Geometry geometry(int batch, int frames, int out_rows, int W) {
   Geometry g;
-  g.Hc = (H - 1) / 2 + 1;           // conv 7 / stride 2 / pad 3
-  g.Wc = (W - 1) / 2 + 1;
+  g.Wc = (W - 1) / 2 + 1;           // conv 7 / stride 2 / pad 3
   g.tiles_x = (g.Wc + kCT - 1) / kCT;
-  g.tiles_hw = ((g.Hc + kCT - 1) / kCT) * g.tiles_x;
+  g.tiles_hw = ((out_rows + kCT - 1) / kCT) * g.tiles_x;
   g.tiles = static_cast<long long>(batch) * frames * g.tiles_hw;
   return g;
 }
@@ -312,8 +320,10 @@ cudaError_t partial_blocks(bool f32, const Geometry& g, int* blocks) {
 }
 
 int launch(bool f32, const void* x, const void* w, void* partial,
-           void* stats, int batch, int frames, int H, int W, void* stream) {
-  const Geometry g = geometry(batch, frames, H, W);
+           void* stats, int batch, int frames, int H, int W, int row0,
+           int rows, int out0, int out_rows, void* stream) {
+  const Geometry g = geometry(batch, frames, out_rows, W);
+  const Slab slab = make_slab(row0, rows, H);
   int blocks = 0;
   cudaError_t err = partial_blocks(f32, g, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -327,16 +337,17 @@ int launch(bool f32, const void* x, const void* w, void* partial,
     const dim3 grid(g.tiles_hw, batch * frames);
     stem_stats_partial_kernel<float><<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(partial), frames, H, W, g.Hc, g.Wc, g.tiles_x);
+        static_cast<float*>(partial), frames, slab, W, out0 + out_rows, g.Wc,
+        out0, g.tiles_x);
   } else {
     stem_stats_tc_kernel<<<blocks, tc::kThreadsTc, kSmemTc, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<float*>(partial), frames, H, W, g.Hc, g.Wc, g.tiles_x,
-        g.tiles_hw, static_cast<int>(g.tiles));
+        static_cast<float*>(partial), frames, slab, W, out0 + out_rows, g.Wc,
+        out0, g.tiles_x, g.tiles_hw, static_cast<int>(g.tiles));
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const double count = static_cast<double>(batch) * frames * g.Hc * g.Wc;
+  const double count = static_cast<double>(batch) * frames * out_rows * g.Wc;
   stem_stats_finalize_kernel<<<1, kFinalSlices * 2 * kCout, 0, s>>>(
       static_cast<const float*>(partial), blocks, count,
       static_cast<float*>(stats));
@@ -348,15 +359,19 @@ int launch(bool f32, const void* x, const void* w, void* partial,
 // Plain C entry points for ctypes. Every pointer is device memory; the
 // launches go on `stream` and do not synchronise. `partial` is float32 scratch
 // of tuber_stem_stats_partials(...) elements, `stats` float32 (2, 64).
-// Returns a cudaError_t.
+// Returns a cudaError_t. The statistics are those of a row window: x
+// (B,T,rows,W,3) holds the global input rows [row0, row0 + rows) of a clip
+// of height H, and the conv rows reduced are [out0, out0 + out_rows); the
+// whole clip is row0 0, rows H, out0 0, out_rows Hc.
 
-// Elements of the partial scratch for x of this shape and type (is_f32: x
-// is float32, else bf16) on the current device, or -cudaError_t.
-extern "C" int tuber_stem_stats_partials(int batch, int frames, int H, int W,
-                                         int is_f32) {
+// Elements of the partial scratch for `out_rows` conv rows of x's frames
+// of width W and this type (is_f32: x is float32, else bf16) on the
+// current device, or -cudaError_t.
+extern "C" int tuber_stem_stats_partials(int batch, int frames, int out_rows,
+                                         int W, int is_f32) {
   int blocks = 0;
-  const cudaError_t err =
-      partial_blocks(is_f32 != 0, geometry(batch, frames, H, W), &blocks);
+  const cudaError_t err = partial_blocks(
+      is_f32 != 0, geometry(batch, frames, out_rows, W), &blocks);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (blocks > 0x7fffffff / (2 * kCout))
     return -static_cast<int>(cudaErrorInvalidValue);
@@ -365,12 +380,18 @@ extern "C" int tuber_stem_stats_partials(int batch, int frames, int H, int W,
 
 extern "C" int tuber_stem_stats_bf16(const void* x, const void* w,
                                      void* partial, void* stats, int batch,
-                                     int frames, int H, int W, void* stream) {
-  return launch(false, x, w, partial, stats, batch, frames, H, W, stream);
+                                     int frames, int H, int W, int row0,
+                                     int rows, int out0, int out_rows,
+                                     void* stream) {
+  return launch(false, x, w, partial, stats, batch, frames, H, W, row0, rows,
+                out0, out_rows, stream);
 }
 
 extern "C" int tuber_stem_stats_f32(const void* x, const void* w,
                                     void* partial, void* stats, int batch,
-                                    int frames, int H, int W, void* stream) {
-  return launch(true, x, w, partial, stats, batch, frames, H, W, stream);
+                                    int frames, int H, int W, int row0,
+                                    int rows, int out0, int out_rows,
+                                    void* stream) {
+  return launch(true, x, w, partial, stats, batch, frames, H, W, row0, rows,
+                out0, out_rows, stream);
 }

@@ -61,19 +61,21 @@ struct Halo {
 };
 
 // One frame (kt = 0, 1, 2 for t-1, t, t+1) of the halo whose first input
-// row and column are (iy0, ix0) around output frame bt = b * frames + t,
-// into registers as bf16 bits; zeros outside the clip and the frame.
-// Thread i holds halo elements i, i + 512, ... (row-major).
+// row and column are (iy0, ix0) (global rows) around output frame bt = b *
+// frames + t, into registers as bf16 bits; zeros outside the clip, the
+// frame and the slab's rows (tuber_stem::Slab). Thread i holds halo elements
+// i, i + 512, ... (row-major).
 template <int CT>
 __device__ __forceinline__ void fetch_halo(
     unsigned short (&r)[Halo<CT>::kPerThread],
     const unsigned short* __restrict__ x, int bt, int kt, int iy0, int ix0,
-    int frames, int H, int W) {
+    int frames, const tuber_stem::Slab& slab, int W) {
   using Hl = Halo<CT>;
   const int tt = bt % frames + kt - 1;
   const bool frame_ok = tt >= 0 && tt < frames;
   const unsigned short* xf =
-      x + (frame_ok ? static_cast<size_t>(bt + kt - 1) * H * W * 3 : 0);
+      x + (frame_ok ? static_cast<size_t>(bt + kt - 1) * slab.rows * W * 3
+                    : 0);
 #pragma unroll
   for (int j = 0; j < Hl::kPerThread; ++j) {
     const int e = threadIdx.x + j * kThreadsTc;
@@ -82,8 +84,10 @@ __device__ __forceinline__ void fetch_halo(
     const int iy = iy0 + row;
     const int ix = ix0 + q / 3;
     unsigned short v = 0;
-    if (frame_ok && e < Hl::kElems && iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = __ldg(xf + static_cast<size_t>(iy) * W * 3 + ix0 * 3 + q);
+    if (frame_ok && e < Hl::kElems && iy >= slab.lo && iy < slab.hi &&
+        ix >= 0 && ix < W)
+      v = __ldg(xf + static_cast<size_t>(iy - slab.row0) * W * 3 + ix0 * 3 +
+                q);
     r[j] = v;
   }
 }
@@ -102,16 +106,18 @@ __device__ __forceinline__ void stash_halo(
 
 // Halo frame kt of work item `tile` of the kernels on CT x CT conv tiles that
 // do not overlap (the unpooled and the statistics kernels): tile = bt *
-// tiles_hw + the tile's index in its frame; its first input row and column
-// are 2 cy0 - 3 and 2 cx0 - 3.
+// tiles_hw + the tile's index in its frame; the tiles cover conv rows from
+// global row c0 on; a tile's first input row and column are 2 cy0 - 3 and
+// 2 cx0 - 3.
 template <int CT>
 __device__ __forceinline__ void fetch_tile_halo(
     unsigned short (&r)[Halo<CT>::kPerThread], const unsigned short* x,
-    int tile, int kt, int tiles_x, int tiles_hw, int frames, int H, int W) {
+    int tile, int kt, int tiles_x, int tiles_hw, int frames,
+    const tuber_stem::Slab& slab, int W, int c0) {
   const int bt = tile / tiles_hw;
   const int rem = tile - bt * tiles_hw;
-  fetch_halo<CT>(r, x, bt, kt, 2 * CT * (rem / tiles_x) - 3,
-                 2 * CT * (rem % tiles_x) - 3, frames, H, W);
+  fetch_halo<CT>(r, x, bt, kt, 2 * (c0 + CT * (rem / tiles_x)) - 3,
+                 2 * CT * (rem % tiles_x) - 3, frames, slab, W);
 }
 
 // B: k row (kt, kh, j) is w's row (kt, kh, kw, c) for j = 3 kw + c < 21,

@@ -53,6 +53,18 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
 * Data parallelism (``set_rank_mean``): every train-mode BN, the frozen
   stem's kernel statistics included, normalises by the global batch's
   statistics, the mean over ranks of each rank's float32 (E[x], E[x^2]).
+* Spatial parallelism (``set_spatial``, ``MESH.SPATIAL``): the trunk takes
+  this model peer's band of the clip's rows (``Mesh.own_rows``) and
+  returns the band of its output. The stem runs on a slab of its rows and
+  the 5 above and 2 below that its pooled rows read (``Mesh.halo_exchange``;
+  the kernels on a ``RowWindow``); each depthwise conv takes 1 row from
+  each neighbour (1 from above alone at stride 2), the clip's border
+  zero-padded, and keeps its own output rows; in eval a fused block takes
+  1 row each side and a chain of k blocks k rows, their output cropped,
+  and a chain is cut to at most the peer's rows. Every other op is row by
+  row. Each BN's batch statistics are those of the peer's own rows,
+  averaged over every rank by ``rank_mean``. The kernels' dispatch
+  predicates read the clip's full height, as one process does.
 """
 
 from __future__ import annotations
@@ -73,7 +85,8 @@ from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
 from tubelet_transformer_tpu_torch.ops.cuda.stage import (
     bottleneck_chain, chain_supported, max_chain)
 from tubelet_transformer_tpu_torch.ops.cuda.stem import (
-    stem_batch_stats, stem_forward)
+    POOL_HALO, conv_window, peer_window, pool_conv_rows, pool_window,
+    stem_batch_stats, stem_forward, stem_window)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1   # torch convention; flax momentum 0.9
@@ -106,6 +119,34 @@ def _remat_contexts():
     """``checkpoint``'s context_fn: nothing around the forward; around the
     recompute, the flag that keeps the BN running statistics still."""
     return contextlib.nullcontext(), _recomputing()
+
+
+def spatial_rows(height: int, block_nums: Sequence[int], last_stride: bool,
+                 model: int) -> list:
+    """A peer's rows at the input of the stem and of each stage when a
+    clip of ``height`` rows splits over ``model`` peers (MESH.SPATIAL).
+    Raises ValueError naming the first stage whose rows do not split into
+    equal bands that its convs can take: the stem needs bands of a
+    multiple of 4 rows and at least 8 (its pooled rows read 5 rows above),
+    a stride-2 stage an even band."""
+    if height % model or (height // model) % 4 or height // model < 8:
+        raise ValueError(
+            f"MESH.SPATIAL: the stem's input of {height} rows does not split "
+            f"over MESH.MODEL {model} into equal bands of a multiple of 4 "
+            "rows, 8 or more")
+    rows = [height // model, height // model // 4]
+    for s, blocks in enumerate(block_nums):
+        stride = 1 if s == 0 or (s == 3 and not last_stride) else 2
+        if not blocks:
+            continue
+        if rows[-1] % stride:
+            raise ValueError(
+                f"MESH.SPATIAL: layer{s + 1}'s input of "
+                f"{rows[-1] * model} rows splits over MESH.MODEL {model} "
+                f"into {rows[-1]} rows a peer, odd where its stride-2 conv "
+                "needs them even")
+        rows.append(rows[-1] // stride)
+    return rows
 
 
 def channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -239,6 +280,9 @@ class DepthwiseConv3d(nn.Conv3d):
     50 depthwise convs, bf16, on an NVIDIA H100 80GB HBM3 at a 700 W power
     limit)."""
 
+    # MESH.SPATIAL: the mesh whose model peers split the rows (set_spatial)
+    spatial = None
+
     def __init__(self, features: int, stride=(1, 1, 1),
                  use_pallas: bool = False):
         super().__init__(features, features, 3, stride=stride, padding=1,
@@ -251,6 +295,8 @@ class DepthwiseConv3d(nn.Conv3d):
         return self.weight.reshape(c, 27).t().reshape(3, 3, 3, c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:
+            return self._forward_rows(x, self.spatial)
         if self.use_pallas and depthwise_supported(x.shape, self.stride):
             return depthwise_conv3x3x3(
                 x.contiguous(), cast(self.kernel_weight(), x).contiguous())
@@ -258,11 +304,49 @@ class DepthwiseConv3d(nn.Conv3d):
                                cast(self.weight, x), None)
         return channels_last(y).contiguous()
 
+    def _forward_rows(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """This peer's output rows from its input rows x: 1 row from the
+        peer above, and at stride 1 from the one below, the clip's border
+        padded with zero rows, then the conv with no padding along H (a
+        stride-2 slab starts one row above the peer's even first row)."""
+        below = int(self.stride[1] == 1)
+        x = mesh.halo_exchange(x, 1, below)
+        first, last = mesh.model_index == 0, mesh.model_index == mesh.model - 1
+        x = F.pad(x, (0, 0, 0, 0, int(first), below * int(last)))
+        if self.use_pallas and depthwise_supported(x.shape, self.stride):
+            y = depthwise_conv3x3x3(
+                x.contiguous(), cast(self.kernel_weight(), x).contiguous())
+            return y[:, :, 1:-1].contiguous()
+        y = F.conv3d(channels_first(x).contiguous(), cast(self.weight, x),
+                     None, self.stride, (1, 0, 1), groups=self.groups)
+        return channels_last(y).contiguous()
+
+
+def full_shape(x: torch.Tensor, mesh) -> tuple:
+    """x's shape with the clip's full height when the model peers of
+    ``mesh`` split the rows (None: x's own): what a kernel's dispatch
+    predicate reads, as in one process."""
+    b, t, h, w, c = x.shape
+    return (b, t, h if mesh is None else h * mesh.model, w, c)
+
+
+def halo_run(x: torch.Tensor, mesh, k: int, fn: Callable) -> torch.Tensor:
+    """``fn`` (a row-local op with k stacked depthwise convs, zero-padded
+    at its input's edge) on this peer's rows x and k rows of each
+    neighbour, cropped back to this peer's rows: the rows within k of a
+    slab edge that is not the clip's border read past it, and go."""
+    h = x.shape[2]
+    top = k if mesh.model_index > 0 else 0
+    return fn(mesh.halo_exchange(x, k, k).contiguous())[:, :, top:top + h]
+
 
 class CSNBottleneck(nn.Module):
     """ir-bottleneck: 1x1x1 -> depthwise 3x3x3 -> 1x1x1, each + BN (+ReLU),
     with a projection shortcut on the first block of a stage; in eval with
     ``fused_blocks``, one fused call where ``bottleneck_supported``."""
+
+    # MESH.SPATIAL: the mesh whose model peers split the rows (set_spatial)
+    spatial = None
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  temporal_stride: int = 1, has_downsample: bool = False,
@@ -302,9 +386,13 @@ class CSNBottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.fused_blocks and not self.training and bottleneck_supported(
-                x.shape, self.planes, self.stride, self.temporal_stride,
-                self.down_sample is not None)):
-            return bottleneck_fused(x, *self.fused_params())
+                full_shape(x, self.spatial), self.planes, self.stride,
+                self.temporal_stride, self.down_sample is not None)):
+            if self.spatial is None:
+                return bottleneck_fused(x, *self.fused_params())
+            return halo_run(x, self.spatial, 1,
+                            lambda t: bottleneck_fused(t,
+                                                       *self.fused_params()))
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn3(self.conv3(out)))
         out = self.bn4(self.conv4(out))
@@ -324,6 +412,9 @@ class CSN(nn.Module):
     ``remat`` act in training only (``TRAIN.FROZEN_CHUNK``,
     ``TRAIN.REMAT_BACKBONE``)."""
 
+    # MESH.SPATIAL: the mesh whose model peers split the rows (set_spatial)
+    spatial = None
+
     def __init__(self, block_nums: Sequence[int] = (3, 8, 36, 3),
                  last_stride: bool = True, stem_kernel: bool = True,
                  stop_grad_stage: int = -1, use_pallas: bool = False,
@@ -331,6 +422,7 @@ class CSN(nn.Module):
                  frozen_chunk: int = 0, remat: bool = False):
         super().__init__()
         self.block_nums = tuple(block_nums)
+        self.last_stride = last_stride
         self.stem_kernel = stem_kernel
         self.stop_grad_stage = stop_grad_stage
         self.fused_stages = fused_stages
@@ -368,6 +460,14 @@ class CSN(nn.Module):
         for m in self.modules():
             if isinstance(m, FoldableBN):
                 m.rank_mean = rank_mean
+
+    def set_spatial(self, mesh) -> None:
+        """The trunk, its depthwise convs and its blocks on this peer's
+        rows of ``mesh``'s split (MESH.SPATIAL), their halo exchanges over
+        its model group; None for the whole clip."""
+        for m in self.modules():
+            if isinstance(m, (CSN, CSNBottleneck, DepthwiseConv3d)):
+                m.spatial = mesh
 
     def kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The stem weight in the kernels' (3,7,7,3,64) layout and ``dtype``,
@@ -420,24 +520,51 @@ class CSN(nn.Module):
             return layer(x)
         x = layer[0](x)
         planes = layer[0].planes
-        if not chain_supported(x.shape, planes):
+        if not chain_supported(full_shape(x, self.spatial), planes):
             return layer[1:](x)
         kmax = max_chain(x.shape[2] * x.shape[3], planes * 4, planes)
+        if self.spatial is not None:
+            # a chain of k blocks reads k rows of each neighbour, who hold
+            # x.shape[2]
+            kmax = min(kmax, x.shape[2])
         for stacked in self.chain_params(s, kmax):
-            x = bottleneck_chain(x, *stacked)
+            if self.spatial is None:
+                x = bottleneck_chain(x, *stacked)
+            else:
+                x = halo_run(x, self.spatial, stacked[0].shape[0],
+                             lambda t: bottleneck_chain(t, *stacked))
         return x
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1, bn1, ReLU and the max-pool on the whole clip x, or with
+        the rows split (MESH.SPATIAL) on this peer's rows x: then on the
+        slab of its rows and the halo its pooled rows read, returning its
+        pooled rows, the batch statistics (the kernel's, or the plain
+        BN's) over its own conv rows alone, averaged over every rank. The
+        whole clip is the window of all its rows, the kernels' default."""
+        mesh = self.spatial
+        if mesh is None:
+            slab, win = x, stem_window(x, None, pooled=True)
+            pool_win = stats_win = ()
+        else:
+            h = x.shape[2]
+            height, first = h * mesh.model, mesh.model_index * h
+            slab = mesh.halo_exchange(x, *POOL_HALO).contiguous()
+            win = peer_window(first, h, height, pooled=True)
+            pool_win = (win,)
+            stats_win = (peer_window(first, h, height, pooled=False,
+                                     top=POOL_HALO[0]),)
         if self.stem_kernel and not self.training and x.is_cuda:
             mul, shift = self.bn1.folded()
-            return stem_forward(x, self.kernel_weight(x.dtype), mul, shift)
+            return stem_forward(slab, self.kernel_weight(x.dtype), mul, shift,
+                                *pool_win)
         if self.stem_kernel and self.training and self.stop_grad_stage >= 0:
             # frozen stem in training (csn.py:339-370 of the JAX package):
             # phase 1 the batch statistics of the bare conv, phase 2 the
             # pooled kernel with the batch affine; nothing differentiates
             w = self.kernel_weight(x.dtype)
-            x = x.detach()
-            mean, var = stem_batch_stats(x, w)
+            slab = slab.detach()
+            mean, var = stem_batch_stats(slab, w, *stats_win)
             if self.bn1.rank_mean is not None:
                 # the global statistics from each rank's: E[y^2] rebuilt as
                 # var + mean^2 in float32 is the kernel's own float32
@@ -447,14 +574,24 @@ class CSN(nn.Module):
                     torch.stack([mean, var + mean.square()])).unbind()
                 var = msq - mean.square()
             mul, shift = self.bn1.batch_affine(mean, var)
-            return stem_forward(x, w, mul.detach(), shift.detach())
-        x = channels_last(self.conv1._conv_forward(
-            channels_first(x), cast(self.conv1.weight, x), None))
-        x = F.relu(self.bn1(x))
-        return channels_last(F.max_pool3d(channels_first(x), (1, 3, 3),
-                                          (1, 2, 2), (0, 1, 1)))
+            return stem_forward(slab, w, mul.detach(), shift.detach(),
+                                *pool_win)
+        c0, c1 = pool_conv_rows(win)
+        y = channels_last(conv_window(slab, cast(self.conv1.weight, x),
+                                      win.row0, win.height, c0, c1))
+        if self.training:
+            own = y[:, :, 2 * win.out0 - c0:2 * (win.out0 + win.out_rows) - c0]
+            mul, shift = self.bn1.batch_affine(
+                *batch_stats(own, self.bn1.rank_mean))
+        else:
+            mul, shift = self.bn1.folded()
+        y = F.relu(torch.addcmul(shift.to(y.dtype), y, mul.to(y.dtype)))
+        return channels_last(pool_window(channels_first(y), win, c0, c1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:
+            spatial_rows(x.shape[2] * self.spatial.model, self.block_nums,
+                         self.last_stride, self.spatial.model)
         frozen = self.stop_grad_stage if self.training else -1
         b, ck, start = x.shape[0], self.frozen_chunk, 0
         if frozen >= 0 and 0 < ck < b and b % ck == 0:

@@ -98,9 +98,14 @@ class Backbone(nn.Module):
 class TubeR(nn.Module):
     """Clips (B,T,H,W,3) normalised RGB + pad mask (B,H,W) -> detections.
     ``tp``: the mesh whose 'model' axis the model is split over
-    (``parallel.sharding_rules.shard_model``), else None."""
+    (``parallel.sharding_rules.shard_model``), else None. ``spatial``
+    (MESH.SPATIAL, ``set_spatial``): the mesh whose model peers split the
+    clip's rows through the trunk, else None; the forward then takes this
+    peer's rows of the clips (``Mesh.own_rows``) and the whole pad mask,
+    and gathers the trunk's output rows before the temporal pool."""
 
     tp = None
+    spatial = None
 
     def __init__(self, num_classes: int = 80, num_queries: int = 15,
                  hidden_dim: int = 256, nhead: int = 8, enc_layers: int = 6,
@@ -158,6 +163,12 @@ class TubeR(nn.Module):
             self.lfb_proj = Linear(hidden_dim, hidden_dim)
             self.lfb_attn = MultiHeadAttention(hidden_dim, 8, dropout)
             self.lfb_norm = layer_norm(hidden_dim)
+
+    def set_spatial(self, mesh) -> None:
+        """Split the clip's rows over ``mesh``'s model peers through the
+        trunk (None: the whole clip on every peer)."""
+        self.spatial = mesh
+        self.backbone.body.set_spatial(mesh)
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
                               ) -> None:
@@ -218,6 +229,8 @@ class TubeR(nn.Module):
         load-balance counts over ranks (``Mesh.count_sum``; None: this
         batch alone), so that ``moe_aux`` is this rank's share."""
         b, _, h_in, w_in, _ = clips.shape
+        if self.spatial is not None:
+            h_in *= self.spatial.model
         if clips.dtype != self.dtype:
             clips = clips.to(self.dtype)
         if pad_mask is None:
@@ -226,6 +239,8 @@ class TubeR(nn.Module):
         e = self.hidden_dim
 
         xt = self.backbone.body(clips)                   # (B,T',H',W',2048)
+        if self.spatial is not None:
+            xt = self.spatial.gather_height(xt)
         xs = self._temporal_pool(xt)                     # (B,t,H',W',2048)
         _, t, h, w, _ = xs.shape
 
@@ -340,7 +355,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
     and the MoE routers float32). With a ``mesh`` (``parallel.mesh.Mesh``)
     whose 'model' axis has more than one peer, the full model is then
     split over it (``parallel.sharding_rules.shard_model``): the weight
-    files load unchanged."""
+    files load unchanged; with ``mesh.spatial`` beside it (MESH.SPATIAL)
+    the model peers also split the clip's rows (``TubeR.set_spatial``)."""
     m = cfg.model
     if cfg.mesh.pipe > 1:
         raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
@@ -387,4 +403,6 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
             shard_model)
 
         shard_model(model, mesh)
+    if mesh is not None and mesh.spatial:
+        model.set_spatial(mesh)
     return model

@@ -36,6 +36,29 @@ one model index): over the world they would count each shard ``model``
 times. ``create_mesh`` makes the data and model groups (every rank makes
 every group, in one order) and keeps them for the process.
 
+Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, ``Mesh.spatial``):
+the model peers of a data shard split the clip's H axis instead of running
+the whole CSN trunk each, every peer its ``H / model`` rows (``own_rows``).
+What GSPMD inserts for the JAX package's H-sharded clips is written here
+by hand:
+
+* ``Mesh.halo_exchange`` before each conv that reads its neighbours' rows:
+  the rows above from the peer above, the rows below from the peer below,
+  nothing at the clip's border; backward, each halo row's gradient goes
+  back to its owner and is added there;
+* ``Mesh.batch_mean`` over every rank (data x model): each peer holds a
+  1/model piece of its shard's pixels, all pieces the same size;
+* ``Mesh.gather_height`` after the trunk: the full feature map on every
+  peer, from which the tensor-parallel transformer runs as under
+  ``MESH.MODEL``; backward, this peer's rows of the gradient;
+* the trunk's parameter gradients, each peer's partial sum over its rows,
+  summed over the model group (``trunk_sum``; the parameters are those of
+  ``sharding_rules.spatial_partial``).
+
+Each is an exchange over the model group by ``all_gather_into_tensor``,
+which gloo and NCCL both carry for CUDA tensors (gloo's point-to-point
+``send``/``recv`` takes CPU tensors alone).
+
 Device tensors travel over the default process group (NCCL, or gloo, which
 carries ``all_reduce``, ``broadcast`` and ``all_gather_into_tensor`` of
 CUDA tensors); host data (eval detections, the stop flag, the run stamp,
@@ -159,6 +182,80 @@ def data_shard(model: int = 1) -> tuple[int, int]:
     return process_index() // model, process_count() // model
 
 
+def _all_gather(t: torch.Tensor, n: int,
+                group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """(n, *t.shape): every model peer's ``t`` in peer order, in one
+    ``all_gather_into_tensor`` over ``group``."""
+    t = t.contiguous()
+    out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out.view(-1), t.view(-1), group=group)
+    return out
+
+
+class _HaloExchange(torch.autograd.Function):
+    """The H rows of a channels-last (B,T,h,W,C) tensor with ``top`` rows
+    of the peer above before them and ``bottom`` rows of the peer below
+    after them (none at the clip's border): each peer sends its first
+    ``bottom`` and last ``top`` rows to all, in one all-gather. Backward,
+    the gradient of each halo row goes back to its owner, which adds it to
+    its own row's, in one all-gather of the halo gradients (zeros where a
+    peer has no neighbour)."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, index, n, group):
+        ctx.args = (top, bottom, index, n, group)
+        h = x.shape[2]
+        parts = _all_gather(torch.cat([x[:, :, :bottom], x[:, :, h - top:]],
+                                      2), n, group)
+        rows = [parts[index - 1][:, :, bottom:]] if index > 0 else []
+        rows.append(x)
+        if index < n - 1:
+            rows.append(parts[index + 1][:, :, :bottom])
+        return torch.cat(rows, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        top, bottom, index, n, group = ctx.args
+        t = top if index > 0 else 0
+        h = grad.shape[2] - t - (bottom if index < n - 1 else 0)
+        back = grad.new_zeros((*grad.shape[:2], top + bottom,
+                               *grad.shape[3:]))
+        if index > 0:
+            back[:, :, :top] = grad[:, :, :t]
+        if index < n - 1:
+            back[:, :, top:] = grad[:, :, t + h:]
+        parts = _all_gather(back, n, group)
+        gx = grad[:, :, t:t + h].clone(memory_format=torch.contiguous_format)
+        if index < n - 1 and top:
+            gx[:, :, h - top:] += parts[index + 1][:, :, :top]
+        if index > 0 and bottom:
+            gx[:, :, :bottom] += parts[index - 1][:, :, top:]
+        return gx, None, None, None, None, None
+
+
+class _GatherHeight(torch.autograd.Function):
+    """The model peers' (B,T,h,W,C) row bands, concatenated along H in
+    peer order: one all-gather. Backward, this peer's band of the
+    gradient alone. That is the whole gradient only because the gradient
+    that reaches the gathered tensor is the same on every peer: every
+    peer computes the same loss from it, and where it enters a split
+    region "f" (``_CopyToModel``) has summed the peers' partial gradients.
+    Summing over the peers here would count it ``model`` times."""
+
+    @staticmethod
+    def forward(ctx, x, index, n, group):
+        ctx.index, ctx.h = index, x.shape[2]
+        b, t, h = x.shape[:3]
+        parts = _all_gather(x, n, group)          # (n, B, T, h, W, C)
+        return parts.permute(1, 2, 0, 3, 4, 5).reshape(
+            b, t, n * h, *x.shape[3:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        a = ctx.index * ctx.h
+        return grad[:, :, a:a + ctx.h].contiguous(), None, None, None
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a group's ranks of a device tensor; the gradient of each
     rank's input is the sum over the ranks of the gradients of the outputs,
@@ -236,12 +333,20 @@ class Mesh:
     ``data_index * model + model_index``. With ``data`` 1 every data
     reduction is the identity, with ``model`` 1 every model operator. The
     first three methods are the three roles a reduction over the data
-    group plays in the train step, the last two Megatron's operators over
-    the model group."""
+    group plays in the train step, the next two Megatron's operators over
+    the model group, the rest spatial parallelism's (``spatial``: the
+    model peers split the clip's rows through the trunk)."""
 
     data: int = 1
     rank: int = 0
     model: int = 1
+    # MESH.SPATIAL: the model peers split the clip's rows through the
+    # trunk; a no-op at one model peer, where it reads False
+    spatial: bool = False
+
+    def __post_init__(self):
+        if self.model == 1:
+            object.__setattr__(self, "spatial", False)
 
     @property
     def data_index(self) -> int:
@@ -265,7 +370,10 @@ class Mesh:
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
         """Mean over the data shards of a batch statistic (BN's mean and
-        E[x^2])."""
+        E[x^2]); with the rows split, over every rank, each a piece of
+        its shard's pixels."""
+        if self.spatial:
+            return all_reduce_sum(t) / (self.data * self.model)
         return (t if self.data == 1
                 else all_reduce_sum(t, self.data_group) / self.data)
 
@@ -289,6 +397,53 @@ class Mesh:
         return (t if self.model == 1
                 else _ReduceFromModel.apply(t, self.model_group))
 
+    def own_rows(self, height: int) -> tuple[int, int]:
+        """(first, count): this peer's rows of ``height`` with the rows
+        split (all of them otherwise); ValueError unless they split
+        evenly."""
+        if not self.spatial:
+            return 0, height
+        if height % self.model:
+            raise ValueError(f"{height} rows do not split over MESH.MODEL "
+                             f"{self.model}")
+        h = height // self.model
+        return self.model_index * h, h
+
+    def halo_exchange(self, x: torch.Tensor, top: int, bottom: int
+                      ) -> torch.Tensor:
+        """Channels-last (B,T,h,W,C) x, this peer's rows, with ``top``
+        rows of the peer above before them and ``bottom`` rows of the peer
+        below after them, none at the clip's border (differentiable; x
+        itself with the rows not split)."""
+        h = x.shape[2]
+        if not self.spatial or top == bottom == 0:
+            return x
+        if max(top, bottom) > h:
+            raise ValueError(f"a halo of {top} and {bottom} rows from peers "
+                             f"of {h} rows")
+        return _HaloExchange.apply(x, top, bottom, self.model_index,
+                                   self.model, self.model_group)
+
+    def gather_height(self, x: torch.Tensor) -> torch.Tensor:
+        """The model peers' (B,T,h,W,C) row bands as the full (B,T,
+        model*h,W,C) tensor (differentiable; x itself with the rows not
+        split)."""
+        if not self.spatial:
+            return x
+        return _GatherHeight.apply(x, self.model_index, self.model,
+                                   self.model_group)
+
+    def trunk_sum(self, grads: List[torch.Tensor]) -> None:
+        """Sum, in place, the model peers' partial gradients of the
+        trunk's parameters (each peer's over its own rows), in one
+        all-reduce of the model group; nothing with the rows not split."""
+        if not self.spatial or not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.model_group)
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
 
 def _make_groups(data: int, model: int) -> None:
     """Every data group and every model group of a data x model mesh,
@@ -301,13 +456,16 @@ def _make_groups(data: int, model: int) -> None:
             _GROUPS[ranks] = dist.new_group(list(ranks), timeout=TIMEOUT)
 
 
-def create_mesh(data: int = -1, model: int = 1, pipe: int = 1) -> Mesh:
+def create_mesh(data: int = -1, model: int = 1, pipe: int = 1,
+                spatial: bool = False) -> Mesh:
     """The mesh of ``MESH.DATA`` x ``MESH.MODEL`` x ``MESH.PIPE`` over the
     processes: ``data`` -1 takes what ``model`` leaves. Raises
     NotImplementedError for a 'pipe' axis (not ported) and ValueError when
     the product is not the number of processes, as the JAX package does.
     With both axes above 1, makes the data and model groups (a collective
-    call: every rank makes the same mesh)."""
+    call: every rank makes the same mesh). ``spatial`` (MESH.SPATIAL): the
+    model peers split the clip's rows; a no-op at ``model`` 1, as in
+    JAX."""
     if pipe > 1:
         raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
     n = process_count()
@@ -318,7 +476,8 @@ def create_mesh(data: int = -1, model: int = 1, pipe: int = 1) -> Mesh:
                          f"PIPE) != {n} processes")
     if data > 1 and model > 1:
         _make_groups(data, model)
-    return Mesh(data=data, rank=process_index(), model=model)
+    return Mesh(data=data, rank=process_index(), model=model,
+                spatial=spatial)
 
 
 def barrier() -> None:

@@ -117,6 +117,25 @@ def param_shardings(model: nn.Module, mesh: Mesh
     return out
 
 
+# the CSN trunk's parameters: with the clip's rows split over the model
+# peers (MESH.SPATIAL), each peer's gradient of one is its rows' share
+TRUNK = "backbone.body."
+
+
+def spatial_partial(name: str) -> bool:
+    """Whether, with the clip's rows split over the model peers
+    (MESH.SPATIAL), a peer's gradient of parameter ``name`` is a partial
+    sum over its own rows, to be summed over the model group
+    (``Mesh.trunk_sum``): the trunk's parameters. Every other gradient is
+    whole on each peer already: a replicated parameter's because "f" has
+    summed the peers' partial gradients where it enters a split region
+    (summing again would count it ``model`` times), a split one's because
+    it is the peer's own slice. After the sum the trunk's gradients are
+    replicated like any other replicated parameter's, which the clip's
+    norm and ZeRO-1 take them for."""
+    return name.startswith(TRUNK)
+
+
 def split_params(model: nn.Module) -> Dict[str, Split]:
     """The split parameters of a sharded model, by name."""
     return {k: p.tp_split for k, p in model.named_parameters()

@@ -61,7 +61,7 @@ from tubelet_transformer_tpu_torch.serving import (StreamingDetector,
                                                    StreamingDetectorPool,
                                                    follow)
 from tubelet_transformer_tpu_torch.tools import dp_check
-from tubelet_transformer_tpu_torch.tools.tp_check import _rebind
+from tubelet_transformer_tpu_torch.tools.tp_check import _rebind, eval_launches
 
 MAX_BATCH = 8
 # the streams' start ticks: 8 start at 0, 4 at 2, 2 at 4 and 1 at 6, so
@@ -88,13 +88,6 @@ def stream_frames(i: int) -> list:
             for _ in range(FRAMES_PER_STREAM)]
 
 
-def _launches() -> dict:
-    from tubelet_transformer_tpu_torch.ops.cuda import depthwise, stage, stem
-
-    return {"stem_pool": stem.LAUNCHES, "depthwise": depthwise.LAUNCHES,
-            "chain": stage.LAUNCHES}
-
-
 def _digest(outs) -> str:
     return hashlib.sha256(b"".join(np.ascontiguousarray(o).tobytes()
                                    for o in outs)).hexdigest()
@@ -107,9 +100,9 @@ def record_forwards(phase: list, forwards: list):
     forward = StreamingDetector._forward
 
     def recording(self, clip_u8, *rest):
-        before = _launches()
+        before = eval_launches()
         outs = forward(self, clip_u8, *rest)
-        after = _launches()
+        after = eval_launches()
         forwards.append({"phase": phase[0], "rows": len(clip_u8),
                          "launches": {k: after[k] - before[k]
                                       for k in after},

@@ -27,7 +27,8 @@ state it runs:
   ``model`` times its gradient. Its forward, and so its losses and batch
   statistics, are the step's own: the gradient readings tell it apart;
 * ``peers``: two steps, after each a digest of every replicated parameter
-  and every buffer of each rank, which must equal its model peers';
+  and every buffer of each rank, which must equal its model peers'
+  (``peers_agree``, also after the step and after each control);
 * ``single`` (rank 0 alone): the one-process step of the full model on
   the whole batch.
 
@@ -44,6 +45,25 @@ off; ``--timed-steps`` times the first), ``--moe`` once more with
 ``MODEL.MOE_EXPERTS 4`` and ``MOE_TOP_K 2`` (expert parallelism: 2 experts
 a peer at MODEL 2), in float32 when it is among the dtypes.
 
+``--spatial`` (MESH.SPATIAL): the step on the mesh splits the clip's rows
+over the model peers through the trunk, and its two controls take the
+place of "g"'s: ``zero_halo``, every halo row a zero row (no exchange),
+and ``no_trunk_sum``, the trunk's gradients left as each peer's share
+over its rows. On the card each rank also reports its peak device memory
+above the start of a spatial step (the peers' first) and of the
+MODEL-only step (the same model on the whole clip). With ``--eval-stages`` each rank then runs the
+eval step of the eval build with MODEL.PALLAS_KERNELS and FUSED_STAGES
+(the stage path) on its data shard, under the mesh and under the
+zero-halo control, with the stem, depthwise and chain launches of each,
+and rank 0 the one-process eval step on the whole batch: the largest
+differences of scores, actor probabilities and boxes (over the clip's
+side) of rank 0's rows.
+
+``--floors``: rank 0 also runs ``floors``, the one-process step's own
+spread beside which every reading stands: the one-process step on the
+batch's samples in the other order (the same sums rounded in another
+order), and for bf16 the one-process step in float32.
+
 ``--zero1`` (with ``--data`` above 1): each case also runs
 ``dp_check.zero1_check`` on the mesh, from the same state and on the same
 shard: two steps of the DATA x MODEL step, of the same step with
@@ -58,6 +78,7 @@ figure from the shapes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import hashlib
 import os
@@ -66,6 +87,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from tubelet_transformer_tpu_torch.config import Config
 from tubelet_transformer_tpu_torch.models.layers import Dropout
@@ -85,6 +107,34 @@ class SumAgainMesh(mesh_lib.Mesh):
                 else mesh_lib.all_reduce_sum(t, self.model_group))
 
 
+class ZeroHaloMesh(mesh_lib.Mesh):
+    """The spatial control: zero rows in place of the neighbours' halo
+    rows, nothing exchanged."""
+
+    def halo_exchange(self, x, top, bottom):
+        if not self.spatial:
+            return x
+        return F.pad(x, (0, 0, 0, 0, top * (self.model_index > 0),
+                         bottom * (self.model_index < self.model - 1)))
+
+
+class NoTrunkSumMesh(mesh_lib.Mesh):
+    """The spatial control: the trunk's gradients left as each peer's
+    share over its own rows, not summed over the model group."""
+
+    def trunk_sum(self, grads):
+        return None
+
+
+def controls(mesh: mesh_lib.Mesh) -> dict:
+    """The controls of the check on ``mesh``, by name, each on a mesh of
+    its class in the same place."""
+    kinds = ({"zero_halo": ZeroHaloMesh, "no_trunk_sum": NoTrunkSumMesh}
+             if mesh.spatial else {"control": SumAgainMesh})
+    return {k: c(mesh.data, mesh.rank, mesh.model, mesh.spatial)
+            for k, c in kinds.items()}
+
+
 def _no_dropout(model) -> None:
     for m in model.modules():
         if isinstance(m, Dropout):
@@ -92,10 +142,13 @@ def _no_dropout(model) -> None:
 
 
 def _rebind(model, mesh: mesh_lib.Mesh) -> None:
-    """Every split module of ``model`` (and the model) on ``mesh``."""
+    """Every split module of ``model`` (and the model) on ``mesh``, and
+    the split of the clip's rows where the model has one."""
     for m in model.modules():
         if getattr(m, "tp", None) is not None:
             m.tp = mesh
+    if getattr(model, "spatial", None) is not None:
+        model.set_spatial(mesh)
 
 
 def replicated_digest(model) -> str:
@@ -111,24 +164,47 @@ def replicated_digest(model) -> str:
     return h.hexdigest()
 
 
+def peers_agree(model, mesh: mesh_lib.Mesh) -> bool:
+    """Whether every rank's replicated parameters and buffers equal its
+    model peers' bit for bit now (the same on every rank)."""
+    every = mesh_lib.all_gather_objects(replicated_digest(model))
+    return all(d == every[r - r % mesh.model] for r, d in enumerate(every))
+
+
+def _peak_above_start(device: torch.device, fn) -> Optional[int]:
+    """``fn()``; on the card, the peak device memory (bytes) above what was
+    allocated when it started; None on the CPU."""
+    if device.type != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize(device)
+    start = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) - start
+
+
 def peer_check(cfg: Config, model, initial: dict, batch: dict,
-               mesh: mesh_lib.Mesh, steps: int = 2) -> list:
+               mesh: mesh_lib.Mesh, steps: int = 2,
+               peak: Optional[list] = None) -> list:
     """``steps`` train steps from ``initial``; after each, whether every
     rank's replicated parameters and buffers equal those of its model
-    peers bit for bit (the same on every rank)."""
+    peers bit for bit (the same on every rank). ``peak``: a list that gets
+    the first step's ``_peak_above_start``."""
     sharding_rules.load_full_state(model, initial)
     state = engine.create_train_state(cfg, model, steps_per_epoch=10,
                                       mesh=mesh)
     step = engine.make_train_step(cfg, state, mesh=mesh)
-    db = engine.device_batch(batch, next(model.parameters()).device)
-    digests = []
-    for _ in range(steps):
-        step(db, cfg.loss.dice_cof)
-        digests.append(replicated_digest(model))
-    every = mesh_lib.all_gather_objects(digests)
-    lead = [r - r % mesh.model for r in range(len(every))]
-    return [all(every[r][s] == every[lead[r]][s] for r in range(len(every)))
-            for s in range(steps)]
+    device = next(model.parameters()).device
+    db = engine.device_batch(batch, device)
+    agree = []
+    for i in range(steps):
+        bytes_ = _peak_above_start(device, lambda: step(db, cfg.loss.dice_cof))
+        if i == 0 and peak is not None:
+            peak.append(bytes_)
+        agree.append(peers_agree(model, mesh))
+    return agree
 
 
 def model_reduces(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh
@@ -180,30 +256,158 @@ def timings(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh,
                                        for t in bufs) / 1e6}
 
 
+def model_only_peak(cfg: Config, model, initial: dict, batch: dict,
+                    mesh: mesh_lib.Mesh) -> Optional[int]:
+    """On the card, this rank's peak device memory (bytes) above the start
+    of one train step from ``initial`` on ``mesh`` with the rows whole (the
+    MODEL-only step: the model's split of the rows lifted for it); None on
+    the CPU."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        return None
+    whole = mesh_lib.Mesh(mesh.data, mesh.rank, mesh.model)
+    model.set_spatial(None)
+    try:
+        sharding_rules.load_full_state(model, initial)
+        state = engine.create_train_state(cfg, model, steps_per_epoch=10,
+                                          mesh=whole)
+        step = engine.make_train_step(cfg, state, mesh=whole)
+        db = engine.device_batch(batch, device)
+        return _peak_above_start(device, lambda: step(db, cfg.loss.dice_cof))
+    finally:
+        model.set_spatial(mesh)
+
+
+def eval_launches() -> dict:
+    """The launches so far of the kernels of the stage path's eval
+    forward: the pooled stem, the depthwise and the stage chain."""
+    from tubelet_transformer_tpu_torch.ops.cuda import depthwise, stage, stem
+
+    return {"stem_pool": stem.LAUNCHES, "depthwise": depthwise.LAUNCHES,
+            "chain": stage.LAUNCHES}
+
+
+@torch.inference_mode()
+def eval_forward(model, batch: dict, mesh: mesh_lib.Mesh) -> dict:
+    """The eval forward of ``model`` on ``batch`` (on its device), as the
+    eval step runs it (the whole clip preprocessed, this peer's rows
+    kept): its class and actor probabilities and its boxes, on the
+    CPU."""
+    clips = engine.keep_rows(engine.device_preprocess(
+        batch["clips"], dtype=model.dtype, pad_mask=batch["pad_mask"]), mesh)
+    out = model(clips, batch["pad_mask"])
+    return {"scores": out["pred_logits"].float().sigmoid().cpu(),
+            "actor_prob": out["pred_logits_b"].float().softmax(-1).cpu(),
+            "boxes": out["pred_boxes"].float().cpu()}
+
+
+def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
+               mesh: mesh_lib.Mesh) -> dict:
+    """The stage path's eval forward (MODEL.PALLAS_KERNELS and
+    FUSED_STAGES on ``cfg``'s eval build) on this rank's data shard of
+    ``batch``, under ``mesh`` and under its zero-halo control: each one's
+    outputs and kernel launches; on rank 0 also the one-process forward of
+    the full model on the whole batch and the largest absolute difference
+    of each output of rank 0's rows from it."""
+    c = copy.deepcopy(cfg)
+    c.model.pallas_kernels = c.model.fused_stages = True
+    b = c.train.batch_size
+    d = mesh.data_index
+    db = engine.device_batch({k: v[d * b:(d + 1) * b] for k, v in
+                              batch.items()}, device)
+    model = build_model(c, device=device, seed=seed, mesh=mesh)
+    out = {}
+    for name, m in (("spatial", mesh), ("zero_halo", ZeroHaloMesh(
+            mesh.data, mesh.rank, mesh.model, mesh.spatial))):
+        _rebind(model, m)
+        before = eval_launches()
+        got = eval_forward(model, db, m)
+        after = eval_launches()
+        out[name] = {"outputs": got,
+                     "launches": {k: after[k] - before[k] for k in after}}
+    del model
+    if mesh.rank:
+        return out
+    full = build_model(c, device=device, seed=seed)
+    want = eval_forward(full, engine.device_batch(batch, device),
+                        mesh_lib.Mesh())
+    out["differences"] = {
+        k: {n: float((out[k]["outputs"][n] - want[n][:b]).abs().max())
+            for n in want} for k in ("spatial", "zero_halo")}
+    return out
+
+
 def tp_readings(run: dict, single: dict, initial: dict) -> dict:
-    """``dp_check.readings`` and ``update_rel``: the relative L2 difference
-    of the updates of the parameters that have gradients."""
+    """``dp_check.readings``, ``update_rel``: the relative L2 difference of
+    the updates of the parameters that have gradients, and
+    ``trunk_grads_rel``: that of the trunk's gradients alone (those that
+    MESH.SPATIAL sums over the model group), where it has some."""
     names = sorted(single["grads"])
+    trunk = [k for k in names if sharding_rules.spatial_partial(k)]
 
     def moved(r):
         return torch.cat([(r["state"][k].double() - initial[k].double())
                           .reshape(-1) for k in names])
 
+    def cat(r):
+        return torch.cat([r["grads"][k].double().reshape(-1) for k in trunk])
+
     return {**dp_check.readings(run, single, initial),
-            "update_rel": dp_check._rel(moved(run), moved(single))}
+            "update_rel": dp_check._rel(moved(run), moved(single)),
+            **({"trunk_grads_rel": dp_check._rel(cat(run), cat(single))}
+               if trunk else {})}
+
+
+def floors(cfg: Config, device: torch.device, seed: int, initial: dict,
+           batch: dict, mesh: mesh_lib.Mesh, single: dict) -> dict:
+    """The one-process step's own spread, beside which the readings of a
+    step on the mesh stand: ``tp_readings`` against ``single`` of
+    ``reversed``, the one-process step on the batch's samples in the
+    other order (the same sums, rounded in another order), and for a bf16
+    ``cfg`` of ``float32``, the one-process step in float32 (TF32 off)."""
+    accum = max(1, cfg.train.accum_steps)
+
+    def one(c: Config, b: dict) -> dict:
+        model = build_model(c, device=device, seed=seed, train=True)
+        _no_dropout(model)
+        return dp_check.one_step(c, model, initial, dp_check.microbatch_major(
+            b, mesh.data, accum), mesh_lib.Mesh())
+
+    runs = {"reversed": one(cfg, {k: v[::-1].copy()
+                                  for k, v in batch.items()})}
+    if cfg.model.compute_dtype == "bfloat16":
+        c = copy.deepcopy(cfg)
+        c.model.compute_dtype = "float32"
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            runs["float32"] = one(c, batch)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    return {k: tp_readings(r, single, initial) for k, r in runs.items()}
 
 
 def run(cfg: Config, device: torch.device, seed: int = 0,
         batch_seed: int = 1, initial: Optional[dict] = None,
         batch: Optional[dict] = None, timed_steps: int = 0,
-        zero1: bool = False) -> Optional[dict]:
+        zero1: bool = False, eval_stages: bool = False,
+        with_floors: bool = False) -> Optional[dict]:
     """The check on this rank (in a joined process group); on rank 0 the
     recorded runs, the readings, the peers' equality, every rank's
     launches and timings, None on the others. ``initial``: the one-process
     state dict (else random weights from ``seed``); ``batch``: the global
     batch (else ``dp_check.global_batch``); ``zero1`` (at MESH.DATA > 1):
-    also ``dp_check.zero1_check``, every rank's result under "zero1"."""
-    mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe)
+    also ``dp_check.zero1_check``, every rank's result under "zero1".
+    With MESH.SPATIAL in ``cfg`` the rows split (``controls``), every
+    rank's peak memory of a spatial step (the peers' first) and of the
+    MODEL-only step (``model_only_peak``) under "memory", and with
+    ``eval_stages`` every rank's ``eval_check`` under "eval";
+    ``with_floors``: ``floors`` under "floors"."""
+    mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe,
+                                cfg.mesh.spatial)
     if mesh.model == 1:
         raise ValueError("MESH.MODEL 1: no 'model' axis to check (--model)")
     cfg.mesh.data = mesh.data
@@ -219,13 +423,24 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     d = mesh.data_index
     shard = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
     out = {"tp": dp_check.one_step(cfg, model, initial, shard, mesh)}
-    control = SumAgainMesh(mesh.data, mesh.rank, mesh.model)
-    _rebind(model, control)
-    out["control"] = dp_check.one_step(cfg, model, initial, shard, control)
+    agree = {"tp": peers_agree(model, mesh)}
+    names = list(controls(mesh))
+    for name, control in controls(mesh).items():
+        _rebind(model, control)
+        out[name] = dp_check.one_step(cfg, model, initial, shard, control)
+        agree[name] = peers_agree(model, mesh)
     _rebind(model, mesh)
-    dp_check.log_time("tp_check: the TP step and its control")
-    peers = peer_check(cfg, model, initial, shard, mesh)
+    dp_check.log_time(f"tp_check: the step and its controls {names}")
+    peak: list = []
+    peers = peer_check(cfg, model, initial, shard, mesh, peak=peak)
     dp_check.log_time("tp_check: the peers' two steps")
+    extra = {}
+    if mesh.spatial:
+        extra["memory"] = {"spatial": peak[0], "model_only": model_only_peak(
+            cfg, model, initial, shard, mesh)}
+        if eval_stages:
+            extra["eval"] = eval_check(cfg, device, seed, batch, mesh)
+            dp_check.log_time("tp_check: the stage path's eval step")
     if zero1 and mesh.data > 1:
         z = dp_check.zero1_check(cfg, model, initial, shard, mesh)
         print(f"tp_check rank {mesh.rank}: ZeRO-1 x MODEL moment bytes "
@@ -247,35 +462,66 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
               f"{[round(t, 2) for t in times['model_all_reduce_ms']]}",
               flush=True)
     every = mesh_lib.all_gather_objects({
-        "launches": out["tp"]["launches"], "timings": times})
+        "launches": out["tp"]["launches"], "timings": times,
+        **{k: (v if k != "eval" else {n: v[n]["launches"] for n in
+                                      ("spatial", "zero_halo")})
+           for k, v in extra.items()}})
     if mesh.rank:
         return None
     del model
-    full = build_model(cfg, device=device, seed=seed, train=True)
-    _no_dropout(full)
-    out["single"] = dp_check.one_step(
-        cfg, full, initial, dp_check.microbatch_major(
-            batch, mesh.data, max(1, cfg.train.accum_steps)),
-        mesh_lib.Mesh())
-    dp_check.log_time("tp_check: the one-process step")
-    out["readings"] = {k: tp_readings(out[k], out["single"], initial)
-                       for k in ("tp", "control")}
-    out["peers_equal"] = peers
-    out["launches"] = [e["launches"] for e in every]
-    out["timings"] = [e["timings"] for e in every]
-    out["mesh"] = (mesh.data, mesh.model)
+    out.update(peers_equal=peers, peers_agree=agree,
+               launches=[e["launches"] for e in every],
+               timings=[e["timings"] for e in every],
+               mesh=(mesh.data, mesh.model), spatial=mesh.spatial,
+               controls=names)
+    if "memory" in extra:
+        out["memory"] = [e["memory"] for e in every]
+    if "eval" in extra:
+        out["eval"] = {"differences": extra["eval"]["differences"],
+                       "launches": [e["eval"] for e in every]}
+    with _every_core(device):
+        full = build_model(cfg, device=device, seed=seed, train=True)
+        _no_dropout(full)
+        out["single"] = dp_check.one_step(
+            cfg, full, initial, dp_check.microbatch_major(
+                batch, mesh.data, max(1, cfg.train.accum_steps)),
+            mesh_lib.Mesh())
+        dp_check.log_time("tp_check: the one-process step")
+        out["readings"] = {k: tp_readings(out[k], out["single"], initial)
+                           for k in ("tp", *names)}
+        if with_floors:
+            out["floors"] = floors(cfg, device, seed, initial, batch, mesh,
+                                   out["single"])
+            dp_check.log_time("tp_check: the one-process step's floors")
     out["split"] = [k for k, s in sharding_rules.param_shardings(
         full, mesh).items() if s]
     return out
 
 
+@contextlib.contextmanager
+def _every_core(device: torch.device):
+    """On the card, torch's host threads on every core (rank 0 alone, the
+    other ranks waiting at the next collective: the float64 readings run
+    on the host); on the CPU, as they are."""
+    threads = torch.get_num_threads()
+    if device.type == "cuda":
+        torch.set_num_threads(os.cpu_count() or threads)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def summary(out: dict) -> dict:
     """What the smoke reads of ``run``'s result: no tensors."""
-    return {**{k: out[k] for k in ("readings", "peers_equal", "launches",
-                                   "timings", "mesh", "zero1") if k in out},
+    return {**{k: out[k] for k in ("readings", "peers_equal", "peers_agree",
+                                   "launches", "timings", "mesh", "zero1",
+                                   "spatial", "controls", "memory", "eval",
+                                   "floors")
+               if k in out},
             "n_split": len(out["split"]),
             **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
-               for k in ("tp", "control", "single")}}
+               for k in ("tp", *out["controls"], "single")}}
 
 
 def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
@@ -306,6 +552,15 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
     p.add_argument("--zero1", action="store_true",
                    help="also ZeRO-1 against the DATA x MODEL step (at "
                         "--data > 1)")
+    p.add_argument("--spatial", action="store_true",
+                   help="MESH.SPATIAL: the model peers split the clip's "
+                        "rows (its controls, each rank's peak memory)")
+    p.add_argument("--eval-stages", action="store_true",
+                   help="with --spatial, also the stage path's eval step "
+                        "against one process")
+    p.add_argument("--floors", action="store_true",
+                   help="also the one-process step's own spread: on the "
+                        "batch reversed, and for bf16 in float32")
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
     if args.deterministic:
@@ -321,6 +576,7 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
         cfg.mesh.data = args.data
     if args.model is not None:
         cfg.mesh.model = args.model
+    cfg.mesh.spatial = cfg.mesh.spatial or args.spatial
     dtypes = args.dtypes.split(",")
     if "float32" in dtypes:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,14 +599,19 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
             t0 = time.perf_counter()
             out = run(c, device, args.seed, args.batch_seed,
                       timed_steps=args.timed_steps if name == dtypes[0]
-                      else 0, zero1=args.zero1)
+                      else 0, zero1=args.zero1,
+                      eval_stages=args.eval_stages and name == dtypes[0],
+                      with_floors=args.floors)
             if out is not None:
                 result[name] = summary(out)
                 result[name]["wall_s"] = time.perf_counter() - t0
                 print(f"tp_check {name}: readings {out['readings']}; model "
                       f"peers bit-equal after each step "
                       f"{out['peers_equal']}; launches per rank "
-                      f"{out['launches']}", flush=True)
+                      f"{out['launches']}; peak memory per rank "
+                      f"{out.get('memory')}; eval "
+                      f"{out.get('eval')}; floors {out.get('floors')}",
+                      flush=True)
             del out
         if mesh_lib.is_main_process():
             torch.save(result, args.out)

@@ -55,6 +55,15 @@ data reductions above run over the data group, and the clip sums the
 squared norm of the split gradients over the model group. Every peer of
 a shard draws the same jitter and dropout, so the matcher picks the same
 matches and the replicated parameters stay equal.
+
+Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, a mesh whose
+``spatial`` is set, the model built on it): the steps preprocess the
+whole clip, so that the jitter and the pad zeroing draw and read what one
+process does, then hand the model this peer's rows of it
+(``keep_rows``); the trunk runs on them (``models/csn.py``), its BN
+statistics averaged over every rank, and its parameters' gradients, each
+peer's share over its rows, are summed over the model group
+(``sharding_rules.spatial_partial``) before the data group's all-reduce.
 """
 
 from __future__ import annotations
@@ -66,11 +75,15 @@ import numpy as np
 import torch
 
 from tubelet_transformer_tpu_torch.config import Config
+from tubelet_transformer_tpu_torch.data import transforms
 from tubelet_transformer_tpu_torch.data.device_preprocess import (
     device_preprocess)
-from tubelet_transformer_tpu_torch.models.csn import FoldableBN
+from tubelet_transformer_tpu_torch.models.csn import (
+    BLOCK_NUMS, FoldableBN, spatial_rows)
 from tubelet_transformer_tpu_torch.models.tuber import TubeR, dataset_mode
 from tubelet_transformer_tpu_torch.parallel.mesh import Mesh
+from tubelet_transformer_tpu_torch.parallel.sharding_rules import (
+    spatial_partial)
 from tubelet_transformer_tpu_torch.parallel.zero import ZeroAdamW
 from tubelet_transformer_tpu_torch.train import criterion as crit
 from tubelet_transformer_tpu_torch.train.optimizer import (
@@ -124,16 +137,38 @@ def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             "lfb_mask": batch["lfb_mask"]}
 
 
+def clip_height(cfg: Config) -> int:
+    """The rows of the clips the loaders give: the synthetic set's square
+    IMG_SIZE, else the canvas (DATA.CANVAS_H, or ``default_canvas``)."""
+    if cfg.data.dataset_name == "synthetic":
+        return cfg.data.img_size
+    if cfg.data.canvas_h and cfg.data.canvas_w:
+        return cfg.data.canvas_h
+    return transforms.default_canvas(cfg.data.img_size)[0]
+
+
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the step options not ported yet."""
+    """Raise NotImplementedError for the step options not ported yet, and
+    with MESH.SPATIAL ValueError where the clip's rows do not split over
+    MESH.MODEL at some stage (``csn.spatial_rows``)."""
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
         "MESH.PIPE > 1": cfg.mesh.pipe > 1,
-        "MESH.SPATIAL": cfg.mesh.spatial,
     }
     for name, asked in unsupported.items():
         if asked:
             raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.mesh.spatial and cfg.mesh.model > 1:
+        spatial_rows(clip_height(cfg), BLOCK_NUMS[cfg.model.backbone_name],
+                     cfg.model.last_stride, cfg.mesh.model)
+
+
+def keep_rows(clips: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This model peer's rows of the (B,T,H,W,C) clips when the peers
+    split them (MESH.SPATIAL), else the clips."""
+    first, count = mesh.own_rows(clips.shape[2])
+    return clips if count == clips.shape[2] else clips[
+        :, :, first:first + count].contiguous()
 
 
 def is_ava_mode(cfg: Config) -> bool:
@@ -181,10 +216,15 @@ def global_losses(loss_dict: Dict[str, torch.Tensor], mesh: Mesh
     return {**loss_dict, **dict(zip(keys, summed.unbind()))}
 
 
-def sync_gradients(params: List[torch.nn.Parameter], mesh: Mesh) -> None:
+def sync_gradients(params: List[torch.nn.Parameter], mesh: Mesh,
+                   trunk: frozenset = frozenset()) -> None:
     """Sum each gradient over ranks in place, in one all-reduce of the
     gradients flattened into one buffer. Every rank has run the same graph,
-    so the same parameters have gradients on every rank."""
+    so the same parameters have gradients on every rank. With the rows
+    split (MESH.SPATIAL), the gradients of ``trunk`` (parameter ids) are
+    first summed over the model group (``Mesh.trunk_sum``)."""
+    mesh.trunk_sum([p.grad for p in params
+                    if p.grad is not None and id(p) in trunk])
     grads = [p.grad for p in params if p.grad is not None]
     if mesh.data == 1 or not grads:
         return
@@ -210,13 +250,19 @@ def _bn_stats(model: torch.nn.Module) -> List[torch.Tensor]:
 
 def check_model_mesh(model: TubeR, mesh: Mesh) -> None:
     """Raise ValueError unless ``model`` is split over ``mesh``'s 'model'
-    axis exactly when that axis has more than one peer."""
+    axis exactly when that axis has more than one peer, and splits the
+    clip's rows exactly when the mesh does (MESH.SPATIAL)."""
     tp = getattr(model, "tp", None)
     split = tp.model if tp is not None else 1
     if split != mesh.model:
         raise ValueError(
             f"MESH.MODEL {mesh.model}: the model is split over {split} "
             "peers; build it with build_model(..., mesh=mesh)")
+    if (model.spatial is not None) != mesh.spatial:
+        raise ValueError(
+            f"MESH.SPATIAL {mesh.spatial} on MESH.MODEL {mesh.model}: the "
+            f"model {'splits' if model.spatial is not None else 'keeps'} "
+            "the clip's rows; build it with build_model(..., mesh=mesh)")
 
 
 def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
@@ -239,9 +285,11 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     model.set_dropout_generator(generator)
-    model.backbone.body.set_rank_mean(mesh.batch_mean if mesh.data > 1
-                                      else None)
+    model.backbone.body.set_rank_mean(
+        mesh.batch_mean if mesh.data > 1 or mesh.spatial else None)
     params = trainable_params(state.optimizer)
+    trunk = frozenset(id(p) for n, p in model.named_parameters()
+                      if spatial_partial(n))
     stats = _bn_stats(model)
     saved = [torch.empty_like(t) for t in stats]
     accum = max(1, cfg.train.accum_steps)
@@ -268,9 +316,9 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
         # keeps the low 32 bits of a seed
         generator.manual_seed(state.seed * 1_000_003 + state.step
                               + mesh.data_index * 2_654_435_761)
-        clips = device_preprocess(batch["clips"], dtype=model.dtype,
-                                  pad_mask=batch.get("pad_mask"),
-                                  jitter=True, generator=generator)
+        clips = keep_rows(device_preprocess(
+            batch["clips"], dtype=model.dtype, pad_mask=batch.get("pad_mask"),
+            jitter=True, generator=generator), mesh)
         b = clips.shape[0]
         if b % accum:
             raise ValueError(f"batch {b} not divisible by "
@@ -287,7 +335,7 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
             else:
                 total = total + t
                 loss_dict = {k: loss_dict[k] + v for k, v in ld.items()}
-        sync_gradients(params, mesh)
+        sync_gradients(params, mesh, trunk)
         loss_dict = global_losses({**loss_dict, "total_loss": total}, mesh)
         total = loss_dict.pop("total_loss")
         if accum > 1:
@@ -329,9 +377,9 @@ def make_eval_step(cfg: Config, model: TubeR, mesh: Mesh = Mesh()):
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict:
         model.eval()
         pad_mask = batch.get("pad_mask")
-        outputs = model(device_preprocess(batch["clips"], dtype=model.dtype,
-                                          pad_mask=pad_mask), pad_mask,
-                        **lfb_kwargs(batch))
+        outputs = model(keep_rows(device_preprocess(
+            batch["clips"], dtype=model.dtype, pad_mask=pad_mask), mesh),
+            pad_mask, **lfb_kwargs(batch))
         if cfg.val.compute_losses:
             losses = global_losses(compute_losses(
                 cfg, outputs, _targets_from_batch(cfg, batch),
