@@ -26,7 +26,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    whatever the other clips hold; the pooled stem and the statistics
    kernel on each model peer's row window of the clip (MESH.SPATIAL, 2
    and 4 peers, bf16 and float32), the pooled rows bit for bit against
-   the same rows of the whole clip's launch), with
+   the same rows of the whole clip's launch; the stage chain on each
+   peer's slabs at MODEL 2, SPATIAL_TAILS), with
    CUDA-event times (``tools/timing.py``) of calls back to back for both
    (``ms``, host work included) and of the kernel on the device alone
    (``device_ms``), of the one PyTorch call that computes the same
@@ -210,7 +211,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
     bf16 and float32 on 2 ranks, with the stage path's eval forward (#2,
     #5 and the chains, cut to the peer's rows, on every rank; within 4
     bf16 ulps of one process), and in float32 on 4 ranks of DATA 2 x
-    MODEL 2.
+    MODEL 2; and pipeline parallelism (MESH.PIPE 2, the encoder's 6
+    layers as GPipe stages of 3 in 2 microbatches): ``train_ava`` through
+    torchrun (its checkpoint the one-process layout), and
+    ``tools/tp_check --pipe 2`` (the PIPE step against the one-process
+    step, read on the last stage, beside the one-process step's own
+    spread, its zero-carry control and its control without the encoder
+    input's gradient sum, the replicated parameters bit-equal over each
+    data shard's ranks, #4 and #2 once on every rank, each rank's encoder
+    bytes half one process's) in bf16 (each rank's step ms beside the
+    bubble, the stage path's eval forward: #2, #5, #8 on every rank) and
+    float32 on 2 ranks, and with ZeRO-1 on 4 ranks of DATA 2 x PIPE 2.
 
 The profiled windows of phases 7, 12, 14, 16 and 17 (where the device
 time goes, and in how many kernel launches; for the pool, one stage-path
@@ -423,10 +434,20 @@ FLAGSHIP_TAILS = {"layer2": ((1, 16, 32, 32, 512), 128, 7),
 # bucket (B = 8), two clips of five frames at layer2 (the
 # reset of the depthwise's frame window at each clip's edges), and float32
 # at a shape the 8x8 tiles do not divide
+# Under MESH.SPATIAL at MODEL 2 each peer's chains run on its slab (its
+# rows and k halo rows of its one neighbour), at most its rows a chain:
+# layer2 one chain of 7 on 16 + 7 rows, layer3 four of 8 on 8 + 8 and one
+# of 3 on 8 + 3, layer4 one of 2 on 8 + 2 (7 launches a rank a forward)
+SPATIAL_TAILS = {"layer2": ((1, 16, 23, 32, 512), 128, 7, 1),
+                 "layer3": ((1, 8, 16, 16, 1024), 256, 8, 4),
+                 "layer3_last": ((1, 8, 11, 16, 1024), 256, 3, 1),
+                 "layer4": ((1, 4, 10, 16, 2048), 512, 2, 1)}
 CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
                   FLAGSHIP_TAILS.items()},
                **{f"{k}_256px_b8": (((8, *x[1:]), cm, tail), "bfloat16")
                   for k, (x, cm, tail) in FLAGSHIP_TAILS.items()},
+               **{f"{k}_spatial2": ((x, cm, tail), "bfloat16")
+                  for k, (x, cm, tail, _) in SPATIAL_TAILS.items()},
                "two_clips_t5": (((2, 5, 32, 32, 512), 128, 7), "bfloat16"),
                "ragged_f32": (((1, 4, 13, 21, 512), 128, 3), "float32")}
 # Chain against the plain version. The kernel must equal K launches of
@@ -1295,6 +1316,20 @@ def chain_totals(chains: dict, suffix: str = "") -> dict:
                                                      "device_ms")},
             "bound_by": max(tails, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None}
+
+
+def spatial_chain_cases(chains: dict, measured: list) -> dict:
+    """The chain's cases under MESH.SPATIAL at MODEL 2 (SPATIAL_TAILS),
+    each with its own measured numbers and the launches a rank makes of
+    it in one forward by the table; the table's launches must add up to
+    the chain launches each rank made in this run's spatial eval forward
+    (``measured``)."""
+    table = sum(n for *_, n in SPATIAL_TAILS.values())
+    if any(m != table for m in measured):
+        raise AssertionError(f"spatial chains: the ranks launched "
+                             f"{measured} a forward, SPATIAL_TAILS {table}")
+    return {k: {**chains[f"{k}_spatial2"], "table_launches_per_forward": n}
+            for k, (*_, n) in SPATIAL_TAILS.items()}
 
 
 def stages_switch(model):
@@ -4251,6 +4286,7 @@ def _nccl_check(job: dict, z: dict, cfg_path: Path, smi: str) -> None:
 # phase 24: tensor parallelism (MESH.MODEL) over torch.distributed, the
 # ranks on the one card over gloo: 2 model peers, and 2 x 2 (data x model)
 TP_RANKS = 2
+PP_RANKS = 2
 TP_BATCH = 2          # phase 9's BATCH_SIZE, each data shard's
 # the TP step against the one-process step on the same batch from one
 # state (tools/tp_check.py, flagship width, deterministic algorithms):
@@ -4738,12 +4774,12 @@ def _spatial_check_result(torch, name: str, ranks: int, text: str,
             bound = SERVE_MESH_ULPS * BF16_EPS
             per = {"stem_pool": 1, "depthwise": 3,
                    "chain": spatial_chains(r["mesh"][1])}
-            worst = max(ev["differences"]["spatial"].values())
+            worst = max(ev["differences"]["mesh"].values())
             control = max(ev["differences"]["zero_halo"].values())
             log(f"[spatial] the stage path's eval forward (bf16, "
                 f"PALLAS_KERNELS and FUSED_STAGES) with the rows split, "
                 f"{ranks} ranks: rank 0's outputs against one process "
-                f"{ev['differences']['spatial']}, the zero-halo control "
+                f"{ev['differences']['mesh']}, the zero-halo control "
                 f"{ev['differences']['zero_halo']}; bound {bound:.4f}: "
                 f"worst {worst:.4f}, the control's largest {control:.4f}; "
                 f"#2, #5, #8 launches per rank {ev['launches']} (want "
@@ -4756,6 +4792,173 @@ def _spatial_check_result(torch, name: str, ranks: int, text: str,
     return res
 
 
+# pipeline parallelism (tools/tp_check.py --pipe 2: the encoder's 6 layers
+# as 2 GPipe stages of 3 over the pipe peers, 2 microbatches of 1 clip)
+# against the one-process step on the same batch from one state, flagship
+# width, deterministic algorithms, seed 0, read on the last stage: each
+# reading's bound, from the flagship's own readings on the H100 (PERF.md,
+# pipeline parallelism: the same to the digit in every run).
+# PIPE 2 splits no batch: its step is one process's but for the encoder's
+# microbatches, so its bounds sit between its readings and its controls'
+# as TP_TOL's do for MODEL 2, far below one process's own floor (its step
+# on the batch reversed: bf16 losses 0.013, gradients 0.170, updates
+# 0.328, trunk 1.408; float32 1.6e-5, 0.0134, 0.0214, 0.118). bf16:
+# losses 0, gradient norm 0, gradients 9.5e-5, updates 3.2e-4, running
+# statistics 0, trunk gradients 0; float32 (TF32 off): 2.5e-7, 2.0e-6,
+# 1.8e-5, 2.2e-4, 0, 8.3e-5. The zero-carry control parts the losses
+# (0.764-0.766; its gradients NaN: the later stage's layers see zeros);
+# without the input's gradient sum the last stage's backbone misses the
+# encoder's gradient: gradient norm 3.7e-3, gradients 0.086, updates
+# 0.824, trunk 0.452-0.459, in both dtypes. DATA 2 x PIPE 2 (float32)
+# splits the batch as DATA 2 does, and reads DATA 2's rounding (losses
+# 1.1e-5, gradients 0.0087, updates 0.0187, running statistics 2.2e-5,
+# trunk 0.110; its floor 2.3e-5, 0.0091, 0.0195, 2.5e-5, 0.116), so
+# SPATIAL_TOL's float32 bounds, above the step and its floor; its
+# control without the sum reads gradient norm 3.0e-3, gradients 0.077,
+# updates 0.824, trunk 0.480
+PP_TOL = {
+    "bfloat16": {"loss_rel": 1e-3, "grad_norm_rel": 1e-3, "grads_rel": 0.01,
+                 "update_rel": 0.05, "running_update_rel": 1e-6,
+                 "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6,
+                 "trunk_grads_rel": 0.01},
+    "float32": {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grads_rel": 1e-3,
+                "update_rel": 0.01, "running_update_rel": 1e-6,
+                "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6,
+                "trunk_grads_rel": 1e-3},
+    "data_pipe": SPATIAL_TOL["float32"]}
+PP_CONTROL_MISSES = {"zero_carry": ("loss_rel",),
+                     "no_input_sum": ("grad_norm_rel", "grads_rel",
+                                      "update_rel", "trunk_grads_rel")}
+
+
+def _pp_train_layout(torch, pp: dict, train: dict, smi: str) -> None:
+    """train_ava under PIPE 2 (``pp``, of ``_dp_train_cli``): every rank
+    said its pipe stage, and the checkpoint rank 0 wrote has the keys and
+    shapes and the optimizer layout of phase 9's one-process file, and
+    records PIPE 2."""
+    stages = sorted(re.findall(r"pipe stage (\d) of 2", pp["text"]))
+    layouts = {}
+    for what, path in (("pp", pp["ckpt"]), ("one", train["ckpt"])):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        layouts[what] = ({k: tuple(v.shape) for k, v in sd["model"].items()},
+                         _optimizer_layout(torch, path), sd.get("pipe", 1))
+        del sd
+    same = layouts["pp"][:2] == layouts["one"][:2]
+    log(f"[pp] train_ava under MESH.PIPE 2 (the encoder's 6 layers as 2 "
+        f"stages of 3, 2 microbatches, VAL.BATCH_SIZE 2): the ranks' pipe "
+        f"stages {stages}; the checkpoint's model keys and shapes and its "
+        f"optimizer layout equal phase 9's one-process file's: {same} "
+        f"({len(layouts['pp'][0])} model entries, "
+        f"{len(layouts['pp'][1]['state'])} AdamW state entries), recorded "
+        f"PIPE {layouts['pp'][2]}; train_ava wall {pp['wall']:.1f} s; {smi}")
+    if not (same and stages == ["0", "1"] and layouts["pp"][2] == 2):
+        raise AssertionError(f"pp train: stages {stages}, layout equal "
+                             f"{same}, pipe {layouts['pp'][2]}")
+
+
+def _pp_check_result(torch, name: str, ranks: int, text: str,
+                     smi: str) -> dict:
+    """tools/tp_check --pipe's result (build/<name>.pt) of ``ranks`` ranks
+    on cuda:0 over gloo: each case's readings on the last stage within
+    PP_TOL, logged beside the one-process step's own floors (``--floors``;
+    with the batch split, DATA x PIPE, the floor on the batch reversed
+    within them too), each control outside its bound where it acts
+    (PP_CONTROL_MISSES), the replicated parameters of a data shard's
+    ranks bit-equal after each of two steps and after the zero-carry
+    control, not after the control without the input's gradient sum, #4
+    and #2 once each on every rank, each rank's encoder parameters and
+    moments half one process's; with ``--timed-steps`` each rank's step
+    ms beside the bubble; with the stage path's eval forward, #2, #5 and
+    #8 per rank and the reporter's outputs within SERVE_MESH_ULPS of one
+    process's; with ZeRO-1 beside DATA x PIPE, every rank bit-equal to
+    the DATA x PIPE step after each of two steps, its control missing,
+    the moment bytes those from the shapes. Returns the saved result."""
+    _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
+    res = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
+    one_step = {"stem_stats": 1, "stem_pool": 1}
+    for case, r in res.items():
+        split = r["mesh"][0] > 1
+        tol = PP_TOL["data_pipe" if split else case]
+        got = r["readings"]
+        held = {k: got["tp"][k] <= v for k, v in tol.items()}
+        floor = r["floors"]["reversed"]
+        floor_held = {k: floor[k] <= v for k, v in tol.items()} \
+            if split else {}
+        missed = {c: {k: got[c][k] > tol[k] for k in ks}
+                  for c, ks in PP_CONTROL_MISSES.items()}
+        one = r["one_process_encoder_bytes"]
+        halves = [2 * e["params"] == one["params"]
+                  and 2 * e["moments"] == one["moments"]
+                  for e in r["encoder_bytes"]]
+        log(f"[pp] tp_check --pipe {case}, mesh {r['mesh'][0]} x "
+            f"{r['mesh'][1]} x {r['mesh'][2]} (data x model x pipe), "
+            f"{ranks} ranks on cuda:0 over gloo, against one process on the "
+            f"same batch (deterministic algorithms), read on the last "
+            f"stage: readings {got['tp']}; zero-carry control "
+            f"{got['zero_carry']}; control without the input's gradient "
+            f"sum {got['no_input_sum']}; the one-process step's floors "
+            f"{r['floors']}; bounds {tol}: held {held}, by the reversed "
+            f"floor {floor_held or 'not asked: no batch split'}, the "
+            f"controls missed {missed}; replicated "
+            f"parameters bit-equal over each data shard's ranks after each "
+            f"of two steps {r['peers_equal']}, after the step and each "
+            f"control {r['peers_agree']}; #4 and #2 launches per rank in "
+            f"one step {r['launches']}; encoder bytes per rank "
+            f"{r['encoder_bytes']} against one process's {one} (half "
+            f"{halves}); total loss {r['tp']['metrics']['total_loss']:.6f}, "
+            f"one process {r['single']['metrics']['total_loss']:.6f}; "
+            f"{r['wall_s']:.1f} s; {smi}")
+        for rank, t in enumerate(r["timings"]):
+            if t:
+                log(f"[pp] {case} rank {rank} (gloo, cuda:0, bs "
+                    f"{TP_BATCH}, microbatches of 1 clip): step ms "
+                    f"{[round(v, 2) for v in t['step_ms']]}; the GPipe "
+                    f"bubble (P-1)/(M+P-1) {t['bubble']:.4f}; {smi}")
+        ok = (all(held.values()) and all(floor_held.values())
+              and all(all(m.values()) for m in missed.values())
+              and r["peers_equal"] == [True, True]
+              and r["peers_agree"] == {"tp": True, "zero_carry": True,
+                                       "no_input_sum": False}
+              and all(x == one_step for x in r["launches"]) and all(halves)
+              and r["tp"]["metrics"]["finite"] == 1.0)
+        if "eval" in r:
+            ev = r["eval"]
+            bound = SERVE_MESH_ULPS * BF16_EPS
+            per = {"stem_pool": 1, "depthwise": 3, "chain": flagship_chains()}
+            worst = max(ev["differences"]["mesh"].values())
+            log(f"[pp] the stage path's eval forward (bf16, PALLAS_KERNELS "
+                f"and FUSED_STAGES) under PIPE 2, {ranks} ranks: the last "
+                f"stage's outputs against one process "
+                f"{ev['differences']['mesh']}; bound {bound:.4f}: worst "
+                f"{worst:.4f}; #2, #5, #8 launches per rank "
+                f"{ev['launches']} (want {per}); {smi}")
+            ok = ok and worst <= bound and all(e["mesh"] == per
+                                               for e in ev["launches"])
+        for rank, zr in enumerate(r.get("zero1") or ()):
+            log(f"[pp] rank {rank} ZeRO-1 x PIPE ({case}, mesh "
+                f"{r['mesh'][0]} x {r['mesh'][2]} (data x pipe), gloo, "
+                f"cuda:0, deterministic algorithms), two steps from one "
+                f"state: the model and optimizer state dicts bit-equal to "
+                f"the DATA x PIPE step's after each step "
+                f"{zr['zero1_equal']}, the control without the all-gather "
+                f"{zr['control_equal']} (must be [False, False]); moment "
+                f"bytes {zr['zero1_moment_bytes']} (from the shapes "
+                f"{zr['zero1_predicted_bytes']}) beside the DATA x PIPE "
+                f"step's {zr['data_moment_bytes']}; a ZeRO-1 x PIPE step's "
+                f"launches {zr['zero1_launches']}; {smi}")
+            ok = ok and (zr["zero1_equal"] == [True, True]
+                         and zr["control_equal"] == [False, False]
+                         and zr["zero1_moment_bytes"]
+                         == zr["zero1_predicted_bytes"]
+                         and zr["zero1_moment_bytes"]
+                         < zr["data_moment_bytes"]
+                         and zr["zero1_launches"] == [one_step, one_step])
+        if not ok:
+            raise AssertionError(f"pipe check {case}: held {held}, floors "
+                                 f"{floor_held}, missed {missed}, {r}")
+    return res
+
+
 def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                stages_cfg: Path, stage_forward: dict,
                smi: str) -> tuple[dict, dict]:
@@ -4764,10 +4967,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     stage run at once, and the timed checks alone.
     Stage 1: train_ava through torchrun on phase 9's YAML (2 steps a rank,
     a validation of 4 keyframes a rank) with MESH.DATA alone, with
-    MESH.ZERO1, with MESH.MODEL 2 (4 steps of 2 clips) and with MESH.MODEL
-    2 and MESH.SPATIAL (the same, every rank on its rows of the clips):
-    one run directory, one checkpoint and the metrics from rank 0 alone
-    each, the ZeRO-1 file in the DATA-only file's optimizer layout;
+    MESH.ZERO1, with MESH.MODEL 2 (4 steps of 2 clips), with MESH.MODEL
+    2 and MESH.SPATIAL (the same, every rank on its rows of the clips)
+    and with MESH.PIPE 2 (the same, the encoder as 2 stages; VAL.BATCH_SIZE
+    2): one run directory, one checkpoint and the metrics from rank 0
+    alone each, the ZeRO-1 file in the DATA-only file's optimizer layout,
+    the PIPE file in phase 9's one-process layout;
     generate_lfb's CLI with MESH.MODEL 2 on phase 10's YAML
     (``_mesh_lfb_check``).
     Stage 2: NCCL, the default backend, at world size 1 through
@@ -4789,12 +4994,16 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     process on the batch reversed, its zero-halo control and its control
     without the trunk's gradient sum outside it, each rank's peak memory
     below the MODEL-only step's, #2, #5 and #8 per eval forward on every
-    rank, the eval outputs within 4 bf16 ulps of one process);
+    rank, the eval outputs within 4 bf16 ulps of one process), then
+    tp_check --pipe 2 in float32 (``_pp_check_result``: against one
+    process within PP_TOL, logged beside its floors, its two controls
+    outside where PP_CONTROL_MISSES says);
     tools/mesh_checks on 4 ranks of MESH.DATA 2 x MESH.MODEL 2: tp_check in
     float32 against one process on the batch of 4, and ZeRO-1 beside it
     bit for bit against it, then serve_check (buckets 8, 4 and 2 split over
     'data', bucket 1 whole on each data group), then tp_check --spatial in
-    float32.
+    float32, then tp_check --pipe 2 on DATA 2 x PIPE 2 in float32 with
+    ZeRO-1 (``_pp_check_result``, within its floor's bounds).
     Stage 3, alone: tools/mesh_checks on 2 ranks in bf16 with each rank's
     step times: dp_check with the stem's global statistics (#4 on each
     shard, reduced) against #4 over the whole batch, the gradient
@@ -4803,7 +5012,9 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     gathered moments, its control without the all-gather missing, the
     moment bytes per rank against the figure from the shapes, the
     all-gather's MB and ms and the ZeRO-1 step's ms; tp_check with the
-    model group's all-reduces of a step replayed.
+    model group's all-reduces of a step replayed; tp_check --pipe 2 in
+    bf16 (each rank's step ms beside the bubble, the stage path's eval
+    forward), as the float32 one.
     Every control outside its bounds, the model peers bit-equal, #4 and
     #2 once each on every rank in every DP, ZeRO-1, MoE, TP and spatial
     step (the spatial step's on each rank's window of the clips' rows).
@@ -4824,6 +5035,8 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
             "spatial": _dp_train_start(
                 train, "chip_smoke_spatial",
                 lambda c: c["MESH"].update(MODEL=TP_RANKS, SPATIAL=True)),
+            "pp": _dp_train_start(train, "chip_smoke_pp", lambda c: (
+                c["MESH"].update(PIPE=2), c["VAL"].update(BATCH_SIZE=2))),
             "lfb": _mesh_lfb_start(evaluated)}
         jobs += started.values()
         data = _dp_train_cli(torch, started["dp"])
@@ -4836,11 +5049,13 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         if split != DP_RANKS:
             raise AssertionError(f"train_ava with SPATIAL: {split} ranks "
                                  "split the rows")
+        pp_train = _dp_train_cli(torch, started["pp"], data=1)
+        _pp_train_layout(torch, pp_train, train, smi)
         lfb_mesh = _mesh_lfb_check(started["lfb"], lfb, smi)
         _dp_layouts(torch, data, z, smi)
         log(f"[time] stage 1 of the mesh phases (train_ava under DATA 2, "
-            f"ZeRO-1, MODEL 2 and MODEL 2 with SPATIAL, generate_lfb under "
-            f"MODEL 2, at once): "
+            f"ZeRO-1, MODEL 2, MODEL 2 with SPATIAL and PIPE 2, "
+            f"generate_lfb under MODEL 2, at once): "
             f"{time.perf_counter() - t0:.1f} s")
 
         t1 = time.perf_counter()
@@ -4857,7 +5072,10 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                              out("chip_smoke_serve_check_model2")]),
             ("tp_check", ["--config-file", tp_cfg, "--spatial", "--dtypes",
                           "bfloat16,float32", "--eval-stages", "--floors",
-                          "--out", out("chip_smoke_tp_check_spatial")])],
+                          "--out", out("chip_smoke_tp_check_spatial")]),
+            ("tp_check", ["--config-file", tp_cfg, "--model", 1, "--pipe",
+                          PP_RANKS, "--dtypes", "float32", "--floors",
+                          "--out", out("chip_smoke_pp_check_float32")])],
             "chip_smoke_mesh_float32.log")
         dm = _mesh_checks_start(2 * TP_RANKS, [
             ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
@@ -4869,7 +5087,11 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
             ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
                           TP_RANKS, "--spatial", "--dtypes", "float32",
                           "--floors", "--out",
-                          out("chip_smoke_tp_check_spatial_2x2")])],
+                          out("chip_smoke_tp_check_spatial_2x2")]),
+            ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
+                          1, "--pipe", 2, "--dtypes", "float32", "--zero1",
+                          "--floors", "--out",
+                          out("chip_smoke_pp_check_2x2")])],
             "chip_smoke_tp_check_2x2.log")
         nccl = _nccl_start(train)
         resume = _tp_resume_start(train)
@@ -4888,6 +5110,8 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         spatial = _spatial_check_result(
             torch, "chip_smoke_tp_check_spatial", TP_RANKS, text,
             smi)["bfloat16"]
+        pp = _pp_check_result(torch, "chip_smoke_pp_check_float32",
+                              PP_RANKS, text, smi)
         text = _torchrun_wait(dm)
         dm_res = _tp_check_result(torch, "chip_smoke_tp_check_2x2",
                                   2 * TP_RANKS, text, smi)
@@ -4897,12 +5121,14 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         spatial_dm = _spatial_check_result(
             torch, "chip_smoke_tp_check_spatial_2x2", 2 * TP_RANKS, text,
             smi)["float32"]
+        pp_dm = _pp_check_result(torch, "chip_smoke_pp_check_2x2",
+                                 2 * TP_RANKS, text, smi)["float32"]
         log(f"[time] stage 2 of the mesh phases (NCCL at world size 1, the "
             f"MODEL 2 file resumed in one process, the float32 checks, mesh "
-            f"serving and the bf16 and float32 spatial steps on 2 ranks, "
-            f"DATA 2 x MODEL 2 "
-            f"with ZeRO-1, mesh serving and the float32 spatial step on 4, "
-            f"at once): "
+            f"serving, the bf16 and float32 spatial steps and the float32 "
+            f"PIPE 2 step on 2 ranks, DATA 2 x MODEL 2 "
+            f"with ZeRO-1, mesh serving, the float32 spatial step and DATA "
+            f"2 x PIPE 2 with ZeRO-1 on 4, at once): "
             f"{time.perf_counter() - t1:.1f} s")
 
         t2 = time.perf_counter()
@@ -4912,7 +5138,11 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                           out("chip_smoke_dp_check_bfloat16")]),
             ("tp_check", ["--config-file", tp_cfg, "--dtypes", "bfloat16",
                           "--timed-steps", "3", "--out",
-                          out("chip_smoke_tp_check_bfloat16")])],
+                          out("chip_smoke_tp_check_bfloat16")]),
+            ("tp_check", ["--config-file", tp_cfg, "--model", 1, "--pipe",
+                          PP_RANKS, "--dtypes", "bfloat16", "--timed-steps",
+                          "3", "--eval-stages", "--floors", "--out",
+                          out("chip_smoke_pp_check_bfloat16")])],
             "chip_smoke_mesh_bfloat16.log")
         jobs.append(bf)
         text = _torchrun_wait(bf)
@@ -4921,8 +5151,11 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         timings = _dp_bf16_logs(checks, train, smi)
         tp16 = _tp_check_result(torch, "chip_smoke_tp_check_bfloat16",
                                 TP_RANKS, text, smi)
+        pp.update(_pp_check_result(torch, "chip_smoke_pp_check_bfloat16",
+                                   PP_RANKS, text, smi))
         log(f"[time] stage 3 of the mesh phases (the timed bf16 checks on "
-            f"2 ranks, alone): {time.perf_counter() - t2:.1f} s")
+            f"2 ranks, the PIPE 2 one among them, alone): "
+            f"{time.perf_counter() - t2:.1f} s")
     finally:
         _kill_jobs(jobs)
     model2 = {**tp16, **tp32}
@@ -4941,13 +5174,20 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
           "serve": serve,
           "spatial_launches": spatial["launches"],
           "spatial_data_model_launches": spatial_dm["launches"],
-          "spatial_eval_launches": [e["spatial"] for e in
+          "spatial_eval_launches": [e["mesh"] for e in
                                     spatial["eval"]["launches"]],
           "spatial_memory": {"model2": spatial["memory"],
                              "data_model": spatial_dm["memory"]},
           "readings": {**{k: v["readings"] for k, v in model2.items()},
                        "data_model": dm_res["float32"]["readings"]},
-          "timings": model2["bfloat16"]["timings"]}
+          "timings": model2["bfloat16"]["timings"],
+          "pp_launches": pp["bfloat16"]["launches"],
+          "pp_float32_launches": pp["float32"]["launches"],
+          "pp_data_pipe_launches": pp_dm["launches"],
+          "pp_zero1_launches": [zr["zero1_launches"][0]
+                                for zr in pp_dm["zero1"]],
+          "pp_eval_launches": [e["mesh"] for e in
+                               pp["bfloat16"]["eval"]["launches"]]}
     return dp, tp
 
 
@@ -5163,6 +5403,15 @@ def main() -> int:
                   x["stem_pool"] for x in tp["spatial_data_model_launches"]],
               launches_spatial_eval=[x["stem_pool"]
                                      for x in tp["spatial_eval_launches"]],
+              launches_pp_step=[x["stem_pool"] for x in tp["pp_launches"]],
+              launches_pp_float32_step=[x["stem_pool"] for x in
+                                        tp["pp_float32_launches"]],
+              launches_pp_data_pipe_step=[
+                  x["stem_pool"] for x in tp["pp_data_pipe_launches"]],
+              launches_pp_zero1_step=[x["stem_pool"]
+                                      for x in tp["pp_zero1_launches"]],
+              launches_pp_eval=[x["stem_pool"]
+                                for x in tp["pp_eval_launches"]],
               window_cases={k: {**v["stem_pool"], "peers": v["peers"],
                                 "bit_equal_to_whole_clip":
                                     v["pool_bit_equal"]}
@@ -5190,6 +5439,13 @@ def main() -> int:
                                         for x in tp["spatial_launches"]],
               launches_tp_spatial_data_model_step=[
                   x["stem_stats"] for x in tp["spatial_data_model_launches"]],
+              launches_pp_step=[x["stem_stats"] for x in tp["pp_launches"]],
+              launches_pp_float32_step=[x["stem_stats"] for x in
+                                        tp["pp_float32_launches"]],
+              launches_pp_data_pipe_step=[
+                  x["stem_stats"] for x in tp["pp_data_pipe_launches"]],
+              launches_pp_zero1_step=[x["stem_stats"]
+                                      for x in tp["pp_zero1_launches"]],
               window_cases={k: {**v["stem_stats"], "peers": v["peers"],
                                 "rel_err_against_plain":
                                     v["stats_rel_err"]}
@@ -5213,6 +5469,8 @@ def main() -> int:
                   "depthwise"],
               launches_spatial_eval=[x["depthwise"]
                                      for x in tp["spatial_eval_launches"]],
+              launches_pp_eval=[x["depthwise"]
+                                for x in tp["pp_eval_launches"]],
               b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
@@ -5230,7 +5488,10 @@ def main() -> int:
               launches_serve_data_model=tp["serve"]["data_model"]["chain"],
               launches_spatial_eval=[x["chain"]
                                      for x in tp["spatial_eval_launches"]],
+              launches_pp_eval=[x["chain"] for x in tp["pp_eval_launches"]],
               b8_case=chain_totals(chains, "_b8"),
+              spatial_cases=spatial_chain_cases(
+                  chains, [x["chain"] for x in tp["spatial_eval_launches"]]),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",
               stem_conv_launches, stem_conv["ava_256px"],

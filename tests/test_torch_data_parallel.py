@@ -21,7 +21,7 @@ environment set by hand).
 * ``run_training`` and ``run_eval`` over 2 ranks: rank 0 alone writes the
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
-* The refusals: PIPE > 1 (beside ZERO1 and MODEL too), SPATIAL where
+* The refusals: SPATIAL beside PIPE, SPATIAL where
   the clip's rows do not split over MODEL, a MODEL
   that does not divide a split attention's heads, mesh serving in one
   process (the mesh needs its processes), INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1
@@ -700,28 +700,28 @@ def test_refusals_name_their_option(tmp_path):
 
     # MESH.ZERO1 runs on the 'data' axis (test_torch_zero1.py), MESH.MODEL
     # on the 'model' axis, and the two together
-    # (test_torch_tensor_parallel.py), and SPATIAL beside MODEL
-    # (test_torch_spatial.py; a no-op at MODEL 1); a 'pipe' axis beside
-    # them is refused, naming the option, and so is SPATIAL over a MODEL
-    # that does not split the clip's rows
+    # (test_torch_tensor_parallel.py), SPATIAL beside MODEL
+    # (test_torch_spatial.py; a no-op at MODEL 1), and a 'pipe' axis
+    # beside them (test_torch_pipeline.py); SPATIAL beside a 'pipe' axis
+    # is refused, naming the option, and so is SPATIAL over a MODEL that
+    # does not split the clip's rows
     for attrs in (dict(model=2), dict(zero1=True, model=2, data=2),
-                  dict(spatial=True), dict(spatial=True, model=2, data=2)):
+                  dict(spatial=True), dict(spatial=True, model=2, data=2),
+                  dict(zero1=True, model=2, pipe=2), dict(pipe=2)):
         cfg = small_cfg()
         for attr, value in attrs.items():
             setattr(cfg.mesh, attr, value)
         runner.check_supported(cfg)
-    for attrs, name in ((dict(zero1=True, model=2, pipe=2), "MESH.PIPE"),
-                        (dict(pipe=2), "MESH.PIPE")):
-        cfg = small_cfg()
-        for attr, value in attrs.items():
-            setattr(cfg.mesh, attr, value)
-        with pytest.raises(NotImplementedError, match=name):
-            runner.check_supported(cfg)
+    cfg = small_cfg()
+    cfg.mesh.spatial, cfg.mesh.model, cfg.mesh.pipe = True, 2, 2
+    with pytest.raises(NotImplementedError, match="MESH.SPATIAL x MESH.PIPE"):
+        runner.check_supported(cfg)
     cfg = small_cfg()
     cfg.mesh.spatial, cfg.mesh.model = True, 3
     with pytest.raises(ValueError, match="MESH.SPATIAL"):
         runner.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="MESH.PIPE"):
+    # one process cannot hold two pipe stages
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL x PIPE"):
         mesh_lib.create_mesh(-1, 1, 2)
     # one process cannot hold two model peers
     with pytest.raises(ValueError, match="MESH.DATA x MODEL"):

@@ -3,9 +3,9 @@ and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
 model, as do MESH.ZERO1 (beside MESH.MODEL too), MoE with MESH.DATA > 1
-(the 'data' axis) and MESH.SPATIAL beside MESH.MODEL, and what it leaves
-out still raises: MESH.PIPE (with MESH.DATA or MESH.ZERO1 and MESH.MODEL
-beside it too), MESH.SPATIAL where the clip's rows do not split evenly
+(the 'data' axis), MESH.SPATIAL beside MESH.MODEL and MESH.PIPE, and what
+it leaves out still raises: MESH.SPATIAL beside MESH.PIPE (with MESH.DATA or
+MESH.ZERO1 beside them too), MESH.SPATIAL where the clip's rows do not split evenly
 over MESH.MODEL at some stage (ValueError), MODEL.INFER_CHUNK, and
 CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which the JAX package refuses
 too."""
@@ -60,9 +60,12 @@ def test_ported_options_reach_the_model():
 
 
 REFUSED = {
-    # MESH.DATA runs (MoE too); a 'pipe' axis beside it does not
+    # MESH.DATA runs (MoE too), and a 'pipe' axis beside it; the clip's
+    # rows split over MESH.MODEL beside them do not
     "mesh_data": (lambda c: (setattr(c.mesh, "data", 2),
-                             setattr(c.mesh, "pipe", 2)),
+                             setattr(c.mesh, "pipe", 2),
+                             setattr(c.mesh, "model", 2),
+                             setattr(c.mesh, "spatial", True)),
                   NotImplementedError),
     # MESH.MODEL runs (tensor parallelism, test_torch_tensor_parallel.py),
     # and the clip's H axis over it (SPATIAL, test_torch_spatial.py)
@@ -72,11 +75,12 @@ REFUSED = {
                               setattr(c.mesh, "spatial", True),
                               setattr(c.data, "img_size", 48)),
                    ValueError),
-    # MESH.ZERO1 runs on the 'data' axis and beside a 'model' axis; with a
-    # 'pipe' axis beside them it does not
+    # MESH.ZERO1 runs on the 'data' axis and beside 'model' and 'pipe'
+    # axes; with the clip's rows split beside them it does not
     "mesh_zero1": (lambda c: (setattr(c.mesh, "zero1", True),
                               setattr(c.mesh, "model", 2),
-                              setattr(c.mesh, "pipe", 2)),
+                              setattr(c.mesh, "pipe", 2),
+                              setattr(c.mesh, "spatial", True)),
                    NotImplementedError),
     # SPATIAL whose clip of 64 rows does not split over 3 model peers
     "mesh_spatial": (lambda c: (setattr(c.mesh, "spatial", True),

@@ -921,7 +921,7 @@ def test_model_axis_refusals(tmp_path):
     under MESH.MODEL in one process raises ValueError naming MESH.DATA x
     MODEL (the mesh has more peers than processes); generate_lfb
     under MESH.MODEL gets past its checks to the mesh (which one process
-    cannot hold), and with a 'pipe' axis is refused naming MESH.PIPE
+    cannot hold), and so it does with a 'pipe' axis beside it
     (tests/test_torch_data_parallel.py holds the other refusals)."""
     from test_torch_tuber import small_cfg
 
@@ -942,7 +942,7 @@ def test_model_axis_refusals(tmp_path):
         runner.run_generate_lfb(cfg, str(tmp_path / "bank.npz"),
                                 device="cpu")
     cfg.mesh.pipe = 2
-    with pytest.raises(NotImplementedError, match="MESH.PIPE"):
+    with pytest.raises(ValueError, match="MESH.DATA x MODEL x PIPE"):
         runner.run_generate_lfb(cfg, str(tmp_path / "bank.npz"),
                                 device="cpu")
     path = tmp_path / "mesh_serving.yaml"

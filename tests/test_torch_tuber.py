@@ -120,7 +120,10 @@ def test_build_model_is_seeded_and_casts():
 
 @pytest.mark.parametrize("knob", ["pipe"])
 def test_build_model_refuses_unported(knob):
+    """MESH.PIPE without the mesh whose 'pipe' axis the encoder runs over
+    is refused, as the JAX package refuses it (tests/test_torch_pipeline.py
+    runs it over one)."""
     cfg = small_cfg()
     cfg.mesh.pipe = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="MESH.PIPE 2 requires"):
         build_model(cfg)

@@ -24,7 +24,11 @@ same shard (the loaders shard over ``MESH.DATA`` by data index) and split
 the model between them (``parallel/sharding_rules.py``); with
 ``MESH.SPATIAL`` beside it the train and eval runs split the clip's rows
 over them through the trunk too (``train/engine.py``), and
-``generate_lfb``, as the JAX package's, ignores it.
+``generate_lfb``, as the JAX package's, ignores it. With ``MESH.PIPE``
+the pipe peers of a data shard read the same shard too and hold the
+transformer encoder's layers as GPipe stages (``parallel/pipeline.py``) in
+the train and eval runs and ``generate_lfb``, as the JAX runner builds its
+mesh with 'pipe'.
 """
 
 from __future__ import annotations
@@ -97,11 +101,11 @@ def _base_dataset(cfg: Config, split: str):
 
 def make_loaders(cfg: Config, val_only: bool = False):
     """(train_loader, val_loader) of this process's data shard (MESH.MODEL
-    peers read the same one): BATCH_SIZE per step and shard; each split
-    padded to a multiple of the shards, and the val tail wrap-padded to
-    full batches (the evaluators dedupe). ``val_only`` builds no train set
+    and MESH.PIPE peers read the same one): BATCH_SIZE per step and shard;
+    each split padded to a multiple of the shards, and the val tail
+    wrap-padded to full batches (the evaluators dedupe). ``val_only`` builds no train set
     (None in its place)."""
-    rank, world = mesh_lib.data_shard(cfg.mesh.model)
+    rank, world = mesh_lib.data_shard(cfg.mesh.model * cfg.mesh.pipe)
     train_loader = None
     if not val_only:
         train_loader = DataLoader(build_dataset(cfg, "train"),
@@ -209,7 +213,8 @@ def _run_training_body(cfg: Config, device: torch.device, seed: int,
     print(f"Start training on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
           f"rank {mesh.rank}: data shard {mesh.data_index} of "
-          f"{mesh.data}, model peer {mesh.model_index} of {mesh.model}"
+          f"{mesh.data}, model peer {mesh.model_index} of {mesh.model}, "
+          f"pipe stage {mesh.pipe_index} of {mesh.pipe}"
           f"{' (the clip rows split)' if mesh.spatial else ''}, "
           f"{steps_per_epoch} steps/epoch", flush=True)
     result: dict = {"dirs": dirs, "val": {}}

@@ -88,6 +88,9 @@ def main() -> None:
         raise SystemExit(f"--device {device}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
     cfg = load_config(args.config_file)
+    # serving runs the sequential encoder, as the JAX detector does: a
+    # MESH.PIPE training YAML still serves
+    cfg.mesh.pipe = 1
     mesh_lib.init_distributed(device, args.dist_backend)
     try:
         mesh = (mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model)

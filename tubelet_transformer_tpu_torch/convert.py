@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from tubelet_transformer_tpu_torch.models.tuber import TubeR
+from tubelet_transformer_tpu_torch.parallel.pipeline import (
+    unstack_encoder_params)
 
 # Per-stage starting block index in the flat Caffe2 numbering
 # (ir_CSN_152.py:269 / ir_CSN_50.py:272 of the reference).
@@ -187,7 +189,10 @@ def tuber_torch_state_from_params(
     """Our (params, batch_stats) -> reference module-named state dict.
 
     ``ddp_prefix`` adds the ``module.`` prefix the released checkpoints
-    carry (saved from DDP-wrapped models, model_utils.py:20-25).
+    carry (saved from DDP-wrapped models, model_utils.py:20-25). The
+    transformer's encoder layers may be a MESH.PIPE model's
+    ``encoder_stack`` (every leaf with a leading layer axis of
+    ``enc_layers``), which crosses over as the sequential layers.
     """
     sd: Dict[str, np.ndarray] = {}
     _put_csn(sd, "backbone.body", params["backbone"],
@@ -202,6 +207,9 @@ def tuber_torch_state_from_params(
         sd[f"{theirs}.bias"] = np.asarray(params[ours]["bias"], np.float32)
 
     tr = params["transformer"]
+    if "encoder_stack" in tr:
+        # a MESH.PIPE model's stacked encoder layers (leading layer axis)
+        tr = unstack_encoder_params(tr, enc_layers)
     for i in range(enc_layers):
         _put_encoder_layer(sd, f"transformer.encoder.layers.{i}",
                            tr[f"encoder_layer_{i}"])

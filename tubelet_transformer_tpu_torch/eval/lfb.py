@@ -126,7 +126,7 @@ def generate_bank(cfg, model, loader, threshold: float = 0.8, mesh=None
     (``parallel.mesh.Mesh``; ``loader`` this process's data shard) each
     batch's features, probabilities and keyframe indices of every data
     shard, in ONE host collective (``gather_global_tree``, each shard from
-    its model index 0): every process fills the full bank."""
+    its first rank of MESH.MODEL x MESH.PIPE): every process fills the full bank."""
     import torch
 
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
@@ -153,7 +153,7 @@ def generate_bank(cfg, model, loader, threshold: float = 0.8, mesh=None
         if mesh is not None:
             g = mesh_lib.gather_global_tree(
                 {"feats": feats, "prob": prob, "key_idx": key_idx},
-                mesh.model)
+                mesh.model * mesh.pipe)
             feats, prob, key_idx = g["feats"], g["prob"], g["key_idx"]
         for i in range(feats.shape[0]):
             idx = int(key_idx[i])

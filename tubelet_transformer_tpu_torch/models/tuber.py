@@ -172,10 +172,13 @@ class TubeR(nn.Module):
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
                               ) -> None:
-        """Every dropout of the model draws its masks from ``generator``."""
+        """Every dropout of the model draws its masks from ``generator``
+        (under a pipeline, the stage's encoder layers from masks seeded
+        from it: ``Transformer.set_dropout_generator``)."""
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = generator
+        self.transformer.set_dropout_generator(generator)
 
     def _temporal_pool(self, xs: torch.Tensor) -> torch.Tensor:
         """(B,T',H',W',C) -> (B,1,H',W',C) when single_frame."""
@@ -356,10 +359,16 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
     whose 'model' axis has more than one peer, the full model is then
     split over it (``parallel.sharding_rules.shard_model``): the weight
     files load unchanged; with ``mesh.spatial`` beside it (MESH.SPATIAL)
-    the model peers also split the clip's rows (``TubeR.set_spatial``)."""
+    the model peers also split the clip's rows (``TubeR.set_spatial``).
+    With MESH.PIPE > 1 the ``mesh`` (its 'pipe' axis of that size) is
+    required, as the JAX package requires it, and the model keeps this
+    pipe stage's encoder layers (``Transformer.set_pipeline``), which stay
+    whole under a 'model' axis."""
     m = cfg.model
-    if cfg.mesh.pipe > 1:
-        raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
+    if cfg.mesh.pipe > 1 and (mesh is None or mesh.pipe != cfg.mesh.pipe):
+        raise ValueError(f"MESH.PIPE {cfg.mesh.pipe} requires "
+                         "build_model(cfg, mesh=...) with its 'pipe' axis, "
+                         "so the encoder can run as stages over it")
     if cfg.train.frozen_chunk and cfg.mesh.data > 1:
         raise ValueError("TRAIN.FROZEN_CHUNK is a single-device option; "
                          "disable it when MESH.DATA > 1")
@@ -398,6 +407,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu",
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(dtype)
         model = model.to(device).eval()
+    if mesh is not None and mesh.pipe > 1:
+        model.transformer.set_pipeline(mesh, cfg.mesh.pipe_microbatches)
     if mesh is not None and mesh.model > 1:
         from tubelet_transformer_tpu_torch.parallel.sharding_rules import (
             shard_model)

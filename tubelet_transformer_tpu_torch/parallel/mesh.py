@@ -1,6 +1,6 @@
-"""Data and tensor parallelism over ``torch.distributed``: the port's
-counterpart of ``tubelet_transformer_tpu/parallel/mesh.py`` for
-``MESH.DATA`` and ``MESH.MODEL``.
+"""Data, tensor and pipeline parallelism over ``torch.distributed``: the
+port's counterpart of ``tubelet_transformer_tpu/parallel/mesh.py`` for
+``MESH.DATA``, ``MESH.MODEL`` and ``MESH.PIPE``.
 
 One process per rank, launched by ``python -m torch.distributed.run``
 (torchrun), each with one device. Under GSPMD the JAX step on a batch
@@ -23,8 +23,9 @@ number of shards.
 
 The 'model' axis (``MESH.MODEL``, ``parallel/sharding_rules.py``): the
 ranks are laid out as JAX's ``devices.reshape(data, model, pipe)``, so
-global rank = data index * model + model index and the model peers are
-adjacent ranks. The model peers hold the same data shard and split the
+global rank = (data index * model + model index) * pipe + pipe index, and
+the model and pipe peers of a data shard are adjacent ranks. The model
+peers hold the same data shard and split the
 transformer's attention heads, FFN columns and MoE experts between them;
 GSPMD's collectives are written here by hand as Megatron's two operators,
 ``Mesh.copy_to_model`` ("f": identity forward, the gradient summed over
@@ -32,9 +33,21 @@ the model peers) at the entry of a split region and
 ``Mesh.reduce_from_model`` ("g": the partial outputs summed forward,
 identity backward) at its exit.
 The three reductions above then run over the *data group* (the ranks of
-one model index): over the world they would count each shard ``model``
-times. ``create_mesh`` makes the data and model groups (every rank makes
-every group, in one order) and keeps them for the process.
+one model and pipe index): over the world they would count each shard
+``model * pipe`` times. ``create_mesh`` makes the data, model and pipe
+groups (every rank makes every group, in one order) and keeps them for
+the process.
+
+The 'pipe' axis (``MESH.PIPE``, ``parallel/pipeline.py``): the pipe peers
+of a (data, model) index hold the same data shard and run everything but
+the transformer encoder alike; each holds L/P consecutive encoder layers,
+and the encoder runs as a GPipe schedule over them. Its three hand-offs
+are written here: ``Mesh.pipe_carry`` (JAX's ``ppermute`` to the next
+stage: each stage's carry goes to the stage after it, and backward each
+carry's gradient to the stage before), ``Mesh.reduce_from_pipe`` (the
+last stage's rows, all-reduced forward over the pipe group, identity
+backward: "g") and ``Mesh.copy_to_pipe`` (the encoder's inputs: identity
+forward, their gradients summed over the pipe group backward: "f").
 
 Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, ``Mesh.spatial``):
 the model peers of a data shard split the clip's H axis instead of running
@@ -97,7 +110,7 @@ TIMEOUT = timedelta(minutes=10)
 
 # the CPU gloo group of this process, once init_distributed has run
 _HOST_GROUP: Optional[dist.ProcessGroup] = None
-# the data and model groups that create_mesh made, by their ranks
+# the data, model and pipe groups that create_mesh made, by their ranks
 _GROUPS: dict = {}
 
 
@@ -174,12 +187,12 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
-def data_shard(model: int = 1) -> tuple[int, int]:
+def data_shard(peers: int = 1) -> tuple[int, int]:
     """(this process's data shard, the number of data shards) when each
-    shard is held by ``model`` peers of adjacent ranks (global rank =
-    ``data_index * model + model_index``, ``Mesh``'s layout): the one
-    place the loaders and validation's gather read the layout from."""
-    return process_index() // model, process_count() // model
+    shard is held by ``peers`` adjacent ranks (MESH.MODEL x MESH.PIPE:
+    global rank = ``data_index * peers + ...``, ``Mesh``'s layout): the
+    one place the loaders and validation's gather read the layout from."""
+    return process_index() // peers, process_count() // peers
 
 
 def _all_gather(t: torch.Tensor, n: int,
@@ -315,6 +328,27 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _PipeCarry(torch.autograd.Function):
+    """JAX's ``ppermute`` to the next stage: each stage's tensor to the
+    stage after it, in one all-gather over the pipe group; stage 0 gets
+    zeros (no stage before it). Backward, each stage's gradient goes back
+    to the stage before it in one all-gather (the last stage's input gets
+    zeros). Every stage runs both, on every tick."""
+
+    @staticmethod
+    def forward(ctx, x, index, n, group):
+        ctx.args = (index, n, group)
+        parts = _all_gather(x, n, group)
+        return parts[index - 1] if index > 0 else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, n, group = ctx.args
+        parts = _all_gather(grad, n, group)
+        return (parts[index + 1] if index < n - 1
+                else torch.zeros_like(grad)), None, None, None
+
+
 def _group(ranks: tuple) -> Optional[dist.ProcessGroup]:
     """The group of ``ranks`` that ``create_mesh`` made; None (the default
     group) for the whole world."""
@@ -328,14 +362,15 @@ def _group(ranks: tuple) -> Optional[dist.ProcessGroup]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ('data', 'model') axes: ``data`` shards of equal size, each
-    split over ``model`` peers; this process is global ``rank`` =
-    ``data_index * model + model_index``. With ``data`` 1 every data
-    reduction is the identity, with ``model`` 1 every model operator. The
-    first three methods are the three roles a reduction over the data
-    group plays in the train step, the next two Megatron's operators over
-    the model group, the rest spatial parallelism's (``spatial``: the
-    model peers split the clip's rows through the trunk)."""
+    """The ('data', 'model', 'pipe') axes: ``data`` shards of equal size,
+    each held by ``model`` x ``pipe`` peers; this process is global
+    ``rank`` = ``(data_index * model + model_index) * pipe + pipe_index``.
+    With ``data`` 1 every data reduction is the identity, with ``model`` 1
+    every model operator, with ``pipe`` 1 every pipe hand-off. The first
+    three methods are the three roles a reduction over the data group
+    plays in the train step, the next two Megatron's operators over the
+    model group, then spatial parallelism's (``spatial``: the model peers
+    split the clip's rows through the trunk), then the pipeline's."""
 
     data: int = 1
     rank: int = 0
@@ -343,6 +378,8 @@ class Mesh:
     # MESH.SPATIAL: the model peers split the clip's rows through the
     # trunk; a no-op at one model peer, where it reads False
     spatial: bool = False
+    # MESH.PIPE: the encoder's layers as stages over the pipe peers
+    pipe: int = 1
 
     def __post_init__(self):
         if self.model == 1:
@@ -350,23 +387,36 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.model * self.pipe)
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.model
+        return self.rank // self.pipe % self.model
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank % self.pipe
+
+    def _rank(self, d: int, m: int, p: int) -> int:
+        return (d * self.model + m) * self.pipe + p
 
     @property
     def data_group(self) -> Optional[dist.ProcessGroup]:
-        """The ranks of this model index, one per data shard."""
-        m = self.model_index
-        return _group(tuple(d * self.model + m for d in range(self.data)))
+        """The ranks of this model and pipe index, one per data shard."""
+        m, p = self.model_index, self.pipe_index
+        return _group(tuple(self._rank(d, m, p) for d in range(self.data)))
 
     @property
     def model_group(self) -> Optional[dist.ProcessGroup]:
-        """The model peers of this data shard."""
-        base = self.data_index * self.model
-        return _group(tuple(range(base, base + self.model)))
+        """The model peers of this data shard and pipe stage."""
+        d, p = self.data_index, self.pipe_index
+        return _group(tuple(self._rank(d, m, p) for m in range(self.model)))
+
+    @property
+    def pipe_group(self) -> Optional[dist.ProcessGroup]:
+        """The pipe stages of this data shard and model index."""
+        d, m = self.data_index, self.model_index
+        return _group(tuple(self._rank(d, m, p) for p in range(self.pipe)))
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
         """Mean over the data shards of a batch statistic (BN's mean and
@@ -444,40 +494,66 @@ class Mesh:
         torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
             flat.split([g.numel() for g in grads]), grads)])
 
+    def pipe_carry(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage before this one's ``x`` (zeros on stage 0): JAX's
+        ``ppermute`` to the next stage, differentiable; every stage calls
+        it on every tick."""
+        return _PipeCarry.apply(x, self.pipe_index, self.pipe,
+                                self.pipe_group)
 
-def _make_groups(data: int, model: int) -> None:
-    """Every data group and every model group of a data x model mesh,
-    made once per process; every rank makes them all, in one order, as
-    ``dist.new_group`` requires."""
-    groups = [tuple(d * model + m for d in range(data)) for m in range(model)]
-    groups += [tuple(range(d * model, (d + 1) * model)) for d in range(data)]
-    for ranks in groups:
-        if ranks not in _GROUPS:
-            _GROUPS[ranks] = dist.new_group(list(ranks), timeout=TIMEOUT)
+    def copy_to_pipe(self, t: torch.Tensor) -> torch.Tensor:
+        """An input of the pipelined encoder ("f"): the identity forward;
+        backward, its gradient summed over the pipe stages (stage 0's,
+        the others' zero)."""
+        return (t if self.pipe == 1
+                else _CopyToModel.apply(t, self.pipe_group))
+
+    def reduce_from_pipe(self, t: torch.Tensor) -> torch.Tensor:
+        """The pipelined encoder's output ("g"): the sum over the stages
+        of ``t`` (the last stage's rows, zeros on the others), identity
+        backward."""
+        return (t if self.pipe == 1
+                else _ReduceFromModel.apply(t, self.pipe_group))
+
+
+def _make_groups(data: int, model: int, pipe: int) -> None:
+    """Every data group, then every model group, then every pipe group of
+    a data x model x pipe mesh that has more than one rank and is not the
+    world, made once per process; every rank makes them all, in one
+    order, as ``dist.new_group`` requires."""
+    world = data * model * pipe
+    axes = ((data, lambda i, j, k: (k * model + i) * pipe + j, model, pipe),
+            (model, lambda i, j, k: (i * model + k) * pipe + j, data, pipe),
+            (pipe, lambda i, j, k: (i * model + j) * pipe + k, data, model))
+    for size, rank, n_i, n_j in axes:
+        if size == 1 or size == world:
+            continue
+        for i in range(n_i):
+            for j in range(n_j):
+                ranks = tuple(rank(i, j, k) for k in range(size))
+                if ranks not in _GROUPS:
+                    _GROUPS[ranks] = dist.new_group(list(ranks),
+                                                    timeout=TIMEOUT)
 
 
 def create_mesh(data: int = -1, model: int = 1, pipe: int = 1,
                 spatial: bool = False) -> Mesh:
     """The mesh of ``MESH.DATA`` x ``MESH.MODEL`` x ``MESH.PIPE`` over the
-    processes: ``data`` -1 takes what ``model`` leaves. Raises
-    NotImplementedError for a 'pipe' axis (not ported) and ValueError when
-    the product is not the number of processes, as the JAX package does.
-    With both axes above 1, makes the data and model groups (a collective
-    call: every rank makes the same mesh). ``spatial`` (MESH.SPATIAL): the
-    model peers split the clip's rows; a no-op at ``model`` 1, as in
-    JAX."""
-    if pipe > 1:
-        raise NotImplementedError("MESH.PIPE > 1 is not ported yet")
+    processes: ``data`` -1 takes what ``model`` and ``pipe`` leave. Raises
+    ValueError when the product is not the number of processes, as the
+    JAX package does. Makes the groups of every axis that is neither one
+    rank nor the world (a collective call: every rank makes the same
+    mesh). ``spatial`` (MESH.SPATIAL): the model peers split the clip's
+    rows; a no-op at ``model`` 1, as in JAX."""
     n = process_count()
     if data == -1:
         data = n // (model * pipe)
-    if data < 1 or model < 1 or data * model * pipe != n:
+    if data < 1 or model < 1 or pipe < 1 or data * model * pipe != n:
         raise ValueError(f"mesh {data}x{model}x{pipe} (MESH.DATA x MODEL x "
                          f"PIPE) != {n} processes")
-    if data > 1 and model > 1:
-        _make_groups(data, model)
+    _make_groups(data, model, pipe)
     return Mesh(data=data, rank=process_index(), model=model,
-                spatial=spatial)
+                spatial=spatial, pipe=pipe)
 
 
 def barrier() -> None:
@@ -504,18 +580,18 @@ def all_gather_host(x) -> np.ndarray:
     return np.stack(all_gather_objects(np.asarray(x)))
 
 
-def gather_global_tree(tree: dict, model: int = 1) -> dict:
+def gather_global_tree(tree: dict, peers: int = 1) -> dict:
     """Each data shard's dict of numpy arrays (or CPU-copyable tensors),
     every array concatenated over the shards on its leading axis in shard
-    order: the global batch, in ONE host collective. With a 'model' axis of
-    ``model`` peers, which hold the same shard, each shard is taken once,
-    from its model index 0 (``data_shard``'s layout)."""
+    order: the global batch, in ONE host collective. With ``peers`` ranks
+    a shard (MESH.MODEL x MESH.PIPE), which hold the same shard, each
+    shard is taken once, from its first rank (``data_shard``'s layout)."""
     local = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
              for k, v in tree.items()}
     if not dist.is_initialized():
         return local
     parts = all_gather_objects(local)
-    parts = [parts[d * model] for d in range(data_shard(model)[1])]
+    parts = [parts[d * peers] for d in range(data_shard(peers)[1])]
     return {k: np.concatenate([p[k] for p in parts]) for k in local}
 
 
@@ -565,7 +641,7 @@ def _rows(a: np.ndarray, mesh: Mesh, rank: int) -> np.ndarray:
     """The rows of ``rank``'s data shard of ``a`` (equal blocks of its
     leading axis, one a shard)."""
     b = a.shape[0] // mesh.data
-    d = rank // mesh.model
+    d = rank // (mesh.model * mesh.pipe)
     return a[d * b:(d + 1) * b]
 
 

@@ -34,6 +34,15 @@ one-process layout from the peers' slices (collectives of the model group);
 ``load_full_state`` and ``shard_optimizer_state`` take that layout and
 keep this peer's slices, so a checkpoint is the same file at any
 ``MESH.MODEL``.
+
+The 'pipe' axis (``MESH.PIPE``): each pipe stage holds its L/P encoder
+layers (``transformer.encoder.layers.{i}``, ``stage_held``) under their
+global names, and JAX's rule that the stacked encoder shards over 'pipe'
+comes before the TP rules, so under MESH.PIPE x MESH.MODEL the encoder
+layers stay whole on their stage. The same functions gather the stages'
+layers (and their AdamW moments) over the pipe group after the model
+group, into the one-process names and order, and keep this stage's
+layers on the way in.
 """
 
 from __future__ import annotations
@@ -86,9 +95,10 @@ def _is_ffn(m: nn.Module) -> bool:
 def param_shardings(model: nn.Module, mesh: Mesh
                     ) -> Dict[str, Optional[Split]]:
     """Every parameter name of the full ``model`` -> its ``Split`` over
-    ``mesh``'s 'model' axis, or None (replicated). Raises ValueError where
-    JAX would split a projection of an attention whose heads the axis does
-    not divide."""
+    ``mesh``'s 'model' axis, or None (replicated; the encoder layers too
+    when ``mesh`` has a 'pipe' axis). Raises ValueError where JAX would
+    split a projection of an attention whose heads the axis does not
+    divide."""
     n = mesh.model
     out: Dict[str, Optional[Split]] = {k: None for k, _ in
                                        model.named_parameters()}
@@ -96,6 +106,8 @@ def param_shardings(model: nn.Module, mesh: Mesh
         return out
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
+        if mesh.pipe > 1 and stage_held(pre):
+            continue
         if isinstance(m, MultiHeadAttention):
             e = m.in_proj_weight.shape[1]
             if m.num_heads % n == 0:
@@ -115,6 +127,73 @@ def param_shardings(model: nn.Module, mesh: Mesh
             out[pre + "linear1.weight"] = Split(0)
             out[pre + "linear2.weight"] = Split(1)
     return out
+
+
+# the encoder's layers: with MESH.PIPE each stage holds L/P of them
+STAGE = "transformer.encoder.layers."
+
+
+def stage_held(name: str) -> bool:
+    """Whether parameter (or module) ``name`` belongs to an encoder layer,
+    which under MESH.PIPE one pipe stage holds."""
+    return name.startswith(STAGE)
+
+
+def _layer_and_rest(name: str) -> tuple[int, str]:
+    i, rest = name[len(STAGE):].split(".", 1)
+    return int(i), rest
+
+
+def _pipeline(model: nn.Module):
+    """The model's transformer when its encoder runs as pipe stages
+    (``Transformer.set_pipeline``), else None."""
+    tr = getattr(model, "transformer", None)
+    return tr if getattr(tr, "pipe", None) is not None else None
+
+
+def _full_names(tr, names: List[str]) -> List[str]:
+    """``names`` (this stage's order) with the block of this stage's
+    encoder entries replaced by every stage's, layer by layer: the
+    one-process names in the one-process order."""
+    held = [k for k in names if stage_held(k)]
+    if not held:
+        return list(names)
+    per = len(tr.stage_layers())
+    start = names.index(held[0])
+    if names[start:start + len(held)] != held:
+        raise ValueError("the encoder's entries are not contiguous")
+    rests = [r for i, r in map(_layer_and_rest, held) if i == tr.first_layer]
+    block = [f"{STAGE}{g}.{r}" for g in range(per * tr.pipe.pipe)
+             for r in rests]
+    return names[:start] + block + names[start + len(held):]
+
+
+def gather_stages(model: nn.Module, tensors: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """``tensors`` keyed by name with every pipe stage's encoder entries
+    in place of this stage's, in the one-process order: one
+    ``all_gather_into_tensor`` over the pipe group per dtype when the
+    model runs its encoder as stages (every stage holds the same layer
+    structure), else ``tensors`` itself."""
+    tr = _pipeline(model)
+    names = [k for k in tensors if stage_held(k)]
+    if tr is None or not names:
+        return tensors
+    mesh, per = tr.pipe, len(tr.stage_layers())
+    parts = [tensors[k].detach() for k in names]
+    got: Dict[str, torch.Tensor] = {}
+    for dtype in dict.fromkeys(p.dtype for p in parts):
+        idx = [j for j, p in enumerate(parts) if p.dtype == dtype]
+        flat = torch.cat([parts[j].reshape(-1) for j in idx])
+        segs = all_gather_flat(flat, mesh.pipe, mesh.pipe_group).split(
+            [parts[j].numel() for j in idx], dim=1)
+        for j, seg in zip(idx, segs):
+            i, rest = _layer_and_rest(names[j])
+            for q in range(mesh.pipe):
+                got[f"{STAGE}{i - tr.first_layer + q * per}.{rest}"] = (
+                    seg[q].view(parts[j].shape))
+    return {k: tensors[k] if k in tensors and not stage_held(k) else got[k]
+            for k in _full_names(tr, list(tensors))}
 
 
 # the CSN trunk's parameters: with the clip's rows split over the model
@@ -190,16 +269,18 @@ def _gather_flat(parts: List[torch.Tensor], splits: List[Split],
 def gather_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """``tensors`` keyed by parameter name (the parameters, their
-    gradients), each split one gathered to its full shape: a collective of
-    the model group when ``model`` is sharded, else ``tensors`` itself."""
+    gradients), each split one gathered to its full shape (a collective of
+    the model group when ``model`` is sharded), then every pipe stage's
+    encoder layers (``gather_stages``): ``tensors`` itself on one
+    process."""
     mesh = getattr(model, "tp", None)
     specs = split_params(model)
     names = [k for k in tensors if k in specs]
-    if mesh is None or not names:
-        return tensors
-    full = _gather_flat([tensors[k].detach() for k in names],
-                        [specs[k] for k in names], mesh)
-    return {**tensors, **dict(zip(names, full))}
+    if mesh is not None and names:
+        full = _gather_flat([tensors[k].detach() for k in names],
+                            [specs[k] for k in names], mesh)
+        tensors = {**tensors, **dict(zip(names, full))}
+    return gather_stages(model, tensors)
 
 
 def gather_state(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -211,7 +292,11 @@ def gather_state(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def load_full_state(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     """A one-process state dict into ``model``, this peer's slice of each
-    split parameter (``load_state_dict``, strict)."""
+    split parameter and this pipe stage's encoder layers
+    (``load_state_dict``, strict)."""
+    if _pipeline(model) is not None:
+        own = model.state_dict().keys()
+        sd = {k: v for k, v in sd.items() if not stage_held(k) or k in own}
     mesh = getattr(model, "tp", None)
     if mesh is not None:
         specs = split_params(model)
@@ -228,16 +313,72 @@ def _optimizer_splits(model: nn.Module, optimizer) -> Dict[int, Split]:
             if getattr(p, "tp_split", None) is not None}
 
 
+def _optimizer_names(model: nn.Module, optimizer) -> List[List[str]]:
+    """The parameter names of each of ``optimizer``'s groups."""
+    name_of = {id(p): k for k, p in model.named_parameters()}
+    return [[name_of[id(p)] for p in g["params"]]
+            for g in optimizer.param_groups]
+
+
+def _gather_stage_states(model: nn.Module, optimizer, sd: dict) -> dict:
+    """``sd`` (this stage's state dict of ``optimizer``) with every pipe
+    stage's encoder layers and their AdamW moments, indexed in the
+    one-process order (a collective of the pipe group); ``sd`` itself
+    without a pipeline."""
+    tr = _pipeline(model)
+    if tr is None:
+        return sd
+    groups = _optimizer_names(model, optimizer)
+    local = [k for g in groups for k in g]
+    full_groups = [_full_names(tr, g) for g in groups]
+    index = {k: i for i, k in enumerate(k for g in full_groups for k in g)}
+    held = {local[i]: st for i, st in sd["state"].items()
+            if stage_held(local[i])}
+    moments = gather_stages(model, {f"{k}{m}": st[m] for k, st in
+                                    held.items() for m in MOMENTS})
+    state = {index[local[i]]: st for i, st in sd["state"].items()
+             if not stage_held(local[i])}
+    if held:
+        # every stage takes its steps together: one stage's step counts
+        # are every stage's
+        other = next(iter(held.values()))
+        for k in index:
+            if stage_held(k):
+                state[index[k]] = {**other, **{m: moments[f"{k}{m}"]
+                                               for m in MOMENTS}}
+    return {"state": dict(sorted(state.items())),
+            "param_groups": [{**g, "params": [index[k] for k in fg]}
+                             for g, fg in zip(sd["param_groups"],
+                                              full_groups)]}
+
+
+def _keep_stage_states(model: nn.Module, optimizer, sd: dict) -> dict:
+    """A one-process optimizer state dict indexed for this pipe stage's
+    parameters, the other stages' encoder layers left out; ``sd`` itself
+    without a pipeline."""
+    tr = _pipeline(model)
+    if tr is None:
+        return sd
+    groups = _optimizer_names(model, optimizer)
+    index = {k: i for i, k in enumerate(k for g in groups for k in g)}
+    full = [k for g in groups for k in _full_names(tr, g)]
+    return {"state": {index[full[int(i)]]: st for i, st in sd["state"].items()
+                      if full[int(i)] in index},
+            "param_groups": [{**g, "params": [index[k] for k in lg]}
+                             for g, lg in zip(sd["param_groups"], groups)]}
+
+
 def gather_optimizer_state(model: nn.Module, optimizer) -> dict:
     """``optimizer.state_dict()`` with the AdamW moments of the split
-    parameters gathered to their full shapes: the one-process layout (a
-    collective of the model group when ``model`` is sharded)."""
+    parameters gathered to their full shapes, then every pipe stage's
+    encoder layers': the one-process layout (collectives of the model and
+    the pipe group when ``model`` is sharded or pipelined)."""
     sd = optimizer.state_dict()
     mesh = getattr(model, "tp", None)
     splits = _optimizer_splits(model, optimizer)
     held = [i for i in sorted(splits) if i in sd["state"]]
     if mesh is None or not held:
-        return sd
+        return _gather_stage_states(model, optimizer, sd)
     full = iter(_gather_flat([sd["state"][i][k] for i in held
                               for k in MOMENTS],
                              [splits[i] for i in held for _ in MOMENTS],
@@ -245,12 +386,14 @@ def gather_optimizer_state(model: nn.Module, optimizer) -> dict:
     state = dict(sd["state"])
     for i in held:
         state[i] = {**state[i], **{k: next(full) for k in MOMENTS}}
-    return {**sd, "state": state}
+    return _gather_stage_states(model, optimizer, {**sd, "state": state})
 
 
 def shard_optimizer_state(model: nn.Module, optimizer, sd: dict) -> dict:
-    """A one-process optimizer state dict with this peer's slices of the
-    split parameters' moments, for ``optimizer.load_state_dict``."""
+    """A one-process optimizer state dict with this pipe stage's
+    parameters alone and this peer's slices of the split parameters'
+    moments, for ``optimizer.load_state_dict``."""
+    sd = _keep_stage_states(model, optimizer, sd)
     mesh = getattr(model, "tp", None)
     if mesh is None:
         return sd

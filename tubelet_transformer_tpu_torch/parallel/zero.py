@@ -7,9 +7,10 @@ after the data all-reduce; each of the n 'data' shards owns 1/n of the
 ``mu``/``nu`` of every replicated parameter, along the largest axis that n
 divides (the lower axis on a tie), and updates it shard-locally; a
 parameter with no such axis keeps replicated moments, and a parameter
-split over 'model' (``MESH.MODEL``) keeps its moments in the parameter's
-layout, the model peer's slice; one all-gather returns the updated
-parameters to every rank.
+split over 'model' (``MESH.MODEL``) or held by one 'pipe' stage
+(``MESH.PIPE``: the encoder's layers) keeps its moments in the
+parameter's layout; one all-gather returns the updated parameters to
+every rank.
 
 ``ZeroAdamW`` does the same by hand: a ``torch.optim.AdamW`` with the
 groups and hyperparameters of ``train/optimizer.py:build_optimizer`` runs
@@ -21,7 +22,7 @@ the parameters as they are (so that a load between steps holds) and of
 the summed, clipped gradients into the leaves and their ``.grad``, steps, packs
 every owned slice into one flat buffer and makes ONE
 ``all_gather_into_tensor`` over the data group (the ranks of this model
-index, the whole world without a 'model' axis; NCCL, or gloo, which
+and pipe index, the whole world without those axes; NCCL, or gloo, which
 carries it for CUDA tensors), then unpacks the data shards' slices into
 the parameters.
 
@@ -69,8 +70,11 @@ def shard_axis(shape: Sequence[int], n: int) -> Optional[int]:
 def data_axis(p: torch.Tensor, n: int) -> Optional[int]:
     """The axis of parameter ``p`` whose moments shard over ``n`` data
     shards: ``shard_axis`` of its shape, or None for a parameter split over
-    'model' (``tp_split``), whose moments keep the parameter's layout."""
-    if getattr(p, "tp_split", None) is not None:
+    'model' (``tp_split``) or held by one pipe stage (``pipe_stage``, an
+    encoder layer under MESH.PIPE), whose moments keep the parameter's
+    layout."""
+    if (getattr(p, "tp_split", None) is not None
+            or getattr(p, "pipe_stage", False)):
         return None
     return shard_axis(p.shape, n)
 

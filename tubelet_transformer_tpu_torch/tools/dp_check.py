@@ -199,19 +199,30 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def readings(run: dict, single: dict, initial: dict) -> dict:
+def flat(d: dict, keys, device: Optional[torch.device] = None
+         ) -> torch.Tensor:
+    """The tensors of ``d`` under ``keys``, in order, flattened into one
+    float64 vector on ``device`` (the CPU by default): on the card a
+    reading of the flagship's ~86M parameters takes a fraction of a
+    second, on the host several."""
+    return torch.cat([d[k].reshape(-1).to(device=device, dtype=torch.float64)
+                      for k in keys])
+
+
+def readings(run: dict, single: dict, initial: dict,
+             device: Optional[torch.device] = None) -> dict:
     """``run`` against ``single``: the largest relative difference of a
     loss-dict entry (and of ``loss_moe_aux`` alone with MoE), of the
     gradient norm, of the stem's mean and variance,
     and the relative L2 differences of all gradients together and of the
-    running statistics' updates."""
+    running statistics' updates, summed in float64 on ``device``."""
     keys = [k for k in single["metrics"] if k not in ("finite", "grad_norm")]
     names = sorted(single["grads"])
     stat_keys = [k for k in initial if k.endswith(("running_mean",
                                                    "running_var"))]
 
     def cat(d, ks):
-        return torch.cat([d[k].reshape(-1).double() for k in ks])
+        return flat(d, ks, device)
 
     def rel(k):
         return (abs(run["metrics"][k] - single["metrics"][k])
@@ -505,7 +516,7 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     out["single"] = one_step(cfg, model, initial, microbatch_major(
         batch, mesh.data, max(1, cfg.train.accum_steps)), mesh_lib.Mesh())
     log_time("dp_check: the one-process step")
-    out["readings"] = {k: readings(out[k], out["single"], initial)
+    out["readings"] = {k: readings(out[k], out["single"], initial, device)
                        for k in ("dp", "control")}
     out["timings"] = {k: v.tolist() for k, v in every.items()}
     out["world"] = mesh.data

@@ -1,6 +1,7 @@
-"""One tensor-parallel train step (``MESH.MODEL``) held against the
-single-process step on the same global batch from the same state, and
-against a control whose "g" sums again in its backward.
+"""One tensor-parallel train step (``MESH.MODEL``), or one pipelined
+step (``MESH.PIPE``), held against the single-process step on the same
+global batch from the same state, and against controls that break one
+hand-off each.
 
 Run under torchrun, one process per rank (ranks on one card over gloo,
 which carries ``all_reduce`` and ``all_gather_into_tensor`` of CUDA
@@ -12,9 +13,10 @@ tensors; NCCL needs a card per rank):
       --device cuda:0 --dist-backend gloo --deterministic \\
       --dtypes float32,bfloat16 --moe --out build/tp_check.pt
 
-The mesh is ``--data`` x ``--model`` (the config's MESH.DATA and
-MESH.MODEL by default; ranks = data x model). Every rank builds the train
-model from ``--seed`` with every dropout off, split over the 'model' axis
+The mesh is ``--data`` x ``--model`` x ``--pipe`` (the config's
+MESH.DATA, MESH.MODEL and MESH.PIPE by default; ranks = their product).
+Every rank builds the train model from ``--seed`` with every dropout off,
+split over the 'model' axis and holding its pipe stage's encoder layers
 (``build_model(..., mesh=mesh)``), and takes its data shard (rows d*b ..
 d*b + b - 1 for data index d) of a global batch of MESH.DATA x
 TRAIN.BATCH_SIZE float clips made from ``--batch-seed``. From one
@@ -29,8 +31,9 @@ state it runs:
 * ``peers``: two steps, after each a digest of every replicated parameter
   and every buffer of each rank, which must equal its model peers'
   (``peers_agree``, also after the step and after each control);
-* ``single`` (rank 0 alone): the one-process step of the full model on
-  the whole batch.
+* ``single`` (the reporter alone, ``reporter``: rank 0, or under PIPE
+  the last stage of data shard 0): the one-process step of the full
+  model on the whole batch.
 
 For the two first it records what ``dp_check.one_step`` records (the
 gradients and the state after gathered to the one-process layout), and
@@ -51,15 +54,29 @@ place of "g"'s: ``zero_halo``, every halo row a zero row (no exchange),
 and ``no_trunk_sum``, the trunk's gradients left as each peer's share
 over its rows. On the card each rank also reports its peak device memory
 above the start of a spatial step (the peers' first) and of the
-MODEL-only step (the same model on the whole clip). With ``--eval-stages`` each rank then runs the
-eval step of the eval build with MODEL.PALLAS_KERNELS and FUSED_STAGES
-(the stage path) on its data shard, under the mesh and under the
-zero-halo control, with the stem, depthwise and chain launches of each,
-and rank 0 the one-process eval step on the whole batch: the largest
-differences of scores, actor probabilities and boxes (over the clip's
-side) of rank 0's rows.
+MODEL-only step (the same model on the whole clip). With
+``--eval-stages`` each rank then runs the eval step of the eval build
+with MODEL.PALLAS_KERNELS and FUSED_STAGES (the stage path) on its data
+shard, under the mesh and under the zero-halo control, with the stem,
+depthwise and chain launches of each, and the reporter the one-process
+eval step on the whole batch: the largest differences of scores, actor
+probabilities and boxes (over the clip's side) of its rows.
 
-``--floors``: rank 0 also runs ``floors``, the one-process step's own
+``--pipe`` P (MESH.PIPE; SPATIAL x PIPE is refused): the encoder's
+layers run as P GPipe stages of MESH.PIPE_MICROBATCHES microbatches, and
+the controls are ``zero_carry``, every stage-to-stage carry zeroed (the
+later stages see zeros, and the losses part), and ``no_input_sum``, the
+encoder input's gradient left as each stage's own, not summed over the
+pipe group (the stages after the first get no gradient through the
+encoder into the backbone). The reporter is the last stage: the
+replicated parameters' gradients there are the ones the input's sum
+reaches last. Every rank also reports the bytes of its encoder
+parameters and of their AdamW moments from the tensors (beside one
+process's), with ``--timed-steps`` the GPipe bubble (P - 1) / (M + P - 1)
+beside its step ms, and with ``--eval-stages`` the stage path's eval
+forward under the mesh.
+
+``--floors``: the reporter also runs ``floors``, the one-process step's own
 spread beside which every reading stands: the one-process step on the
 batch's samples in the other order (the same sums rounded in another
 order), and for bf16 the one-process step in float32.
@@ -68,11 +85,14 @@ order), and for bf16 the one-process step in float32.
 ``dp_check.zero1_check`` on the mesh, from the same state and on the same
 shard: two steps of the DATA x MODEL step, of the same step with
 ``MESH.ZERO1`` (the moments of the replicated parameters sharded over the
-data group, the split ones the model peer's slices) and of the ZeRO-1
-control without the all-gather; on every rank whether the model's and the
-optimizer's state dicts equal the DATA x MODEL step's bit for bit after
+data group, the split ones the model peer's slices, a pipe stage's
+encoder layers' its own) and of the ZeRO-1 control without the
+all-gather; on every rank whether the model's and the optimizer's state
+dicts equal the DATA x MODEL (or DATA x PIPE) step's bit for bit after
 each step, and this rank's moment bytes from the tensors beside the
 figure from the shapes.
+
+The readings sum in float64 on the check's device.
 """
 
 from __future__ import annotations
@@ -126,13 +146,54 @@ class NoTrunkSumMesh(mesh_lib.Mesh):
         return None
 
 
+class ZeroCarryMesh(mesh_lib.Mesh):
+    """The pipeline's control: every stage-to-stage carry zeroed, nothing
+    handed on."""
+
+    def pipe_carry(self, x):
+        return torch.zeros_like(x)
+
+
+class NoInputSumMesh(mesh_lib.Mesh):
+    """The pipeline's control: the encoder's inputs without "f", their
+    gradients each stage's own."""
+
+    def copy_to_pipe(self, t):
+        return t
+
+
+# the controls of a check, by the axis it holds (``axis``)
+CONTROLS = {"model": {"control": SumAgainMesh},
+            "spatial": {"zero_halo": ZeroHaloMesh,
+                        "no_trunk_sum": NoTrunkSumMesh},
+            "pipe": {"zero_carry": ZeroCarryMesh,
+                     "no_input_sum": NoInputSumMesh}}
+
+
+def axis(mesh: mesh_lib.Mesh) -> str:
+    """The axis that the check on ``mesh`` holds."""
+    return "pipe" if mesh.pipe > 1 else "spatial" if mesh.spatial else "model"
+
+
 def controls(mesh: mesh_lib.Mesh) -> dict:
     """The controls of the check on ``mesh``, by name, each on a mesh of
     its class in the same place."""
-    kinds = ({"zero_halo": ZeroHaloMesh, "no_trunk_sum": NoTrunkSumMesh}
-             if mesh.spatial else {"control": SumAgainMesh})
-    return {k: c(mesh.data, mesh.rank, mesh.model, mesh.spatial)
-            for k, c in kinds.items()}
+    return {k: c(mesh.data, mesh.rank, mesh.model, mesh.spatial, mesh.pipe)
+            for k, c in CONTROLS[axis(mesh)].items()}
+
+
+def reporter(mesh: mesh_lib.Mesh) -> int:
+    """The rank that runs the one-process step and reads the check: the
+    last pipe stage of data shard 0 (rank 0 without a 'pipe' axis)."""
+    return mesh.pipe - 1
+
+
+def one_process(cfg: Config) -> Config:
+    """``cfg`` for the one-process model: no 'model' or 'pipe' axis."""
+    c = copy.deepcopy(cfg)
+    c.mesh.data = c.mesh.model = c.mesh.pipe = 1
+    c.mesh.zero1 = False
+    return c
 
 
 def _no_dropout(model) -> None:
@@ -142,22 +203,26 @@ def _no_dropout(model) -> None:
 
 
 def _rebind(model, mesh: mesh_lib.Mesh) -> None:
-    """Every split module of ``model`` (and the model) on ``mesh``, and
-    the split of the clip's rows where the model has one."""
+    """Every split module of ``model`` (and the model) on ``mesh``, the
+    split of the clip's rows where the model has one, and its pipelined
+    encoder where it has one."""
     for m in model.modules():
         if getattr(m, "tp", None) is not None:
             m.tp = mesh
     if getattr(model, "spatial", None) is not None:
         model.set_spatial(mesh)
+    if model.transformer.pipe is not None:
+        model.transformer.pipe = mesh
 
 
 def replicated_digest(model) -> str:
     """SHA-256 of the bytes of every replicated parameter and every buffer
-    of ``model``, in order."""
+    of ``model``, in order (a pipe stage's encoder layers left out)."""
     h = hashlib.sha256()
     split = sharding_rules.split_params(model)
+    staged = model.transformer.pipe is not None
     for k, v in model.state_dict().items():
-        if k not in split:
+        if k not in split and not (staged and sharding_rules.stage_held(k)):
             h.update(k.encode())
             h.update(v.detach().cpu().contiguous().view(-1).view(
                 torch.uint8).numpy().tobytes())
@@ -165,10 +230,12 @@ def replicated_digest(model) -> str:
 
 
 def peers_agree(model, mesh: mesh_lib.Mesh) -> bool:
-    """Whether every rank's replicated parameters and buffers equal its
-    model peers' bit for bit now (the same on every rank)."""
+    """Whether every rank's replicated parameters and buffers equal those
+    of the other ranks of its data shard (its model and pipe peers) bit
+    for bit now (the same on every rank)."""
     every = mesh_lib.all_gather_objects(replicated_digest(model))
-    return all(d == every[r - r % mesh.model] for r, d in enumerate(every))
+    n = mesh.model * mesh.pipe
+    return all(d == every[r - r % n] for r, d in enumerate(every))
 
 
 def _peak_above_start(device: torch.device, fn) -> Optional[int]:
@@ -187,11 +254,13 @@ def _peak_above_start(device: torch.device, fn) -> Optional[int]:
 
 def peer_check(cfg: Config, model, initial: dict, batch: dict,
                mesh: mesh_lib.Mesh, steps: int = 2,
-               peak: Optional[list] = None) -> list:
+               peak: Optional[list] = None,
+               states: Optional[list] = None) -> list:
     """``steps`` train steps from ``initial``; after each, whether every
-    rank's replicated parameters and buffers equal those of its model
-    peers bit for bit (the same on every rank). ``peak``: a list that gets
-    the first step's ``_peak_above_start``."""
+    rank's replicated parameters and buffers equal those of its peers
+    bit for bit (``peers_agree``, the same on every rank). ``peak``: a
+    list that gets the first step's ``_peak_above_start``; ``states``:
+    one that gets the train state after the steps."""
     sharding_rules.load_full_state(model, initial)
     state = engine.create_train_state(cfg, model, steps_per_epoch=10,
                                       mesh=mesh)
@@ -204,6 +273,8 @@ def peer_check(cfg: Config, model, initial: dict, batch: dict,
         if i == 0 and peak is not None:
             peak.append(bytes_)
         agree.append(peers_agree(model, mesh))
+    if states is not None:
+        states.append(state)
     return agree
 
 
@@ -233,27 +304,50 @@ def model_reduces(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh
 def timings(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh,
             steps: int) -> dict:
     """``steps`` more steps of this rank (each ended by a sync) from the
-    model's state, then the model group's all-reduces of one step replayed
-    at their sizes, five times: ms, with the count and the MB."""
+    model's state: ms; with a 'model' axis then the model group's
+    all-reduces of one step replayed at their sizes, five times: ms, with
+    the count and the MB; with a 'pipe' axis the GPipe bubble
+    (P - 1) / (M + P - 1)."""
     device = next(model.parameters()).device
-    sizes = model_reduces(cfg, model, batch, mesh)
+    sizes = model_reduces(cfg, model, batch, mesh) if mesh.model > 1 else ()
     state = engine.create_train_state(cfg, model, steps_per_epoch=10,
                                       mesh=mesh)
     step = engine.make_train_step(cfg, state, mesh=mesh)
     db = engine.device_batch(batch, device)
-    step_ms = [dp_check._timed(device, lambda: step(db, cfg.loss.dice_cof))
-               for _ in range(steps)]
-    bufs = [torch.zeros(n, dtype=dt, device=device) for n, dt in sizes]
+    out = {"step_ms": [dp_check._timed(device, lambda: step(
+        db, cfg.loss.dice_cof)) for _ in range(steps)]}
+    if sizes:
+        bufs = [torch.zeros(n, dtype=dt, device=device) for n, dt in sizes]
 
-    def replay():
-        for t in bufs:
-            dist.all_reduce(t, group=mesh.model_group)
+        def replay():
+            for t in bufs:
+                dist.all_reduce(t, group=mesh.model_group)
 
-    reduce_ms = [dp_check._timed(device, replay) for _ in range(5)]
-    return {"step_ms": step_ms, "model_all_reduce_ms": reduce_ms,
-            "model_all_reduces": len(sizes),
-            "model_all_reduce_mb": sum(t.numel() * t.element_size()
-                                       for t in bufs) / 1e6}
+        out.update(model_all_reduce_ms=[dp_check._timed(device, replay)
+                                        for _ in range(5)],
+                   model_all_reduces=len(sizes),
+                   model_all_reduce_mb=sum(t.numel() * t.element_size()
+                                           for t in bufs) / 1e6)
+    if mesh.pipe > 1:
+        m = cfg.mesh.pipe_microbatches
+        out["bubble"] = (mesh.pipe - 1) / (m + mesh.pipe - 1)
+    return out
+
+
+def encoder_bytes(model, optimizer=None) -> dict:
+    """The bytes of ``model``'s encoder layers (this stage's) and of their
+    AdamW moments in ``optimizer``, read from the tensors."""
+    params = {id(p): p for k, p in model.named_parameters()
+              if sharding_rules.stage_held(k)}
+    out = {"params": sum(p.numel() * p.element_size()
+                         for p in params.values())}
+    if optimizer is not None:
+        opt = getattr(optimizer, "inner", optimizer)
+        out["moments"] = sum(
+            v.numel() * v.element_size() for p, st in opt.state.items()
+            if id(p) in params for k, v in st.items()
+            if k in ("exp_avg", "exp_avg_sq"))
+    return out
 
 
 def model_only_peak(cfg: Config, model, initial: dict, batch: dict,
@@ -305,10 +399,11 @@ def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
                mesh: mesh_lib.Mesh) -> dict:
     """The stage path's eval forward (MODEL.PALLAS_KERNELS and
     FUSED_STAGES on ``cfg``'s eval build) on this rank's data shard of
-    ``batch``, under ``mesh`` and under its zero-halo control: each one's
-    outputs and kernel launches; on rank 0 also the one-process forward of
-    the full model on the whole batch and the largest absolute difference
-    of each output of rank 0's rows from it."""
+    ``batch``, under ``mesh`` ("mesh") and, with the rows split, under its
+    zero-halo control: each one's outputs and kernel launches; on the
+    reporter (of data shard 0) also the one-process forward of the full
+    model on the whole batch and the largest absolute difference of each
+    output of its rows from it."""
     c = copy.deepcopy(cfg)
     c.model.pallas_kernels = c.model.fused_stages = True
     b = c.train.batch_size
@@ -316,9 +411,12 @@ def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
     db = engine.device_batch({k: v[d * b:(d + 1) * b] for k, v in
                               batch.items()}, device)
     model = build_model(c, device=device, seed=seed, mesh=mesh)
+    runs = {"mesh": mesh}
+    if mesh.spatial:
+        runs["zero_halo"] = ZeroHaloMesh(mesh.data, mesh.rank, mesh.model,
+                                         mesh.spatial)
     out = {}
-    for name, m in (("spatial", mesh), ("zero_halo", ZeroHaloMesh(
-            mesh.data, mesh.rank, mesh.model, mesh.spatial))):
+    for name, m in runs.items():
         _rebind(model, m)
         before = eval_launches()
         got = eval_forward(model, db, m)
@@ -326,33 +424,35 @@ def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
         out[name] = {"outputs": got,
                      "launches": {k: after[k] - before[k] for k in after}}
     del model
-    if mesh.rank:
+    if mesh.rank != reporter(mesh):
         return out
-    full = build_model(c, device=device, seed=seed)
+    full = build_model(one_process(c), device=device, seed=seed)
     want = eval_forward(full, engine.device_batch(batch, device),
                         mesh_lib.Mesh())
     out["differences"] = {
         k: {n: float((out[k]["outputs"][n] - want[n][:b]).abs().max())
-            for n in want} for k in ("spatial", "zero_halo")}
+            for n in want} for k in runs}
     return out
 
 
-def tp_readings(run: dict, single: dict, initial: dict) -> dict:
+def tp_readings(run: dict, single: dict, initial: dict,
+                device: Optional[torch.device] = None) -> dict:
     """``dp_check.readings``, ``update_rel``: the relative L2 difference of
     the updates of the parameters that have gradients, and
     ``trunk_grads_rel``: that of the trunk's gradients alone (those that
-    MESH.SPATIAL sums over the model group), where it has some."""
+    MESH.SPATIAL sums over the model group), where it has some; summed in
+    float64 on ``device``."""
     names = sorted(single["grads"])
     trunk = [k for k in names if sharding_rules.spatial_partial(k)]
 
     def moved(r):
-        return torch.cat([(r["state"][k].double() - initial[k].double())
-                          .reshape(-1) for k in names])
+        return (dp_check.flat(r["state"], names, device)
+                - dp_check.flat(initial, names, device))
 
     def cat(r):
-        return torch.cat([r["grads"][k].double().reshape(-1) for k in trunk])
+        return dp_check.flat(r["grads"], trunk, device)
 
-    return {**dp_check.readings(run, single, initial),
+    return {**dp_check.readings(run, single, initial, device),
             "update_rel": dp_check._rel(moved(run), moved(single)),
             **({"trunk_grads_rel": dp_check._rel(cat(run), cat(single))}
                if trunk else {})}
@@ -387,7 +487,8 @@ def floors(cfg: Config, device: torch.device, seed: int, initial: dict,
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
-    return {k: tp_readings(r, single, initial) for k, r in runs.items()}
+    return {k: tp_readings(r, single, initial, device)
+            for k, r in runs.items()}
 
 
 def run(cfg: Config, device: torch.device, seed: int = 0,
@@ -395,22 +496,26 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
         batch: Optional[dict] = None, timed_steps: int = 0,
         zero1: bool = False, eval_stages: bool = False,
         with_floors: bool = False) -> Optional[dict]:
-    """The check on this rank (in a joined process group); on rank 0 the
-    recorded runs, the readings, the peers' equality, every rank's
-    launches and timings, None on the others. ``initial``: the one-process
-    state dict (else random weights from ``seed``); ``batch``: the global
-    batch (else ``dp_check.global_batch``); ``zero1`` (at MESH.DATA > 1):
-    also ``dp_check.zero1_check``, every rank's result under "zero1".
-    With MESH.SPATIAL in ``cfg`` the rows split (``controls``), every
-    rank's peak memory of a spatial step (the peers' first) and of the
-    MODEL-only step (``model_only_peak``) under "memory", and with
-    ``eval_stages`` every rank's ``eval_check`` under "eval";
-    ``with_floors``: ``floors`` under "floors"."""
+    """The check on this rank (in a joined process group); on the
+    reporter the recorded runs (its own), the readings, the peers'
+    equality, every rank's launches and timings, None on the others.
+    ``initial``: the one-process state dict (else random weights from
+    ``seed``); ``batch``: the global batch (else
+    ``dp_check.global_batch``); ``zero1`` (at MESH.DATA > 1): also
+    ``dp_check.zero1_check``, every rank's result under "zero1". With
+    MESH.SPATIAL in ``cfg`` the rows split (``controls``) and every rank's
+    peak memory of a spatial step (the peers' first) and of the
+    MODEL-only step (``model_only_peak``) goes under "memory"; with
+    MESH.PIPE every rank's ``encoder_bytes`` under "encoder_bytes";
+    ``eval_stages`` (with SPATIAL or PIPE): every rank's ``eval_check``
+    under "eval"; ``with_floors``: ``floors`` under "floors"."""
     mesh = mesh_lib.create_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.pipe,
                                 cfg.mesh.spatial)
-    if mesh.model == 1:
-        raise ValueError("MESH.MODEL 1: no 'model' axis to check (--model)")
+    if mesh.model == 1 and mesh.pipe == 1:
+        raise ValueError("MESH.MODEL and MESH.PIPE 1: no 'model' or 'pipe' "
+                         "axis to check (--model, --pipe)")
     cfg.mesh.data = mesh.data
+    single_cfg = one_process(cfg)
     model = build_model(cfg, device=device, seed=seed, train=True, mesh=mesh)
     dp_check.log_time("tp_check: the split model built")
     _no_dropout(model)
@@ -424,74 +529,75 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     shard = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
     out = {"tp": dp_check.one_step(cfg, model, initial, shard, mesh)}
     agree = {"tp": peers_agree(model, mesh)}
-    names = list(controls(mesh))
-    for name, control in controls(mesh).items():
+    checks = controls(mesh)
+    for name, control in checks.items():
         _rebind(model, control)
         out[name] = dp_check.one_step(cfg, model, initial, shard, control)
         agree[name] = peers_agree(model, mesh)
     _rebind(model, mesh)
-    dp_check.log_time(f"tp_check: the step and its controls {names}")
+    dp_check.log_time(f"tp_check: the step and its controls {list(checks)}")
     peak: list = []
-    peers = peer_check(cfg, model, initial, shard, mesh, peak=peak)
+    states: list = []
+    peers = peer_check(cfg, model, initial, shard, mesh, peak=peak,
+                       states=states)
     dp_check.log_time("tp_check: the peers' two steps")
-    extra = {}
+    mine = {"launches": out["tp"]["launches"]}
+    if mesh.pipe > 1:
+        mine["encoder_bytes"] = encoder_bytes(model, states[0].optimizer)
+    del states
     if mesh.spatial:
-        extra["memory"] = {"spatial": peak[0], "model_only": model_only_peak(
+        mine["memory"] = {"spatial": peak[0], "model_only": model_only_peak(
             cfg, model, initial, shard, mesh)}
-        if eval_stages:
-            extra["eval"] = eval_check(cfg, device, seed, batch, mesh)
-            dp_check.log_time("tp_check: the stage path's eval step")
     if zero1 and mesh.data > 1:
         z = dp_check.zero1_check(cfg, model, initial, shard, mesh)
-        print(f"tp_check rank {mesh.rank}: ZeRO-1 x MODEL moment bytes "
+        print(f"tp_check rank {mesh.rank}: ZeRO-1 moment bytes "
               f"{z['zero1_moment_bytes']} (from the shapes "
               f"{z['zero1_predicted_bytes']}) against "
-              f"{z['data_moment_bytes']} in the DATA x MODEL step (from the "
-              f"shapes {z['data_predicted_bytes']}); bit-equal to the DATA x "
-              f"MODEL step after each step: ZeRO-1 {z['zero1_equal']}, "
-              f"control {z['control_equal']}", flush=True)
+              f"{z['data_moment_bytes']} in the step without it (from the "
+              f"shapes {z['data_predicted_bytes']}); bit-equal to that step "
+              f"after each step: ZeRO-1 {z['zero1_equal']}, control "
+              f"{z['control_equal']}", flush=True)
         out["zero1"] = mesh_lib.all_gather_objects(z)
         dp_check.log_time("tp_check: the ZeRO-1 check")
-    times = timings(cfg, model, shard, mesh, timed_steps) \
-        if timed_steps else {}
-    if times:
-        print(f"tp_check rank {mesh.rank}: step ms "
-              f"{[round(t, 2) for t in times['step_ms']]}, the model "
-              f"group's {times['model_all_reduces']} all-reduces of a step "
-              f"({times['model_all_reduce_mb']:.2f} MB) ms "
-              f"{[round(t, 2) for t in times['model_all_reduce_ms']]}",
+    mine["timings"] = {}
+    if timed_steps:
+        mine["timings"] = timings(cfg, model, shard, mesh, timed_steps)
+        print(f"tp_check rank {mesh.rank}: timings {mine['timings']}",
               flush=True)
-    every = mesh_lib.all_gather_objects({
-        "launches": out["tp"]["launches"], "timings": times,
-        **{k: (v if k != "eval" else {n: v[n]["launches"] for n in
-                                      ("spatial", "zero_halo")})
-           for k, v in extra.items()}})
-    if mesh.rank:
-        return None
     del model
+    ev = {}
+    if eval_stages and (mesh.spatial or mesh.pipe > 1):
+        ev = eval_check(cfg, device, seed, batch, mesh)
+        mine["eval"] = {n: v["launches"] for n, v in ev.items()
+                        if n != "differences"}
+        dp_check.log_time("tp_check: the stage path's eval step")
+    every = mesh_lib.all_gather_objects(mine)
+    if mesh.rank != reporter(mesh):
+        return None
     out.update(peers_equal=peers, peers_agree=agree,
-               launches=[e["launches"] for e in every],
-               timings=[e["timings"] for e in every],
-               mesh=(mesh.data, mesh.model), spatial=mesh.spatial,
-               controls=names)
-    if "memory" in extra:
-        out["memory"] = [e["memory"] for e in every]
-    if "eval" in extra:
-        out["eval"] = {"differences": extra["eval"]["differences"],
-                       "launches": [e["eval"] for e in every]}
+               mesh=(mesh.data, mesh.model, mesh.pipe), spatial=mesh.spatial,
+               controls=list(checks),
+               **{k: [e[k] for e in every] for k in mine})
+    if ev:
+        out["eval"] = {"differences": ev["differences"],
+                       "launches": out["eval"]}
     with _every_core(device):
-        full = build_model(cfg, device=device, seed=seed, train=True)
+        full = build_model(single_cfg, device=device, seed=seed, train=True)
         _no_dropout(full)
         out["single"] = dp_check.one_step(
-            cfg, full, initial, dp_check.microbatch_major(
+            single_cfg, full, initial, dp_check.microbatch_major(
                 batch, mesh.data, max(1, cfg.train.accum_steps)),
             mesh_lib.Mesh())
         dp_check.log_time("tp_check: the one-process step")
-        out["readings"] = {k: tp_readings(out[k], out["single"], initial)
-                           for k in ("tp", *names)}
+        out["readings"] = {k: tp_readings(out[k], out["single"], initial,
+                                          device) for k in ("tp", *checks)}
+        if mesh.pipe > 1:
+            one = encoder_bytes(full)["params"]
+            out["one_process_encoder_bytes"] = {"params": one,
+                                                "moments": 2 * one}
         if with_floors:
-            out["floors"] = floors(cfg, device, seed, initial, batch, mesh,
-                                   out["single"])
+            out["floors"] = floors(single_cfg, device, seed, initial, batch,
+                                   mesh, out["single"])
             dp_check.log_time("tp_check: the one-process step's floors")
     out["split"] = [k for k, s in sharding_rules.param_shardings(
         full, mesh).items() if s]
@@ -517,7 +623,8 @@ def summary(out: dict) -> dict:
     return {**{k: out[k] for k in ("readings", "peers_equal", "peers_agree",
                                    "launches", "timings", "mesh", "zero1",
                                    "spatial", "controls", "memory", "eval",
-                                   "floors")
+                                   "floors", "encoder_bytes",
+                                   "one_process_encoder_bytes")
                if k in out},
             "n_split": len(out["split"]),
             **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
@@ -534,6 +641,8 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
                    help="MESH.DATA (default: the config's)")
     p.add_argument("--model", type=int, default=None,
                    help="MESH.MODEL (default: the config's)")
+    p.add_argument("--pipe", type=int, default=None,
+                   help="MESH.PIPE (default: the config's)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda:<LOCAL_RANK>)")
     p.add_argument("--dist-backend", default=None)
@@ -550,14 +659,14 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
                         "when among --dtypes)")
     p.add_argument("--timed-steps", type=int, default=0)
     p.add_argument("--zero1", action="store_true",
-                   help="also ZeRO-1 against the DATA x MODEL step (at "
+                   help="also ZeRO-1 against the step on the mesh (at "
                         "--data > 1)")
     p.add_argument("--spatial", action="store_true",
                    help="MESH.SPATIAL: the model peers split the clip's "
                         "rows (its controls, each rank's peak memory)")
     p.add_argument("--eval-stages", action="store_true",
-                   help="with --spatial, also the stage path's eval step "
-                        "against one process")
+                   help="with --spatial or --pipe, also the stage path's "
+                        "eval step against one process")
     p.add_argument("--floors", action="store_true",
                    help="also the one-process step's own spread: on the "
                         "batch reversed, and for bf16 in float32")
@@ -572,10 +681,9 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
     device = (torch.device(args.device) if args.device
               else mesh_lib.default_device())
     cfg = load_config(args.config_file)
-    if args.data is not None:
-        cfg.mesh.data = args.data
-    if args.model is not None:
-        cfg.mesh.model = args.model
+    for name in ("data", "model", "pipe"):
+        if getattr(args, name) is not None:
+            setattr(cfg.mesh, name, getattr(args, name))
     cfg.mesh.spatial = cfg.mesh.spatial or args.spatial
     dtypes = args.dtypes.split(",")
     if "float32" in dtypes:
@@ -605,15 +713,16 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
             if out is not None:
                 result[name] = summary(out)
                 result[name]["wall_s"] = time.perf_counter() - t0
-                print(f"tp_check {name}: readings {out['readings']}; model "
-                      f"peers bit-equal after each step "
-                      f"{out['peers_equal']}; launches per rank "
-                      f"{out['launches']}; peak memory per rank "
-                      f"{out.get('memory')}; eval "
+                print(f"tp_check {name}: readings {out['readings']}; peers "
+                      f"bit-equal after each step {out['peers_equal']}; "
+                      f"launches per rank {out['launches']}; peak memory "
+                      f"per rank {out.get('memory')}; encoder bytes per "
+                      f"rank {out.get('encoder_bytes')} (one process "
+                      f"{out.get('one_process_encoder_bytes')}); eval "
                       f"{out.get('eval')}; floors {out.get('floors')}",
                       flush=True)
             del out
-        if mesh_lib.is_main_process():
+        if result:
             torch.save(result, args.out)
     finally:
         if not keep_group:

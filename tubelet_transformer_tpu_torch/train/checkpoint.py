@@ -28,7 +28,13 @@ and every rank loads the whole file and keeps its slices, so a file
 resumes at any ``MESH.MODEL``. With both (ZeRO-1 beside ``MESH.MODEL``) the
 save gathers the moments over the data group first, then the split ones
 over the model group; the load cuts the split moments to the peer's slice
-first, then keeps the data slice.
+first, then keeps the data slice. Under pipeline parallelism
+(``MESH.PIPE``) the encoder layers are gathered over the pipe group too
+and each stage keeps its own on the way in; the file records the PIPE it
+was written under, and a full resume whose run has the other encoder
+layout (pipelined or not, as JAX's stacked or sequential one) raises
+ValueError naming MESH.PIPE, as the JAX package's does: weights alone
+load across it (``load_pretrained``).
 """
 
 from __future__ import annotations
@@ -82,7 +88,8 @@ def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": model, "optimizer": optimizer,
                "step": state.step, "updates": state.updates, "epoch": epoch,
-               "max_accuracy": float(max_accuracy)}
+               "max_accuracy": float(max_accuracy),
+               "pipe": _pipe_of(state.model)}
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -94,12 +101,30 @@ def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
                 os.remove(old)
 
 
+def _pipe_of(model: torch.nn.Module) -> int:
+    """The pipe stages the model's encoder runs as (1 without a
+    pipeline)."""
+    pipe = model.transformer.pipe
+    return 1 if pipe is None else pipe.pipe
+
+
 def load_checkpoint(path: str, state: TrainState
                     ) -> tuple[TrainState, int, float]:
     """Restore ``path`` into ``state`` in place (this model peer's slices
-    under MESH.MODEL); returns (state, epoch, max_accuracy)."""
+    under MESH.MODEL, this stage's layers under MESH.PIPE); returns
+    (state, epoch, max_accuracy). ValueError naming MESH.PIPE when the
+    file was written with the encoder pipelined and the run's is not, or
+    the other way round."""
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
+    written, run = payload.get("pipe", 1), _pipe_of(state.model)
+    if (written > 1) != (run > 1):
+        raise ValueError(
+            f"cannot resume {path!r}: it was written under MESH.PIPE "
+            f"{written}, the run's MESH.PIPE is {run} (the encoder "
+            f"{'pipelined' if run > 1 else 'sequential'}). To continue "
+            "training across a MESH.PIPE change, load weights only via "
+            "MODEL.LOAD + MODEL.PRETRAINED_PATH (optimizer state restarts).")
     sharding_rules.load_full_state(state.model, payload["model"])
     state.optimizer.load_state_dict(sharding_rules.shard_optimizer_state(
         state.model, state.optimizer, payload["optimizer"]))

@@ -56,6 +56,19 @@ squared norm of the split gradients over the model group. Every peer of
 a shard draws the same jitter and dropout, so the matcher picks the same
 matches and the replicated parameters stay equal.
 
+Pipeline parallelism (``MESH.PIPE``, the model built on a mesh with a
+'pipe' axis): the pipe peers of a data shard (and model index) run the
+step on the same shard, everything but the encoder alike, the encoder as
+GPipe stages (``parallel/pipeline.py``), each stage's layers its own.
+Every pipe peer then holds the whole loss of its shard; the gradients of
+the replicated parameters are equal on every stage (the encoder input's
+gradient is stage 0's, summed over the pipe group) and each stage has
+its layers'; the data reductions run over the data group (the ranks of
+one model and pipe index), and the clip sums the squared norm of the
+stages' gradients over the pipe group. The eval step runs the same
+pipelined encoder; a shard's batch must divide by
+MESH.PIPE_MICROBATCHES, or the step raises ValueError as JAX's does.
+
 Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, a mesh whose
 ``spatial`` is set, the model built on it): the steps preprocess the
 whole clip, so that the jitter and the pad zeroing draw and read what one
@@ -148,12 +161,14 @@ def clip_height(cfg: Config) -> int:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the step options not ported yet, and
+    """Raise NotImplementedError for the step options not ported yet (the
+    clip's rows split over MESH.MODEL beside a 'pipe' axis among them), and
     with MESH.SPATIAL ValueError where the clip's rows do not split over
     MESH.MODEL at some stage (``csn.spatial_rows``)."""
     unsupported = {
         "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
-        "MESH.PIPE > 1": cfg.mesh.pipe > 1,
+        "MESH.SPATIAL x MESH.PIPE": (cfg.mesh.spatial and cfg.mesh.model > 1
+                                     and cfg.mesh.pipe > 1),
     }
     for name, asked in unsupported.items():
         if asked:
@@ -250,14 +265,21 @@ def _bn_stats(model: torch.nn.Module) -> List[torch.Tensor]:
 
 def check_model_mesh(model: TubeR, mesh: Mesh) -> None:
     """Raise ValueError unless ``model`` is split over ``mesh``'s 'model'
-    axis exactly when that axis has more than one peer, and splits the
-    clip's rows exactly when the mesh does (MESH.SPATIAL)."""
+    axis exactly when that axis has more than one peer, runs its encoder
+    as stages over the 'pipe' axis exactly when that one has, and splits
+    the clip's rows exactly when the mesh does (MESH.SPATIAL)."""
     tp = getattr(model, "tp", None)
     split = tp.model if tp is not None else 1
     if split != mesh.model:
         raise ValueError(
             f"MESH.MODEL {mesh.model}: the model is split over {split} "
             "peers; build it with build_model(..., mesh=mesh)")
+    pipe = model.transformer.pipe
+    if (pipe.pipe if pipe is not None else 1) != mesh.pipe:
+        raise ValueError(
+            f"MESH.PIPE {mesh.pipe}: the model's encoder runs as "
+            f"{pipe.pipe if pipe is not None else 1} stages; build it with "
+            "build_model(..., mesh=mesh)")
     if (model.spatial is not None) != mesh.spatial:
         raise ValueError(
             f"MESH.SPATIAL {mesh.spatial} on MESH.MODEL {mesh.model}: the "
@@ -265,18 +287,26 @@ def check_model_mesh(model: TubeR, mesh: Mesh) -> None:
             "the clip's rows; build it with build_model(..., mesh=mesh)")
 
 
+def step_seed(seed: int, step: int, data_index: int) -> int:
+    """The seed of a train step's generator: TRAIN.SEED, the step, and
+    the data index by an odd 32-bit multiplier (the CPU generator keeps
+    the low 32 bits of a seed)."""
+    return seed * 1_000_003 + step + data_index * 2_654_435_761
+
+
 def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     """The train step: (batch on the device, loss_ce weight) -> metrics
     (0-dim tensors, the global batch's under data parallelism), updating
-    ``state`` in place. ``mesh``: this process's place on the 'data' and
-    'model' axes (one device by default); the batch is this rank's data
-    shard."""
+    ``state`` in place. ``mesh``: this process's place on the 'data',
+    'model' and 'pipe' axes (one device by default); the batch is this
+    rank's data shard."""
     check_supported(cfg)
     check_model_mesh(state.model, mesh)
     sharded = isinstance(state.optimizer, ZeroAdamW)
     if sharded != (cfg.mesh.zero1 and mesh.data > 1) or (
-            sharded and (state.optimizer.mesh.data, state.optimizer.mesh.model)
-            != (mesh.data, mesh.model)):
+            sharded and (state.optimizer.mesh.data, state.optimizer.mesh.model,
+                         state.optimizer.mesh.pipe)
+            != (mesh.data, mesh.model, mesh.pipe)):
         raise ValueError(
             f"MESH.ZERO1 {cfg.mesh.zero1} on a 'data' axis of {mesh.data}: "
             f"the state's optimizer is {type(state.optimizer).__name__}; "
@@ -312,10 +342,8 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     def train_step(batch: Dict[str, torch.Tensor], loss_ce_weight: float
                    ) -> Dict[str, torch.Tensor]:
         model.train()
-        # the data index by an odd 32-bit multiplier: the CPU generator
-        # keeps the low 32 bits of a seed
-        generator.manual_seed(state.seed * 1_000_003 + state.step
-                              + mesh.data_index * 2_654_435_761)
+        generator.manual_seed(step_seed(state.seed, state.step,
+                                        mesh.data_index))
         clips = keep_rows(device_preprocess(
             batch["clips"], dtype=model.dtype, pad_mask=batch.get("pad_mask"),
             jitter=True, generator=generator), mesh)

@@ -11,9 +11,10 @@ Under data parallelism every rank runs the steps on its shard; the
 metrics the steps return are global, and rank 0 alone prints, logs and
 profiles them. Validation gathers each batch's detections and ground
 truth from every rank in one host collective
-(``parallel.mesh.gather_global_tree``; under ``MESH.MODEL`` each data shard
-once, from its model index 0), and rank 0 alone evaluates, dumps and
-plots; the other ranks return the losses alone.
+(``parallel.mesh.gather_global_tree``; under ``MESH.MODEL`` and
+``MESH.PIPE`` each data shard once, from its first rank), and rank 0
+alone evaluates, dumps and plots; the other ranks return the losses
+alone.
 """
 
 from __future__ import annotations
@@ -139,7 +140,7 @@ def validate_ava(cfg: Config, eval_step, model: torch.nn.Module, loader,
             **{k: out[k].float() for k in ("scores", "boxes", "binary")},
             "key_idx": batch["key_idx"], "sizes": batch["sizes"],
             **{f"gt_{k}": batch[k] for k in ("boxes", "labels", "valid")}},
-            cfg.mesh.model)
+            cfg.mesh.model * cfg.mesh.pipe)
         if not is_main:
             continue
         scores, boxes, binary = g["scores"], g["boxes"], g["binary"]
@@ -234,7 +235,7 @@ def validate_ucf(cfg: Config, eval_step, model: torch.nn.Module, loader,
             **{k: out[k].float() for k in ("scores", "boxes")},
             **{k: batch[k] for k in ("key_idx", "key_pos", "sizes", "vis")},
             **{f"gt_{k}": batch[k] for k in ("boxes", "labels", "valid")}},
-            cfg.mesh.model)
+            cfg.mesh.model * cfg.mesh.pipe)
         if not is_main:
             continue
         scores, boxes = g["scores"], g["boxes"]

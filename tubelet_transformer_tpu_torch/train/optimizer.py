@@ -9,7 +9,8 @@ backbone). Frozen parameters get ``requires_grad_(False)`` and no optimizer
 state; their BN statistics still update in train mode. ``torch.optim.AdamW``
 couples weight decay to the group's rate and decays every parameter, as the
 JAX chain does; the clip runs over the trainable gradients before Adam
-(over the model peers' slices too under ``MESH.MODEL``).
+(over the model peers' slices too under ``MESH.MODEL``, and the pipe
+stages' encoder layers under ``MESH.PIPE``).
 With ``MESH.ZERO1`` on a 'data' axis of more than one rank the same AdamW
 keeps its moments sharded over the data shards (``parallel/zero.py``),
 beside a 'model' axis too.
@@ -94,20 +95,30 @@ def clip_by_global_norm(params: Iterable[nn.Parameter],
     max_norm / norm in place, as ``optax.clip_by_global_norm`` does. Split
     over ``mesh``'s 'model' axis (``tp_split``), a parameter's gradient is
     this peer's slice: the squares of those are summed over the model
-    group, the replicated ones counted once."""
+    group, the replicated ones counted once; held by this 'pipe' stage
+    (``pipe_stage``), the squares are summed over the pipe group."""
     with_grad = [p for p in params if p.grad is not None]
     grads = [p.grad for p in with_grad]
     if not grads:
         return torch.zeros(())
     norms = torch.stack(torch._foreach_norm(grads))
     split = [getattr(p, "tp_split", None) is not None for p in with_grad]
-    if mesh.model == 1 or not any(split):
+    stage = [getattr(p, "pipe_stage", False) for p in with_grad]
+    split_any = mesh.model > 1 and any(split)
+    stage_any = mesh.pipe > 1 and any(stage)
+    if not (split_any or stage_any):
         norm = torch.linalg.vector_norm(norms)
     else:
         split = torch.tensor(split, device=norms.device)
-        norm = (torch.linalg.vector_norm(norms[~split]).square()
-                + mesh.reduce_from_model(
-                    torch.linalg.vector_norm(norms[split]).square())).sqrt()
+        stage = torch.tensor(stage, device=norms.device)
+        sq = torch.linalg.vector_norm(norms[~split & ~stage]).square()
+        if split_any:
+            sq = sq + mesh.reduce_from_model(
+                torch.linalg.vector_norm(norms[split]).square())
+        if stage_any:
+            sq = sq + mesh.reduce_from_pipe(
+                torch.linalg.vector_norm(norms[stage]).square())
+        norm = sq.sqrt()
     if max_norm > 0:
         scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
         torch._foreach_mul_(grads, scale)
