@@ -25,9 +25,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    serving pool's largest bucket of 8 clips, each clip's output bit-equal
    whatever the other clips hold; the pooled stem and the statistics
    kernel on each model peer's row window of the clip (MESH.SPATIAL, 2
-   and 4 peers, bf16 and float32), the pooled rows bit for bit against
-   the same rows of the whole clip's launch; the stage chain on each
-   peer's slabs at MODEL 2, SPATIAL_TAILS), with
+   and 4 peers, bf16 and float32, and 4 peers of 50 rows whose pooled
+   bands are uneven), the pooled rows bit for bit against the same rows
+   of the whole clip's launch; the stage chain on each peer's slabs at
+   MODEL 2, SPATIAL_TAILS, and on each of JHMDB's uneven slab shapes at
+   MODEL 4, JHMDB_SPATIAL_TAILS), with
    CUDA-event times (``tools/timing.py``) of calls back to back for both
    (``ms``, host work included) and of the kernel on the device alone
    (``device_ms``), of the one PyTorch call that computes the same
@@ -208,10 +210,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
     reversed, its zero-halo control and its control without the trunk's
     gradient sum, the peers bit-equal, #4 and #2 once on every rank on
     its window, each rank's peak memory against the MODEL-only step's) in
-    bf16 and float32 on 2 ranks, with the stage path's eval forward (#2,
-    #5 and the chains, cut to the peer's rows, on every rank; within 4
-    bf16 ulps of one process), and in float32 on 4 ranks of DATA 2 x
-    MODEL 2; and pipeline parallelism (MESH.PIPE 2, the encoder's 6
+    bf16 on 2 ranks, with the stage path's eval forward (#2, #5 and the
+    chains, cut to the shortest band, on every rank; within 4 bf16 ulps
+    of one process), in float32 on 4 ranks of DATA 2 x MODEL 2, and in
+    float32 on JHMDB's 224 x 400 canvas over MODEL 4 (uneven bands: 4,
+    3, 4 and 3 rows at layers 3-4), with the stage path's eval forward
+    (14 chains a rank, JHMDB_SPATIAL_TAILS); SPATIAL beside PIPE 2 on 4
+    ranks in float32 (both axes' controls); MESH.MODEL 3, whose heads
+    split as JAX's rule splits them (every packed projection in q, k and
+    v rows, one a peer), ``tools/tp_check --model 3`` on 3 ranks in
+    float32 (its "gather" control, each rank's in_proj bytes a third);
+    and pipeline parallelism (MESH.PIPE 2, the encoder's 6
     layers as GPipe stages of 3 in 2 microbatches): ``train_ava`` through
     torchrun (its checkpoint the one-process layout), and
     ``tools/tp_check --pipe 2`` (the PIPE step against the one-process
@@ -287,7 +296,11 @@ WINDOW_CASES = {"ava_256px_train": ((2, 32, 256, 256, 3), "bfloat16", 2),
                 "ava_256px_clip": ((1, 32, 256, 256, 3), "bfloat16", 2),
                 "ava_256px_train_model4": ((2, 32, 256, 256, 3), "bfloat16",
                                            4),
-                "ragged_f32": ((2, 3, 64, 45, 3), "float32", 2)}
+                "ragged_f32": ((2, 3, 64, 45, 3), "float32", 2),
+                # 50 rows a peer: pooled bands of 13, 12, 13 and 12 rows,
+                # peers 1 and 3 from input rows not on a multiple of 4
+                "uneven_200x400_model4": ((2, 32, 200, 400, 3), "bfloat16",
+                                          4)}
 BUILD_DIR = ROOT / "build"
 # The weight files the smoke writes in the released formats, and the name
 # of the released IG65M CSN-152 backbone export they stand for.
@@ -442,12 +455,39 @@ SPATIAL_TAILS = {"layer2": ((1, 16, 23, 32, 512), 128, 7, 1),
                  "layer3": ((1, 8, 16, 16, 1024), 256, 8, 4),
                  "layer3_last": ((1, 8, 11, 16, 1024), 256, 3, 1),
                  "layer4": ((1, 4, 10, 16, 2048), 512, 2, 1)}
+# Under MESH.SPATIAL at MODEL 4 on JHMDB's recipe (CSN-152, 224 x 400, T
+# 32) the bands are uneven: 7 rows a peer at layer2's output, 4, 3, 4 and
+# 3 at layer3's and layer4's. Every peer cuts its chains alike, at most
+# the shortest band's rows (CSN.stage): layer2 one chain of 7, layer3
+# eleven of 3 and one of 2, layer4 one of 2: 14 launches a rank a
+# forward. Each peer's slab (its rows and k rows on each side, cut at the
+# clip's border) by (stage, slab rows, k): the shape, C_mid, k, the
+# launches of that shape over the 4 ranks in one forward, and the peers
+# that launch it (checked against the port's bands, ``spatial_slabs``)
+JHMDB_SPATIAL_TAILS = {
+    "layer2_r14_k7": ((1, 16, 14, 50, 512), 128, 7, 2, (0, 3)),
+    "layer2_r21_k7": ((1, 16, 21, 50, 512), 128, 7, 2, (1, 2)),
+    "layer3_r7_k3": ((1, 8, 7, 25, 1024), 256, 3, 11, (0,)),
+    "layer3_r9_k3": ((1, 8, 9, 25, 1024), 256, 3, 11, (1,)),
+    "layer3_r10_k3": ((1, 8, 10, 25, 1024), 256, 3, 11, (2,)),
+    "layer3_r6_k3": ((1, 8, 6, 25, 1024), 256, 3, 11, (3,)),
+    "layer3_r6_k2": ((1, 8, 6, 25, 1024), 256, 2, 1, (0,)),
+    "layer3_r7_k2": ((1, 8, 7, 25, 1024), 256, 2, 1, (1,)),
+    "layer3_r8_k2": ((1, 8, 8, 25, 1024), 256, 2, 1, (2,)),
+    "layer3_r5_k2": ((1, 8, 5, 25, 1024), 256, 2, 1, (3,)),
+    "layer4_r6_k2": ((1, 4, 6, 25, 2048), 512, 2, 1, (0,)),
+    "layer4_r7_k2": ((1, 4, 7, 25, 2048), 512, 2, 1, (1,)),
+    "layer4_r8_k2": ((1, 4, 8, 25, 2048), 512, 2, 1, (2,)),
+    "layer4_r5_k2": ((1, 4, 5, 25, 2048), 512, 2, 1, (3,))}
+JHMDB_SPATIAL = {"height": 224, "width": 400, "frames": 32, "model": 4}
 CHAIN_CASES = {**{f"{k}_256px": (v, "bfloat16") for k, v in
                   FLAGSHIP_TAILS.items()},
                **{f"{k}_256px_b8": (((8, *x[1:]), cm, tail), "bfloat16")
                   for k, (x, cm, tail) in FLAGSHIP_TAILS.items()},
                **{f"{k}_spatial2": ((x, cm, tail), "bfloat16")
                   for k, (x, cm, tail, _) in SPATIAL_TAILS.items()},
+               **{f"{k}_jhmdb4": ((x, cm, k_), "bfloat16")
+                  for k, (x, cm, k_, *_) in JHMDB_SPATIAL_TAILS.items()},
                "two_clips_t5": (((2, 5, 32, 32, 512), 128, 7), "bfloat16"),
                "ragged_f32": (((1, 4, 13, 21, 512), 128, 3), "float32")}
 # Chain against the plain version. The kernel must equal K launches of
@@ -690,8 +730,14 @@ def phase_window_kernels(torch, stem) -> dict:
     pooled rows of each peer's slab bit for bit against the same rows of
     the whole clip's launch, and against the windowed plain version; each
     window's statistics against the windowed plain version, and the peers'
-    statistics averaged against the whole clip's; the times of peer 0's
-    window (the kernel, the device alone, the plain version, the bound)."""
+    statistics averaged (weighted by their conv rows) against the whole
+    clip's; the times of the first window whose input rows start off a
+    multiple of 4 (an uneven band), else peer 0's (the kernel, the device
+    alone, the plain version, the bound). Each peer's slab holds the rows
+    above and below its band that ``stem_halo`` exchanges, as the model's
+    spatial stem does."""
+    from tubelet_transformer_tpu_torch.parallel.mesh import Bands
+
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(7)
     results = {}
@@ -705,13 +751,15 @@ def phase_window_kernels(torch, stem) -> dict:
         full = stem.stem_forward(x, w, scale, bias)
         full_mean, full_var = stem.stem_batch_stats(x, w)
         rows = h // model
+        top, below = stem.stem_halo(Bands.split(h, model))
         equal, pool_err, means, msqs, windows = [], 0.0, [], [], []
+        counts = []
         stat_err = [0.0, 0.0]             # of the means, of the variances
         for i in range(model):
             first = i * rows
-            pw = stem.peer_window(first, rows, h, pooled=True)
+            pw = stem.peer_window(first, rows, h, pooled=True, top=top)
             sw = stem.peer_window(first, rows, h, pooled=False)
-            end = min(h, first + rows + stem.POOL_HALO[1])
+            end = min(h, first + rows + below)
             pslab = x[:, :, pw.row0:end].contiguous()
             sslab = x[:, :, sw.row0:end].contiguous()
             got = stem.stem_forward(pslab, w, scale, bias, pw)
@@ -731,13 +779,16 @@ def phase_window_kernels(torch, stem) -> dict:
                             ((var - ref_var).abs() / ref_var).max().item())]
             means.append(mean)
             msqs.append(var + mean.square())
+            counts.append(float(sw.out_rows))
             windows.append((pslab, pw, got, sslab, sw, mean, var))
-        mean = torch.stack(means).mean(0)
-        var = torch.stack(msqs).mean(0) - mean.square()
+        n = torch.tensor(counts, device=means[0].device)[:, None]
+        mean = (torch.stack(means) * n).sum(0) / n.sum()
+        var = (torch.stack(msqs) * n).sum(0) / n.sum() - mean.square()
         avg_err = [(mean - full_mean).abs().max().item()
                    / full_var.sqrt().max().item(),
                    ((var - full_var).abs() / full_var).max().item()]
-        pslab, pw, got, sslab, sw, mean, var = windows[0]
+        timed_peer = next((i for i in range(model) if i * rows % 4), 0)
+        pslab, pw, got, sslab, sw, mean, var = windows[timed_peer]
         c0, c1 = stem.pool_conv_rows(pw)
         wc = (wd - 1) // 2 + 1
         timed = {
@@ -752,7 +803,9 @@ def phase_window_kernels(torch, stem) -> dict:
                                                                    sw),
                            nbytes(sslab, w, mean, var),
                            2 * b * t * sw.out_rows * wc * 64 * 441)}
-        case = {"peers": model, "pool_bit_equal": equal,
+        case = {"peers": model, "timed_peer": timed_peer,
+                "pooled_rows": [w[1].out_rows for w in windows],
+                "pool_bit_equal": equal,
                 "pool_rel_err": pool_err, "stats_rel_err": stat_err,
                 "stats_average_rel_err": avg_err}
         for kernel, (fn, plain, nb, ops) in timed.items():
@@ -773,7 +826,8 @@ def phase_window_kernels(torch, stem) -> dict:
             f"window against the windowed plain version, the mean (of the "
             f"max std) and the variance (relative) {stat_err} (tol "
             f"{tol_stats}), the peers' statistics averaged against the "
-            f"whole clip's {avg_err}; peer 0: "
+            f"whole clip's {avg_err}; pooled rows per peer "
+            f"{case['pooled_rows']}; peer {timed_peer}: "
             + "; ".join(f"{k} {v['shape']} kernel {v['ms']:.4f} ms (the "
                         f"device alone {v['device_ms']:.4f}), plain "
                         f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
@@ -1350,19 +1404,75 @@ def flagship_chains() -> int:
                if S.chain_supported(shape, cm))
 
 
+def spatial_slabs(height: int, width: int, frames: int, model: int,
+                  last_stride: bool = False,
+                  blocks: tuple = (3, 8, 36, 3)) -> list:
+    """Each model peer's chain launches in a CSN-152 stage-path eval
+    forward of one clip with its rows split over ``model`` peers
+    (MESH.SPATIAL), as ``CSN.stage`` cuts them: every identity tail that
+    chain_supported takes (on the clip's full height) in chains of at most
+    the shortest non-empty band's rows, each on the peer's slab of its
+    rows and k rows on each side, cut at the clip's border; per peer a
+    list of (stage, slab shape, C_mid, k), none for an empty band."""
+    from tubelet_transformer_tpu_torch.models.csn import (
+        spatial_rows, stage_stride)
+    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+    from tubelet_transformer_tpu_torch.ops.cuda.stem import pooled_hw
+
+    bands = spatial_rows(height, blocks, last_stride, model)
+    w, t = pooled_hw(height, width)[1], frames
+    out: list = [[] for _ in range(model)]
+    for s, n in enumerate(blocks):
+        w = -(-w // stage_stride(s, last_stride))
+        t = t if s == 0 else -(-t // 2)
+        b, cm = bands[3 + s], (64, 128, 256, 512)[s]
+        full = (1, t, b.height, w, 4 * cm)
+        if n < 2 or not S.chain_supported(full, cm):
+            continue
+        kmax = min(S.max_chain(b.height * w, 4 * cm, cm),
+                   min(h for _, h in b.rows if h))
+        ks = [kmax] * ((n - 1) // kmax) + [(n - 1) % kmax] * bool(
+            (n - 1) % kmax)
+        for i, (a, h) in enumerate(b.rows):
+            out[i] += [(f"layer{s + 1}", (1, t, min(b.height, a + h + k)
+                                          - max(0, a - k), w, 4 * cm), cm, k)
+                       for k in ks if h]
+    return out
+
+
 def spatial_chains(model: int) -> int:
     """Chain launches per flagship forward on each rank with the clip's
-    rows split over ``model`` peers (MESH.SPATIAL): each identity tail in
-    chains of at most the peer's rows at that stage, the halo a chain of k
-    blocks reads from each neighbour (``CSN.stage``)."""
-    from tubelet_transformer_tpu_torch.models.csn import spatial_rows
-    from tubelet_transformer_tpu_torch.ops.cuda import stage as S
+    rows split over ``model`` peers (MESH.SPATIAL; ``spatial_slabs``)."""
+    return len(spatial_slabs(256, 256, 32, model)[0])
 
-    rows = spatial_rows(256, (3, 8, 36, 3), False, model)
-    return sum(-(-tail // min(rows[s + 3], S.max_chain(
-        shape[2] * shape[3], shape[4], cm)))
-               for s, (shape, cm, tail) in enumerate(FLAGSHIP_TAILS.values())
-               if S.chain_supported(shape, cm))
+
+def jhmdb_spatial_chain_cases(chains: dict, measured: list) -> dict:
+    """The chain's cases under MESH.SPATIAL at MODEL 4 on JHMDB's recipe
+    (JHMDB_SPATIAL_TAILS), each with its own measured numbers, the
+    launches of its shape over the ranks in one forward and the peers that
+    launch it; the table must be the port's cut (``spatial_slabs``), and
+    its launches each rank's measured count in this run's JHMDB spatial
+    eval forward (``measured``)."""
+    slabs = spatial_slabs(**JHMDB_SPATIAL)
+    cut: dict = {}
+    for peer, launches in enumerate(slabs):
+        for stage, shape, cm, k in launches:
+            key = f"{stage}_r{shape[2]}_k{k}"
+            cut.setdefault(key, [shape, cm, k, 0, ()])
+            cut[key][3] += 1
+            if peer not in cut[key][4]:
+                cut[key][4] += (peer,)
+    cut = {k: (tuple(v[0]), *v[1:]) for k, v in cut.items()}
+    if cut != JHMDB_SPATIAL_TAILS:
+        raise AssertionError(f"JHMDB_SPATIAL_TAILS is not the port's cut "
+                             f"{cut}")
+    if any(m != len(slabs[i]) for i, m in enumerate(measured)):
+        raise AssertionError(f"JHMDB spatial chains: the ranks launched "
+                             f"{measured} a forward, the table "
+                             f"{[len(x) for x in slabs]}")
+    return {k: {**chains[f"{k}_jhmdb4"], "launches_per_forward": n,
+                "peers": list(peers)}
+            for k, (_, _, _, n, peers) in JHMDB_SPATIAL_TAILS.items()}
 
 
 def phase_in_situ(torch, det, switch, what: str) -> None:
@@ -4012,7 +4122,11 @@ def _torchrun_wait(job: dict) -> str:
     job["wall"] = time.perf_counter() - job["t0"]
     text = job["path"].read_text()
     if rc != 0:
-        raise AssertionError(f"{job['name']}: exit {rc}:\n{text[-3000:]}")
+        # the first rank's traceback, then the end of the log
+        first = text.find("Traceback")
+        head = text[first:first + 3000] if first >= 0 else ""
+        raise AssertionError(f"{job['name']}: exit {rc}:\n{head}\n...\n"
+                             f"{text[-3000:]}")
     log(f"[time] torchrun {job['name']} ({job['nproc']} processes): "
         f"{job['wall']:.1f} s; rank 0's marks: "
         f"{[x[7:] for x in text.splitlines() if x.startswith('[time] ')]}")
@@ -4700,6 +4814,12 @@ SPATIAL_TOL = {
                 "stem_mean_rel": 1e-6, "stem_var_rel": 1e-6,
                 "trunk_grads_rel": 0.2},
 }
+# the stage path's eval forward with the rows split against one process,
+# by dtype: in bf16 SERVE_MESH_ULPS bf16 ulps; in float32 (JHMDB's recipe
+# at MODEL 4, uneven bands) the forward read 1.4e-4 and its zero-halo
+# control 0.037 on the H100 (PERF.md): 1e-3 sits between
+SPATIAL_EVAL_BOUND = {"bfloat16": SERVE_MESH_ULPS * BF16_EPS,
+                      "float32": 1e-3}
 SPATIAL_CONTROL_MISSES = {
     "bfloat16": {"zero_halo": ("stem_mean_rel", "loss_rel"),
                  "no_trunk_sum": ()},
@@ -4709,21 +4829,22 @@ SPATIAL_CONTROL_MISSES = {
 
 
 def _spatial_check_result(torch, name: str, ranks: int, text: str,
-                          smi: str) -> dict:
+                          smi: str, chains: int | None = None) -> dict:
     """tools/tp_check --spatial's result (build/<name>.pt) of ``ranks``
     ranks on cuda:0 over gloo: the step's readings within SPATIAL_TOL,
-    and so the one-process step's on the batch reversed (``--floors``: the
-    bounds no tighter than one process's own spread), each control
-    outside its bound where it acts (SPATIAL_CONTROL_MISSES), the model
-    peers bit-equal after each of two steps and after the step and the
-    zero-halo control, not after the control without the trunk's
-    gradient sum, #4 and #2 once each on every rank (on its window), each
-    rank's peak memory of a spatial step below the MODEL-only step's; with
-    the
-    stage path's eval forward, every rank's #2, #5 and #8 launches
-    (spatial_chains), rank 0's outputs within SERVE_MESH_ULPS of one
-    process's and the zero-halo control's outside it somewhere. Returns
-    the saved result."""
+    and so, with ``--floors``, the one-process step's on the batch
+    reversed (the bounds no tighter than one process's own spread), each
+    control outside its bound where it acts (SPATIAL_CONTROL_MISSES; beside
+    a 'pipe' axis PP_CONTROL_MISSES too), the ranks of a data shard
+    bit-equal after each of two steps and after the step and each
+    zeroing control (zero halo, zero carry), not after a control that
+    leaves a gradient unsummed, #4 and #2 once each on every rank (on its
+    window), each rank's peak memory of a spatial step below the step's
+    with the rows whole; with the stage path's eval forward, every rank's
+    #2, #5 and #8 launches (``chains`` #8 a rank, the flagship's
+    ``spatial_chains`` by default), rank 0's outputs within
+    SPATIAL_EVAL_BOUND of one process's and the zero-halo control's outside it
+    somewhere. Returns the saved result."""
     _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
     res = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
     one_step = {"stem_stats": 1, "stem_pool": 1}
@@ -4731,33 +4852,36 @@ def _spatial_check_result(torch, name: str, ranks: int, text: str,
         tol = SPATIAL_TOL[case]
         got = r["readings"]
         held = {k: got["tp"][k] <= v for k, v in tol.items()}
-        floors = r["floors"]
-        floor_held = {k: floors["reversed"][k] <= v for k, v in tol.items()}
+        floors = r.get("floors")
+        floor_held = ({k: floors["reversed"][k] <= v for k, v in tol.items()}
+                      if floors else {})
+        misses = {**SPATIAL_CONTROL_MISSES[case],
+                  **(PP_CONTROL_MISSES if r["mesh"][2] > 1 else {})}
         missed = {c: {k: got[c][k] > tol[k] for k in ks}
-                  for c, ks in SPATIAL_CONTROL_MISSES[case].items()}
+                  for c, ks in misses.items()}
         agree = r["peers_agree"]
+        want_agree = {"tp": True, **{c: c.startswith("zero_")
+                                     for c in r["controls"]}}
         memory = r["memory"]
         lower = [m["spatial"] < m["model_only"] for m in memory]
         log(f"[spatial] tp_check --spatial {case}, mesh {r['mesh'][0]} x "
-            f"{r['mesh'][1]} (data x model), the clip's rows split over the "
-            f"model peers, {ranks} ranks on cuda:0 over gloo, against one "
-            f"process on the same batch (deterministic algorithms): "
-            f"readings {got['tp']}; zero-halo control {got['zero_halo']}; "
-            f"control without the trunk's gradient sum "
-            f"{got['no_trunk_sum']}; the one-process step's floors "
-            f"{floors}; bounds {tol}: held {held}, by the reversed floor "
-            f"{floor_held}, the controls missed {missed}; trunk gradients "
-            f"step {got['tp']['trunk_grads_rel']:.4f}, zero halo "
-            f"{got['zero_halo']['trunk_grads_rel']:.4f}, unsummed "
-            f"{got['no_trunk_sum']['trunk_grads_rel']:.4f}, floors "
-            f"{ {k: round(v['trunk_grads_rel'], 4) for k, v in floors.items()} }"
-            f"; model peers' replicated parameters "
+            f"{r['mesh'][1]} x {r['mesh'][2]} (data x model x pipe), the "
+            f"clip's rows split over the model peers, {ranks} ranks on "
+            f"cuda:0 over gloo, against one process on the same batch "
+            f"(deterministic algorithms): readings {got['tp']}; controls "
+            f"{ {c: got[c] for c in r['controls']} }; the one-process "
+            f"step's floors {floors or 'not asked'}; bounds {tol}: held "
+            f"{held}, by the reversed floor {floor_held}, the controls "
+            f"missed {missed}; trunk gradients step "
+            f"{got['tp']['trunk_grads_rel']:.4f}, "
+            + ", ".join(f"{c} {got[c]['trunk_grads_rel']:.4f}"
+                        for c in r["controls"])
+            + f"; the ranks of a data shard's replicated parameters "
             f"bit-equal after each of two steps {r['peers_equal']}, after "
-            f"the step and each control {agree} (the control without the "
-            f"trunk's sum must part them); #4 and "
-            f"#2 launches per rank in one step {r['launches']}; peak device "
-            f"memory above the step's start per rank, spatial against "
-            f"MODEL-only: "
+            f"the step and each control {agree} (want {want_agree}); #4 "
+            f"and #2 launches per rank in one step {r['launches']}; peak "
+            f"device memory above the step's start per rank, spatial "
+            f"against the rows whole: "
             f"{[(m['spatial'], m['model_only']) for m in memory]} bytes, "
             f"lower {lower}; total loss {r['tp']['metrics']['total_loss']:.6f}"
             f", one process {r['single']['metrics']['total_loss']:.6f}; "
@@ -4765,23 +4889,23 @@ def _spatial_check_result(torch, name: str, ranks: int, text: str,
         ok = (all(held.values()) and all(floor_held.values())
               and all(all(m.values()) for m in missed.values())
               and r["peers_equal"] == [True, True] and all(lower)
-              and agree == {"tp": True, "zero_halo": True,
-                            "no_trunk_sum": False}
+              and agree == want_agree
               and all(x == one_step for x in r["launches"])
               and r["tp"]["metrics"]["finite"] == 1.0)
         if "eval" in r:
             ev = r["eval"]
-            bound = SERVE_MESH_ULPS * BF16_EPS
+            bound = SPATIAL_EVAL_BOUND[case]
             per = {"stem_pool": 1, "depthwise": 3,
-                   "chain": spatial_chains(r["mesh"][1])}
+                   "chain": (spatial_chains(r["mesh"][1]) if chains is None
+                             else chains)}
             worst = max(ev["differences"]["mesh"].values())
             control = max(ev["differences"]["zero_halo"].values())
-            log(f"[spatial] the stage path's eval forward (bf16, "
+            log(f"[spatial] the stage path's eval forward ({case}, "
                 f"PALLAS_KERNELS and FUSED_STAGES) with the rows split, "
                 f"{ranks} ranks: rank 0's outputs against one process "
                 f"{ev['differences']['mesh']}, the zero-halo control "
                 f"{ev['differences']['zero_halo']}; bound {bound:.4f}: "
-                f"worst {worst:.4f}, the control's largest {control:.4f}; "
+                f"worst {worst:.4g}, the control's largest {control:.4f}; "
                 f"#2, #5, #8 launches per rank {ev['launches']} (want "
                 f"{per}); {smi}")
             ok = ok and worst <= bound < control and all(
@@ -4789,6 +4913,59 @@ def _spatial_check_result(torch, name: str, ranks: int, text: str,
         if not ok:
             raise AssertionError(f"spatial check {case}: held {held}, "
                                  f"missed {missed}, {r}")
+    return res
+
+
+def _uneven_heads_result(torch, name: str, ranks: int, text: str,
+                         smi: str) -> dict:
+    """tools/tp_check --model 3's result (build/<name>.pt) of ``ranks``
+    ranks on cuda:0 over gloo, on the flagship (8 heads of d 256, FFN
+    2048): MESH.MODEL 3 divides no attention's heads, so every packed
+    projection is cut into its q, k and v rows, one a peer, and every
+    ``out_proj`` and FFN stays whole (256 and 2048 rows), as JAX's
+    param_shardings has it. The step's readings within TP_TOL, the control
+    ("gather" summing again: no "g" runs) outside its gradient bounds with
+    the step's own forward, the model peers bit-equal after each of two
+    steps, #4 and #2 once each on every rank, each rank's in_proj bytes a
+    third of one process's. Returns the saved result."""
+    _dist_lines(text, "gloo", ranks, ["cuda:0"] * ranks)
+    res = torch.load(BUILD_DIR / f"{name}.pt", weights_only=False)
+    one_step = {"stem_stats": 1, "stem_pool": 1}
+    for case, r in res.items():
+        tol = TP_TOL[case]
+        got = r["readings"]
+        held = {k: got["tp"][k] <= v for k, v in tol.items()}
+        control = got.get("gather_again", {})
+        missed = {k: control.get(k, 0.0) > tol[k] for k in TP_CONTROL_MISSES}
+        same_forward = all(control.get(k) == got["tp"][k] for k in tol
+                           if k not in TP_CONTROL_MISSES)
+        thirds = [ranks * b == r["one_process_in_proj_bytes"]
+                  for b in r["in_proj_bytes"]]
+        log(f"[tp] tp_check --model {ranks} {case} (the attentions split by "
+            f"rows: q, k and v a peer), {ranks} ranks on cuda:0 over gloo, "
+            f"{r['n_split']} split parameters, against one process on the "
+            f"same batch (deterministic algorithms): readings {got['tp']}; "
+            f"controls {r['controls']}: \"gather\" summing again "
+            f"{control}; bounds {tol}: held {held}, the control's gradient "
+            f"readings missed {missed}, its forward readings the step's own "
+            f"{same_forward}; model peers' replicated parameters bit-equal "
+            f"after each of two steps {r['peers_equal']}; in_proj bytes per "
+            f"rank {r['in_proj_bytes']} against one process's "
+            f"{r['one_process_in_proj_bytes']} (a third {thirds}); #4 and "
+            f"#2 launches per rank in one step {r['launches']}; total loss "
+            f"{r['tp']['metrics']['total_loss']:.6f}, one process "
+            f"{r['single']['metrics']['total_loss']:.6f}; {r['wall_s']:.1f} "
+            f"s; {smi}")
+        if not (r["controls"] == ["gather_again"] and all(held.values())
+                and all(missed.values()) and same_forward
+                and r["peers_equal"] == [True, True] and all(thirds)
+                and len(thirds) == ranks
+                and all(x == one_step for x in r["launches"])
+                and r["tp"]["metrics"]["finite"] == 1.0):
+            raise AssertionError(f"tp check --model {ranks} {case}: held "
+                                 f"{held}, control missed {missed}, same "
+                                 f"forward {same_forward}, thirds {thirds}, "
+                                 f"{r['controls']}, {r['launches']}")
     return res
 
 
@@ -4860,9 +5037,9 @@ def _pp_check_result(torch, name: str, ranks: int, text: str,
                      smi: str) -> dict:
     """tools/tp_check --pipe's result (build/<name>.pt) of ``ranks`` ranks
     on cuda:0 over gloo: each case's readings on the last stage within
-    PP_TOL, logged beside the one-process step's own floors (``--floors``;
-    with the batch split, DATA x PIPE, the floor on the batch reversed
-    within them too), each control outside its bound where it acts
+    PP_TOL (with the batch split, DATA x PIPE, the one-process step's own
+    floor on the batch reversed within them too: ``--floors``; without a
+    split PP_TOL lies far below it, PP_TOL's note), each control outside its bound where it acts
     (PP_CONTROL_MISSES), the replicated parameters of a data shard's
     ranks bit-equal after each of two steps and after the zero-carry
     control, not after the control without the input's gradient sum, #4
@@ -4881,9 +5058,8 @@ def _pp_check_result(torch, name: str, ranks: int, text: str,
         tol = PP_TOL["data_pipe" if split else case]
         got = r["readings"]
         held = {k: got["tp"][k] <= v for k, v in tol.items()}
-        floor = r["floors"]["reversed"]
-        floor_held = {k: floor[k] <= v for k, v in tol.items()} \
-            if split else {}
+        floor_held = {k: r["floors"]["reversed"][k] <= v
+                      for k, v in tol.items()} if split else {}
         missed = {c: {k: got[c][k] > tol[k] for k in ks}
                   for c, ks in PP_CONTROL_MISSES.items()}
         one = r["one_process_encoder_bytes"]
@@ -4897,7 +5073,8 @@ def _pp_check_result(torch, name: str, ranks: int, text: str,
             f"stage: readings {got['tp']}; zero-carry control "
             f"{got['zero_carry']}; control without the input's gradient "
             f"sum {got['no_input_sum']}; the one-process step's floors "
-            f"{r['floors']}; bounds {tol}: held {held}, by the reversed "
+            f"{r.get('floors', 'not asked')}; bounds {tol}: held {held}, "
+            f"by the reversed "
             f"floor {floor_held or 'not asked: no batch split'}, the "
             f"controls missed {missed}; replicated "
             f"parameters bit-equal over each data shard's ranks after each "
@@ -4974,7 +5151,9 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     alone each, the ZeRO-1 file in the DATA-only file's optimizer layout,
     the PIPE file in phase 9's one-process layout;
     generate_lfb's CLI with MESH.MODEL 2 on phase 10's YAML
-    (``_mesh_lfb_check``).
+    (``_mesh_lfb_check``); tools/mesh_checks on 3 ranks: tp_check --model
+    3 in float32 (every attention's q, k and v a peer each:
+    ``_uneven_heads_result``).
     Stage 2: NCCL, the default backend, at world size 1 through
     train_ava, resuming the ZeRO-1 checkpoint without ZeRO-1 for one more
     step; train_ava in one process resuming the MODEL 2 checkpoint (which
@@ -4989,7 +5168,7 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     (2 experts a peer) TP steps within TP_TOL, then serve_check (mesh
     serving under MESH.MODEL 2 on the stage path's YAML in bf16:
     ``_serve_check_result``), then tp_check --spatial in bf16 with the
-    stage path's eval forward and in float32 (``_spatial_check_result``:
+    stage path's eval forward (``_spatial_check_result``:
     the spatial step against one process within SPATIAL_TOL, and so one
     process on the batch reversed, its zero-halo control and its control
     without the trunk's gradient sum outside it, each rank's peak memory
@@ -5000,10 +5179,17 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
     outside where PP_CONTROL_MISSES says);
     tools/mesh_checks on 4 ranks of MESH.DATA 2 x MESH.MODEL 2: tp_check in
     float32 against one process on the batch of 4, and ZeRO-1 beside it
-    bit for bit against it, then serve_check (buckets 8, 4 and 2 split over
-    'data', bucket 1 whole on each data group), then tp_check --spatial in
-    float32, then tp_check --pipe 2 on DATA 2 x PIPE 2 in float32 with
-    ZeRO-1 (``_pp_check_result``, within its floor's bounds).
+    bit for bit against it, then tp_check --spatial in float32, then
+    SPATIAL x PIPE (MODEL 2 x PIPE 2, float32: within SPATIAL_TOL, the
+    four controls outside it where they act), then JHMDB's recipe on its
+    224 x 400 canvas with the rows split over MODEL 4 in float32 (uneven
+    bands: within SPATIAL_TOL, its controls outside, the stage path's
+    eval forward with #2, #5 and #8 on every rank, 14 chains a rank by
+    JHMDB_SPATIAL_TAILS); as the one-process jobs end, tools/mesh_checks
+    on 4 more ranks: serve_check (buckets 8, 4 and 2 split over 'data', bucket
+    1 whole on each data group), then tp_check --pipe 2 on DATA 2 x PIPE
+    2 in float32 with ZeRO-1 (``_pp_check_result``, within its floor's
+    bounds).
     Stage 3, alone: tools/mesh_checks on 2 ranks in bf16 with each rank's
     step times: dp_check with the stem's global statistics (#4 on each
     shard, reduced) against #4 over the whole batch, the gradient
@@ -5037,7 +5223,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                 lambda c: c["MESH"].update(MODEL=TP_RANKS, SPATIAL=True)),
             "pp": _dp_train_start(train, "chip_smoke_pp", lambda c: (
                 c["MESH"].update(PIPE=2), c["VAL"].update(BATCH_SIZE=2))),
-            "lfb": _mesh_lfb_start(evaluated)}
+            "lfb": _mesh_lfb_start(evaluated),
+            "model3": _mesh_checks_start(3, [
+                ("tp_check", ["--config-file", train["cfg_path"],
+                              "--model", 3, "--dtypes", "float32", "--out",
+                              out("chip_smoke_tp_check_model3")])],
+                "chip_smoke_tp_check_model3.log")}
         jobs += started.values()
         data = _dp_train_cli(torch, started["dp"])
         z = _dp_train_cli(torch, started["zero1"])
@@ -5053,9 +5244,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         _pp_train_layout(torch, pp_train, train, smi)
         lfb_mesh = _mesh_lfb_check(started["lfb"], lfb, smi)
         _dp_layouts(torch, data, z, smi)
+        model3 = _uneven_heads_result(
+            torch, "chip_smoke_tp_check_model3", 3,
+            _torchrun_wait(started["model3"]), smi)["float32"]
         log(f"[time] stage 1 of the mesh phases (train_ava under DATA 2, "
             f"ZeRO-1, MODEL 2, MODEL 2 with SPATIAL and PIPE 2, "
-            f"generate_lfb under MODEL 2, at once): "
+            f"generate_lfb under MODEL 2, tp_check under MODEL 3, at once): "
             f"{time.perf_counter() - t0:.1f} s")
 
         t1 = time.perf_counter()
@@ -5071,33 +5265,46 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                              TP_RANKS, "--out",
                              out("chip_smoke_serve_check_model2")]),
             ("tp_check", ["--config-file", tp_cfg, "--spatial", "--dtypes",
-                          "bfloat16,float32", "--eval-stages", "--floors",
+                          "bfloat16", "--eval-stages", "--floors",
                           "--out", out("chip_smoke_tp_check_spatial")]),
             ("tp_check", ["--config-file", tp_cfg, "--model", 1, "--pipe",
-                          PP_RANKS, "--dtypes", "float32", "--floors",
-                          "--out", out("chip_smoke_pp_check_float32")])],
+                          PP_RANKS, "--dtypes", "float32", "--out",
+                          out("chip_smoke_pp_check_float32")])],
             "chip_smoke_mesh_float32.log")
         dm = _mesh_checks_start(2 * TP_RANKS, [
             ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
                           TP_RANKS, "--dtypes", "float32", "--zero1",
                           "--out", out("chip_smoke_tp_check_2x2")]),
-            ("serve_check", ["--config-file", stages_cfg, "--data", 2,
-                             "--model", TP_RANKS, "--out",
-                             out("chip_smoke_serve_check_2x2")]),
             ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
                           TP_RANKS, "--spatial", "--dtypes", "float32",
                           "--floors", "--out",
                           out("chip_smoke_tp_check_spatial_2x2")]),
-            ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
-                          1, "--pipe", 2, "--dtypes", "float32", "--zero1",
-                          "--floors", "--out",
-                          out("chip_smoke_pp_check_2x2")])],
+            ("tp_check", ["--config-file", tp_cfg, "--data", 1, "--model",
+                          TP_RANKS, "--pipe", PP_RANKS, "--spatial",
+                          "--dtypes", "float32", "--out",
+                          out("chip_smoke_tp_check_spatial_pipe")]),
+            ("tp_check", ["--config-file", JHMDB_CONFIG, "--data", 1,
+                          "--model", 4, "--spatial", "--dtypes",
+                          "float32", "--eval-stages", "--out",
+                          out("chip_smoke_tp_check_spatial_jhmdb4")])],
             "chip_smoke_tp_check_2x2.log")
         nccl = _nccl_start(train)
         resume = _tp_resume_start(train)
         jobs += [f32, dm, nccl, resume]
         _tp_layouts_and_resume(torch, tp_train, train, resume, smi)
         _nccl_check(nccl, z, cfg_path, smi)
+        # the 4-rank checks beyond the first launch's, started as the
+        # one-process jobs end, so that no more processes share the host
+        dm2 = _mesh_checks_start(2 * TP_RANKS, [
+            ("serve_check", ["--config-file", stages_cfg, "--data", 2,
+                             "--model", TP_RANKS, "--out",
+                             out("chip_smoke_serve_check_2x2")]),
+            ("tp_check", ["--config-file", tp_cfg, "--data", 2, "--model",
+                          1, "--pipe", 2, "--dtypes", "float32", "--zero1",
+                          "--floors", "--out",
+                          out("chip_smoke_pp_check_2x2")])],
+            "chip_smoke_mesh_2x2_b.log")
+        jobs.append(dm2)
         text = _torchrun_wait(f32)
         checks = {"float32": _dp_check_result(
             torch, "float32", out("chip_smoke_dp_check_float32"), text, smi)}
@@ -5115,21 +5322,28 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
         text = _torchrun_wait(dm)
         dm_res = _tp_check_result(torch, "chip_smoke_tp_check_2x2",
                                   2 * TP_RANKS, text, smi)
-        serve["data_model"] = _serve_check_result(
-            torch, "chip_smoke_serve_check_2x2", 2 * TP_RANKS, stage_forward,
-            smi)
         spatial_dm = _spatial_check_result(
             torch, "chip_smoke_tp_check_spatial_2x2", 2 * TP_RANKS, text,
             smi)["float32"]
+        spatial_pp = _spatial_check_result(
+            torch, "chip_smoke_tp_check_spatial_pipe", 2 * TP_RANKS, text,
+            smi)["float32"]
+        spatial_jhmdb = _spatial_check_result(
+            torch, "chip_smoke_tp_check_spatial_jhmdb4", 4, text, smi,
+            chains=len(spatial_slabs(**JHMDB_SPATIAL)[0]))["float32"]
+        text = _torchrun_wait(dm2)
+        serve["data_model"] = _serve_check_result(
+            torch, "chip_smoke_serve_check_2x2", 2 * TP_RANKS, stage_forward,
+            smi)
         pp_dm = _pp_check_result(torch, "chip_smoke_pp_check_2x2",
                                  2 * TP_RANKS, text, smi)["float32"]
         log(f"[time] stage 2 of the mesh phases (NCCL at world size 1, the "
             f"MODEL 2 file resumed in one process, the float32 checks, mesh "
-            f"serving, the bf16 and float32 spatial steps and the float32 "
-            f"PIPE 2 step on 2 ranks, DATA 2 x MODEL 2 "
-            f"with ZeRO-1, mesh serving, the float32 spatial step and DATA "
-            f"2 x PIPE 2 with ZeRO-1 on 4, at once): "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"serving, the bf16 spatial step and the float32 PIPE 2 step on "
+            f"2 ranks; DATA 2 x MODEL 2 with ZeRO-1, the float32 spatial "
+            f"step, SPATIAL x PIPE and JHMDB's spatial step at MODEL 4 on "
+            f"4; then mesh serving and DATA 2 x PIPE 2 with ZeRO-1 on 4, at "
+            f"once): {time.perf_counter() - t1:.1f} s")
 
         t2 = time.perf_counter()
         bf = _mesh_checks_start(DP_RANKS, [
@@ -5141,7 +5355,7 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
                           out("chip_smoke_tp_check_bfloat16")]),
             ("tp_check", ["--config-file", tp_cfg, "--model", 1, "--pipe",
                           PP_RANKS, "--dtypes", "bfloat16", "--timed-steps",
-                          "3", "--eval-stages", "--floors", "--out",
+                          "3", "--eval-stages", "--out",
                           out("chip_smoke_pp_check_bfloat16")])],
             "chip_smoke_mesh_bfloat16.log")
         jobs.append(bf)
@@ -5187,7 +5401,12 @@ def phase_mesh(torch, train: dict, evaluated: dict, lfb: dict,
           "pp_zero1_launches": [zr["zero1_launches"][0]
                                 for zr in pp_dm["zero1"]],
           "pp_eval_launches": [e["mesh"] for e in
-                               pp["bfloat16"]["eval"]["launches"]]}
+                               pp["bfloat16"]["eval"]["launches"]],
+          "model3_launches": model3["launches"],
+          "spatial_pipe_launches": spatial_pp["launches"],
+          "spatial_jhmdb_launches": spatial_jhmdb["launches"],
+          "spatial_jhmdb_eval_launches": [
+              e["mesh"] for e in spatial_jhmdb["eval"]["launches"]]}
     return dp, tp
 
 
@@ -5217,6 +5436,7 @@ def main() -> int:
         return 1
     from tubelet_transformer_tpu_torch.ops.cuda import stem
 
+    t_main = time.perf_counter()
     _time_phases()
     smi = phase_environment(torch)
     phase_build()
@@ -5308,8 +5528,8 @@ def main() -> int:
     t_mesh = time.perf_counter()
     dp, tp = phase_mesh(torch, train, evaluated, lfb, stages_cfg,
                         stage_forward, smi)
-    log(f"[time] the data- and tensor-parallel phases: "
-        f"{time.perf_counter() - t_mesh:.1f} s")
+    mesh_s = time.perf_counter() - t_mesh
+    log(f"[time] the data- and tensor-parallel phases: {mesh_s:.1f} s")
 
     # the profiled windows last: a window slows the host work of its
     # process after it, so every time above is taken before the first
@@ -5342,6 +5562,9 @@ def main() -> int:
     phase_jhmdb_breakdown(torch, jhmdb)
     torch.cuda.empty_cache()
     phase_profile(torch, train)
+    outside_s = time.perf_counter() - t_main - mesh_s
+    log(f"[time] the mesh phase {mesh_s:.1f} s, the phases outside it "
+        f"{outside_s:.1f} s: {mesh_s / outside_s:.3f}x (at most 1.40x)")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "flax", "optax", "orbax", "tubelet_transformer_tpu"))
     if leaked:
@@ -5412,6 +5635,14 @@ def main() -> int:
                                       for x in tp["pp_zero1_launches"]],
               launches_pp_eval=[x["stem_pool"]
                                 for x in tp["pp_eval_launches"]],
+              launches_tp_model3_step=[x["stem_pool"]
+                                       for x in tp["model3_launches"]],
+              launches_spatial_pipe_step=[
+                  x["stem_pool"] for x in tp["spatial_pipe_launches"]],
+              launches_spatial_jhmdb_step=[
+                  x["stem_pool"] for x in tp["spatial_jhmdb_launches"]],
+              launches_spatial_jhmdb_eval=[
+                  x["stem_pool"] for x in tp["spatial_jhmdb_eval_launches"]],
               window_cases={k: {**v["stem_pool"], "peers": v["peers"],
                                 "bit_equal_to_whole_clip":
                                     v["pool_bit_equal"]}
@@ -5446,6 +5677,12 @@ def main() -> int:
                   x["stem_stats"] for x in tp["pp_data_pipe_launches"]],
               launches_pp_zero1_step=[x["stem_stats"]
                                       for x in tp["pp_zero1_launches"]],
+              launches_tp_model3_step=[x["stem_stats"]
+                                       for x in tp["model3_launches"]],
+              launches_spatial_pipe_step=[
+                  x["stem_stats"] for x in tp["spatial_pipe_launches"]],
+              launches_spatial_jhmdb_step=[
+                  x["stem_stats"] for x in tp["spatial_jhmdb_launches"]],
               window_cases={k: {**v["stem_stats"], "peers": v["peers"],
                                 "rel_err_against_plain":
                                     v["stats_rel_err"]}
@@ -5471,6 +5708,8 @@ def main() -> int:
                                      for x in tp["spatial_eval_launches"]],
               launches_pp_eval=[x["depthwise"]
                                 for x in tp["pp_eval_launches"]],
+              launches_spatial_jhmdb_eval=[
+                  x["depthwise"] for x in tp["spatial_jhmdb_eval_launches"]],
               b8_case=dw_b8,
               library_with_copies_ms=dw["library_with_copies_ms"]),
         entry("bottleneck", "stage.cu", "bottleneck.py:57",
@@ -5489,9 +5728,14 @@ def main() -> int:
               launches_spatial_eval=[x["chain"]
                                      for x in tp["spatial_eval_launches"]],
               launches_pp_eval=[x["chain"] for x in tp["pp_eval_launches"]],
+              launches_spatial_jhmdb_eval=[
+                  x["chain"] for x in tp["spatial_jhmdb_eval_launches"]],
               b8_case=chain_totals(chains, "_b8"),
               spatial_cases=spatial_chain_cases(
                   chains, [x["chain"] for x in tp["spatial_eval_launches"]]),
+              jhmdb_spatial_cases=jhmdb_spatial_chain_cases(
+                  chains, [x["chain"]
+                           for x in tp["spatial_jhmdb_eval_launches"]]),
               cases=chains),
         entry("stem_conv", "stem.cu", "stem.py:134",
               stem_conv_launches, stem_conv["ava_256px"],

@@ -21,11 +21,11 @@ environment set by hand).
 * ``run_training`` and ``run_eval`` over 2 ranks: rank 0 alone writes the
   config, the metrics and the checkpoint; the validation equals the
   one-process validation of the same checkpoint, detection for detection.
-* The refusals: SPATIAL beside PIPE, SPATIAL where
-  the clip's rows do not split over MODEL, a MODEL
-  that does not divide a split attention's heads, mesh serving in one
-  process (the mesh needs its processes), INFER_CHUNK x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1
-  beside MODEL passes the check.
+* The refusals: SPATIAL where MODEL does not divide the clip's rows,
+  mesh serving in one process (the mesh needs its processes), INFER_CHUNK
+  x DATA, FROZEN_CHUNK x DATA, DATA x MODEL != world; ZERO1 beside MODEL
+  and SPATIAL beside PIPE pass the check, and a MODEL that does not
+  divide an attention's heads splits its projection by rows.
 * Slow tier: SIGTERM to one rank stops both at the epoch boundary, and
   the relaunch resumes both from rank 0's choice.
 
@@ -703,8 +703,9 @@ def test_refusals_name_their_option(tmp_path):
     # (test_torch_tensor_parallel.py), SPATIAL beside MODEL
     # (test_torch_spatial.py; a no-op at MODEL 1), and a 'pipe' axis
     # beside them (test_torch_pipeline.py); SPATIAL beside a 'pipe' axis
-    # is refused, naming the option, and so is SPATIAL over a MODEL that
-    # does not split the clip's rows
+    # runs too (test_torch_pipeline.py), and SPATIAL over a MODEL that
+    # does not split the clip's rows is refused, naming the option, as
+    # JAX's device_put refuses such a clip
     for attrs in (dict(model=2), dict(zero1=True, model=2, data=2),
                   dict(spatial=True), dict(spatial=True, model=2, data=2),
                   dict(zero1=True, model=2, pipe=2), dict(pipe=2)):
@@ -714,8 +715,7 @@ def test_refusals_name_their_option(tmp_path):
         runner.check_supported(cfg)
     cfg = small_cfg()
     cfg.mesh.spatial, cfg.mesh.model, cfg.mesh.pipe = True, 2, 2
-    with pytest.raises(NotImplementedError, match="MESH.SPATIAL x MESH.PIPE"):
-        runner.check_supported(cfg)
+    runner.check_supported(cfg)
     cfg = small_cfg()
     cfg.mesh.spatial, cfg.mesh.model = True, 3
     with pytest.raises(ValueError, match="MESH.SPATIAL"):
@@ -726,10 +726,15 @@ def test_refusals_name_their_option(tmp_path):
     # one process cannot hold two model peers
     with pytest.raises(ValueError, match="MESH.DATA x MODEL"):
         mesh_lib.create_mesh(-1, 2, 1)
-    # a 'model' axis that does not divide a split attention's heads
-    with pytest.raises(ValueError, match="MESH.MODEL 3"):
-        sharding_rules.param_shardings(build_model(small_cfg(), train=True),
-                                       mesh_lib.Mesh(1, 0, 3))
+    # a 'model' axis that does not divide an attention's heads splits its
+    # packed projection in contiguous row blocks where it divides 3E, as
+    # JAX's param_shardings does: at MODEL 3 and d 64 every in_proj, and
+    # no out_proj (64 rows) nor FFN (64 columns)
+    specs = sharding_rules.param_shardings(
+        build_model(small_cfg(), train=True), mesh_lib.Mesh(1, 0, 3))
+    split = {k: v for k, v in specs.items() if v}
+    assert split and all(k.endswith("in_proj_weight") for k in split)
+    assert set(split.values()) == {sharding_rules.Split(0)}
     # mesh serving runs under torchrun (test_torch_mesh_serving.py): one
     # process cannot hold its model peers
     path = tmp_path / "mesh_serving.yaml"

@@ -10,10 +10,12 @@ every query is a detection and a memory slot.
 
 * The StreamingDetector (one stream, bucket 1) and the
   StreamingDetectorPool (six streams: buckets 4 padded, 2 and 1) under
-  MESH.MODEL 2 (2 ranks) and DATA 2 x MODEL 2 (4 ranks: buckets 4 and 2
-  split over 'data', bucket 1 whole on each data group) against the JAX
-  package's detector and pool on ``create_mesh(1, 2)`` and
-  ``create_mesh(2, 2)`` of conftest's host devices, from the same
+  MESH.MODEL 2 (2 ranks), DATA 2 x MODEL 2 (4 ranks: buckets 4 and 2
+  split over 'data', bucket 1 whole on each data group) and MESH.MODEL 3
+  (3 ranks: the attentions' heads undivided, q, k and v a peer) against
+  the JAX package's detector and pool on ``create_mesh(1, 2)``,
+  ``create_mesh(2, 2)`` and ``create_mesh(1, 3)`` of conftest's host
+  devices, from the same
   variables (crossed over by ``convert.py``) on the same frames, with
   tests/test_serving.py's tolerances (boxes 1e-3, scores 1e-4, the
   keyframes, memory sizes and detection counts equal); and against the
@@ -30,7 +32,7 @@ every query is a detection and a memory slot.
   still serves the next push; then a step that raises on rank 0 ends
   both ranks with a non-zero exit, neither hanging.
 
-One JAX process runs both meshes (at ``JAX_XLA_FLAGS``) and writes the
+One JAX process runs the three meshes (at ``JAX_XLA_FLAGS``) and writes the
 variables first, on which the port's ranks start at once. Every
 subprocess runs under a timeout of at most 300 s and is killed when it
 runs out; the temporary files go when the module's tests end.
@@ -60,7 +62,9 @@ from test_torch_data_parallel import (
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-MESHES = {"model2": (1, 2), "data2_model2": (2, 2)}
+# MODEL 3 divides none of the attentions' 4 heads: each packed projection
+# is cut into its q, k and v rows, one a peer, the rest replicated
+MESHES = {"model2": (1, 2), "data2_model2": (2, 2), "model3": (1, 3)}
 KW = dict(fps=8.0, detect_every=8, actor_threshold=-1.0,
           memory_keyframes=3, memory_slots=2)
 SINGLE = dict(n=24, seed=3)        # two keyframes, at frames 16 and 24
@@ -140,7 +144,7 @@ def run_pool(pool):
 # ---------------------------------------------------------------- JAX
 
 def jax_worker(job_path):
-    """The JAX detector and pool on both meshes: the variables to
+    """The JAX detector and pool on each mesh (MESHES): the variables to
     <out>.vars first, then the records to <out>.0."""
     import jax
     from test_serving import _cfg
@@ -426,7 +430,8 @@ def _wait_failing(procs, timeout=TIMEOUT):
 def mesh_runs(tmp_path_factory):
     """Every process of this file, started at once: the JAX process, the
     2-rank MODEL 2 job (detector, pool, HTTP), the 4-rank DATA 2 x
-    MODEL 2 job (detector, pool) and the 2-rank idle and failure job;
+    MODEL 2 job (detector, pool), the 3-rank MODEL 3 job (detector, pool)
+    and the 2-rank idle and failure job;
     then the port's one-process detector, pool and server on the JAX
     variables, here. The temporary files go when the module's tests end."""
     tmp = tmp_path_factory.mktemp("mesh_serving")
@@ -462,7 +467,7 @@ def mesh_runs(tmp_path_factory):
         jax_procs, jax_prefix = launched[0]
         jax_res, _ = _wait(jax_procs, jax_prefix)
         runs = {"jax": jax_res[0], "one": one, "tmp": tmp}
-        for (procs, out), name in zip(launched[1:3], MESHES):
+        for (procs, out), name in zip(launched[1:1 + len(MESHES)], MESHES):
             runs[name], _ = _wait(procs, out)
         rcs, ended, logs = _wait_failing(fault[0])
         runs["fault"] = {"rcs": rcs, "ended": ended, "logs": logs,

@@ -3,12 +3,13 @@ and model options of the JAX package that it runs (TRAIN.ACCUM_STEPS,
 TRAIN.FROZEN_CHUNK, TRAIN.REMAT_BACKBONE, LOG.PROFILE_STEPS,
 MODEL.MOE_EXPERTS, MODEL.NORMALIZE_BEFORE) pass every check and reach the
 model, as do MESH.ZERO1 (beside MESH.MODEL too), MoE with MESH.DATA > 1
-(the 'data' axis), MESH.SPATIAL beside MESH.MODEL and MESH.PIPE, and what
-it leaves out still raises: MESH.SPATIAL beside MESH.PIPE (with MESH.DATA or
-MESH.ZERO1 beside them too), MESH.SPATIAL where the clip's rows do not split evenly
-over MESH.MODEL at some stage (ValueError), MODEL.INFER_CHUNK, and
-CONFIG.TWO_STREAM and CONFIG.USE_LOCATION, which the JAX package refuses
-too."""
+(the 'data' axis), MESH.SPATIAL beside MESH.MODEL and MESH.PIPE (with
+MESH.DATA or MESH.ZERO1 beside them too, and at rows whose bands come out
+uneven below the stem), and what it leaves out still raises: MESH.SPATIAL
+where MESH.MODEL does not divide the clip's rows (ValueError, beside
+MESH.DATA, MESH.PIPE or MESH.ZERO1 too), as JAX's device_put refuses such
+a clip, MODEL.INFER_CHUNK, and CONFIG.TWO_STREAM and CONFIG.USE_LOCATION,
+which the JAX package refuses too."""
 
 import pytest
 import torch
@@ -39,10 +40,16 @@ def test_ported_options_reach_the_model():
     zero1_model = small_cfg()
     zero1_model.mesh.zero1, zero1_model.mesh.model = True, 2
     runner.check_supported(zero1_model)
-    # the clip's 64 rows split over 2 model peers at every stage
-    spatial = small_cfg()
-    spatial.mesh.model, spatial.mesh.spatial = 2, True
-    runner.check_supported(spatial)
+    # the clip's 64 rows split over 2 model peers at every stage; 48 rows
+    # leave layer3's strided conv 3 rows a peer (uneven bands); the rows
+    # split beside a 'pipe' axis, with MESH.DATA or MESH.ZERO1 too
+    for edit in ({}, {"img_size": 48}, {"pipe": 2, "data": 2},
+                 {"pipe": 2, "zero1": True}):
+        spatial = small_cfg()
+        spatial.mesh.model, spatial.mesh.spatial = 2, True
+        for k, v in edit.items():
+            setattr(spatial.data if k == "img_size" else spatial.mesh, k, v)
+        runner.check_supported(spatial)
     for train in (False, True):
         model = build_model(cfg, train=train)
         body = model.backbone.body
@@ -60,28 +67,28 @@ def test_ported_options_reach_the_model():
 
 
 REFUSED = {
-    # MESH.DATA runs (MoE too), and a 'pipe' axis beside it; the clip's
-    # rows split over MESH.MODEL beside them do not
+    # MESH.DATA runs (MoE too), and a 'pipe' axis and the clip's rows split
+    # over MESH.MODEL beside it, but not where MODEL does not divide the
+    # rows
     "mesh_data": (lambda c: (setattr(c.mesh, "data", 2),
                              setattr(c.mesh, "pipe", 2),
-                             setattr(c.mesh, "model", 2),
+                             setattr(c.mesh, "model", 3),
                              setattr(c.mesh, "spatial", True)),
-                  NotImplementedError),
+                  ValueError),
     # MESH.MODEL runs (tensor parallelism, test_torch_tensor_parallel.py),
-    # and the clip's H axis over it (SPATIAL, test_torch_spatial.py)
-    # where its rows split evenly at every stage: 48 rows over 2 peers
-    # leave layer3's strided conv 3 rows a peer
-    "mesh_model": (lambda c: (setattr(c.mesh, "model", 2),
+    # and the clip's H axis over it (SPATIAL, test_torch_spatial.py) where
+    # it divides the rows: 80 rows over 3 peers are refused
+    "mesh_model": (lambda c: (setattr(c.mesh, "model", 3),
                               setattr(c.mesh, "spatial", True),
-                              setattr(c.data, "img_size", 48)),
+                              setattr(c.data, "img_size", 80)),
                    ValueError),
     # MESH.ZERO1 runs on the 'data' axis and beside 'model' and 'pipe'
-    # axes; with the clip's rows split beside them it does not
+    # axes, the rows split beside them too, where MODEL divides them
     "mesh_zero1": (lambda c: (setattr(c.mesh, "zero1", True),
-                              setattr(c.mesh, "model", 2),
+                              setattr(c.mesh, "model", 3),
                               setattr(c.mesh, "pipe", 2),
                               setattr(c.mesh, "spatial", True)),
-                   NotImplementedError),
+                   ValueError),
     # SPATIAL whose clip of 64 rows does not split over 3 model peers
     "mesh_spatial": (lambda c: (setattr(c.mesh, "spatial", True),
                                 setattr(c.mesh, "model", 3)),

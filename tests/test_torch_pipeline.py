@@ -24,6 +24,13 @@ temporal pooling, float32, dropout off, TUNE_POINT 4.
   group) miss; the replicated parameters of every rank of a data shard
   bit-equal after two steps; ZeRO-1 on DATA 2 x PIPE 2 bit-equal to the
   DATA x PIPE step, the encoder layers' moments the stage's.
+* MESH.SPATIAL beside MESH.PIPE: the step on (data, model, pipe) = (1, 2,
+  2), the clip's rows over each stage's model peers, against JAX's step
+  on the same mesh after ``shard_batch(..., spatial=True)`` and against
+  one process (the BN running statistics among the readings: averaged
+  over one stage's data x model ranks), its four controls missing; the
+  stage path's eval forward under it against one process's;
+  ``run_training`` under it writes the one-process checkpoint.
 * ``run_training`` under PIPE 2 writes from rank 0 alone, its checkpoint
   in the one-process layout, which resumes under PIPE 2 bit for bit;
   ``run_eval`` and ``generate_lfb`` under PIPE 2 equal one process's,
@@ -36,13 +43,14 @@ temporal pooling, float32, dropout off, TUNE_POINT 4.
 * On one process: a JAX ``encoder_stack`` tree into the port bit for bit,
   the stack/unstack round trip against JAX's, and the refusals (layers
   that PIPE does not divide, a batch that the microbatches do not, MoE x
-  PIPE, SPATIAL x PIPE, a full resume across a PIPE change).
+  PIPE, SPATIAL x PIPE over a MODEL that does not divide the clip's rows,
+  a full resume across a PIPE change).
 
-The JAX runs are one process of their own, which writes the layers'
-inputs and the initial variables first; the checks against it run on the
-ranks' rank 0. Every subprocess runs under a timeout of at most 300 s and
-is killed when it runs out; the temporary files go when the module's
-tests end.
+The JAX runs are three processes of their own (pipeline_apply; the PIPE
+steps; the SPATIAL x PIPE step), each of which writes its inputs and
+initial variables first; the checks against them run on the ranks' rank 0. Every
+subprocess runs under a timeout of at most 300 s and is killed when it
+runs out; the temporary files go when the module's tests end.
 """
 
 import copy
@@ -73,6 +81,9 @@ APPLY = {"pipe2": ((1, 1, 2), 2), "data2": ((2, 1, 2), 2),
          "model2": ((1, 2, 2), 4)}
 D, NHEAD, FF, B, S, LAYERS = 32, 4, 64, 4, 6, 4
 STEP_CASES = ("pipe", "data_pipe")
+# MESH.SPATIAL beside MESH.PIPE: (data, model, pipe) = (1, 2, 2), the
+# clip's rows over the model peers of each pipe stage
+SPATIAL_PIPE = "spatial_pipe"
 
 
 # ---------------------------------------------------------------- worker
@@ -140,15 +151,18 @@ def _apply_task(case, want_path):
             "n_grads": (len(port_grads), len(jax_grads))}
 
 
-def _step_task(cfg, batch, initial_path, want_path, zero1=False):
+def _step_task(cfg, batch, initial_path, want_path, zero1=False,
+               eval_stages=False):
     """tools/tp_check.run from the JAX case's initial variables; on the
     reporter (the last stage of data shard 0) the readings, the peers'
     equality, the metrics, every rank's encoder bytes, the ZeRO-1 check,
-    and the checks of its state against JAX's step (``want_path``), run
-    here once JAX has written it."""
+    with ``eval_stages`` the stage path's eval forward against one
+    process's (tp_check's ``eval_check``), and the checks of its state
+    against JAX's step (``want_path``), run here once JAX has written
+    it."""
     initial = _load(initial_path)["initial"]
     out = tp_check.run(cfg, torch.device("cpu"), initial=initial,
-                       batch=batch, zero1=zero1)
+                       batch=batch, zero1=zero1, eval_stages=eval_stages)
     if out is None:
         return None
     names = ("tp", *out["controls"])
@@ -156,6 +170,7 @@ def _step_task(cfg, batch, initial_path, want_path, zero1=False):
                                    "controls", "mesh", "encoder_bytes",
                                    "one_process_encoder_bytes", "launches")},
             "zero1": out.get("zero1"),
+            "eval_stages": out.get("eval"),
             "metrics": {k: out[k]["metrics"] for k in names},
             "single": out["single"]["metrics"],
             "missed": Deferred(want_path, _missed, cfg, initial,
@@ -280,8 +295,8 @@ def _jax_mesh(cfg):
 
     from tubelet_transformer_tpu.parallel import mesh as jmesh
 
-    n = cfg.mesh.data * cfg.mesh.pipe
-    return jmesh.create_mesh(data=cfg.mesh.data, model=1,
+    n = cfg.mesh.data * cfg.mesh.model * cfg.mesh.pipe
+    return jmesh.create_mesh(data=cfg.mesh.data, model=cfg.mesh.model,
                              pipe=cfg.mesh.pipe, devices=jax.devices()[:n])
 
 
@@ -358,7 +373,9 @@ def _jax_init_task(memo, out, cfg, batch):
 
 def _jax_step_task(memo, out, init, cfg, batch):
     """JAX's train step after ``shard_train_state`` on the case's
-    ('data', 'model', 'pipe') mesh from the ``init`` task's variables:
+    ('data', 'model', 'pipe') mesh from the ``init`` task's variables, the
+    clips' H axis over 'model' with MESH.SPATIAL (``shard_batch(...,
+    spatial=True)``):
     (metrics, the port's state dict of the variables after it), saved to
     <out>.want."""
     import jax
@@ -376,8 +393,8 @@ def _jax_step_task(memo, out, init, cfg, batch):
         new_state, metrics = jengine.make_train_step(
             cfg, jbuild(cfg, mesh=mesh), tx)(
             shard_train_state(jax.device_get(state), mesh),
-            jmesh.shard_batch(batch, mesh), jax.random.PRNGKey(1),
-            jnp.float32(cfg.loss.dice_cof))
+            jmesh.shard_batch(batch, mesh, spatial=cfg.mesh.spatial),
+            jax.random.PRNGKey(1), jnp.float32(cfg.loss.dice_cof))
         metrics, (params, stats) = jax.device_get(
             (metrics, (new_state.params, new_state.batch_stats)))
     _save(({k: float(v) for k, v in metrics.items()},
@@ -413,44 +430,60 @@ def _run_pp_cfg(base):
 
 @pytest.fixture(scope="module")
 def pp_runs(tmp_path_factory):
-    """Every multi-process run of this file, started at once: one JAX
-    process (pipeline_apply on each layout, then the PIPE model's initial
-    variables, then its step on the 1 x 1 x 2 and 2 x 1 x 2 meshes); 2
+    """Every multi-process run of this file, started at once: three JAX
+    processes (pipeline_apply on each layout; the PIPE model's initial
+    variables, then its step on the 1 x 1 x 2 and 2 x 1 x 2 meshes; the
+    same variables, then the step with the rows split on 1 x 2 x 2); 2
     ranks of PIPE 2 that train, evaluate and generate a bank, run the dry
     run's five axes, then pipeline_apply and the PIPE step as soon as
     JAX's inputs are written; 4 ranks that run the dry run's dp_tp, the
-    dropout draws, pipeline_apply on (2, 1, 2) and (1, 2, 2), and the
-    DATA 2 x PIPE 2 step with ZeRO-1 beside it. The temporary files go
-    when the module's tests end."""
+    dropout draws, pipeline_apply on (2, 1, 2) and (1, 2, 2), the DATA 2 x
+    PIPE 2 step with ZeRO-1 beside it, the SPATIAL x PIPE step and a
+    train run under it. The temporary files go when the module's tests
+    end."""
     tmp = tmp_path_factory.mktemp("pp")
-    cases = {"pipe": _pp(_ava_cfg()), "data_pipe": _pp(_ava_cfg(), data=2)}
+    spatial = _pp(_ava_cfg())
+    spatial.mesh.model, spatial.mesh.spatial = 2, True
+    cases = {"pipe": _pp(_ava_cfg()), "data_pipe": _pp(_ava_cfg(), data=2),
+             SPATIAL_PIPE: spatial}
     batches = {k: dp_check.global_batch(c, 2 * c.mesh.data, seed=3)
                for k, c in cases.items()}
-    jax_out = tmp / "jax.out"
-    init = f"{jax_out}.init"
-    jax_tasks = {"apply": ("apply", {"seed": 2}),
-                 "init": ("init", {"cfg": cases["pipe"],
-                                   "batch": batches["pipe"]})}
-    for k in STEP_CASES:
-        jax_tasks[f"{k}_step"] = ("step", {"init": init, "cfg": cases[k],
-                                           "batch": batches[k]})
+    # pipeline_apply, the PIPE steps and the SPATIAL x PIPE step (from the
+    # same variables) in three JAX processes, so that none nears its
+    # timeout under the whole tier's load
+    job = {**{k: "jax" for k in STEP_CASES}, SPATIAL_PIPE: "jax_sp"}
+    jax_tasks = {"jax_apply": {"apply": ("apply", {"seed": 2})},
+                 "jax": {}, "jax_sp": {}}
+    for name in job.values():
+        jax_tasks[name]["init"] = ("init", {"cfg": cases["pipe"],
+                                            "batch": batches["pipe"]})
+    for k, name in job.items():
+        jax_tasks[name][f"{k}_step"] = ("step", {
+            "init": str(tmp / f"{name}.out.init"), "cfg": cases[k],
+            "batch": batches[k]})
 
     def apply(case):
-        return ("apply", {"case": case, "want_path": f"{jax_out}.apply.want",
-                          "after": [f"{jax_out}.apply.want"]})
+        want = str(tmp / "jax_apply.out.apply.want")
+        return ("apply", {"case": case, "want_path": want, "after": [want]})
 
     def step(case):
+        init = str(tmp / f"{job[case]}.out.init.init")
         return ("step", {"cfg": cases[case], "batch": batches[case],
-                         "initial_path": f"{init}.init",
-                         "want_path": f"{jax_out}.{case}_step.want",
+                         "initial_path": init,
+                         "want_path": str(tmp / f"{job[case]}.out.{case}"
+                                                "_step.want"),
                          "zero1": case == "data_pipe",
-                         "after": [f"{init}.init"]})
+                         "eval_stages": case == SPATIAL_PIPE,
+                         "after": [init]})
 
     run_cfg = _run_pp_cfg(tmp / "runs")
+    sp_run_cfg = _run_pp_cfg(tmp / "sp_runs")
+    sp_run_cfg.mesh.model, sp_run_cfg.mesh.spatial = 2, True
     launched = []
     try:
-        launched.append(_start(tmp, jax_tasks, "jax", world=1, mode="jax",
-                               script=__file__))
+        for name, tasks in jax_tasks.items():
+            launched.append(_start(tmp, tasks, name, world=1, mode="jax",
+                                   script=__file__))
         launched.append(_start(tmp, {
             "train": ("train", {"cfg": run_cfg}),
             "eval": ("eval", {"cfg": copy.deepcopy(run_cfg),
@@ -468,21 +501,30 @@ def pp_runs(tmp_path_factory):
             "dryrun": ("dryrun", {"axes": ("dp_tp",)}),
             "dropout": ("dropout", {"seed": 4}),
             "data2": apply("data2"), "model2": apply("model2"),
-            "data_pipe": step("data_pipe")}, "four", world=4,
+            "data_pipe": step("data_pipe"),
+            SPATIAL_PIPE: step(SPATIAL_PIPE),
+            "train": ("train", {"cfg": sp_run_cfg})}, "four", world=4,
             script=__file__))
     except BaseException:
         for procs, _ in launched:
             _kill(procs)
         raise
-    _wait(*launched[0])
-    runs, logs = _wait(*launched[1])
-    four = _wait(*launched[2])[0]
+    for jax_job in launched[:len(jax_tasks)]:
+        _wait(*jax_job)
+    n = len(jax_tasks)
+    runs, logs = _wait(*launched[n])
+    four = _wait(*launched[n + 1])[0]
     # the steps' readings are on their reporter, the last stage of data
     # shard 0: rank 1
     got = {**runs[0], **four[0], "pipe": runs[1]["pipe"],
-           "data_pipe": four[1]["data_pipe"]}
-    yield {"cases": cases, "got": got, "runs": runs,
-           "logs": logs, "tmp": tmp, "init": _load(f"{init}.init"),
+           "data_pipe": four[1]["data_pipe"],
+           SPATIAL_PIPE: four[1][SPATIAL_PIPE]}
+    yield {"cases": cases, "got": got, "runs": runs, "four": four,
+           "logs": logs, "tmp": tmp,
+           "init": _load(str(tmp / "jax.out.init.init")),
+           "sp_ckpt": glob.glob(str(tmp / "sp_runs" / "*" / "checkpoints" /
+                                    "ckpt_*")),
+           "sp_run_cfg": sp_run_cfg,
            "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
                                  "ckpt_*"))}
     shutil.rmtree(tmp, ignore_errors=True)
@@ -546,6 +588,80 @@ def test_pipe_peers_keep_replicated_parameters_equal(pp_runs, case):
     assert got["peers_equal"] == [True, True]
     assert got["peers_agree"] == {"tp": True, "zero_carry": True,
                                   "no_input_sum": False}
+
+
+def test_spatial_pipe_step_matches_jax_mesh_step(pp_runs):
+    """MESH.SPATIAL beside MESH.PIPE: the step on (data, model, pipe) = (1,
+    2, 2), the clip's rows over each stage's model peers, against JAX's
+    step on the same mesh after ``shard_batch(..., spatial=True)``, with
+    test_torch_train_step.py's tolerances; the zero-halo and zero-carry
+    controls miss them (those that leave a gradient unsummed are held to
+    one process's tighter tolerances: the next test)."""
+    got = pp_runs["got"][SPATIAL_PIPE]
+    assert got["mesh"] == (1, 2, 2)
+    assert got["metrics"]["tp"]["finite"] == 1.0
+    assert got["missed"]["tp"] == [], got["missed"]["tp"]
+    for name in ("zero_halo", "zero_carry"):
+        assert got["missed"][name] != [], name
+
+
+def test_spatial_pipe_step_matches_one_process(pp_runs):
+    """The SPATIAL x PIPE step against the port's one-process step on the
+    whole batch: every reading within SELF_TOL, the updates within
+    UPDATE_TOL. Among them the BN running statistics: every pipe stage
+    runs the trunk on the same rows, and ``Mesh.batch_mean`` averages over
+    the data x model ranks of one stage (over the world every pixel would
+    count twice). The four controls, SPATIAL's and PIPE's, each miss."""
+    got = pp_runs["got"][SPATIAL_PIPE]
+    assert got["controls"] == ["zero_halo", "no_trunk_sum", "zero_carry",
+                               "no_input_sum"]
+    readings = got["readings"]
+    for k, v in readings["tp"].items():
+        assert v <= (UPDATE_TOL if k == "update_rel" else SELF_TOL), (k, v)
+    for name in ("zero_halo", "zero_carry"):
+        for k in ("loss_rel", "grads_rel", "update_rel"):
+            assert readings[name][k] > 100 * SELF_TOL, (name, k, readings)
+    for name in ("no_trunk_sum", "no_input_sum"):
+        assert readings[name]["loss_rel"] == readings["tp"]["loss_rel"]
+        assert readings[name]["grads_rel"] > 100 * SELF_TOL, (name, readings)
+    assert got["peers_equal"] == [True, True]
+
+
+def test_spatial_pipe_stage_path_eval_matches_one_process(pp_runs):
+    """The stage path's eval forward (MODEL.PALLAS_KERNELS and
+    FUSED_STAGES; their plain versions here) under SPATIAL x PIPE, the
+    clip's rows over each stage's model peers and the encoder as two
+    stages, against the one-process forward on the whole batch on the last
+    stage of data shard 0: scores, actor probabilities and boxes within
+    1e-5; its zero-halo control parts from it by more than 1e-3. Every
+    rank ran the stem, depthwise and chain launches of both forwards."""
+    got = pp_runs["got"][SPATIAL_PIPE]["eval_stages"]
+    diff = got["differences"]
+    assert max(diff["mesh"].values()) <= 1e-5, diff
+    assert max(diff["zero_halo"].values()) > 1e-3, diff
+    assert len(got["launches"]) == 4
+    assert all(set(e) == {"mesh", "zero_halo"} for e in got["launches"])
+
+
+def test_run_training_under_spatial_pipe_writes_the_one_process_file(
+        pp_runs):
+    """run_training under SPATIAL x PIPE (4 ranks, DATA 1 x MODEL 2 x PIPE
+    2): one checkpoint, from rank 0, holding the one-process layout (every
+    parameter and buffer under its one-process name and shape, the encoder
+    layers of both stages among them) with its PIPE recorded."""
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+    assert len(pp_runs["sp_ckpt"]) == 1
+    payload = torch.load(pp_runs["sp_ckpt"][0], weights_only=True)
+    assert payload["pipe"] == 2
+    cfg = tp_check.one_process(pp_runs["sp_run_cfg"])
+    want = build_model(cfg, train=True).state_dict()
+    got = payload["model"]
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
+    assert pp_runs["four"][0]["train"]["dirs"] == \
+        pp_runs["four"][3]["train"]["dirs"]
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
@@ -697,7 +813,8 @@ def test_pipe_refusals(tmp_path):
     """What the 'pipe' axis refuses raises, naming it as the JAX package
     does: encoder layers that MESH.PIPE does not divide, a shard's batch
     that the microbatches do not, MoE inside the pipelined encoder, a
-    PIPE model without its mesh, SPATIAL beside PIPE (not ported), and a
+    PIPE model without its mesh, SPATIAL beside PIPE over a MODEL that
+    does not divide the clip's rows (SPATIAL beside PIPE runs), and a
     full resume across a PIPE change either way; a weight-only load
     converts; serving a PIPE config runs the sequential encoder."""
     from test_torch_tuber import small_cfg
@@ -722,10 +839,14 @@ def test_pipe_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="MoE inside the "
                                                   "pipelined encoder"):
         build_model(moe, mesh=mesh)
+    # SPATIAL beside PIPE runs (the 4-rank step above): the set-up takes
+    # it, and refuses a clip whose rows MODEL does not divide
     spatial = copy.deepcopy(cfg)
     spatial.mesh.model, spatial.mesh.spatial = 2, True
-    with pytest.raises(NotImplementedError, match="MESH.SPATIAL x "
-                                                  "MESH.PIPE"):
+    runner.check_supported(spatial)
+    spatial.mesh.model = 3
+    with pytest.raises(ValueError, match="MESH.SPATIAL: the stem's input "
+                                         "of 64 rows .* MESH.MODEL 3"):
         runner.check_supported(spatial)
     # a one-process checkpoint into a PIPE state, and back
     one = tp_check.one_process(cfg)

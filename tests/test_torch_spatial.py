@@ -16,6 +16,13 @@ dropout off, TUNE_POINT 4.
   randomised) and batch, with ``test_torch_train_step.py``'s tolerances;
   the eval step of the same variables under MODEL 2 against JAX's eval
   step on the spatial mesh.
+* Uneven bands (``Bands``: an output row belongs to the peer that owns
+  the input row at its stride): the spatial step at 48 px on MODEL 2
+  (layer3's strided conv on 3 rows a peer) and at 72 px on MODEL 4 with a
+  strided layer4 (4 ranks: pooled bands of 5, 4, 5 and 4 rows, layer4's
+  output 1, 1, 0 and 1: one peer's band empty), each against JAX's step
+  on the same mesh and against one process, and its stage path's eval
+  forward against one process's.
 * Those steps and a JHMDB-mode step (32 px: one row a peer at layers 3-4)
   with TRAIN.FROZEN_CHUNK 1 against the port's one-process
   step on the whole batch to SELF_TOL (updates to UPDATE_TOL); both
@@ -29,13 +36,15 @@ dropout off, TUNE_POINT 4.
   unsplit conv (outputs, the input's and the weight's gradients through
   autograd, float64) at stride 1, at stride 2 (the slab's parity) and at
   one row a peer.
-* On one process: the windowed plain stems against the whole clip's rows,
-  a chain of blocks and a fused block on slabs of a known clip, SPATIAL
-  at MODEL 1 a no-op, and the refusal of an uneven split naming its stage.
+* On one process: the windowed plain stems against the whole clip's rows
+  (72 px over 4 peers among them), a chain of blocks and a fused block on
+  slabs of a known clip (uneven bands among them), SPATIAL at MODEL 1 a
+  no-op, and the refusal of a clip whose rows MODEL does not divide.
 
-The JAX steps and the eval run in one process of their own, which writes
-the initial variables first; the checks against them run on the ranks'
-rank 0. Every subprocess runs under a timeout of at most 300 s and is
+The JAX steps and the eval run in two processes of their own (the
+uneven cases' steps in the second), each of which writes its initial
+variables first, on which the port's steps of its cases start; the
+checks against them run on the ranks' rank 0. Every subprocess runs under a timeout of at most 300 s and is
 killed when it runs out; the temporary files go when the module's tests
 end.
 """
@@ -63,8 +72,13 @@ from tubelet_transformer_tpu_torch.tools import dp_check, tp_check
 from tubelet_transformer_tpu_torch.train import checkpoint as ckpt_lib
 from tubelet_transformer_tpu_torch.train import engine
 
-STEP_CASES = ("ava", "data_model", "ucf")
-JAX_CASES = ("ava", "data_model")
+STEP_CASES = ("ava", "data_model", "ucf", "odd48", "uneven72")
+JAX_CASES = ("ava", "data_model", "odd48", "uneven72")
+# the uneven bands, with the stage path's eval forward: 48 px at MODEL 2
+# (layer3's strided conv on 3 rows a peer, then 2 and 1), 72 px at MODEL 4
+# with a strided layer4 (5, 4, 5 and 4 pooled rows, layer4's output 1, 1,
+# 0 and 1 rows)
+UNEVEN_CASES = ("odd48", "uneven72")
 # the halo cases: (clip rows, the conv's stride along T, H and W)
 HALO_CASES = {"stride1": (8, 1), "stride2": (8, 2), "one_row": (2, 1),
               "stride2_one_row": (4, 2)}
@@ -74,24 +88,26 @@ EVAL_KEYS = ("scores", "binary", "boxes")
 # ---------------------------------------------------------------- worker
 
 def _step_task(cfg, batch, initial_path=None, want_path=None,
-               eval_path=None):
+               eval_path=None, eval_stages=False):
     """tools/tp_check.run of the spatial step on this rank, from the JAX
     case's initial variables where it has one (else the seed's); on rank 0
     the readings, the peers' equality, the metrics of the step, its
-    controls and the one-process step, and with JAX's output the checks
-    against its step (``want_path``) and the eval step of the same
-    variables against its eval step (``eval_path``), run here once JAX
-    has written them."""
+    controls and the one-process step, with ``eval_stages`` the stage
+    path's eval forward against one process's (tp_check's
+    ``eval_check``), and with JAX's output the checks against its step
+    (``want_path``) and the eval step of the same variables against its
+    eval step (``eval_path``), run here once JAX has written them."""
     initial = _load(initial_path)["initial"] if initial_path else None
     outputs = _eval_outputs(cfg, initial, batch) if eval_path else None
     out = tp_check.run(cfg, torch.device("cpu"), initial=initial,
-                       batch=batch)
+                       batch=batch, eval_stages=eval_stages)
     if out is None:
         return None
     names = ("tp", *out["controls"])
     res = {"readings": out["readings"], "peers_equal": out["peers_equal"],
            "peers_agree": out["peers_agree"],
            "controls": out["controls"], "spatial": out["spatial"],
+           "eval_stages": out.get("eval", {}).get("differences"),
            "metrics": {k: out[k]["metrics"] for k in (*names, "single")}}
     if want_path:
         res["missed"] = Deferred(want_path, lambda w, *a: _missed(
@@ -247,9 +263,14 @@ def _jax_spatial_step(cfg, jmodel, tx, state, batch):
 
 
 def _jax_step_task(memo, out, init, cfg, batch):
-    """``_jax_spatial_step`` from the variables of the ``init`` task,
-    saved to <out>.want."""
-    _save(_jax_spatial_step(cfg, *memo[init][:3], batch), f"{out}.want")
+    """``_jax_spatial_step`` of the case's model (a strided layer4 has the
+    same variables) from the variables of the ``init`` task, saved to
+    <out>.want."""
+    from tubelet_transformer_tpu.models.tuber import build_model as jbuild
+
+    _, tx, state = memo[init][:3]
+    _save(_jax_spatial_step(cfg, jbuild(cfg), tx, state, batch),
+          f"{out}.want")
 
 
 def _jax_eval_task(memo, out, init, cfg, batch):
@@ -297,17 +318,24 @@ def _avg_cfg():
 def _cases():
     ucf = _spatial(_ucf_cfg())
     ucf.train.frozen_chunk = 1
+    odd = _spatial(_avg_cfg())
+    odd.data.img_size = 48
+    uneven = _spatial(_avg_cfg())
+    uneven.data.img_size, uneven.mesh.model = 72, 4
+    uneven.model.last_stride = True
     return {"ava": _spatial(_avg_cfg()),
-            "data_model": _spatial(_avg_cfg(), data=2), "ucf": ucf}
+            "data_model": _spatial(_avg_cfg(), data=2), "ucf": ucf,
+            "odd48": odd, "uneven72": uneven}
 
 
 @pytest.fixture(scope="module")
 def sp_runs(tmp_path_factory):
-    """Every multi-process run of this file, started at once: one JAX
+    """Every multi-process run of this file, started at once: a JAX
     process, which writes the AVA case's initial variables first (the
     data_model case starts from them too), then runs JAX's spatial step on
     the data-1 x model-2 and the data-2 x model-2 meshes and its eval step
-    on the first; 2 ranks under MODEL 2
+    on the first; a second, which writes the same variables and then runs
+    JAX's step of each uneven case (UNEVEN_CASES); 2 ranks under MODEL 2
     that run the AVA step as soon as its variables are written (and check
     it once JAX's step is), and meanwhile the JHMDB step (FROZEN_CHUNK 1),
     the halo cases, the train run and the eval of its checkpoint; 4 ranks
@@ -321,46 +349,59 @@ def sp_runs(tmp_path_factory):
     # matcher's float32 solve beside PAD_COST)
     batches["ucf"]["valid"][:] = True
     batches["ucf"]["vis"][:] = 1
-    init = str(tmp / "jax.out.init")
-    jax_tasks = {"init": ("init", {"cfg": cases["ava"],
-                                   "batch": batches["ava"]})}
-    for k in JAX_CASES:
-        jax_tasks[f"{k}_step"] = ("step", {"init": init, "cfg": cases[k],
-                                           "batch": batches[k]})
-    jax_tasks["eval"] = ("eval", {"init": init, "cfg": cases["ava"],
-                                  "batch": batches["ava"]})
+    # the JAX job of each case: the uneven cases' steps in a second
+    # process, so that neither nears its timeout
+    job = {k: "jax_uneven" if k in UNEVEN_CASES else "jax"
+           for k in JAX_CASES}
+    jax_tasks = {name: {"init": ("init", {"cfg": cases["ava"],
+                                          "batch": batches["ava"]})}
+                 for name in ("jax", "jax_uneven")}
+    for k, name in job.items():
+        jax_tasks[name][f"{k}_step"] = ("step", {
+            "init": str(tmp / f"{name}.out.init"), "cfg": cases[k],
+            "batch": batches[k]})
+    jax_tasks["jax"]["eval"] = ("eval", {"init": str(tmp / "jax.out.init"),
+                                         "cfg": cases["ava"],
+                                         "batch": batches["ava"]})
 
     def step(case):
         kw = {"cfg": cases[case], "batch": batches[case]}
         if case in JAX_CASES:
-            kw.update(initial_path=f"{init}.init", after=[f"{init}.init"],
-                      want_path=str(tmp / f"jax.out.{case}_step.want"))
+            init = str(tmp / f"{job[case]}.out.init.init")
+            kw.update(initial_path=init, after=[init],
+                      want_path=str(tmp / f"{job[case]}.out.{case}"
+                                          "_step.want"))
         if case == "ava":
             kw["eval_path"] = str(tmp / "jax.out.eval.want")
+        kw["eval_stages"] = case in UNEVEN_CASES
         return ("step", kw)
 
     run_cfg = _run_cfg(tmp / "runs")
     run_cfg.mesh.model, run_cfg.mesh.spatial = 2, True
     launched = []
     try:
-        launched.append(_start(tmp, jax_tasks, "jax", world=1, mode="jax",
-                               script=__file__))
+        for name, tasks in jax_tasks.items():
+            launched.append(_start(tmp, tasks, name, world=1, mode="jax",
+                                   script=__file__))
         launched.append(_start(tmp, {
             "ucf": step("ucf"),
             "halo": ("halo", {"seed": 5}),
             "train": ("train", {"cfg": run_cfg}),
             "eval": ("eval", {"cfg": copy.deepcopy(run_cfg),
                               "dump_dir": str(tmp / "dump_sp")}),
-            "ava": step("ava")}, "ranks", script=__file__))
-        launched.append(_start(tmp, {"data_model": step("data_model")},
+            "ava": step("ava"), "odd48": step("odd48")}, "ranks",
+            script=__file__))
+        launched.append(_start(tmp, {"data_model": step("data_model"),
+                                     "uneven72": step("uneven72")},
                                "dm", world=4, script=__file__))
     except BaseException:
         for procs, _ in launched:
             _kill(procs)
         raise
     _wait(*launched[0])
-    runs, logs = _wait(*launched[1])
-    dm = _wait(*launched[2])[0][0]
+    _wait(*launched[1])
+    runs, logs = _wait(*launched[2])
+    dm = _wait(*launched[3])[0][0]
     yield {"cases": cases, "got": {**runs[0], **dm}, "runs": runs,
            "logs": logs, "tmp": tmp,
            "ckpt": glob.glob(str(tmp / "runs" / "*" / "checkpoints" /
@@ -444,6 +485,18 @@ def test_spatial_model_peers_keep_replicated_parameters_equal(sp_runs, case):
                                   "no_trunk_sum": False}
 
 
+@pytest.mark.parametrize("case", UNEVEN_CASES)
+def test_uneven_bands_stage_path_eval_matches_one_process(sp_runs, case):
+    """The stage path's eval forward (MODEL.PALLAS_KERNELS and
+    FUSED_STAGES; their plain versions here) on uneven bands against the
+    one-process forward on the whole batch: scores, actor probabilities
+    and boxes within 1e-5; its zero-halo control parts from it by more
+    than 1e-3."""
+    got = sp_runs["got"][case]["eval_stages"]
+    assert max(got["mesh"].values()) <= 1e-5, got
+    assert max(got["zero_halo"].values()) > 1e-3, got
+
+
 @pytest.mark.parametrize("case", list(HALO_CASES))
 def test_halo_exchange_matches_the_unsplit_conv(sp_runs, case):
     """A depthwise conv on each peer's rows, its halo exchanged, against
@@ -490,28 +543,39 @@ def _slice_mesh(full: torch.Tensor, index: int, model: int):
     process group)."""
 
     class SliceMesh(mesh_lib.Mesh):
-        def halo_exchange(self, x, top, bottom):
+        def halo_exchange(self, x, top, bottom, bands=None):
             h = x.shape[2]
-            a = self.model_index * h
+            a = self.model_index * h if bands is None else \
+                bands.rows[self.model_index][0]
             return full[:, :, max(0, a - top):a + h + bottom]
 
     return SliceMesh(1, index, model, True)
 
 
-@pytest.mark.parametrize("model", [2, 4])
+# the uneven bands of the slab cases: layer3's output of JHMDB's 224 px
+# at MODEL 4 (56 rows a peer at the stem), at 1/4 scale
+UNEVEN_BANDS = mesh_lib.Bands.split(56, 4).strided(4)
+
+
+@pytest.mark.parametrize("model", [2, 4, "uneven"])
 def test_chain_and_fused_block_on_slabs_match_the_whole_clip(model):
     """``csn.halo_run`` of the stage chain's plain version (K = 3 blocks:
     3 rows of each neighbour) and of the fused block's (K = 1) on each
     peer's rows of a known clip, cropped back, against the same function
     on the whole clip, in float64; a chain longer than its halo parts
-    from it."""
+    from it. ``uneven``: the 4 peers' bands of 4, 3, 4 and 3 rows
+    (``UNEVEN_BANDS``), K = 3 the shortest band."""
     from tubelet_transformer_tpu_torch.models.csn import halo_run
     from tubelet_transformer_tpu_torch.ops.cuda.bottleneck import (
         bottleneck_reference)
     from tubelet_transformer_tpu_torch.ops.cuda.stage import chain_reference
 
     rng = np.random.default_rng(0)
-    ci, cm, k, h = 16, 8, 3, 4 * model
+    bands = (UNEVEN_BANDS if model == "uneven"
+             else mesh_lib.Bands.split(4 * model, model))
+    assert bands.rows == ((0, 4), (4, 3), (7, 4), (11, 3)) or \
+        model != "uneven"
+    ci, cm, k, h = 16, 8, 3, bands.height
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(rng.normal(size=shape) * scale)
@@ -523,14 +587,15 @@ def test_chain_and_fused_block_on_slabs_match_the_whole_clip(model):
     fns = {"chain": lambda z: chain_reference(z, stacked),
            "block": lambda z: bottleneck_reference(
                z, *(s[0] for s in stacked))}
+    n = len(bands.rows)
     for name, (fn, rows) in {"chain": (fns["chain"], k),
                              "block": (fns["block"], 1),
                              "short": (fns["chain"], 1)}.items():
         want = fn(x)
         parts = []
-        for i in range(model):
-            parts.append(halo_run(x[:, :, i * 4:(i + 1) * 4],
-                                  _slice_mesh(x, i, model), rows, fn))
+        for i, (a, c) in enumerate(bands.rows):
+            parts.append(halo_run(x[:, :, a:a + c], _slice_mesh(x, i, n),
+                                  rows, fn, bands))
         err = float((torch.cat(parts, 2) - want).abs().max())
         if name == "short":
             assert err > 1e-3, err
@@ -541,40 +606,52 @@ def test_chain_and_fused_block_on_slabs_match_the_whole_clip(model):
 @pytest.mark.parametrize("kind", ["pooled", "stats"])
 def test_windowed_stem_references_match_the_whole_clip(kind):
     """``stem_reference`` and ``stem_batch_stats_reference`` on each of 2
-    and 4 peers' windows (its rows and the halo of POOL_HALO or
-    STATS_HALO) against the whole clip's: the pooled rows bit for bit, and
-    the peers' (mean, E[y^2]) averaged within 1e-6 of the whole clip's
-    statistics; a window whose slab lacks a halo row is refused."""
+    and 4 peers' windows of a 64-row clip (its rows and the halo of
+    POOL_HALO or STATS_HALO), and of 4 peers' of a 72-row clip, whose
+    18-row bands own 5, 4, 5 and 4 pooled rows and 9 conv rows each (the
+    halo ``stem_halo``'s), against the whole clip's: the pooled rows bit
+    for bit, and the peers' (mean, E[y^2]) averaged, weighted by their
+    conv rows, within 1e-6 of the whole clip's statistics; a window whose
+    slab lacks a halo row is refused."""
     from tubelet_transformer_tpu_torch.ops.cuda import stem
 
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(1.0, 1.0, (2, 3, 64, 20, 3)).astype(
-        np.float32))
     w = torch.from_numpy(rng.normal(0, 0.1, stem.W_SHAPE).astype(
         np.float32))
     scale = torch.from_numpy(rng.uniform(0.5, 2, 64).astype(np.float32))
     bias = torch.from_numpy(rng.normal(size=64).astype(np.float32))
     pooled = kind == "pooled"
-    below = (stem.POOL_HALO if pooled else stem.STATS_HALO)[1]
-    for model in (2, 4):
-        rows = 64 // model
+    for height, model in ((64, 2), (64, 4), (72, 4)):
+        x = torch.from_numpy(rng.normal(1.0, 1.0, (2, 3, height, 20, 3))
+                             .astype(np.float32))
+        bands = mesh_lib.Bands.split(height, model)
+        top, below = ((stem.POOL_HALO if pooled else stem.STATS_HALO)
+                      if height == 64 else stem.stem_halo(bands))
         outs = []
-        for i in range(model):
-            win = stem.peer_window(i * rows, rows, 64, pooled)
-            slab = x[:, :, win.row0:min(64, (i + 1) * rows + below)]
+        for first, rows in bands.rows:
+            win = stem.peer_window(first, rows, height, pooled, top)
+            slab = x[:, :, win.row0:min(height, first + rows + below)]
             outs.append(stem.stem_reference(slab, w, scale, bias, win)
-                        if pooled else stem.stem_batch_stats_reference(
-                            slab, w, win))
+                        if pooled else (win.out_rows,
+                                        *stem.stem_batch_stats_reference(
+                                            slab, w, win)))
         if pooled:
+            if height == 72:
+                assert [o.shape[2] for o in outs] == [5, 4, 5, 4]
             assert torch.equal(torch.cat(outs, 2),
                                stem.stem_reference(x, w, scale, bias))
         else:
-            mean = torch.stack([m for m, _ in outs]).mean(0)
-            msq = torch.stack([v + m.square() for m, v in outs]).mean(0)
+            n = torch.tensor([float(c) for c, _, _ in outs])[:, None]
+            mean = (torch.stack([m for _, m, _ in outs]) * n).sum(0) / n.sum()
+            msq = (torch.stack([v + m.square() for _, m, v in outs])
+                   * n).sum(0) / n.sum()
             want_mean, want_var = stem.stem_batch_stats_reference(x, w)
             assert (mean - want_mean).abs().max() <= 1e-6
             assert (msq - mean.square() - want_var).abs().max() <= 1e-6 * (
                 want_var.abs().max())
+    x = x[:, :, :64]
+    rows = 16
+    below = (stem.POOL_HALO if pooled else stem.STATS_HALO)[1]
     win = stem.peer_window(rows, rows, 64, pooled)
     fn = stem.stem_reference if pooled else stem.stem_batch_stats_reference
     with pytest.raises(ValueError, match="do not hold input rows"):
@@ -610,12 +687,14 @@ def test_spatial_with_model_one_is_a_noop(one_torch_thread):
 
 
 def test_uneven_split_is_refused_naming_its_stage():
-    """Where the clip's rows do not split into equal bands that a stage's
-    convs take, the set-up raises ValueError naming the stage, its rows
-    and MESH.MODEL: JHMDB's 224 px at MODEL 4 gives layer3's strided conv
-    7 rows a peer; 64 px rows do not split over MODEL 3 at the stem; 64 px
-    at MODEL 2 and the flagship's 256 px at MODEL 2, 4 and 8 split;
-    generate_lfb ignores SPATIAL."""
+    """Only the split that the JAX package refuses is refused: MESH.MODEL
+    not dividing the clip's rows, as JAX's ``device_put`` of a clip whose
+    H axis does not divide over 'model' raises. The set-up then raises
+    ValueError naming MESH.SPATIAL, the rows and MESH.MODEL: 64 px rows
+    over MODEL 3. Every uneven band below the stem is taken: JHMDB's 224
+    px at MODEL 4 (layer3's strided conv on 7 rows a peer, then bands of
+    4, 3, 4 and 3 rows), 64 px at MODEL 2, the flagship's 256 px at MODEL
+    2, 4 and 8; generate_lfb ignores SPATIAL."""
     from test_torch_jhmdb import small_cfg as jhmdb_cfg
     from test_torch_tuber import small_cfg
 
@@ -624,19 +703,23 @@ def test_uneven_split_is_refused_naming_its_stage():
     cfg = jhmdb_cfg()
     cfg.data.img_size, cfg.model.backbone_name = 224, "CSN-152"
     cfg.mesh.model, cfg.mesh.spatial = 4, True
-    with pytest.raises(ValueError, match="layer3's input of 28 rows .*"
-                                         "MESH.MODEL 4 into 7 rows"):
-        runner.check_supported(cfg)
+    runner.check_supported(cfg)
+    bands = spatial_rows(224, (3, 8, 36, 3), cfg.model.last_stride, 4)
+    assert [b.rows for b in bands[4:]] == [
+        ((0, 7), (7, 7), (14, 7), (21, 7)),
+        ((0, 4), (4, 3), (7, 4), (11, 3)),
+        ((0, 4), (4, 3), (7, 4), (11, 3))]
     cfg = small_cfg()
     cfg.mesh.model, cfg.mesh.spatial = 3, True
-    with pytest.raises(ValueError, match="the stem's input of 64 rows does "
-                                         "not split over MESH.MODEL 3"):
+    with pytest.raises(ValueError, match="MESH.SPATIAL: the stem's input of "
+                                         "64 rows does not split over "
+                                         "MESH.MODEL 3"):
         runner.check_supported(cfg)
     cfg.mesh.model = 2
     runner.check_supported(cfg)
     for model in (2, 4, 8):
-        assert spatial_rows(256, (3, 8, 36, 3), False, model)[-1] == \
-            16 // model
+        assert spatial_rows(256, (3, 8, 36, 3), False, model)[-1].rows == \
+            tuple((i * 16 // model, 16 // model) for i in range(model))
     # generate_lfb gets past its checks to the mesh, which one process
     # cannot hold
     cfg.mesh.model = 3

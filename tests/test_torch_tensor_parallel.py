@@ -22,6 +22,13 @@ data shard.
   backward sums again) missing; the model peers' replicated parameters
   bit-equal after two steps; the split parameters the set JAX's
   ``param_shardings`` splits, crossed over through ``convert.py``.
+* Attention heads that MESH.MODEL does not divide, the packed projection
+  split by rows as JAX splits it: a 3-head model of width 48 on MODEL 2
+  (beside the 2-rank cases), and the 4-head model on MODEL 3 (3 ranks,
+  JAX on 3 host devices: q, k and v a peer each), each against JAX's
+  step and one process's, its controls ("g" and "gather" summing again)
+  missing, the peers bit-equal, each rank's in_proj a 1/MODEL share; the
+  eval step under MODEL 3 against one process's.
 * The eval forward with long-term context (USE_LFB: ``lfb_attn`` split)
   equals one process's.
 * ``run_training`` under MODEL 2 writes from rank 0 alone; ``run_eval``
@@ -84,6 +91,7 @@ from tubelet_transformer_tpu_torch.train.optimizer import param_label
 # the four cases read 2.3e-6-1.3e-5 on the CPU, the control 0.66-1.07
 UPDATE_TOL = 1e-4
 CASES = ("ava", "ucf", "moe", "data_model")
+UNEVEN_CASES = ("heads3", "model3")
 
 
 # ---------------------------------------------------------------- worker
@@ -91,23 +99,52 @@ CASES = ("ava", "ucf", "moe", "data_model")
 def _step_task(cfg, initial_path, batch, want_path):
     """tools/tp_check.run on this rank from the JAX case's initial
     variables (``initial_path``); on rank 0 what the tests read: the
-    metrics and all-reduce counts of the TP and control steps, their
+    metrics and all-reduce counts of the TP step and its controls, their
     checks against JAX's step (``want_path``, run here once JAX has
     written it) with JAX's metrics, the one-process metrics, the readings,
-    the peers' equality, the split names and the launches."""
+    the peers' equality, the split names, the launches and the bytes of
+    each rank's in_proj slices."""
     initial = _load(initial_path)["initial"]
     out = tp_check.run(cfg, torch.device("cpu"), initial=initial,
                        batch=batch)
     if out is None:
         return None
-    return {**{k: out[k] for k in ("readings", "peers_equal", "split",
-                                   "launches")},
+    names = ("tp", *out["controls"])
+    return {**{k: out[k] for k in ("readings", "peers_equal", "peers_agree",
+                                   "split", "launches", "controls",
+                                   "in_proj_bytes",
+                                   "one_process_in_proj_bytes")},
             **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
-               for k in ("tp", "control")},
+               for k in names},
             "single": {"metrics": out["single"]["metrics"]},
             "missed": Deferred(want_path, _missed, cfg, initial,
-                               {k: out[k] for k in ("tp", "control")}),
+                               {k: out[k] for k in names}),
             "jax_metrics": Deferred(want_path, lambda want: want[0])}
+
+
+def _eval_forward_task(cfg, initial_path, batch):
+    """The eval step of the eval build split over the case's mesh, from
+    the JAX case's initial variables, on the whole batch; on rank 0 the
+    largest absolute difference of each of its detection outputs from one
+    process's eval step."""
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+
+    initial = _load(initial_path)["initial"]
+    c = copy.deepcopy(cfg)
+    c.val.compute_losses = False
+    mesh = runner._mesh(c)
+    model = build_model(c, mesh=mesh)
+    sharding_rules.load_full_state(model, initial)
+    db = engine.device_batch(batch, torch.device("cpu"))
+    got = engine.make_eval_step(c, model, mesh=mesh)(db)
+    if mesh.rank:
+        return None
+    one = tp_check.one_process(c)
+    full = build_model(one)
+    full.load_state_dict(initial)
+    want = engine.make_eval_step(one, full)(db)
+    return {k: float((got[k] - want[k]).abs().max())
+            for k in ("scores", "binary", "boxes")}
 
 
 def _train_task(cfg):
@@ -278,7 +315,8 @@ def _zero1_against_jax_mesh(want, cfg, initial, steps):
 
 TASKS = {"step": _step_task, "train": _train_task, "eval": _eval_task,
          "resume": _resume_task, "lfb": _lfb_forward_task,
-         "bank": _bank_task, "zero1": _zero1_model_task}
+         "bank": _bank_task, "zero1": _zero1_model_task,
+         "eval_forward": _eval_forward_task}
 
 
 def worker(job_path):
@@ -307,22 +345,35 @@ def jax_worker(job_path):
 
 # ---------------------------------------------------------------- parent
 
-def _tp(cfg, data=1):
+def _tp(cfg, data=1, model=2):
     """``cfg`` at tests/test_engine.py's transformer depth, on a
-    data x 2 mesh."""
+    data x ``model`` mesh."""
     cfg.model.enc_layers = cfg.model.dec_layers = 2
-    cfg.mesh.data, cfg.mesh.model = data, 2
+    cfg.mesh.data, cfg.mesh.model = data, model
+    return cfg
+
+
+def _avg_ava():
+    cfg = _ava_cfg()
+    cfg.model.temporal_ds_strategy = "avg"
     return cfg
 
 
 def _cases():
-    moe = _ava_cfg()
-    moe.model.temporal_ds_strategy = "avg"
+    """The TP cases (``CASES``), then the attentions whose heads the
+    'model' axis does not divide (``UNEVEN_CASES``): ``heads3``, the
+    encoder and decoder at 3 heads of width 48 (the position table's 8
+    divides it) on MODEL 2, every packed projection and ``out_proj`` of
+    theirs split by rows and columns (the class branch's 8 heads by head);
+    ``model3``, the 4-head model on MODEL 3, every packed projection cut
+    into q | k | v and every ``out_proj`` and FFN (64 wide) replicated."""
+    moe = _avg_ava()
     moe.model.moe_experts, moe.model.moe_top_k = 4, 2
-    data_model = _ava_cfg()
-    data_model.model.temporal_ds_strategy = "avg"
+    heads3 = _avg_ava()
+    heads3.model.d_model, heads3.model.nhead = 48, 3
     return {"ava": _tp(_ava_cfg()), "ucf": _tp(_ucf_cfg()), "moe": _tp(moe),
-            "data_model": _tp(data_model, data=2)}
+            "data_model": _tp(_avg_ava(), data=2), "heads3": _tp(heads3),
+            "model3": _tp(_avg_ava(), model=3)}
 
 
 def _port_sd(cfg, params, stats):
@@ -433,7 +484,7 @@ def tp_runs(tmp_path_factory):
     batches["ucf"]["vis"][:] = 1
     batch3 = dp_check.global_batch(cases["data_model"], 4, seed=4)
     job = {"ava": "jax_a", "ucf": "jax_d", "moe": "jax_b",
-           "data_model": "jax_c"}
+           "data_model": "jax_c", "heads3": "jax_f", "model3": "jax_e"}
 
     def out(case, what, step=""):
         return str(tmp / f"{job[case]}.out.{case}{step}.{what}")
@@ -497,7 +548,7 @@ def tp_runs(tmp_path_factory):
                               "out": str(tmp / "bank_tp" / "bank.npz")})},
             "runs", script=__file__))
         launched.append(_start(tmp, {k: step(k) for k in ("ava", "ucf",
-                                                          "moe")},
+                                                          "moe", "heads3")},
                                "steps", script=__file__))
         launched.append(_start(tmp, {
             "eval": ("eval", {"cfg": run_cfg(data=2),
@@ -518,19 +569,30 @@ def tp_runs(tmp_path_factory):
                 "want_path": str(tmp / "jax_c.out.zero1_step.want"),
                 "after": [out("data_model", "init")]})},
             "dm", world=4, script=__file__))
+        launched.append(_start(tmp, {
+            "model3": step("model3"),
+            "eval_forward": ("eval_forward", {
+                "cfg": cases["model3"], "batch": batches["model3"],
+                "initial_path": out("model3", "init"),
+                "after": [out("model3", "init")]})},
+            "m3", world=3, script=__file__))
     except BaseException:
         for procs, _ in launched:
             _kill(procs)
         raise
     splits = {}
-    for jax_job in launched[:4]:
+    for jax_job in launched[:len(jax_jobs)]:
         splits.update(_wait(*jax_job)[0][0])
-    runs, logs = _wait(*launched[4])
-    steps = _wait(*launched[5])[0][0]
-    dm = _wait(*launched[6])[0]
+    n = len(jax_jobs)
+    runs, logs = _wait(*launched[n])
+    steps = _wait(*launched[n + 1])[0][0]
+    dm = _wait(*launched[n + 2])[0]
+    m3 = _wait(*launched[n + 3])[0][0]
     yield {"cases": cases,
            "jax_split": {k: splits[k] for k in cases},
-           "got": {**steps, "data_model": dm[0]["data_model"]},
+           "got": {**steps, "data_model": dm[0]["data_model"],
+                   "model3": m3["model3"]},
+           "eval3": m3["eval_forward"],
            "runs": runs, "logs": logs, "dm": dm, "tmp": tmp,
            "one_ckpt": one_ckpt, "resume_batch": resume_batch,
            "zero1_cfg": zero1_cfg, "batch3": batch3,
@@ -579,7 +641,7 @@ def test_model_peers_keep_replicated_parameters_equal(tp_runs, case):
     assert tp_runs["got"][case]["peers_equal"] == [True, True]
 
 
-@pytest.mark.parametrize("case", ["ava", "ucf", "moe"])
+@pytest.mark.parametrize("case", ["ava", "ucf", "moe", *UNEVEN_CASES])
 def test_split_parameters_are_jax_param_shardings(tp_runs, case):
     """The port splits exactly the parameters JAX's ``param_shardings``
     splits over 'model' (its names crossed over through ``convert.py``):
@@ -595,6 +657,68 @@ def test_split_parameters_are_jax_param_shardings(tp_runs, case):
                 "cross_attn.in_proj_weight"} <= got
     if case == "moe":
         assert sum("expert_" in k for k in got) == 4 * 2
+    if case == "model3":
+        assert got and all(k.endswith("in_proj_weight") for k in got)
+
+
+@pytest.mark.parametrize("case", UNEVEN_CASES)
+def test_uneven_heads_step_matches_jax_mesh_step(tp_runs, case):
+    """Where MESH.MODEL does not divide an attention's heads (3 heads on
+    MODEL 2; 4 and 8 heads on MODEL 3, ``_cases``), the TP step against
+    JAX's step on the same ('data', 'model') mesh, which splits by
+    divisibility alone, with test_torch_train_step.py's tolerances
+    (``_check_against_jax``); every control misses them."""
+    got = tp_runs["got"][case]
+    assert got["tp"]["metrics"]["finite"] == 1.0
+    assert got["missed"]["tp"] == [], got["missed"]["tp"]
+    for name in got["controls"]:
+        assert got["missed"][name] != [], name
+
+
+@pytest.mark.parametrize("case", UNEVEN_CASES)
+def test_uneven_heads_step_matches_one_process(tp_runs, case):
+    """The same steps against the port's one-process step on the whole
+    batch: every reading within SELF_TOL (the BN running statistics
+    among them), the updates within UPDATE_TOL. The controls run where
+    their hand-off does: "g" summing again where an ``out_proj`` or FFN
+    splits (MODEL 2), "gather" summing again where an attention splits by
+    rows (both cases); each keeps the step's forward and misses in the
+    gradients and updates."""
+    got = tp_runs["got"][case]
+    assert got["controls"] == {"heads3": ["control", "gather_again"],
+                               "model3": ["gather_again"]}[case]
+    readings = got["readings"]
+    for k, v in readings["tp"].items():
+        assert v <= (UPDATE_TOL if k == "update_rel" else SELF_TOL), (k, v)
+    for name in got["controls"]:
+        assert readings[name]["loss_rel"] == readings["tp"]["loss_rel"]
+        for k in ("grad_norm_rel", "grads_rel", "update_rel"):
+            assert readings[name][k] > 100 * UPDATE_TOL, (name, k, readings)
+
+
+@pytest.mark.parametrize("case", UNEVEN_CASES)
+def test_uneven_heads_peers_agree_and_hold_their_share(tp_runs, case):
+    """After each of two steps every rank's replicated parameters and
+    buffers equal its model peers' bit for bit (the attention over all
+    heads is the same on every peer), and so they do after the step of
+    each control; each rank's in_proj slices hold 1/MODEL of one
+    process's bytes."""
+    got = tp_runs["got"][case]
+    model = tp_runs["cases"][case].mesh.model
+    assert got["peers_equal"] == [True, True]
+    assert all(got["peers_agree"].values()), got["peers_agree"]
+    assert len(got["in_proj_bytes"]) == model
+    for b in got["in_proj_bytes"]:
+        assert b * model == got["one_process_in_proj_bytes"]
+
+
+def test_uneven_heads_eval_matches_one_process(tp_runs):
+    """The eval step of the 4-head model under MODEL 3 (q, k and v of every
+    attention on their own peer, gathered) against one process's on the
+    same variables and clips: scores, actor probabilities and boxes
+    within 1e-5."""
+    for k, v in tp_runs["eval3"].items():
+        assert v <= 1e-5, (k, v)
 
 
 def test_split_layout_round_trip():

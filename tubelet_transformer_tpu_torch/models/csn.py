@@ -54,17 +54,28 @@ reference's key scheme (``conv1``, ``bn1``, ``layer{s}.{b}.conv3``,
   stem's kernel statistics included, normalises by the global batch's
   statistics, the mean over ranks of each rank's float32 (E[x], E[x^2]).
 * Spatial parallelism (``set_spatial``, ``MESH.SPATIAL``): the trunk takes
-  this model peer's band of the clip's rows (``Mesh.own_rows``) and
-  returns the band of its output. The stem runs on a slab of its rows and
-  the 5 above and 2 below that its pooled rows read (``Mesh.halo_exchange``;
-  the kernels on a ``RowWindow``); each depthwise conv takes 1 row from
-  each neighbour (1 from above alone at stride 2), the clip's border
-  zero-padded, and keeps its own output rows; in eval a fused block takes
-  1 row each side and a chain of k blocks k rows, their output cropped,
-  and a chain is cut to at most the peer's rows. Every other op is row by
-  row. Each BN's batch statistics are those of the peer's own rows,
-  averaged over every rank by ``rank_mean``. The kernels' dispatch
-  predicates read the clip's full height, as one process does.
+  this model peer's band of the clip's rows (``Mesh.own_rows``: equal
+  bands, MESH.MODEL dividing the clip's rows as JAX's ``device_put``
+  requires) and returns its band of the output. Every resolution has its
+  bands (``spatial_rows``, ``parallel.mesh.Bands``): an output row of a
+  conv or pool of stride s belongs to the peer that owns the input row at
+  its stride, s times its index, so a deep band may be short, odd where
+  its stage's conv strides by 2, or empty. The stem runs on a slab of its
+  rows and the rows above and below that its conv and pooled rows read
+  (``stem_halo``; the kernels on a ``RowWindow``); each depthwise conv
+  takes the rows past its band that its output rows read (at most one on
+  each side; at stride 2 one above only where its first output row's
+  centre is its first row), the clip's border zero-padded, and keeps its
+  own output rows; a strided shortcut reads the rows of its band at its
+  stride; in eval a fused block takes 1 row each side and a chain of k
+  blocks k rows, their output cropped, and a chain is cut to at most the
+  shortest non-empty band's rows. Every other op is row by row. Each BN's
+  batch statistics are those of the peer's own rows, averaged over the
+  data x model ranks weighted by their pixels (``rank_mean``). A peer
+  whose band is empty runs every op on zero rows, its collectives
+  included, so that every peer makes the same exchanges forward and
+  backward. The kernels' dispatch predicates read the clip's full
+  height, as one process does.
 """
 
 from __future__ import annotations
@@ -85,8 +96,9 @@ from tubelet_transformer_tpu_torch.ops.cuda.depthwise import (
 from tubelet_transformer_tpu_torch.ops.cuda.stage import (
     bottleneck_chain, chain_supported, max_chain)
 from tubelet_transformer_tpu_torch.ops.cuda.stem import (
-    POOL_HALO, conv_window, peer_window, pool_conv_rows, pool_window,
-    stem_batch_stats, stem_forward, stem_window)
+    conv_window, peer_window, pool_conv_rows, pool_window,
+    stem_batch_stats, stem_forward, stem_halo, stem_window)
+from tubelet_transformer_tpu_torch.parallel.mesh import Bands
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1   # torch convention; flax momentum 0.9
@@ -99,8 +111,9 @@ BLOCK_NUMS = {
 }
 
 
-# the mean over data-parallel ranks of a stacked batch statistic
-RankMean = Callable[[torch.Tensor], torch.Tensor]
+# the mean over data-parallel ranks of a stacked batch statistic, given
+# the number of pixels it is over
+RankMean = Callable[[torch.Tensor, int], torch.Tensor]
 
 # set on the thread that recomputes a checkpointed block in the backward
 _RECOMPUTE = threading.local()
@@ -121,32 +134,40 @@ def _remat_contexts():
     return contextlib.nullcontext(), _recomputing()
 
 
+def stage_stride(s: int, last_stride: bool) -> int:
+    """The H (and W) stride of stage ``s`` (0-based): its block 0's."""
+    return 1 if s == 0 or (s == 3 and not last_stride) else 2
+
+
 def spatial_rows(height: int, block_nums: Sequence[int], last_stride: bool,
                  model: int) -> list:
-    """A peer's rows at the input of the stem and of each stage when a
-    clip of ``height`` rows splits over ``model`` peers (MESH.SPATIAL).
-    Raises ValueError naming the first stage whose rows do not split into
-    equal bands that its convs can take: the stem needs bands of a
-    multiple of 4 rows and at least 8 (its pooled rows read 5 rows above),
-    a stride-2 stage an even band."""
-    if height % model or (height // model) % 4 or height // model < 8:
+    """Every model peer's band (``parallel.mesh.Bands``, (first, count)
+    global rows) at each resolution of the trunk when a clip of ``height``
+    rows splits over ``model`` peers (MESH.SPATIAL): the stem's input, its
+    conv rows, its pooled rows (layer1's input), then each stage's output.
+    Raises ValueError, naming MESH.SPATIAL, the rows and MESH.MODEL, where
+    the clip's rows do not split into equal bands: the one split the JAX
+    package refuses too."""
+    if height % model:
         raise ValueError(
             f"MESH.SPATIAL: the stem's input of {height} rows does not split "
-            f"over MESH.MODEL {model} into equal bands of a multiple of 4 "
-            "rows, 8 or more")
-    rows = [height // model, height // model // 4]
+            f"over MESH.MODEL {model} into equal bands")
+    rows = [Bands.split(height, model)]
+    rows += [rows[0].strided(2), rows[0].strided(2).strided(2)]
     for s, blocks in enumerate(block_nums):
-        stride = 1 if s == 0 or (s == 3 and not last_stride) else 2
-        if not blocks:
-            continue
-        if rows[-1] % stride:
-            raise ValueError(
-                f"MESH.SPATIAL: layer{s + 1}'s input of "
-                f"{rows[-1] * model} rows splits over MESH.MODEL {model} "
-                f"into {rows[-1]} rows a peer, odd where its stride-2 conv "
-                "needs them even")
-        rows.append(rows[-1] // stride)
+        rows.append(rows[-1].strided(stage_stride(s, last_stride))
+                    if blocks else rows[-1])
     return rows
+
+
+def _no_rows(x: torch.Tensor, t: int, w: int, scale: torch.Tensor
+             ) -> torch.Tensor:
+    """An empty band's output: x's (B,T,H,W,C) zero rows at strides ``t``
+    and ``w`` of T and W, times ``scale`` ((C') on the channels), so that
+    it lies on the autograd graph of x and of ``scale``'s weight, whose
+    backward (and the collectives behind it) then runs on this peer as on
+    the others."""
+    return x[:, ::t, :0, ::w, :1] * cast(scale, x)
 
 
 def channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -176,22 +197,25 @@ def batch_stats(x: torch.Tensor, rank_mean: Optional[RankMean] = None
     ``torch.linalg.vector_norm``, squared back, within 2 float32 ulps of
     the sum itself and far inside the error of the sum's order.
 
-    ``rank_mean`` (data parallelism: ``parallel.mesh.Mesh.batch_mean``)
-    takes the mean over ranks of the stacked (E[x], E[x^2]) before the
-    variance is formed, so that every rank normalises by the global
-    batch's statistics, as the JAX step on a batch sharded over 'data'
-    does."""
+    ``rank_mean`` (data or spatial parallelism:
+    ``parallel.mesh.Mesh.batch_mean``) takes the mean over ranks of the
+    stacked (E[x], E[x^2]), given the number of pixels they are over,
+    before the variance is formed, so that every rank normalises by the
+    global batch's statistics, as the JAX step on a sharded batch does. An
+    empty x (a peer's empty band) gives zero sums over no pixels."""
     dims = tuple(range(x.dim() - 1))
     acc = torch.promote_types(x.dtype, torch.float32)
-    if x.dtype == acc:
+    n = x.numel() // x.shape[-1]
+    if not n:
+        mean = msq = x.sum(dims, dtype=acc)
+    elif x.dtype == acc:
         mean = x.mean(dims)
         msq = x.square().mean(dims)
     else:
-        n = x.numel() // x.shape[-1]
         mean = x.sum(dims, dtype=acc) / n
         msq = torch.linalg.vector_norm(x, 2, dims, dtype=acc).square() / n
     if rank_mean is not None:
-        mean, msq = rank_mean(torch.stack([mean, msq])).unbind()
+        mean, msq = rank_mean(torch.stack([mean, msq]), n).unbind()
     return mean, msq - mean.square()
 
 
@@ -294,9 +318,12 @@ class DepthwiseConv3d(nn.Conv3d):
         c = self.out_channels
         return self.weight.reshape(c, 27).t().reshape(3, 3, 3, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: Optional[Bands] = None
+                ) -> torch.Tensor:
+        """x's conv; with the rows split, x is this peer's band of
+        ``bands`` (equal bands of its rows by default)."""
         if self.spatial is not None:
-            return self._forward_rows(x, self.spatial)
+            return self._forward_rows(x, self.spatial, bands)
         if self.use_pallas and depthwise_supported(x.shape, self.stride):
             return depthwise_conv3x3x3(
                 x.contiguous(), cast(self.kernel_weight(), x).contiguous())
@@ -304,15 +331,28 @@ class DepthwiseConv3d(nn.Conv3d):
                                cast(self.weight, x), None)
         return channels_last(y).contiguous()
 
-    def _forward_rows(self, x: torch.Tensor, mesh) -> torch.Tensor:
-        """This peer's output rows from its input rows x: 1 row from the
-        peer above, and at stride 1 from the one below, the clip's border
-        padded with zero rows, then the conv with no padding along H (a
-        stride-2 slab starts one row above the peer's even first row)."""
-        below = int(self.stride[1] == 1)
-        x = mesh.halo_exchange(x, 1, below)
-        first, last = mesh.model_index == 0, mesh.model_index == mesh.model - 1
-        x = F.pad(x, (0, 0, 0, 0, int(first), below * int(last)))
+    def _forward_rows(self, x: torch.Tensor, mesh,
+                      bands: Optional[Bands]) -> torch.Tensor:
+        """This peer's output rows from its input rows x: the rows past its
+        band that they read (``Bands.halo``, from whichever peers own
+        them), the clip's border padded with zero rows, then the conv with
+        no padding along H over the rows its output reads."""
+        if bands is None:
+            bands = Bands.split(x.shape[2] * mesh.model, mesh.model)
+        s = self.stride[1]
+        top, bottom = bands.halo(s, 1)
+        a, h = bands.rows[mesh.model_index]
+        oa, oh = bands.strided(s).rows[mesh.model_index]
+        x = mesh.halo_exchange(x, top, bottom, bands)
+        x = F.pad(x, (0, 0, 0, 0, top - min(top, a),
+                      bottom - min(bottom, bands.height - a - h)))
+        if not oh:
+            return _no_rows(x, self.stride[0], self.stride[2],
+                            self.weight[:, 0, 0, 0, 0])
+        # x now spans global rows a - top ..; the output reads
+        # s * oa - 1 .. s * (oa + oh - 1) + 1
+        lo = s * oa - 1 - (a - top)
+        x = x[:, :, lo:lo + s * (oh - 1) + 3]
         if self.use_pallas and depthwise_supported(x.shape, self.stride):
             y = depthwise_conv3x3x3(
                 x.contiguous(), cast(self.kernel_weight(), x).contiguous())
@@ -322,22 +362,27 @@ class DepthwiseConv3d(nn.Conv3d):
         return channels_last(y).contiguous()
 
 
-def full_shape(x: torch.Tensor, mesh) -> tuple:
-    """x's shape with the clip's full height when the model peers of
-    ``mesh`` split the rows (None: x's own): what a kernel's dispatch
-    predicate reads, as in one process."""
+def full_shape(x: torch.Tensor, bands: Optional[Bands]) -> tuple:
+    """x's shape with the clip's full height when x is a peer's band of
+    ``bands`` (None: x's own): what a kernel's dispatch predicate reads,
+    as in one process."""
     b, t, h, w, c = x.shape
-    return (b, t, h if mesh is None else h * mesh.model, w, c)
+    return (b, t, h if bands is None else bands.height, w, c)
 
 
-def halo_run(x: torch.Tensor, mesh, k: int, fn: Callable) -> torch.Tensor:
+def halo_run(x: torch.Tensor, mesh, k: int, fn: Callable, bands: Bands
+             ) -> torch.Tensor:
     """``fn`` (a row-local op with k stacked depthwise convs, zero-padded
-    at its input's edge) on this peer's rows x and k rows of each
-    neighbour, cropped back to this peer's rows: the rows within k of a
-    slab edge that is not the clip's border read past it, and go."""
-    h = x.shape[2]
-    top = k if mesh.model_index > 0 else 0
-    return fn(mesh.halo_exchange(x, k, k).contiguous())[:, :, top:top + h]
+    at its input's edge) on this peer's rows x, its band of ``bands``, and
+    the k rows on each side of it, cropped back to this peer's rows: the
+    rows within k of a slab edge that is not the clip's border read past
+    it, and go. An empty band exchanges its rows and computes nothing."""
+    a, h = bands.rows[mesh.model_index]
+    slab = mesh.halo_exchange(x, k, k, bands)
+    if not h:
+        return x
+    top = min(k, a)
+    return fn(slab.contiguous())[:, :, top:top + h]
 
 
 class CSNBottleneck(nn.Module):
@@ -384,19 +429,29 @@ class CSNBottleneck(nn.Module):
                 self.conv3.kernel_weight(),
                 self.conv4.weight.flatten(1).t(), a1, b1, a3, b3, a4, b4)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: Optional[Bands] = None
+                ) -> torch.Tensor:
+        """The block on x; with the rows split, x is this peer's band of
+        ``bands``."""
+        mesh = self.spatial
         if (self.fused_blocks and not self.training and bottleneck_supported(
-                full_shape(x, self.spatial), self.planes, self.stride,
+                full_shape(x, bands), self.planes, self.stride,
                 self.temporal_stride, self.down_sample is not None)):
-            if self.spatial is None:
+            if mesh is None:
                 return bottleneck_fused(x, *self.fused_params())
-            return halo_run(x, self.spatial, 1,
-                            lambda t: bottleneck_fused(t,
-                                                       *self.fused_params()))
+            return halo_run(x, mesh, 1, lambda t: bottleneck_fused(
+                t, *self.fused_params()), bands)
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn3(self.conv3(out)))
+        out = F.relu(self.bn3(self.conv3(out, bands)))
         out = self.bn4(self.conv4(out))
-        residual = x if self.down_sample is None else self.down_sample(x)
+        if self.down_sample is None:
+            residual = x
+        else:
+            # the shortcut reads the input rows at its stride: with the
+            # rows split, from this peer's first such row on
+            skip = 0 if mesh is None else (-bands.rows[mesh.model_index][0]
+                                           % self.stride)
+            residual = self.down_sample(x[:, :, skip:])
         return F.relu(out + residual)
 
 
@@ -505,56 +560,79 @@ class CSN(nn.Module):
             cached = self._chains[s] = (key, build())
         return cached[1]
 
-    def stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+    def row_bands(self, height: int) -> Optional[list]:
+        """``spatial_rows`` of a clip of ``height`` rows over this trunk's
+        model peers with the rows split, else None."""
+        if self.spatial is None:
+            return None
+        return spatial_rows(height, self.block_nums, self.last_stride,
+                            self.spatial.model)
+
+    def stage(self, s: int, x: torch.Tensor,
+              bands: Optional[Bands] = None) -> torch.Tensor:
         """Stage ``s`` (0-based): in eval with ``fused_stages``, block 0 as a
         module and the identity tail as chains where ``chain_supported``
-        (csn.py:410-426 of the JAX package); otherwise block by block."""
+        (csn.py:410-426 of the JAX package); otherwise block by block. With
+        the rows split, x is this peer's band of ``bands``."""
         layer = getattr(self, f"layer{s + 1}")
+        tail = (None if bands is None
+                else bands.strided(stage_stride(s, self.last_stride)))
         if self.remat and self.training and torch.is_grad_enabled():
-            for block in layer:
+            for i, block in enumerate(layer):
                 x = torch.utils.checkpoint.checkpoint(
-                    block, x, use_reentrant=False,
+                    block, x, tail if i else bands, use_reentrant=False,
                     context_fn=_remat_contexts)
             return x
+
+        def blocks(x: torch.Tensor, start: int = 0) -> torch.Tensor:
+            for i in range(start, len(layer)):
+                x = layer[i](x, tail if i else bands)
+            return x
+
         if not (self.fused_stages and not self.training and len(layer) > 1):
-            return layer(x)
-        x = layer[0](x)
+            return blocks(x)
+        x = layer[0](x, bands)
         planes = layer[0].planes
-        if not chain_supported(full_shape(x, self.spatial), planes):
-            return layer[1:](x)
+        if not chain_supported(full_shape(x, tail), planes):
+            return blocks(x, 1)
         kmax = max_chain(x.shape[2] * x.shape[3], planes * 4, planes)
         if self.spatial is not None:
-            # a chain of k blocks reads k rows of each neighbour, who hold
-            # x.shape[2]
-            kmax = min(kmax, x.shape[2])
+            # a chain of k blocks reads k rows on each side, which every
+            # peer exchanges alike: at most the shortest non-empty band's
+            kmax = min(kmax, min(h for _, h in tail.rows if h))
         for stacked in self.chain_params(s, kmax):
             if self.spatial is None:
                 x = bottleneck_chain(x, *stacked)
             else:
                 x = halo_run(x, self.spatial, stacked[0].shape[0],
-                             lambda t: bottleneck_chain(t, *stacked))
+                             lambda t: bottleneck_chain(t, *stacked), tail)
         return x
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, bands: Optional[Bands] = None
+             ) -> torch.Tensor:
         """conv1, bn1, ReLU and the max-pool on the whole clip x, or with
-        the rows split (MESH.SPATIAL) on this peer's rows x: then on the
-        slab of its rows and the halo its pooled rows read, returning its
-        pooled rows, the batch statistics (the kernel's, or the plain
-        BN's) over its own conv rows alone, averaged over every rank. The
-        whole clip is the window of all its rows, the kernels' default."""
+        the rows split (MESH.SPATIAL) on this peer's band x of ``bands``:
+        then on the slab of its rows and the halo its conv and pooled rows
+        read (``stem_halo``), returning its pooled rows, the batch
+        statistics (the kernel's, or the plain BN's) over its own conv rows
+        alone, averaged over the ranks. The whole clip is the window of all
+        its rows, the kernels' default."""
         mesh = self.spatial
         if mesh is None:
             slab, win = x, stem_window(x, None, pooled=True)
-            pool_win = stats_win = ()
+            stats_win = stem_window(x, None, pooled=False)
+            pool_win: tuple = ()
+            stats_arg: tuple = ()
         else:
-            h = x.shape[2]
-            height, first = h * mesh.model, mesh.model_index * h
-            slab = mesh.halo_exchange(x, *POOL_HALO).contiguous()
-            win = peer_window(first, h, height, pooled=True)
-            pool_win = (win,)
-            stats_win = (peer_window(first, h, height, pooled=False,
-                                     top=POOL_HALO[0]),)
+            first, count = bands.rows[mesh.model_index]
+            top, bottom = stem_halo(bands)
+            slab = mesh.halo_exchange(x, top, bottom, bands).contiguous()
+            win, stats_win = (peer_window(first, count, bands.height, pooled,
+                                          top) for pooled in (True, False))
+            pool_win, stats_arg = (win,), (stats_win,)
         if self.stem_kernel and not self.training and x.is_cuda:
+            if not win.out_rows:
+                return _no_rows(slab, 1, 4, self.conv1.weight[:, 0, 0, 0, 0])
             mul, shift = self.bn1.folded()
             return stem_forward(slab, self.kernel_weight(x.dtype), mul, shift,
                                 *pool_win)
@@ -564,34 +642,54 @@ class CSN(nn.Module):
             # pooled kernel with the batch affine; nothing differentiates
             w = self.kernel_weight(x.dtype)
             slab = slab.detach()
-            mean, var = stem_batch_stats(slab, w, *stats_win)
+            n = x.shape[0] * x.shape[1] * stats_win.out_rows * (
+                (x.shape[3] - 1) // 2 + 1)
+            if n:
+                mean, var = stem_batch_stats(slab, w, *stats_arg)
+            else:
+                mean = var = torch.zeros(64, device=x.device)
             if self.bn1.rank_mean is not None:
                 # the global statistics from each rank's: E[y^2] rebuilt as
                 # var + mean^2 in float32 is the kernel's own float32
                 # E[y^2] exactly where var <= mean^2 (the kernel's
                 # subtraction was exact there) and within an ulp elsewhere
                 mean, msq = self.bn1.rank_mean(
-                    torch.stack([mean, var + mean.square()])).unbind()
+                    torch.stack([mean, var + mean.square()]), n).unbind()
                 var = msq - mean.square()
             mul, shift = self.bn1.batch_affine(mean, var)
+            if not win.out_rows:
+                return _no_rows(slab, 1, 4, self.conv1.weight[:, 0, 0, 0, 0])
             return stem_forward(slab, w, mul.detach(), shift.detach(),
                                 *pool_win)
+        # the conv rows that the pooled rows read and that this peer's
+        # statistics are over
         c0, c1 = pool_conv_rows(win)
-        y = channels_last(conv_window(slab, cast(self.conv1.weight, x),
-                                      win.row0, win.height, c0, c1))
+        s0, s1 = stats_win.out0, stats_win.out0 + stats_win.out_rows
+        if self.training and s1 > s0:
+            c0, c1 = min(c0, s0), max(c1, s1)
+        if c1 <= c0:
+            y = channels_first(_no_rows(slab, 1, 2,
+                                        self.conv1.weight[:, 0, 0, 0, 0]))
+        else:
+            y = conv_window(slab, cast(self.conv1.weight, x), win.row0,
+                            win.height, c0, c1)
+        y = channels_last(y)
         if self.training:
-            own = y[:, :, 2 * win.out0 - c0:2 * (win.out0 + win.out_rows) - c0]
+            own = y[:, :, max(0, s0 - c0):max(0, s1 - c0)]
             mul, shift = self.bn1.batch_affine(
                 *batch_stats(own, self.bn1.rank_mean))
         else:
             mul, shift = self.bn1.folded()
         y = F.relu(torch.addcmul(shift.to(y.dtype), y, mul.to(y.dtype)))
-        return channels_last(pool_window(channels_first(y), win, c0, c1))
+        if not win.out_rows:
+            return y[:, :, :0, ::2]
+        p0, p1 = pool_conv_rows(win)
+        y = channels_first(y[:, :, p0 - c0:p1 - c0])
+        return channels_last(pool_window(y, win, p0, p1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.spatial is not None:
-            spatial_rows(x.shape[2] * self.spatial.model, self.block_nums,
-                         self.last_stride, self.spatial.model)
+        bands = (self.row_bands(x.shape[2] * self.spatial.model)
+                 if self.spatial is not None else [None] * 7)
         frozen = self.stop_grad_stage if self.training else -1
         b, ck, start = x.shape[0], self.frozen_chunk, 0
         if frozen >= 0 and 0 < ck < b and b % ck == 0:
@@ -601,9 +699,9 @@ class CSN(nn.Module):
             with torch.no_grad():
                 chunks = []
                 for xc in x.split(ck):
-                    xc = self.stem(xc)
+                    xc = self.stem(xc, bands[0])
                     for s in range(start):
-                        xc = self.stage(s, xc)
+                        xc = self.stage(s, xc, bands[2 + s])
                     chunks.append(xc)
                 x = torch.cat(chunks)
         else:
@@ -612,11 +710,11 @@ class CSN(nn.Module):
             # (csn.py:375-378, 427-428)
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and frozen < 0):
-                x = self.stem(x)
+                x = self.stem(x, bands[0])
         for s in range(start, len(self.block_nums)):
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and s + 1 > frozen):
-                x = self.stage(s, x)
+                x = self.stage(s, x, bands[2 + s])
         return x
 
 

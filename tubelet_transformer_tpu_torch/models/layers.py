@@ -16,15 +16,23 @@ draws its masks from an explicit ``torch.Generator`` (``Dropout.generator``).
 
 Tensor parallelism (``MESH.MODEL``, ``parallel/sharding_rules.py``): a
 module whose ``tp`` is a ``parallel.mesh.Mesh`` holds this model peer's
-slice of its split weights. An attention then attends over its local
-heads and an FFN computes its local hidden columns: the replicated inputs
-enter through ``Mesh.copy_to_model``, the row-parallel output leaves
-through ``Mesh.reduce_from_model`` and its replicated bias is added once,
-after the sum; the replicated ``in_proj_bias`` and ``linear1`` bias pass
-through ``copy_to_model`` before they are sliced, so that their gradients
-are summed over the peers. Dropout in a split region draws the full
-one-process mask and keeps the local part, so every peer draws alike and
-the masks are the one-process step's.
+slice of its split weights. An attention whose heads the axis divides
+then attends over its local heads and an FFN computes its local hidden
+columns: the replicated inputs enter through ``Mesh.copy_to_model``, the
+row-parallel output leaves through ``Mesh.reduce_from_model`` and its
+replicated bias is added once, after the sum; the replicated
+``in_proj_bias`` and ``linear1`` bias pass through ``copy_to_model``
+before they are sliced, so that their gradients are summed over the
+peers. An attention whose heads it does not divide holds a contiguous
+block of the packed q/k/v rows instead (q, k and v themselves at 3
+peers): each peer projects its block, the peers' blocks are gathered
+(``Mesh.gather_from_model``), and every peer attends over all heads;
+``out_proj`` then runs on this peer's columns of the result
+(``Mesh.scatter_to_model``) and its rows of the weight, summed by
+``reduce_from_model``, where the axis divides the width, and whole
+otherwise. Dropout in a split region draws the full one-process mask and
+keeps the local part, so every peer draws alike and the masks are the
+one-process step's.
 """
 
 from __future__ import annotations
@@ -108,7 +116,9 @@ class MultiHeadAttention(nn.Module):
     Projections sharing an input run as one matmul: pass the same tensor
     object for q and k (self-attention) or for k and v (cross-attention).
     With ``tp`` set, ``in_proj_weight`` holds the q, k and v rows of this
-    peer's heads and ``out_proj.weight`` their columns."""
+    peer's heads and ``out_proj.weight`` their columns, or, where the
+    peers do not divide the heads, this peer's block of the packed rows
+    (``Split(0)``, ``_forward_rows``)."""
 
     tp = None
 
@@ -128,6 +138,8 @@ class MultiHeadAttention(nn.Module):
                 ) -> torch.Tensor:
         """q (B,Sq,E), k/v (B,Sk,E); key_padding_mask (B,Sk), True = pad."""
         tp = self.tp
+        if tp is not None and self.in_proj_weight.tp_split.groups == 1:
+            return self._forward_rows(q, k, v, key_padding_mask, tp)
         n, i = _model_axis(tp)
         # the width of the heads this peer attends over
         e = self.in_proj_weight.shape[0] // 3
@@ -150,9 +162,20 @@ class MultiHeadAttention(nn.Module):
             kp = F.linear(k, w[e:2 * e], b3[e:2 * e])
             vp = F.linear(v, w[2 * e:], b3[2 * e:])
 
-        b, sq, _ = qp.shape
+        out = self._attend(qp, kp, vp, self.num_heads // n, key_padding_mask,
+                           None if tp is None else (1, n, i))
+        if tp is None:
+            return self.out_proj(out)
+        return self._row_parallel_out(out, tp)
+
+    def _attend(self, qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                h: int, key_padding_mask: Optional[torch.Tensor],
+                shard: Optional[tuple]) -> torch.Tensor:
+        """Scaled dot-product attention of the projected (B,S,h*d) q, k and
+        v over ``h`` heads; dropout's mask is part ``shard`` of the
+        one-process mask."""
+        b, sq, e = qp.shape
         sk = kp.shape[1]
-        h = self.num_heads // n
         d = e // h
         qp = qp.reshape(b, sq, h, d) * (float(d) ** -0.5)
         kp = kp.reshape(b, sk, h, d)
@@ -163,15 +186,77 @@ class MultiHeadAttention(nn.Module):
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         NEG)
         # torch's softmax reduces in float32 for a bfloat16 input
-        attn = self.dropout(scores.softmax(dim=-1),
-                            None if tp is None else (1, n, i)).to(vp.dtype)
+        attn = self.dropout(scores.softmax(dim=-1), shard).to(vp.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vp.reshape(b, sk, h, d))
-        out = out.reshape(b, sq, e)
-        if tp is None:
-            return self.out_proj(out)
+        return out.reshape(b, sq, e)
+
+    def _row_parallel_out(self, out: torch.Tensor, tp) -> torch.Tensor:
+        """``out_proj`` of this peer's columns ``out`` with its rows of the
+        weight, summed over the peers ("g"), its bias added once."""
         return (tp.reduce_from_model(F.linear(
             out, cast(self.out_proj.weight, out)))
             + cast(self.out_proj.bias, out))
+
+    def _forward_rows(self, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor,
+                      key_padding_mask: Optional[torch.Tensor], tp
+                      ) -> torch.Tensor:
+        """The attention with this peer's contiguous block of the packed
+        q/k/v rows (the JAX package's split where the peers do not divide
+        the heads): each distinct input projects through the block's rows
+        that it feeds (one matmul each; a block may straddle q, k and v,
+        so its output is cut by global row), the peers' columns are
+        gathered for the inputs of one shape at a time, and every peer
+        attends over all heads, dropout drawing the one-process mask."""
+        n, i = tp.model, tp.model_index
+        e = self.in_proj_weight.shape[1]
+        r = 3 * e // n
+        a = i * r
+        q, k, v = _enter(tp, q, k, v)
+        w = cast(self.in_proj_weight, q)
+        b3 = cast(tp.copy_to_model(self.in_proj_bias)[a:a + r], q)
+        # each distinct input and the packed rows [lo, hi) it feeds
+        if q is k and k is v:
+            spans = [(q, 0, 3 * e)]
+        elif q is k:
+            spans = [(q, 0, 2 * e), (v, 2 * e, 3 * e)]
+        elif k is v:
+            spans = [(q, 0, e), (k, e, 3 * e)]
+        else:
+            spans = [(q, 0, e), (k, e, 2 * e), (v, 2 * e, 3 * e)]
+        # consecutive inputs of one shape share one gather
+        groups: list = []
+        for x, lo, hi in spans:
+            if groups and groups[-1][0][0].shape == x.shape:
+                groups[-1].append((x, lo, hi))
+            else:
+                groups.append([(x, lo, hi)])
+        packed = []
+        for group in groups:
+            lo, hi = group[0][1], group[-1][2]
+            local = []
+            for x, x_lo, x_hi in group:
+                # this peer's rows of x's span; none where its block holds
+                # no row of it, the empty matmul keeping x on the graph so
+                # that "f"'s backward runs here too
+                u = max(x_lo, a)
+                t = max(u, min(x_hi, a + r))
+                local.append(F.linear(x, w[u - a:t - a], b3[u - a:t - a]))
+            widths = [max(0, min(hi, (j + 1) * r) - max(lo, j * r))
+                      for j in range(n)]
+            packed.append((lo, tp.gather_from_model(torch.cat(local, -1),
+                                                    widths)))
+
+        def part(j: int) -> torch.Tensor:
+            lo, full = next((lo, t) for lo, t in packed
+                            if lo <= j * e < lo + t.shape[-1])
+            return full[..., j * e - lo:(j + 1) * e - lo]
+
+        out = self._attend(part(0), part(1), part(2), self.num_heads,
+                           key_padding_mask, None)
+        if getattr(self.out_proj.weight, "tp_split", None) is None:
+            return self.out_proj(out)
+        return self._row_parallel_out(tp.scatter_to_model(out), tp)
 
 
 class MLP(nn.Module):

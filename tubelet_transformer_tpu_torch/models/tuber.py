@@ -243,7 +243,8 @@ class TubeR(nn.Module):
 
         xt = self.backbone.body(clips)                   # (B,T',H',W',2048)
         if self.spatial is not None:
-            xt = self.spatial.gather_height(xt)
+            xt = self.spatial.gather_height(
+                xt, self.backbone.body.row_bands(h_in)[-1])
         xs = self._temporal_pool(xt)                     # (B,t,H',W',2048)
         _, t, h, w, _ = xs.shape
 

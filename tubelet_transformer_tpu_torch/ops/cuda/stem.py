@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from tubelet_transformer_tpu_torch.ops.cuda import build
 from tubelet_transformer_tpu_torch.ops.cuda.depthwise import plain_vjp
+from tubelet_transformer_tpu_torch.parallel.mesh import strided_row
 
 # kernel launches made by stem_forward, stem_batch_stats and
 # stem_conv_bn_relu in this process
@@ -60,10 +61,14 @@ _FNS: dict = {}
 
 
 # input rows above and below a peer's own rows that its pooled rows
-# (stem_forward) and its conv rows (stem_batch_stats) read: a pooled row p
-# reads input rows 4p - 5 .. 4p + 5, a conv row c rows 2c - 3 .. 2c + 3
+# (stem_forward) and its conv rows (stem_batch_stats) read when its band
+# starts and ends on a multiple of 4: a pooled row p reads input rows
+# 4p - 5 .. 4p + 5, a conv row c rows 2c - 3 .. 2c + 3
 POOL_HALO = (5, 2)
 STATS_HALO = (3, 2)
+# (step, reach): an output row o of the pooled or the conv rows reads
+# input rows step * o - reach .. step * o + reach
+_POOLED, _CONV = (4, 5), (2, 3)
 
 
 @dataclass(frozen=True)
@@ -83,19 +88,27 @@ class RowWindow:
 def peer_window(first: int, count: int, height: int, pooled: bool,
                 top: Optional[int] = None) -> RowWindow:
     """The window of the peer that owns input rows ``first`` .. ``first``
-    + ``count`` - 1 of a clip of ``height`` rows, x being those rows and
-    ``top`` rows above them (by default ``POOL_HALO``'s with ``pooled``,
-    else ``STATS_HALO``'s), cut at the clip's border, and the rows below
-    that its output reads: its pooled rows (``first`` and ``count``
-    multiples of 4) or its conv rows (multiples of 2)."""
-    step = 4 if pooled else 2
-    if first % step or count % step:
-        raise ValueError(f"a peer's input rows {first}..{first + count - 1} "
-                         f"do not start and end on a multiple of {step}")
+    + ``count`` - 1 of a clip of ``height`` rows (MESH.SPATIAL), x being
+    those rows and ``top`` rows above them (by default ``POOL_HALO``'s
+    with ``pooled``, else ``STATS_HALO``'s), cut at the clip's border, and
+    the rows below that its output reads. Its output rows are its pooled
+    rows (``pooled``) or its conv rows: those whose centre input row, 4 or
+    2 times their index, is its own (``parallel.mesh.Bands``); none for a
+    band that holds no such row."""
+    step = (_POOLED if pooled else _CONV)[0]
     if top is None:
         top = (POOL_HALO if pooled else STATS_HALO)[0]
-    return RowWindow(max(0, first - top), height, first // step,
-                     count // step)
+    o0 = strided_row(first, step)
+    return RowWindow(max(0, first - top), height, o0,
+                     strided_row(first + count, step) - o0)
+
+
+def stem_halo(bands) -> tuple[int, int]:
+    """(top, bottom): the most input rows above and below its band of
+    ``bands`` (``parallel.mesh.Bands`` of the clip) that any peer's
+    pooled rows and conv rows read; every peer exchanges that many."""
+    (pt, pb), (ct, cb) = bands.halo(*_POOLED), bands.halo(*_CONV)
+    return max(pt, ct), max(pb, cb)
 
 
 def stem_window(x: torch.Tensor, window: Optional[RowWindow], pooled: bool

@@ -51,16 +51,21 @@ forward, their gradients summed over the pipe group backward: "f").
 
 Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, ``Mesh.spatial``):
 the model peers of a data shard split the clip's H axis instead of running
-the whole CSN trunk each, every peer its ``H / model`` rows (``own_rows``).
-What GSPMD inserts for the JAX package's H-sharded clips is written here
-by hand:
+the whole CSN trunk each. The clip's rows split into equal bands
+(``own_rows``; MESH.MODEL must divide them, as JAX's ``device_put``
+requires); after a conv or pool of stride s an output row belongs to the
+peer that owns the input row at its stride (``Bands``), so a deeper band
+may be short, uneven in parity, or empty. What GSPMD inserts for the JAX
+package's H-sharded clips is written here by hand:
 
 * ``Mesh.halo_exchange`` before each conv that reads its neighbours' rows:
-  the rows above from the peer above, the rows below from the peer below,
-  nothing at the clip's border; backward, each halo row's gradient goes
-  back to its owner and is added there;
-* ``Mesh.batch_mean`` over every rank (data x model): each peer holds a
-  1/model piece of its shard's pixels, all pieces the same size;
+  the rows above and below this peer's band, from whichever peers own
+  them (a short or empty neighbour's too), nothing past the clip's
+  border; backward, each halo row's gradient goes back to its owner and
+  is added there;
+* ``Mesh.batch_mean`` over the data x model ranks of this pipe stage:
+  each rank's (E[x], E[x^2]) weighted by its own pixel count, since the
+  bands need not be equal;
 * ``Mesh.gather_height`` after the trunk: the full feature map on every
   peer, from which the tensor-parallel transformer runs as under
   ``MESH.MODEL``; backward, this peer's rows of the gradient;
@@ -102,6 +107,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 # the backend when none is named: NCCL for CUDA tensors and gloo for CPU
 # tensors on the card, gloo on the CPU
@@ -205,68 +211,191 @@ def _all_gather(t: torch.Tensor, n: int,
     return out
 
 
-class _HaloExchange(torch.autograd.Function):
-    """The H rows of a channels-last (B,T,h,W,C) tensor with ``top`` rows
-    of the peer above before them and ``bottom`` rows of the peer below
-    after them (none at the clip's border): each peer sends its first
-    ``bottom`` and last ``top`` rows to all, in one all-gather. Backward,
-    the gradient of each halo row goes back to its owner, which adds it to
-    its own row's, in one all-gather of the halo gradients (zeros where a
-    peer has no neighbour)."""
+def strided_row(row: int, stride: int) -> int:
+    """The first output row at or after input row ``row`` of a conv or
+    pool of ``stride``: ceil(row / stride)."""
+    return -(-row // stride)
+
+
+@dataclass(frozen=True)
+class Bands:
+    """Every model peer's rows of an H axis of ``height`` rows under
+    MESH.SPATIAL: ``rows[i]`` = (first, count) of peer i, contiguous and in
+    peer order. The clip splits into equal bands (``split``). After a conv
+    or pool of stride s, output row o reads input rows centred on s * o,
+    and belongs to the peer that owns that row (``strided``): a peer's
+    output rows are then ceil(first / s) .. ceil((first + count) / s) - 1,
+    so that a 3-row window reads at most one row past its peer's band on
+    each side, and a band may come out short, of either parity, or
+    empty."""
+
+    height: int
+    rows: tuple
 
     @staticmethod
-    def forward(ctx, x, top, bottom, index, n, group):
-        ctx.args = (top, bottom, index, n, group)
-        h = x.shape[2]
-        parts = _all_gather(torch.cat([x[:, :, :bottom], x[:, :, h - top:]],
-                                      2), n, group)
-        rows = [parts[index - 1][:, :, bottom:]] if index > 0 else []
+    def split(height: int, n: int) -> "Bands":
+        if height % n:
+            raise ValueError(f"{height} rows do not split over MESH.MODEL "
+                             f"{n}")
+        h = height // n
+        return Bands(height, tuple((i * h, h) for i in range(n)))
+
+    def strided(self, stride: int) -> "Bands":
+        if stride == 1:
+            return self
+        return Bands(strided_row(self.height, stride), tuple(
+            (strided_row(a, stride),
+             strided_row(a + c, stride) - strided_row(a, stride))
+            for a, c in self.rows))
+
+    def halo(self, step: int, reach: int) -> tuple:
+        """(top, bottom): the most rows above and below its band that any
+        peer's output rows of stride ``step`` read, output row o reading
+        rows step * o - reach .. step * o + reach (the clip's padding rows
+        among them); every peer exchanges that many."""
+        top = bottom = 0
+        for (a, h), (oa, oh) in zip(self.rows, self.strided(step).rows):
+            if oh:
+                top = max(top, a - (step * oa - reach))
+                bottom = max(bottom,
+                             step * (oa + oh - 1) + reach + 1 - (a + h))
+        return top, bottom
+
+    def owner(self, row: int) -> int:
+        """The peer whose band holds global row ``row``."""
+        return next(i for i, (a, c) in enumerate(self.rows)
+                    if a <= row < a + c)
+
+
+def _edge_rows(x: torch.Tensor, first: int, last: int) -> torch.Tensor:
+    """x's first ``first`` rows and last ``last`` rows along H, each block
+    zero-padded to its size where x is shorter (the first at its end, the
+    last at its start)."""
+    h = x.shape[2]
+    top = F.pad(x[:, :, :first], (0, 0, 0, 0, 0, first - min(first, h)))
+    bottom = F.pad(x[:, :, max(0, h - last):],
+                   (0, 0, 0, 0, last - min(last, h), 0))
+    return torch.cat([top, bottom], 2)
+
+
+class _HaloExchange(torch.autograd.Function):
+    """The H rows of a channels-last (B,T,h,W,C) tensor, this peer's band
+    of ``bands``, with the ``top`` rows above it before them and the
+    ``bottom`` rows below it after them, none past the clip's border: each
+    peer sends its first ``bottom`` and last ``top`` rows to all, in one
+    all-gather, and takes each halo row from its owner (a row within
+    ``top`` of this band lies within its owner's last ``top`` rows, however
+    short the bands between). Backward, each peer sends the gradients of
+    its halo rows to all in one all-gather, and each owner adds those of
+    its rows to its own."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, index, bands, group):
+        ctx.args = (top, bottom, index, bands, group)
+        n, height = len(bands.rows), bands.height
+        a, h = bands.rows[index]
+        parts = _all_gather(_edge_rows(x, bottom, top), n, group)
+        rows = []
+        for r in range(max(0, a - top), a):
+            j = bands.owner(r)
+            p = bottom + top - (sum(bands.rows[j]) - r)
+            rows.append(parts[j][:, :, p:p + 1])
         rows.append(x)
-        if index < n - 1:
-            rows.append(parts[index + 1][:, :, :bottom])
+        for r in range(a + h, min(height, a + h + bottom)):
+            j = bands.owner(r)
+            p = r - bands.rows[j][0]
+            rows.append(parts[j][:, :, p:p + 1])
         return torch.cat(rows, 2)
 
     @staticmethod
     def backward(ctx, grad):
-        top, bottom, index, n, group = ctx.args
-        t = top if index > 0 else 0
-        h = grad.shape[2] - t - (bottom if index < n - 1 else 0)
+        top, bottom, index, bands, group = ctx.args
+        a, h = bands.rows[index]
+        e = a + h
+        t = a - max(0, a - top)
+        b = min(bands.height, e + bottom) - e
         back = grad.new_zeros((*grad.shape[:2], top + bottom,
                                *grad.shape[3:]))
-        if index > 0:
-            back[:, :, :top] = grad[:, :, :t]
-        if index < n - 1:
-            back[:, :, top:] = grad[:, :, t + h:]
-        parts = _all_gather(back, n, group)
+        back[:, :, top - t:top] = grad[:, :, :t]
+        back[:, :, top:top + b] = grad[:, :, t + h:]
+        parts = _all_gather(back, len(bands.rows), group)
         gx = grad[:, :, t:t + h].clone(memory_format=torch.contiguous_format)
-        if index < n - 1 and top:
-            gx[:, :, h - top:] += parts[index + 1][:, :, :top]
-        if index > 0 and bottom:
-            gx[:, :, :bottom] += parts[index - 1][:, :, top:]
+        for q, (aq, hq) in enumerate(bands.rows):
+            if q == index:
+                continue
+            # q's rows above its band, then its rows below, where they
+            # are this peer's
+            for lo, hi, p0 in ((max(a, aq - top), min(e, aq), aq - top),
+                               (max(a, aq + hq), min(e, aq + hq + bottom),
+                                aq + hq - top)):
+                if lo < hi:
+                    gx[:, :, lo - a:hi - a] += parts[q][:, :, lo - p0:hi - p0]
         return gx, None, None, None, None, None
 
 
 class _GatherHeight(torch.autograd.Function):
-    """The model peers' (B,T,h,W,C) row bands, concatenated along H in
-    peer order: one all-gather. Backward, this peer's band of the
-    gradient alone. That is the whole gradient only because the gradient
-    that reaches the gathered tensor is the same on every peer: every
-    peer computes the same loss from it, and where it enters a split
+    """The model peers' (B,T,h,W,C) row bands of ``bands``, concatenated
+    along H in peer order: one all-gather of the bands padded to the
+    longest, each then cut to its own rows. Backward, this peer's band of
+    the gradient alone. That is the whole gradient only because the
+    gradient that reaches the gathered tensor is the same on every peer:
+    every peer computes the same loss from it, and where it enters a split
     region "f" (``_CopyToModel``) has summed the peers' partial gradients.
     Summing over the peers here would count it ``model`` times."""
 
     @staticmethod
-    def forward(ctx, x, index, n, group):
-        ctx.index, ctx.h = index, x.shape[2]
-        b, t, h = x.shape[:3]
-        parts = _all_gather(x, n, group)          # (n, B, T, h, W, C)
-        return parts.permute(1, 2, 0, 3, 4, 5).reshape(
-            b, t, n * h, *x.shape[3:])
+    def forward(ctx, x, index, bands, group):
+        ctx.band = bands.rows[index]
+        most = max(c for _, c in bands.rows)
+        parts = _all_gather(F.pad(x, (0, 0, 0, 0, 0, most - x.shape[2])),
+                            len(bands.rows), group)
+        return torch.cat([parts[j][:, :, :c]
+                          for j, (_, c) in enumerate(bands.rows)], 2)
 
     @staticmethod
     def backward(ctx, grad):
-        a = ctx.index * ctx.h
-        return grad[:, :, a:a + ctx.h].contiguous(), None, None, None
+        a, h = ctx.band
+        return grad[:, :, a:a + h].contiguous(), None, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The model peers' last-axis column blocks of ``widths`` (this peer's
+    ``t``, padded to the widest for the one all-gather), concatenated in
+    peer order; backward, this peer's columns of the gradient (every peer
+    computes the same loss from the gathered tensor)."""
+
+    @staticmethod
+    def forward(ctx, t, index, widths, group):
+        ctx.cols = (sum(widths[:index]), widths[index])
+        parts = _all_gather(F.pad(t, (0, max(widths) - t.shape[-1])),
+                            len(widths), group)
+        return torch.cat([parts[j][..., :w] for j, w in enumerate(widths)],
+                         -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.cols
+        return grad[..., a:a + w].contiguous(), None, None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """This peer's block of the last axis of a replicated tensor, cut in
+    ``n`` equal blocks; backward, the peers' gradients of their blocks
+    all-gathered into the whole tensor's (each peer's block enters its own
+    slice of a split region, so the gradient of block j is on peer j
+    alone)."""
+
+    @staticmethod
+    def forward(ctx, t, index, n, group):
+        ctx.args = (n, group)
+        w = t.shape[-1] // n
+        return t[..., index * w:(index + 1) * w].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, group = ctx.args
+        parts = _all_gather(grad, n, group)
+        return torch.cat(parts.unbind(), -1), None, None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -418,12 +547,26 @@ class Mesh:
         d, m = self.data_index, self.model_index
         return _group(tuple(self._rank(d, m, p) for p in range(self.pipe)))
 
-    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+    @property
+    def spatial_group(self) -> Optional[dist.ProcessGroup]:
+        """The data x model ranks of this pipe stage: the ranks that hold
+        a piece of the global batch's pixels each when the rows split."""
+        p = self.pipe_index
+        return _group(tuple(self._rank(d, m, p) for d in range(self.data)
+                            for m in range(self.model)))
+
+    def batch_mean(self, t: torch.Tensor, count: int = 1) -> torch.Tensor:
         """Mean over the data shards of a batch statistic (BN's mean and
-        E[x^2]); with the rows split, over every rank, each a piece of
-        its shard's pixels."""
+        E[x^2]); with the rows split, over the data x model ranks of this
+        pipe stage (every stage runs the trunk on the same shard: over the
+        world each pixel would count ``pipe`` times), each rank's ``t``
+        weighted by its ``count`` of pixels, since the bands need not be
+        equal (an empty band's weighs nothing)."""
         if self.spatial:
-            return all_reduce_sum(t) / (self.data * self.model)
+            w = all_reduce_sum(torch.cat([t.reshape(-1) * count,
+                                          t.new_full((1,), count)]),
+                               self.spatial_group)
+            return (w[:-1] / w[-1]).view_as(t)
         return (t if self.data == 1
                 else all_reduce_sum(t, self.data_group) / self.data)
 
@@ -447,40 +590,48 @@ class Mesh:
         return (t if self.model == 1
                 else _ReduceFromModel.apply(t, self.model_group))
 
+    def gather_from_model(self, t: torch.Tensor, widths: Sequence[int]
+                          ) -> torch.Tensor:
+        """The model peers' last-axis blocks, of ``widths`` in peer order
+        (this peer's is ``t``), as one tensor on every peer ("gather":
+        backward, this peer's block of the gradient)."""
+        return _GatherFromModel.apply(t, self.model_index, tuple(widths),
+                                      self.model_group)
+
+    def scatter_to_model(self, t: torch.Tensor) -> torch.Tensor:
+        """This peer's block of the last axis of a replicated ``t``, cut in
+        ``model`` equal blocks ("scatter": backward, the peers' gradients
+        of their blocks all-gathered)."""
+        return _ScatterToModel.apply(t, self.model_index, self.model,
+                                     self.model_group)
+
     def own_rows(self, height: int) -> tuple[int, int]:
-        """(first, count): this peer's rows of ``height`` with the rows
-        split (all of them otherwise); ValueError unless they split
-        evenly."""
+        """(first, count): this peer's rows of the clip's ``height`` with
+        the rows split (all of them otherwise); ValueError unless they
+        split evenly."""
         if not self.spatial:
             return 0, height
-        if height % self.model:
-            raise ValueError(f"{height} rows do not split over MESH.MODEL "
-                             f"{self.model}")
-        h = height // self.model
-        return self.model_index * h, h
+        return Bands.split(height, self.model).rows[self.model_index]
 
-    def halo_exchange(self, x: torch.Tensor, top: int, bottom: int
-                      ) -> torch.Tensor:
-        """Channels-last (B,T,h,W,C) x, this peer's rows, with ``top``
-        rows of the peer above before them and ``bottom`` rows of the peer
-        below after them, none at the clip's border (differentiable; x
-        itself with the rows not split)."""
-        h = x.shape[2]
+    def halo_exchange(self, x: torch.Tensor, top: int, bottom: int,
+                      bands: Bands) -> torch.Tensor:
+        """Channels-last (B,T,h,W,C) x, this peer's band of ``bands``, with
+        the ``top`` rows above it before them and the ``bottom`` rows below
+        after them, from whichever peers own them, none past the clip's
+        border (differentiable; x itself with the rows not split). Every
+        peer passes the same ``top`` and ``bottom``."""
         if not self.spatial or top == bottom == 0:
             return x
-        if max(top, bottom) > h:
-            raise ValueError(f"a halo of {top} and {bottom} rows from peers "
-                             f"of {h} rows")
-        return _HaloExchange.apply(x, top, bottom, self.model_index,
-                                   self.model, self.model_group)
+        return _HaloExchange.apply(x, top, bottom, self.model_index, bands,
+                                   self.model_group)
 
-    def gather_height(self, x: torch.Tensor) -> torch.Tensor:
-        """The model peers' (B,T,h,W,C) row bands as the full (B,T,
-        model*h,W,C) tensor (differentiable; x itself with the rows not
-        split)."""
+    def gather_height(self, x: torch.Tensor, bands: Bands) -> torch.Tensor:
+        """The model peers' (B,T,h,W,C) bands of ``bands`` as the full
+        (B,T,height,W,C) tensor (differentiable; x itself with the rows
+        not split)."""
         if not self.spatial:
             return x
-        return _GatherHeight.apply(x, self.model_index, self.model,
+        return _GatherHeight.apply(x, self.model_index, bands,
                                    self.model_group)
 
     def trunk_sum(self, grads: List[torch.Tensor]) -> None:
@@ -516,24 +667,27 @@ class Mesh:
                 else _ReduceFromModel.apply(t, self.pipe_group))
 
 
-def _make_groups(data: int, model: int, pipe: int) -> None:
+def _make_groups(data: int, model: int, pipe: int,
+                 spatial: bool = False) -> None:
     """Every data group, then every model group, then every pipe group of
     a data x model x pipe mesh that has more than one rank and is not the
-    world, made once per process; every rank makes them all, in one
-    order, as ``dist.new_group`` requires."""
+    world, then with ``spatial`` the data x model ranks of each pipe
+    stage (``Mesh.spatial_group``), made once per process; every rank
+    makes them all, in one order, as ``dist.new_group`` requires."""
     world = data * model * pipe
     axes = ((data, lambda i, j, k: (k * model + i) * pipe + j, model, pipe),
             (model, lambda i, j, k: (i * model + k) * pipe + j, data, pipe),
             (pipe, lambda i, j, k: (i * model + j) * pipe + k, data, model))
-    for size, rank, n_i, n_j in axes:
-        if size == 1 or size == world:
-            continue
-        for i in range(n_i):
-            for j in range(n_j):
-                ranks = tuple(rank(i, j, k) for k in range(size))
-                if ranks not in _GROUPS:
-                    _GROUPS[ranks] = dist.new_group(list(ranks),
-                                                    timeout=TIMEOUT)
+    groups = [tuple(rank(i, j, k) for k in range(size))
+              for size, rank, n_i, n_j in axes
+              if size not in (1, world)
+              for i in range(n_i) for j in range(n_j)]
+    if spatial and model > 1 and pipe > 1:
+        groups += [tuple((d * model + m) * pipe + p for d in range(data)
+                         for m in range(model)) for p in range(pipe)]
+    for ranks in groups:
+        if ranks not in _GROUPS:
+            _GROUPS[ranks] = dist.new_group(list(ranks), timeout=TIMEOUT)
 
 
 def create_mesh(data: int = -1, model: int = 1, pipe: int = 1,
@@ -551,7 +705,7 @@ def create_mesh(data: int = -1, model: int = 1, pipe: int = 1,
     if data < 1 or model < 1 or pipe < 1 or data * model * pipe != n:
         raise ValueError(f"mesh {data}x{model}x{pipe} (MESH.DATA x MODEL x "
                          f"PIPE) != {n} processes")
-    _make_groups(data, model, pipe)
+    _make_groups(data, model, pipe, spatial)
     return Mesh(data=data, rank=process_index(), model=model,
                 spatial=spatial, pipe=pipe)
 

@@ -16,14 +16,19 @@ leaves the rest to GSPMD:
 * everything else is replicated, the router and every other bias
   included.
 
-The port splits an attention by head: each peer holds the q, k and v rows
-of its ``nhead / model`` heads, so that it attends over them alone
-(``Split(0, 3)``: the 3E rows taken as three blocks, each cut in
-``model``). GSPMD's cut of the packed 3E axis does not fall on head
-boundaries, but the sums are the same. Where JAX would split a projection
-that the heads do not divide, the port raises ValueError. An FFN whose
-width ``model`` does not divide stays replicated, as in JAX, and so does
-an MoE whose experts it does not divide.
+Where ``model`` divides an attention's heads the port splits it by head:
+each peer holds the q, k and v rows of its ``nhead / model`` heads, so
+that it attends over them alone (``Split(0, 3)``: the 3E rows taken as
+three blocks, each cut in ``model``). GSPMD's cut of the packed 3E axis
+does not fall on head boundaries, but the sums are the same. Where it
+does not divide the heads, the port takes JAX's rule by divisibility
+alone: ``in_proj_weight`` in ``model`` contiguous row blocks where it
+divides 3E (``Split(0)``: q, k and v themselves at 3 peers), and
+``out_proj`` by columns where it divides E; the peers then gather the
+whole q, k and v and attend over every head
+(``MultiHeadAttention._forward_rows``). An FFN whose width ``model`` does
+not divide stays replicated, as in JAX, and so does an MoE whose experts
+it does not divide.
 
 ``shard_model`` replaces each split parameter in place by this peer's
 slice, after the full model is built from the seed or from weight files,
@@ -96,9 +101,10 @@ def param_shardings(model: nn.Module, mesh: Mesh
                     ) -> Dict[str, Optional[Split]]:
     """Every parameter name of the full ``model`` -> its ``Split`` over
     ``mesh``'s 'model' axis, or None (replicated; the encoder layers too
-    when ``mesh`` has a 'pipe' axis). Raises ValueError where JAX would
-    split a projection of an attention whose heads the axis does not
-    divide."""
+    when ``mesh`` has a 'pipe' axis). JAX's rules: an attention's packed
+    projection splits where the axis divides 3E (by head where it divides
+    the heads, else in contiguous row blocks) and its ``out_proj`` where
+    it divides E."""
     n = mesh.model
     out: Dict[str, Optional[Split]] = {k: None for k, _ in
                                        model.named_parameters()}
@@ -113,12 +119,10 @@ def param_shardings(model: nn.Module, mesh: Mesh
             if m.num_heads % n == 0:
                 out[pre + "in_proj_weight"] = Split(0, 3)
                 out[pre + "out_proj.weight"] = Split(1)
-            elif (3 * e) % n == 0 or e % n == 0:
-                raise ValueError(
-                    f"{name or 'model'}: MESH.MODEL {n} does not divide its "
-                    f"{m.num_heads} attention heads; the JAX package splits "
-                    f"its {3 * e}-wide projection regardless, the port "
-                    "splits attention by head")
+            elif (3 * e) % n == 0:
+                out[pre + "in_proj_weight"] = Split(0)
+                if e % n == 0:
+                    out[pre + "out_proj.weight"] = Split(1)
         elif isinstance(m, MoEFFN):
             if m.num_experts % n == 0:
                 for k in EXPERT_STACKS:

@@ -88,7 +88,7 @@ class LocalMesh(mesh_lib.Mesh):
     """The control: BN statistics and loss normalisers of the rank's own
     shard, the ranks' losses and gradients averaged."""
 
-    def batch_mean(self, t):
+    def batch_mean(self, t, count=1):
         return t
 
     def count_sum(self, t):
@@ -99,13 +99,15 @@ class LocalMesh(mesh_lib.Mesh):
 
 
 def global_batch(cfg: Config, n: int, seed: int,
-                 boxless_from: Optional[int] = None) -> Dict[str, np.ndarray]:
+                 boxless_from: Optional[int] = None,
+                 hw: Optional[tuple] = None) -> Dict[str, np.ndarray]:
     """``n`` samples of float clips and random targets for ``cfg``'s mode
     (AVA multi-hot labels, or JHMDB/UCF class ids with the key frame's
     position and visibility); the rows from ``boxless_from`` on hold no
-    box."""
+    box. The clips are IMG_SIZE square, or ``hw`` (H, W)."""
     rng = np.random.default_rng(seed)
     m, c, s = cfg.data.max_boxes, cfg.data.num_classes, cfg.data.img_size
+    h, w = hw or (s, s)
     t = cfg.data.temp_len
     n_valid = rng.integers(1, m + 1, n)
     if boxless_from is not None:
@@ -113,10 +115,10 @@ def global_batch(cfg: Config, n: int, seed: int,
     valid = np.arange(m)[None] < n_valid[:, None]
     boxes = np.concatenate([rng.uniform(0.3, 0.7, (n, m, 2)),
                             rng.uniform(0.1, 0.3, (n, m, 2))], -1)
-    batch = {"clips": rng.normal(size=(n, t, s, s, 3)).astype(np.float32),
-             "pad_mask": np.zeros((n, s, s), bool),
+    batch = {"clips": rng.normal(size=(n, t, h, w, 3)).astype(np.float32),
+             "pad_mask": np.zeros((n, h, w), bool),
              "boxes": boxes.astype(np.float32), "valid": valid,
-             "sizes": np.full((n, 2), s, np.float32)}
+             "sizes": np.tile(np.float32([h, w]), (n, 1))}
     if engine.is_ava_mode(cfg):
         batch["labels"] = (rng.uniform(size=(n, m, c)) < 0.3).astype(
             np.float32)
@@ -143,14 +145,33 @@ def _stem_launches() -> tuple[int, int]:
     return stem_ops.STATS_LAUNCHES, stem_ops.LAUNCHES
 
 
+def peak_above_start(device: torch.device, fn) -> Optional[int]:
+    """``fn()``; on the card, the peak device memory (bytes) above what was
+    allocated when it started; None on the CPU."""
+    if device.type != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize(device)
+    start = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) - start
+
+
 def one_step(cfg: Config, model, initial: dict, batch: dict,
-             mesh: mesh_lib.Mesh) -> dict:
+             mesh: mesh_lib.Mesh, keep: bool = True,
+             peak: Optional[list] = None, then=None) -> dict:
     """One train step of ``model`` from ``initial`` (its one-process state
     dict, a fresh optimizer) on ``batch`` (numpy) with ``mesh``: the
     metrics, the clipped gradients, the state after (both gathered to the
-    one-process layout when the model is split over a 'model' axis), the
-    stem statistics the BN affine received, the stem kernels' launches
-    (statistics, pooled) and the step's all-reduces."""
+    one-process layout when the model is split over a 'model' axis; on
+    the host, and with ``keep`` False left out, the gathers still run),
+    the stem statistics the BN affine received, the stem kernels' launches
+    (statistics, pooled) and the step's all-reduces. ``peak``: a list that
+    gets the step's ``peak_above_start``; ``then``: called, once the
+    record is taken, with a function that runs one more step from the
+    state after this one, and that state."""
     sharding_rules.load_full_state(model, initial)
     state = engine.create_train_state(cfg, model, steps_per_epoch=10,
                                       mesh=mesh)
@@ -173,24 +194,34 @@ def one_step(cfg: Config, model, initial: dict, batch: dict,
     bn1.batch_affine = recording
     torch.distributed.all_reduce = counting
     before = _stem_launches()
+    got: dict = {}
     try:
-        metrics = step(db, cfg.loss.dice_cof)
+        bytes_ = peak_above_start(device, lambda: got.update(
+            metrics=step(db, cfg.loss.dice_cof)))
     finally:
         del bn1.batch_affine
         torch.distributed.all_reduce = all_reduce
+    if peak is not None:
+        peak.append(bytes_)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     after = _stem_launches()
     grads = sharding_rules.gather_tensors(model, {
         n: p.grad for n, p in model.named_parameters() if p.grad is not None})
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": {n: g.detach().cpu().clone() for n, g in grads.items()},
-            "state": {k: v.detach().cpu().clone() for k, v in
-                      sharding_rules.gather_state(model).items()},
-            "stem_stats": [(m.cpu(), v.cpu()) for m, v in stats],
-            "launches": {"stem_stats": after[0] - before[0],
-                         "stem_pool": after[1] - before[1]},
-            "all_reduces": reduces[0]}
+    full = sharding_rules.gather_state(model)
+    out = {"metrics": {k: float(v) for k, v in got["metrics"].items()},
+           "grads": {n: g.detach().cpu().clone() for n, g in grads.items()}
+           if keep else {},
+           "state": {k: v.detach().cpu().clone() for k, v in full.items()}
+           if keep else {},
+           "stem_stats": [(m.cpu(), v.cpu()) for m, v in stats],
+           "launches": {"stem_stats": after[0] - before[0],
+                        "stem_pool": after[1] - before[1]},
+           "all_reduces": reduces[0]}
+    del grads, full
+    if then is not None:
+        then(lambda: step(db, cfg.loss.dice_cof), state)
+    return out
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -199,27 +230,56 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def _moved(d: dict, keys, device: Optional[torch.device]) -> torch.Tensor:
+    """The tensors of ``d`` under ``keys``, in order, as one vector of
+    their dtype on ``device``: one copy from the host."""
+    return torch.cat([d[k].reshape(-1).to(device) for k in keys])
+
+
 def flat(d: dict, keys, device: Optional[torch.device] = None
          ) -> torch.Tensor:
     """The tensors of ``d`` under ``keys``, in order, flattened into one
-    float64 vector on ``device`` (the CPU by default): on the card a
-    reading of the flagship's ~86M parameters takes a fraction of a
-    second, on the host several."""
-    return torch.cat([d[k].reshape(-1).to(device=device, dtype=torch.float64)
-                      for k in keys])
+    float64 vector on ``device`` (the CPU by default), widened there: on
+    the card a reading of the flagship's ~86M parameters takes a fraction
+    of a second, on the host several."""
+    return _moved(d, keys, device).double()
+
+
+class Reference:
+    """What every reading of a check compares with: the one-process run
+    ``single`` and the ``initial`` state dict, each vector that a reading
+    takes of them moved to ``device`` once and kept in its dtype."""
+
+    def __init__(self, single: dict, initial: dict,
+                 device: Optional[torch.device] = None):
+        self.single, self.initial, self.device = single, initial, device
+        self._kept: dict = {}
+
+    def flat(self, which: str, keys) -> torch.Tensor:
+        """``flat`` of the one-process run's "grads" or "state", or of
+        "initial", under ``keys``."""
+        key = (which, tuple(keys))
+        if key not in self._kept:
+            d = self.initial if which == "initial" else self.single[which]
+            self._kept[key] = _moved(d, keys, self.device)
+        return self._kept[key].double()
 
 
 def readings(run: dict, single: dict, initial: dict,
-             device: Optional[torch.device] = None) -> dict:
+             device: Optional[torch.device] = None,
+             ref: Optional[Reference] = None) -> dict:
     """``run`` against ``single``: the largest relative difference of a
     loss-dict entry (and of ``loss_moe_aux`` alone with MoE), of the
     gradient norm, of the stem's mean and variance,
     and the relative L2 differences of all gradients together and of the
-    running statistics' updates, summed in float64 on ``device``."""
+    running statistics' updates, summed in float64 on ``device``;
+    ``ref``: the ``Reference`` of ``single`` and ``initial`` that the
+    check's readings share."""
     keys = [k for k in single["metrics"] if k not in ("finite", "grad_norm")]
     names = sorted(single["grads"])
     stat_keys = [k for k in initial if k.endswith(("running_mean",
                                                    "running_var"))]
+    ref = ref or Reference(single, initial, device)
 
     def cat(d, ks):
         return flat(d, ks, device)
@@ -237,10 +297,10 @@ def readings(run: dict, single: dict, initial: dict,
         "loss_rel": max(rel(k) for k in keys),
         "grad_norm_rel": rel("grad_norm"),
         "grads_rel": _rel(cat(run["grads"], names),
-                          cat(single["grads"], names)),
+                          ref.flat("grads", names)),
         "running_update_rel": _rel(
-            cat(run["state"], stat_keys) - cat(initial, stat_keys),
-            cat(single["state"], stat_keys) - cat(initial, stat_keys)),
+            cat(run["state"], stat_keys) - ref.flat("initial", stat_keys),
+            ref.flat("state", stat_keys) - ref.flat("initial", stat_keys)),
         "stem_mean_rel": _rel(m1, m2), "stem_var_rel": _rel(v1, v2),
     }
 
@@ -257,12 +317,15 @@ def since_start() -> float:
     return up - start / os.sysconf("SC_CLK_TCK")
 
 
-def log_time(what: str) -> None:
+def log_time(what: str, any_rank: bool = False) -> None:
     """Rank 0's "[time]" line: ``what`` at this many seconds since the
-    process started (imports, the process group, each build and check)."""
+    process started (imports, the process group, each build and check);
+    with ``any_rank`` this rank's, named (a step that one rank runs)."""
     env = mesh_lib.launch_env()
-    if (env[0] if env else 0) == 0:
-        print(f"[time] {what}: {since_start():.1f} s since the process "
+    rank = env[0] if env else 0
+    if rank == 0 or any_rank:
+        who = f" (rank {rank})" if rank else ""
+        print(f"[time] {what}{who}: {since_start():.1f} s since the process "
               "started", flush=True)
 
 
@@ -516,8 +579,9 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     out["single"] = one_step(cfg, model, initial, microbatch_major(
         batch, mesh.data, max(1, cfg.train.accum_steps)), mesh_lib.Mesh())
     log_time("dp_check: the one-process step")
-    out["readings"] = {k: readings(out[k], out["single"], initial, device)
-                       for k in ("dp", "control")}
+    ref = Reference(out["single"], initial, device)
+    out["readings"] = {k: readings(out[k], out["single"], initial, device,
+                                   ref) for k in ("dp", "control")}
     out["timings"] = {k: v.tolist() for k, v in every.items()}
     out["world"] = mesh.data
     return out

@@ -14,7 +14,8 @@ tool's own arguments, as its command line takes them:
           --out build/tp.pt
 
 The first check joins the process group with its ``--device`` and
-``--dist-backend``; each writes its ``--out`` as it would alone. The
+``--dist-backend``; each writes its ``--out`` as it would alone, and
+returns its cached device memory before the next. The
 checks run in the order given, so settings one makes for the process
 (``--float32`` and ``--dtypes float32`` turn TF32 off) hold for the
 later ones.
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 import sys
 from typing import List, Optional
+
+import torch
 
 from tubelet_transformer_tpu_torch.parallel import mesh as mesh_lib
 from tubelet_transformer_tpu_torch.tools import dp_check, serve_check, tp_check
@@ -52,6 +55,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     try:
         for tool, args in checks:
             TOOLS[tool](args, keep_group=True)
+            # the card is shared by every rank of every launch: hand back
+            # the blocks this check's allocator keeps cached
+            torch.cuda.empty_cache()
     finally:
         mesh_lib.shutdown()
 

@@ -27,13 +27,19 @@ state it runs:
   ``parallel.mesh._AllReduceSum``'s form, whose backward sums the
   gradient over the model peers again: each split region then passes on
   ``model`` times its gradient. Its forward, and so its losses and batch
-  statistics, are the step's own: the gradient readings tell it apart;
-* ``peers``: two steps, after each a digest of every replicated parameter
-  and every buffer of each rank, which must equal its model peers'
-  (``peers_agree``, also after the step and after each control);
+  statistics, are the step's own: the gradient readings tell it apart.
+  Where an attention splits by rows (the axis not dividing its heads)
+  ``gather_again`` does the same to its "gather"
+  (``Mesh.gather_from_model``); each runs where its hand-off does;
+* ``peers``: after the step and after one more from its state, a digest
+  of every replicated parameter and every buffer of each rank, which must
+  equal its model peers' (``peers_agree``, also after each control);
 * ``single`` (the reporter alone, ``reporter``: rank 0, or under PIPE
   the last stage of data shard 0): the one-process step of the full
   model on the whole batch.
+
+Every rank also reports the bytes of its ``in_proj_weight`` slices,
+beside one process's (a third each at MODEL 3, whatever the heads).
 
 For the two first it records what ``dp_check.one_step`` records (the
 gradients and the state after gathered to the one-process layout), and
@@ -53,7 +59,7 @@ over the model peers through the trunk, and its two controls take the
 place of "g"'s: ``zero_halo``, every halo row a zero row (no exchange),
 and ``no_trunk_sum``, the trunk's gradients left as each peer's share
 over its rows. On the card each rank also reports its peak device memory
-above the start of a spatial step (the peers' first) and of the
+above the start of a spatial step (``tp``) and of the
 MODEL-only step (the same model on the whole clip). With
 ``--eval-stages`` each rank then runs the eval step of the eval build
 with MODEL.PALLAS_KERNELS and FUSED_STAGES (the stage path) on its data
@@ -62,7 +68,8 @@ depthwise and chain launches of each, and the reporter the one-process
 eval step on the whole batch: the largest differences of scores, actor
 probabilities and boxes (over the clip's side) of its rows.
 
-``--pipe`` P (MESH.PIPE; SPATIAL x PIPE is refused): the encoder's
+``--pipe`` P (MESH.PIPE; beside ``--spatial`` too, with both axes'
+controls): the encoder's
 layers run as P GPipe stages of MESH.PIPE_MICROBATCHES microbatches, and
 the controls are ``zero_carry``, every stage-to-stage carry zeroed (the
 later stages see zeros, and the losses part), and ``no_input_sum``, the
@@ -76,10 +83,12 @@ process's), with ``--timed-steps`` the GPipe bubble (P - 1) / (M + P - 1)
 beside its step ms, and with ``--eval-stages`` the stage path's eval
 forward under the mesh.
 
-``--floors``: the reporter also runs ``floors``, the one-process step's own
-spread beside which every reading stands: the one-process step on the
-batch's samples in the other order (the same sums rounded in another
-order), and for bf16 the one-process step in float32.
+``--floors``: the rank after the reporter (``floor_rank``) runs
+``floors`` meanwhile and hands them to the reporter, which reads them as
+the one-process step's own spread beside which every reading stands: the
+one-process step on the batch's samples in the other order (the same
+sums rounded in another order), and for bf16 the one-process step in
+float32.
 
 ``--zero1`` (with ``--data`` above 1): each case also runs
 ``dp_check.zero1_check`` on the mesh, from the same state and on the same
@@ -98,7 +107,6 @@ The readings sum in float64 on the check's device.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import hashlib
 import os
@@ -127,15 +135,27 @@ class SumAgainMesh(mesh_lib.Mesh):
                 else mesh_lib.all_reduce_sum(t, self.model_group))
 
 
+class GatherAgainMesh(mesh_lib.Mesh):
+    """The control of an attention split by rows (its heads not divided by
+    the axis): "gather" whose backward sums the gathered gradient over the
+    model peers again before it keeps this peer's columns, so that each
+    peer's block of the projection passes on ``model`` times its
+    gradient."""
+
+    def gather_from_model(self, t, widths):
+        return self.copy_to_model(super().gather_from_model(t, widths))
+
+
 class ZeroHaloMesh(mesh_lib.Mesh):
     """The spatial control: zero rows in place of the neighbours' halo
     rows, nothing exchanged."""
 
-    def halo_exchange(self, x, top, bottom):
+    def halo_exchange(self, x, top, bottom, bands):
         if not self.spatial:
             return x
-        return F.pad(x, (0, 0, 0, 0, top * (self.model_index > 0),
-                         bottom * (self.model_index < self.model - 1)))
+        a, h = bands.rows[self.model_index]
+        return F.pad(x, (0, 0, 0, 0, min(top, a),
+                         min(bottom, bands.height - a - h)))
 
 
 class NoTrunkSumMesh(mesh_lib.Mesh):
@@ -163,23 +183,35 @@ class NoInputSumMesh(mesh_lib.Mesh):
 
 
 # the controls of a check, by the axis it holds (``axis``)
-CONTROLS = {"model": {"control": SumAgainMesh},
+CONTROLS = {"model": {"control": SumAgainMesh,
+                      "gather_again": GatherAgainMesh},
             "spatial": {"zero_halo": ZeroHaloMesh,
                         "no_trunk_sum": NoTrunkSumMesh},
             "pipe": {"zero_carry": ZeroCarryMesh,
                      "no_input_sum": NoInputSumMesh}}
 
 
-def axis(mesh: mesh_lib.Mesh) -> str:
-    """The axis that the check on ``mesh`` holds."""
-    return "pipe" if mesh.pipe > 1 else "spatial" if mesh.spatial else "model"
+def axes(mesh: mesh_lib.Mesh) -> tuple:
+    """The axes that the check on ``mesh`` holds: the split rows and the
+    pipe where it has them, else the 'model' axis."""
+    held = (("spatial",) if mesh.spatial else ()) + (
+        ("pipe",) if mesh.pipe > 1 else ())
+    return held or ("model",)
 
 
-def controls(mesh: mesh_lib.Mesh) -> dict:
-    """The controls of the check on ``mesh``, by name, each on a mesh of
-    its class in the same place."""
+def controls(mesh: mesh_lib.Mesh, model) -> dict:
+    """The controls of the check of ``model`` on ``mesh``, by name, each on
+    a mesh of its class in the same place; on the 'model' axis those of
+    the hand-offs that ``model``'s split runs: "g" where a row-parallel
+    weight splits, "gather" where an attention splits by rows."""
+    split = sharding_rules.split_params(model)
+    runs = {"control": any(k.endswith(("out_proj.weight", "linear2.weight",
+                                       "expert_w1")) for k in split),
+            "gather_again": any(s.groups == 1 and k.endswith(
+                "in_proj_weight") for k, s in split.items())}
     return {k: c(mesh.data, mesh.rank, mesh.model, mesh.spatial, mesh.pipe)
-            for k, c in CONTROLS[axis(mesh)].items()}
+            for a in axes(mesh) for k, c in CONTROLS[a].items()
+            if runs.get(k, True)}
 
 
 def reporter(mesh: mesh_lib.Mesh) -> int:
@@ -236,46 +268,6 @@ def peers_agree(model, mesh: mesh_lib.Mesh) -> bool:
     every = mesh_lib.all_gather_objects(replicated_digest(model))
     n = mesh.model * mesh.pipe
     return all(d == every[r - r % n] for r, d in enumerate(every))
-
-
-def _peak_above_start(device: torch.device, fn) -> Optional[int]:
-    """``fn()``; on the card, the peak device memory (bytes) above what was
-    allocated when it started; None on the CPU."""
-    if device.type != "cuda":
-        fn()
-        return None
-    torch.cuda.synchronize(device)
-    start = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    fn()
-    torch.cuda.synchronize(device)
-    return torch.cuda.max_memory_allocated(device) - start
-
-
-def peer_check(cfg: Config, model, initial: dict, batch: dict,
-               mesh: mesh_lib.Mesh, steps: int = 2,
-               peak: Optional[list] = None,
-               states: Optional[list] = None) -> list:
-    """``steps`` train steps from ``initial``; after each, whether every
-    rank's replicated parameters and buffers equal those of its peers
-    bit for bit (``peers_agree``, the same on every rank). ``peak``: a
-    list that gets the first step's ``_peak_above_start``; ``states``:
-    one that gets the train state after the steps."""
-    sharding_rules.load_full_state(model, initial)
-    state = engine.create_train_state(cfg, model, steps_per_epoch=10,
-                                      mesh=mesh)
-    step = engine.make_train_step(cfg, state, mesh=mesh)
-    device = next(model.parameters()).device
-    db = engine.device_batch(batch, device)
-    agree = []
-    for i in range(steps):
-        bytes_ = _peak_above_start(device, lambda: step(db, cfg.loss.dice_cof))
-        if i == 0 and peak is not None:
-            peak.append(bytes_)
-        agree.append(peers_agree(model, mesh))
-    if states is not None:
-        states.append(state)
-    return agree
 
 
 def model_reduces(cfg: Config, model, batch: dict, mesh: mesh_lib.Mesh
@@ -350,6 +342,14 @@ def encoder_bytes(model, optimizer=None) -> dict:
     return out
 
 
+def in_proj_bytes(model) -> int:
+    """The bytes of ``model``'s packed attention projections
+    (``in_proj_weight``, this peer's slices where split), read from the
+    tensors."""
+    return sum(p.numel() * p.element_size() for k, p in
+               model.named_parameters() if k.endswith("in_proj_weight"))
+
+
 def model_only_peak(cfg: Config, model, initial: dict, batch: dict,
                     mesh: mesh_lib.Mesh) -> Optional[int]:
     """On the card, this rank's peak device memory (bytes) above the start
@@ -359,7 +359,7 @@ def model_only_peak(cfg: Config, model, initial: dict, batch: dict,
     device = next(model.parameters()).device
     if device.type != "cuda":
         return None
-    whole = mesh_lib.Mesh(mesh.data, mesh.rank, mesh.model)
+    whole = mesh_lib.Mesh(mesh.data, mesh.rank, mesh.model, pipe=mesh.pipe)
     model.set_spatial(None)
     try:
         sharding_rules.load_full_state(model, initial)
@@ -367,7 +367,8 @@ def model_only_peak(cfg: Config, model, initial: dict, batch: dict,
                                           mesh=whole)
         step = engine.make_train_step(cfg, state, mesh=whole)
         db = engine.device_batch(batch, device)
-        return _peak_above_start(device, lambda: step(db, cfg.loss.dice_cof))
+        return dp_check.peak_above_start(
+            device, lambda: step(db, cfg.loss.dice_cof))
     finally:
         model.set_spatial(mesh)
 
@@ -414,7 +415,7 @@ def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
     runs = {"mesh": mesh}
     if mesh.spatial:
         runs["zero_halo"] = ZeroHaloMesh(mesh.data, mesh.rank, mesh.model,
-                                         mesh.spatial)
+                                         mesh.spatial, mesh.pipe)
     out = {}
     for name, m in runs.items():
         _rebind(model, m)
@@ -436,35 +437,41 @@ def eval_check(cfg: Config, device: torch.device, seed: int, batch: dict,
 
 
 def tp_readings(run: dict, single: dict, initial: dict,
-                device: Optional[torch.device] = None) -> dict:
+                device: Optional[torch.device] = None,
+                ref: Optional[dp_check.Reference] = None) -> dict:
     """``dp_check.readings``, ``update_rel``: the relative L2 difference of
     the updates of the parameters that have gradients, and
     ``trunk_grads_rel``: that of the trunk's gradients alone (those that
     MESH.SPATIAL sums over the model group), where it has some; summed in
-    float64 on ``device``."""
+    float64 on ``device``; ``ref``: the ``dp_check.Reference`` of
+    ``single`` and ``initial`` that the check's readings share."""
     names = sorted(single["grads"])
     trunk = [k for k in names if sharding_rules.spatial_partial(k)]
+    ref = ref or dp_check.Reference(single, initial, device)
+    start = ref.flat("initial", names)
+    return {**dp_check.readings(run, single, initial, device, ref),
+            "update_rel": dp_check._rel(
+                dp_check.flat(run["state"], names, device) - start,
+                ref.flat("state", names) - start),
+            **({"trunk_grads_rel": dp_check._rel(
+                dp_check.flat(run["grads"], trunk, device),
+                ref.flat("grads", trunk))} if trunk else {})}
 
-    def moved(r):
-        return (dp_check.flat(r["state"], names, device)
-                - dp_check.flat(initial, names, device))
 
-    def cat(r):
-        return dp_check.flat(r["grads"], trunk, device)
-
-    return {**dp_check.readings(run, single, initial, device),
-            "update_rel": dp_check._rel(moved(run), moved(single)),
-            **({"trunk_grads_rel": dp_check._rel(cat(run), cat(single))}
-               if trunk else {})}
+def floor_rank(mesh: mesh_lib.Mesh) -> int:
+    """The rank that runs ``floors`` while the reporter runs the
+    one-process step: the one after it."""
+    return (reporter(mesh) + 1) % (mesh.data * mesh.model * mesh.pipe)
 
 
 def floors(cfg: Config, device: torch.device, seed: int, initial: dict,
-           batch: dict, mesh: mesh_lib.Mesh, single: dict) -> dict:
-    """The one-process step's own spread, beside which the readings of a
-    step on the mesh stand: ``tp_readings`` against ``single`` of
-    ``reversed``, the one-process step on the batch's samples in the
-    other order (the same sums, rounded in another order), and for a bf16
-    ``cfg`` of ``float32``, the one-process step in float32 (TF32 off)."""
+           batch: dict, mesh: mesh_lib.Mesh) -> dict:
+    """The one-process runs that show its own spread, beside which the
+    readings of a step on the mesh stand (``tp_readings`` against the
+    one-process step): ``reversed``, the one-process step on the batch's
+    samples in the other order (the same sums, rounded in another order),
+    and for a bf16 ``cfg`` ``float32``, the one-process step in float32
+    (TF32 off)."""
     accum = max(1, cfg.train.accum_steps)
 
     def one(c: Config, b: dict) -> dict:
@@ -487,8 +494,7 @@ def floors(cfg: Config, device: torch.device, seed: int, initial: dict,
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
-    return {k: tp_readings(r, single, initial, device)
-            for k, r in runs.items()}
+    return runs
 
 
 def run(cfg: Config, device: torch.device, seed: int = 0,
@@ -501,10 +507,11 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     equality, every rank's launches and timings, None on the others.
     ``initial``: the one-process state dict (else random weights from
     ``seed``); ``batch``: the global batch (else
-    ``dp_check.global_batch``); ``zero1`` (at MESH.DATA > 1): also
+    ``dp_check.global_batch``, its clips on the loaders' canvas,
+    ``engine.clip_canvas``); ``zero1`` (at MESH.DATA > 1): also
     ``dp_check.zero1_check``, every rank's result under "zero1". With
     MESH.SPATIAL in ``cfg`` the rows split (``controls``) and every rank's
-    peak memory of a spatial step (the peers' first) and of the
+    peak memory of a spatial step (``tp``) and of the
     MODEL-only step (``model_only_peak``) goes under "memory"; with
     MESH.PIPE every rank's ``encoder_bytes`` under "encoder_bytes";
     ``eval_stages`` (with SPATIAL or PIPE): every rank's ``eval_check``
@@ -524,27 +531,36 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
                    sharding_rules.gather_state(model).items()}
     b = cfg.train.batch_size
     if batch is None:
-        batch = dp_check.global_batch(cfg, b * mesh.data, batch_seed)
+        batch = dp_check.global_batch(cfg, b * mesh.data, batch_seed,
+                                      hw=engine.clip_canvas(cfg))
     d = mesh.data_index
     shard = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
-    out = {"tp": dp_check.one_step(cfg, model, initial, shard, mesh)}
-    agree = {"tp": peers_agree(model, mesh)}
-    checks = controls(mesh)
+    keep = mesh.rank == reporter(mesh)
+    peak: list = []
+    peers: list = []
+    mine = {"in_proj_bytes": in_proj_bytes(model)}
+
+    def second(step, state):
+        # the peers after the step, then after one more from its state
+        peers.append(peers_agree(model, mesh))
+        step()
+        peers.append(peers_agree(model, mesh))
+        if mesh.pipe > 1:
+            mine["encoder_bytes"] = encoder_bytes(model, state.optimizer)
+
+    out = {"tp": dp_check.one_step(cfg, model, initial, shard, mesh,
+                                   keep=keep, peak=peak, then=second)}
+    agree = {"tp": peers[0]}
+    mine["launches"] = out["tp"]["launches"]
+    dp_check.log_time("tp_check: the step and the peers' second step")
+    checks = controls(mesh, model)
     for name, control in checks.items():
         _rebind(model, control)
-        out[name] = dp_check.one_step(cfg, model, initial, shard, control)
+        out[name] = dp_check.one_step(cfg, model, initial, shard, control,
+                                      keep=keep)
         agree[name] = peers_agree(model, mesh)
     _rebind(model, mesh)
-    dp_check.log_time(f"tp_check: the step and its controls {list(checks)}")
-    peak: list = []
-    states: list = []
-    peers = peer_check(cfg, model, initial, shard, mesh, peak=peak,
-                       states=states)
-    dp_check.log_time("tp_check: the peers' two steps")
-    mine = {"launches": out["tp"]["launches"]}
-    if mesh.pipe > 1:
-        mine["encoder_bytes"] = encoder_bytes(model, states[0].optimizer)
-    del states
+    dp_check.log_time(f"tp_check: the controls {list(checks)}")
     if mesh.spatial:
         mine["memory"] = {"spatial": peak[0], "model_only": model_only_peak(
             cfg, model, initial, shard, mesh)}
@@ -572,6 +588,11 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
                         if n != "differences"}
         dp_check.log_time("tp_check: the stage path's eval step")
     every = mesh_lib.all_gather_objects(mine)
+    if with_floors and mesh.rank == floor_rank(mesh):
+        dist.send_object_list([floors(single_cfg, device, seed, initial,
+                                      batch, mesh)], reporter(mesh))
+        dp_check.log_time("tp_check: the one-process step's floors",
+                          any_rank=True)
     if mesh.rank != reporter(mesh):
         return None
     out.update(peers_equal=peers, peers_agree=agree,
@@ -581,41 +602,32 @@ def run(cfg: Config, device: torch.device, seed: int = 0,
     if ev:
         out["eval"] = {"differences": ev["differences"],
                        "launches": out["eval"]}
-    with _every_core(device):
-        full = build_model(single_cfg, device=device, seed=seed, train=True)
-        _no_dropout(full)
-        out["single"] = dp_check.one_step(
-            single_cfg, full, initial, dp_check.microbatch_major(
-                batch, mesh.data, max(1, cfg.train.accum_steps)),
-            mesh_lib.Mesh())
-        dp_check.log_time("tp_check: the one-process step")
-        out["readings"] = {k: tp_readings(out[k], out["single"], initial,
-                                          device) for k in ("tp", *checks)}
-        if mesh.pipe > 1:
-            one = encoder_bytes(full)["params"]
-            out["one_process_encoder_bytes"] = {"params": one,
-                                                "moments": 2 * one}
-        if with_floors:
-            out["floors"] = floors(single_cfg, device, seed, initial, batch,
-                                   mesh, out["single"])
-            dp_check.log_time("tp_check: the one-process step's floors")
+    full = build_model(single_cfg, device=device, seed=seed, train=True)
+    _no_dropout(full)
+    out["single"] = dp_check.one_step(
+        single_cfg, full, initial, dp_check.microbatch_major(
+            batch, mesh.data, max(1, cfg.train.accum_steps)),
+        mesh_lib.Mesh())
+    dp_check.log_time("tp_check: the one-process step", any_rank=True)
+    ref = dp_check.Reference(out["single"], initial, device)
+    out["readings"] = {k: tp_readings(out[k], out["single"], initial,
+                                      device, ref) for k in ("tp", *checks)}
+    dp_check.log_time("tp_check: the readings", any_rank=True)
+    out["one_process_in_proj_bytes"] = in_proj_bytes(full)
+    if mesh.pipe > 1:
+        one = encoder_bytes(full)["params"]
+        out["one_process_encoder_bytes"] = {"params": one,
+                                            "moments": 2 * one}
+    if with_floors:
+        runs = [None]
+        dist.recv_object_list(runs, floor_rank(mesh))
+        out["floors"] = {k: tp_readings(r, out["single"], initial, device,
+                                        ref)
+                         for k, r in runs[0].items()}
+        dp_check.log_time("tp_check: the floors' readings", any_rank=True)
     out["split"] = [k for k, s in sharding_rules.param_shardings(
         full, mesh).items() if s]
     return out
-
-
-@contextlib.contextmanager
-def _every_core(device: torch.device):
-    """On the card, torch's host threads on every core (rank 0 alone, the
-    other ranks waiting at the next collective: the float64 readings run
-    on the host); on the CPU, as they are."""
-    threads = torch.get_num_threads()
-    if device.type == "cuda":
-        torch.set_num_threads(os.cpu_count() or threads)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def summary(out: dict) -> dict:
@@ -624,7 +636,9 @@ def summary(out: dict) -> dict:
                                    "launches", "timings", "mesh", "zero1",
                                    "spatial", "controls", "memory", "eval",
                                    "floors", "encoder_bytes",
-                                   "one_process_encoder_bytes")
+                                   "one_process_encoder_bytes",
+                                   "in_proj_bytes",
+                                   "one_process_in_proj_bytes")
                if k in out},
             "n_split": len(out["split"]),
             **{k: {n: out[k][n] for n in ("metrics", "all_reduces")}
@@ -724,6 +738,7 @@ def main(argv: Optional[list] = None, keep_group: bool = False) -> None:
             del out
         if result:
             torch.save(result, args.out)
+            dp_check.log_time("tp_check: the result written", any_rank=True)
     finally:
         if not keep_group:
             mesh_lib.shutdown()

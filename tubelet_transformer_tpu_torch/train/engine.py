@@ -74,9 +74,13 @@ Spatial parallelism (``MESH.SPATIAL`` beside ``MESH.MODEL``, a mesh whose
 whole clip, so that the jitter and the pad zeroing draw and read what one
 process does, then hand the model this peer's rows of it
 (``keep_rows``); the trunk runs on them (``models/csn.py``), its BN
-statistics averaged over every rank, and its parameters' gradients, each
+statistics averaged over the data x model ranks of each pipe stage,
+weighted by each rank's pixels, and its parameters' gradients, each
 peer's share over its rows, are summed over the model group
 (``sharding_rules.spatial_partial``) before the data group's all-reduce.
+Beside a 'pipe' axis every pipe stage runs the trunk on its shard's rows
+alike, and the gathered feature map enters the pipelined encoder as under
+MESH.PIPE alone.
 """
 
 from __future__ import annotations
@@ -151,28 +155,29 @@ def lfb_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def clip_height(cfg: Config) -> int:
-    """The rows of the clips the loaders give: the synthetic set's square
-    IMG_SIZE, else the canvas (DATA.CANVAS_H, or ``default_canvas``)."""
+    """The rows of the clips the loaders give (``clip_canvas``)."""
+    return clip_canvas(cfg)[0]
+
+
+def clip_canvas(cfg: Config) -> tuple[int, int]:
+    """(H, W) of the clips the loaders give: the synthetic set's square
+    IMG_SIZE, else the canvas (DATA.CANVAS_H x CANVAS_W, or
+    ``default_canvas``)."""
     if cfg.data.dataset_name == "synthetic":
-        return cfg.data.img_size
+        return cfg.data.img_size, cfg.data.img_size
     if cfg.data.canvas_h and cfg.data.canvas_w:
-        return cfg.data.canvas_h
-    return transforms.default_canvas(cfg.data.img_size)[0]
+        return cfg.data.canvas_h, cfg.data.canvas_w
+    return transforms.default_canvas(cfg.data.img_size)
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the step options not ported yet (the
-    clip's rows split over MESH.MODEL beside a 'pipe' axis among them), and
-    with MESH.SPATIAL ValueError where the clip's rows do not split over
-    MESH.MODEL at some stage (``csn.spatial_rows``)."""
-    unsupported = {
-        "MODEL.INFER_CHUNK": cfg.model.infer_chunk > 0,
-        "MESH.SPATIAL x MESH.PIPE": (cfg.mesh.spatial and cfg.mesh.model > 1
-                                     and cfg.mesh.pipe > 1),
-    }
-    for name, asked in unsupported.items():
-        if asked:
-            raise NotImplementedError(f"{name} is not ported yet")
+    """Raise NotImplementedError for the step options not ported yet, and
+    with MESH.SPATIAL ValueError where MESH.MODEL does not divide the
+    clip's rows (``csn.spatial_rows``), the one split JAX's ``device_put``
+    refuses too: every other split runs, its deeper bands uneven or empty
+    where the strides leave them so, beside a 'pipe' axis too."""
+    if cfg.model.infer_chunk > 0:
+        raise NotImplementedError("MODEL.INFER_CHUNK is not ported yet")
     if cfg.mesh.spatial and cfg.mesh.model > 1:
         spatial_rows(clip_height(cfg), BLOCK_NUMS[cfg.model.backbone_name],
                      cfg.model.last_stride, cfg.mesh.model)
