@@ -29,7 +29,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bands are uneven), the pooled rows bit for bit against the same rows
    of the whole clip's launch; the stage chain on each peer's slabs at
    MODEL 2, SPATIAL_TAILS, and on each of JHMDB's uneven slab shapes at
-   MODEL 4, JHMDB_SPATIAL_TAILS), with
+   MODEL 4, JHMDB_SPATIAL_TAILS; the assignment solver of the matcher, the
+   counterpart of the JAX package's on-device loop, at the train path's
+   four problem shapes on random, integer-tied and non-finite costs, the
+   assignments identical to the plain version's (on tied costs of equal
+   total) and bit for bit against a repeat launch, beside the port's
+   former host solve, the costs copied out to scipy), with
    CUDA-event times (``tools/timing.py``) of calls back to back for both
    (``ms``, host work included) and of the kernel on the device alone
    (``device_ms``), of the one PyTorch call that computes the same
@@ -70,7 +75,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    layer1-2 frozen, their BN in train mode) through the ``train_ava``
    entry point on the synthetic set with PRETRAINED and LOAD_DETR pointed
    at phase 8's files, 4 steps at batch 2, one validation and a
-   checkpoint, counting the kernel launches that path makes;
+   checkpoint, counting the kernel launches that path makes; its third
+   step under ``torch.cuda.set_sync_debug_mode("error")``, so that any
+   wait of the host for the card inside it raises;
 10. the eval CLI (``eval_ava``) on that checkpoint (MODEL.LOAD with
     PRETRAINED_PATH): its weights equal the checkpoint's, its frame mAP
     beside the train run's; then the serving CLI with MODEL.LOAD on it,
@@ -88,7 +95,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
 11. in situ, train: one flagship train forward with both stem kernels on
     and off;
 12. one train step on uint8 clips, so that the HSV jitter runs on the card,
-    and where the device time of a train step goes;
+    and where the device time of a train step goes; then a step on NaN
+    clips, after which the parameters, BN statistics, AdamW state, update
+    count and rate are bit-equal to before it; then the control of the
+    steps run under sync debug mode "error": the same step with the
+    matcher's plain solver, whose loops read the card, raises there;
 13. one flagship train step with ``MODEL.PALLAS_KERNELS`` on: layer1 is
     frozen (TUNE_POINT 4), so its 3 depthwise convs take the kernel under
     no_grad;
@@ -96,7 +107,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
     configuration/tuber_csn152_jhmdb.yaml (CSN-152, 224 px on the 224x400
     canvas, T=32, 10 x 32 = 320 tubelet queries, bf16, batch 2, aux losses,
     TUNE_POINT 4 over phase 8's ``.mat``) on an ACT-detector fixture of
-    random 320x240 frames, with its validation (frame and video mAP), then
+    random 320x240 frames, its third step under sync debug mode "error",
+    with its validation (frame and video mAP), then
     ``eval_jhmdb`` on its checkpoint; the loss finite, the frozen prefix
     bit-equal across the steps, both stem kernels in situ on the path's own
     inputs against their plain versions and a repeat launch, the steady
@@ -526,6 +538,15 @@ STEM_CONV_TOL = {"bfloat16": STEM_TOL, "float32": 1e-5}
 # form before), named in the train breakdown wherever they rank; sum also
 # serves the losses.
 BN_STATS_OPS = ("aten::sum", "aten::linalg_vector_norm", "aten::var_mean")
+# the matcher's assignment problems on the path, (N, Q, M): N = decoder
+# layers x batch; the train steps at batch 2 (each microbatch under
+# ACCUM_STEPS 2 too), the eval step's losses at batch 1
+ASSIGN_CASES = {"ava_train": (12, 15, 32), "jhmdb_train": (12, 10, 8),
+                "ava_eval": (6, 15, 32), "jhmdb_eval": (6, 10, 8)}
+ASSIGN_KINDS = ("random", "tied", "nonfinite")
+# the train step that runs under sync debug mode "error" in the train_ava
+# and train_jhmdb runs (0-based; steady, after the first)
+NO_SYNC_STEP = 2
 # Published NVIDIA H100 SXM peaks (data sheet, dense, 700 W): device memory
 # and the rates for each input type (bf16 on the tensor cores, float32 on
 # the CUDA cores, TF32 off).
@@ -1189,6 +1210,105 @@ def phase_stem_conv_kernel(torch, stem) -> tuple[dict, int]:
     return results, launches
 
 
+def _assign_inputs(torch, shape, kind: str, seed: int = 0):
+    """cost (N, Q, M) float32 and valid (N, M) on the card: the valid
+    counts 0, 1, a part, min(Q, M) and M among the problems, the rest
+    random; ``tied`` costs are small integers, ``nonfinite`` ones hold a
+    NaN row, a +inf row, a -inf row and a NaN entry."""
+    n, q, m = shape
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, m + 1, n)
+    counts[:5] = [0, 1, m // 2, min(q, m), m]
+    valid = np.zeros((n, m), bool)
+    for i, k in enumerate(counts):
+        valid[i, rng.permutation(m)[:k]] = True
+    cost = (rng.integers(0, 3, (n, q, m)) if kind == "tied"
+            else rng.normal(size=(n, q, m))).astype(np.float32)
+    if kind == "nonfinite":
+        cost[1, 0], cost[2, q - 1], cost[3, 1] = np.nan, np.inf, -np.inf
+        cost[4, 0, 0] = np.nan
+    return (torch.from_numpy(cost).cuda(), torch.from_numpy(valid).cuda())
+
+
+def _host_match(torch, cost, valid):
+    """The port's former ``match``: the costs copied to the host in float64,
+    scipy's linear_sum_assignment on each problem's valid columns, the
+    result uploaded (the library time of the assignment kernel)."""
+    from scipy.optimize import linear_sum_assignment
+
+    n, q, m = cost.shape
+    cost_h = np.nan_to_num(cost.detach().to("cpu", torch.float64).numpy(),
+                           nan=1e6, posinf=1e6, neginf=-1e6)
+    valid_h = valid.cpu().numpy()
+    tfq = np.full((n, q), -1, np.int64)
+    qft = np.full((n, m), -1, np.int64)
+    for i in range(n):
+        cols = np.flatnonzero(valid_h[i])
+        rows, sel = linear_sum_assignment(cost_h[i][:, cols])
+        tfq[i, rows] = cols[sel]
+        qft[i, cols[sel]] = rows
+    return (torch.from_numpy(tfq).to(cost.device),
+            torch.from_numpy(qft).to(cost.device))
+
+
+def phase_assign_kernel(torch) -> dict:
+    """The matcher's assignment kernel (csrc/assign.cu) against its plain
+    version on the card at the path's four problem shapes, on random,
+    integer-tied and non-finite costs: the assignments identical on
+    continuous costs and of equal total cost on tied ones (the largest
+    difference of a problem's total is ``max_abs_err``), a repeat launch
+    bit-equal; the times of the kernel, of the plain version and of the
+    port's former host solve (``library_ms``), and the bound: the costs
+    and masks read once and both outputs written once."""
+    from tubelet_transformer_tpu_torch.ops.cuda import assign
+
+    def total(cost, tfq):
+        host = assign.sanitize(cost).double()
+        picked = host.gather(2, tfq.clamp(min=0)[..., None])[..., 0]
+        return torch.where(tfq >= 0, picked, 0.0).sum(1)
+
+    out = {}
+    for name, shape in ASSIGN_CASES.items():
+        err, same = 0.0, {}
+        for kind in ASSIGN_KINDS:
+            cost, valid = _assign_inputs(torch, shape, kind)
+            got = assign.assign(cost, valid)
+            again = assign.assign(cost, valid)
+            want = assign.assign_reference(cost, valid)
+            torch.cuda.synchronize()
+            same[kind] = all(torch.equal(a, b) for a, b in zip(got, want))
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            diff = (total(cost, got[0]) - total(cost, want[0])).abs().max()
+            err = max(err, float(diff))
+            if not repeat or float(diff) != 0.0 or (
+                    kind != "tied" and not same[kind]):
+                raise AssertionError(f"assign {name} {kind}: identical "
+                                     f"{same[kind]}, repeat {repeat}, total "
+                                     f"cost off by {float(diff)}")
+        cost, valid = _assign_inputs(torch, shape, "random")
+        n, q, m = shape
+        # the two int64 outputs written once
+        bound_ms, bound_by = bound(nbytes(cost, valid) + 8 * n * (q + m), 0,
+                                   "float32")
+        out[name] = {
+            "shape": list(shape), "max_abs_err": err,
+            "identical": same,
+            "ms": time_ms(torch, lambda: assign.assign(cost, valid)),
+            "device_ms": time_ms(torch, lambda: assign.assign(cost, valid),
+                                 queued=True),
+            "plain_ms": time_ms(torch, lambda: assign.assign_reference(
+                cost, valid), warmup=1, runs=5, calls=1),
+            "library_ms": time_ms(torch, lambda: _host_match(
+                torch, cost, valid), runs=5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        times = {k: out[name][k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[assign] {name} {shape}: identical to the plain version "
+            f"{same}, total cost difference {err}, repeat bit-equal; "
+            f"{times}")
+    return out
+
+
 def small_config():
     from tubelet_transformer_tpu_torch.config import Config
 
@@ -1248,22 +1368,35 @@ def phase_small_reference(torch, stem, tag: str = "small",
 
 def launch_counts() -> dict:
     """Launches of each kernel of the port in this process, by name."""
-    from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
+    from tubelet_transformer_tpu_torch.ops.cuda import (assign, bottleneck,
                                                         depthwise, stage,
                                                         stem)
 
     return {"stem_pool": stem.LAUNCHES, "stem_stats": stem.STATS_LAUNCHES,
             "stem_conv": stem.CONV_LAUNCHES, "depthwise": depthwise.LAUNCHES,
-            "bottleneck": bottleneck.LAUNCHES, "chain": stage.LAUNCHES}
+            "bottleneck": bottleneck.LAUNCHES, "chain": stage.LAUNCHES,
+            "assign": assign.LAUNCHES}
 
 
 def zero_counts() -> None:
-    from tubelet_transformer_tpu_torch.ops.cuda import (bottleneck,
+    from tubelet_transformer_tpu_torch.ops.cuda import (assign, bottleneck,
                                                         depthwise, stage,
                                                         stem)
 
     stem.LAUNCHES = stem.STATS_LAUNCHES = stem.CONV_LAUNCHES = 0
     depthwise.LAUNCHES = bottleneck.LAUNCHES = stage.LAUNCHES = 0
+    assign.LAUNCHES = 0
+
+
+def without_sync(torch, fn, *args):
+    """``fn(*args)`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that makes the host wait for the card (a device tensor read on
+    the host, a blocking copy) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def write_config(name: str, edit, source: Path = FLAGSHIP_CONFIG) -> Path:
@@ -1706,7 +1839,6 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
     from tubelet_transformer_tpu_torch.cli import train_ava
     from tubelet_transformer_tpu_torch.config import load_config
     from tubelet_transformer_tpu_torch.models.tuber import build_model
-    from tubelet_transformer_tpu_torch.ops import matcher
     from tubelet_transformer_tpu_torch.train import engine
     from tubelet_transformer_tpu_torch.train.optimizer import param_label
 
@@ -1725,17 +1857,18 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
     cfg_path = write_config("chip_smoke_train.yaml", edit)
     cfg = load_config(str(cfg_path))
 
-    # per-step wall time (each step ends in a host sync) and the host time
-    # of the assignment solve
-    steps, solves = [], []
-    make_train_step, lsa = engine.make_train_step, matcher.linear_sum_assignment
+    # per-step wall time (each step ends in a host sync); one steady step
+    # under sync debug mode "error"
+    steps = []
+    make_train_step = engine.make_train_step
 
     def timed_make(cfg_, state, **kw):
         step = make_train_step(cfg_, state, **kw)
 
         def timed(batch, weight):
             t0 = time.perf_counter()
-            metrics = step(batch, weight)
+            metrics = (without_sync(torch, step, batch, weight)
+                       if len(steps) == NO_SYNC_STEP else step(batch, weight))
             torch.cuda.synchronize()
             steps.append(((time.perf_counter() - t0) * 1e3,
                           float(metrics["total_loss"]),
@@ -1744,14 +1877,7 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
 
         return timed
 
-    def timed_lsa(cost):
-        t0 = time.perf_counter()
-        out = lsa(cost)
-        solves.append((len(steps), time.perf_counter() - t0))
-        return out
-
-    engine.make_train_step, matcher.linear_sum_assignment = (timed_make,
-                                                             timed_lsa)
+    engine.make_train_step = timed_make
     argv = sys.argv
     sys.argv = ["train_ava", "--config-file", str(cfg_path), "--device",
                 "cuda", "--seed", "0"]
@@ -1763,8 +1889,7 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
         train_ava.main()
     finally:
         sys.argv = argv
-        engine.make_train_step, matcher.linear_sum_assignment = (
-            make_train_step, lsa)
+        engine.make_train_step = make_train_step
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1775,10 +1900,12 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
                              "finite ones")
     if launches != {"stem_pool": TRAIN_STEPS + VAL_FORWARDS,
                     "stem_stats": TRAIN_STEPS, "stem_conv": 0,
-                    "depthwise": 0, "bottleneck": 0, "chain": 0}:
+                    "depthwise": 0, "bottleneck": 0, "chain": 0,
+                    "assign": TRAIN_STEPS + VAL_FORWARDS}:
         raise AssertionError(f"kernel launches {launches}, want "
-                             f"{TRAIN_STEPS + VAL_FORWARDS} pooled and "
-                             f"{TRAIN_STEPS} statistics")
+                             f"{TRAIN_STEPS + VAL_FORWARDS} pooled, "
+                             f"{TRAIN_STEPS} statistics and "
+                             f"{TRAIN_STEPS + VAL_FORWARDS} assignments")
     run = max(glob.glob(str(base / f"{cfg.log.exp_name}_*")),
               key=lambda d: Path(d).stat().st_mtime)
     ckpt = Path(run) / cfg.log.save_dir / "ckpt_epoch_0"
@@ -1821,10 +1948,6 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
                              f" trained unchanged {trained_still[:5]}, stem "
                              f"BN stats moved {stem_stats_moved}")
     step_ms = [ms for ms, _, _ in steps]
-    # solves made while step i ran are tagged i; validation's come after
-    solve_ms = {"train": 0.0, "val": 0.0}
-    for tag, sec in solves:
-        solve_ms["train" if tag < TRAIN_STEPS else "val"] += sec * 1e3
     log(f"[train] {cfg.model.backbone_name} {cfg.data.img_size}px "
         f"T={cfg.data.temp_len} bs={cfg.train.batch_size} "
         f"{cfg.model.compute_dtype} TUNE_POINT {cfg.model.tune_point}: "
@@ -1836,10 +1959,8 @@ def phase_train_path(torch, stem, weights: dict) -> dict:
         f"running stats moved")
     log(f"[train] step ms {[round(v, 2) for v in step_ms]}: first "
         f"{step_ms[0]:.2f}, steady median (after the first) "
-        f"{statistics.median(step_ms[1:]):.2f}; matcher host solve (scipy, "
-        f"all layers) {solve_ms['train'] / TRAIN_STEPS:.3f} ms per train "
-        f"step, {solve_ms['val'] / VAL_FORWARDS:.3f} ms per eval forward; "
-        f"peak device "
+        f"{statistics.median(step_ms[1:]):.2f}; step {NO_SYNC_STEP} ran "
+        f"under sync debug mode \"error\": no host sync; peak device "
         f"memory {peak_gb:.2f} GB; train_ava wall {wall:.1f} s")
     return {"cfg": cfg, "cfg_path": cfg_path, "launches": launches,
             "ckpt": ckpt, "start": start,
@@ -1908,7 +2029,11 @@ def phase_train_in_situ(torch, stem, cfg):
 def phase_jitter_and_train_breakdown(torch, stem, cfg, model,
                                      steady_ms: float) -> None:
     """One train step on uint8 clips (the HSV jitter on the card), then
-    where the device time of a train step goes (torch.profiler)."""
+    where the device time of a train step goes (torch.profiler); then a
+    step on NaN clips, which must leave the parameters, the BN statistics,
+    the AdamW moments and step counts, the update count and the rate bit
+    for bit as they were (the guard decided on the card); then the control
+    of the steps run under sync debug mode "error"."""
     from torch.profiler import ProfilerActivity, profile
 
     from tubelet_transformer_tpu_torch.data.device_preprocess import (
@@ -1945,8 +2070,51 @@ def phase_jitter_and_train_breakdown(torch, stem, cfg, model,
                         f"one flagship train step (steady step "
                         f"{steady_ms:.2f} ms)", steady_ms,
                         ("stem_pool_tc_kernel", "stem_stats_tc_kernel",
-                         "stem_stats_finalize_kernel"), top=14,
-                        ops=BN_STATS_OPS)
+                         "stem_stats_finalize_kernel", "assign_kernel"),
+                        top=14, ops=BN_STATS_OPS)
+
+    # a non-finite step skips on the card
+    def snapshot():
+        return ([t.clone() for t in model.state_dict().values()]
+                + [t.clone() for st in state.optimizer.state.values()
+                   for t in st.values()] + [state.updates.clone()])
+
+    kept = snapshot()
+    rates = [np.float32(state.schedule(int(state.updates)) * g["lr_scale"])
+             for g in state.optimizer.param_groups]
+    bad = dict(batch, clips=torch.full(batch["clips"].shape, float("nan"),
+                                       device="cuda"))
+    metrics = step(bad, cfg.loss.dice_cof)
+    same = [torch.equal(a, b) for a, b in zip(snapshot(), kept)]
+    lr = [np.float32(float(g["lr"])) for g in state.optimizer.param_groups]
+    log(f"[nan guard] a train step on NaN clips: finite "
+        f"{float(metrics['finite'])}; {sum(same)} of {len(same)} tensors "
+        f"(parameters, BN statistics, AdamW moments and step counts, the "
+        f"update count) bit-equal to before it, the rate {lr} against the "
+        f"schedule's {rates} at the unchanged count")
+    if not (float(metrics["finite"]) == 0.0 and all(same) and lr == rates):
+        raise AssertionError("the NaN guard changed the state")
+
+    # the control of the steps run under sync debug mode "error" (phases 9
+    # and 14): the matcher's plain solver, whose loops read the card,
+    # raises under the same mode in the same step
+    from tubelet_transformer_tpu_torch.ops import matcher
+    from tubelet_transformer_tpu_torch.ops.cuda import assign
+
+    matcher.assign = assign.assign_reference
+    try:
+        without_sync(torch, step, batch, cfg.loss.dice_cof)
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        log(f"[no sync] control: the train step with the plain solver "
+            f"raised under sync debug mode \"error\": {str(e)[:70]}")
+    else:
+        raise AssertionError("no-sync control: the train step with the "
+                             "plain solver did not raise under sync debug "
+                             "mode \"error\"")
+    finally:
+        matcher.assign = assign.assign
 
 
 def phase_train_kernels(torch, cfg) -> dict:
@@ -1971,7 +2139,7 @@ def phase_train_kernels(torch, cfg) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     want = {"stem_pool": 1, "stem_stats": 1, "stem_conv": 0, "depthwise": 3,
-            "bottleneck": 0, "chain": 0}
+            "bottleneck": 0, "chain": 0, "assign": 1}
     log(f"[train kernels] flagship train step, PALLAS_KERNELS on, TUNE_POINT "
         f"{cfg.model.tune_point}: total loss "
         f"{float(metrics['total_loss']):.5f}, finite "
@@ -2119,7 +2287,7 @@ def phase_eval_cli(torch, train: dict) -> dict:
         f"build's equal it bit for bit: {not bad32}; launches {launches}; "
         f"wall {wall:.1f} s")
     if bad or bad32 or not np.isfinite(val_map) or launches[
-            "stem_pool"] != VAL_FORWARDS:
+            "stem_pool"] != VAL_FORWARDS or launches["assign"] != VAL_FORWARDS:
         raise AssertionError(f"eval CLI: weights differ ({bad[:3]}, "
                              f"{bad32[:3]}), mAP {val_map} or launches "
                              f"{launches}")
@@ -2218,7 +2386,8 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
 
         def timed(batch, weight):
             t = time.perf_counter()
-            metrics = step(batch, weight)
+            metrics = (without_sync(torch, step, batch, weight)
+                       if len(steps) == NO_SYNC_STEP else step(batch, weight))
             torch.cuda.synchronize()
             steps.append(((time.perf_counter() - t) * 1e3,
                           float(metrics["total_loss"]),
@@ -2249,7 +2418,7 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
         raise AssertionError(f"jhmdb steps {steps}: want {n_train} finite")
     if launches != {"stem_pool": n_train + n_val, "stem_stats": n_train,
                     "stem_conv": 0, "depthwise": 0, "bottleneck": 0,
-                    "chain": 0}:
+                    "chain": 0, "assign": n_train + n_val}:
         raise AssertionError(f"jhmdb launches {launches}")
     run = max(glob.glob(str(base / f"{cfg.log.exp_name}_*")),
               key=lambda d: Path(d).stat().st_mtime)
@@ -2281,8 +2450,9 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
         f"params bit-equal across the steps; validation frame mAP "
         f"{maps['val/val_mAP_epoch']:.4f}, video mAP@0.2 "
         f"{maps['val/video_mAP@0.2']:.4f} @0.5 "
-        f"{maps['val/video_mAP@0.5']:.4f}; launches {launches}; wall "
-        f"{wall:.1f} s")
+        f"{maps['val/video_mAP@0.5']:.4f}; launches {launches}; step "
+        f"{NO_SYNC_STEP} ran under sync debug mode \"error\": no host "
+        f"sync; wall {wall:.1f} s")
     log(f"[jhmdb] step ms: first {step_ms[0]:.2f}, steady median (after "
         f"the first) {statistics.median(step_ms[1:]):.2f} (min "
         f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}); {smi}")
@@ -2306,7 +2476,8 @@ def phase_jhmdb(torch, stem, weights: dict, smi: str) -> dict:
         undo()
     eval_launches = launch_counts()
     res = runs[0]["val"]
-    if not (np.isfinite(res["mAP"]) and eval_launches["stem_pool"] == n_val):
+    if not (np.isfinite(res["mAP"]) and eval_launches["stem_pool"] == n_val
+            and eval_launches["assign"] == n_val):
         raise AssertionError(f"eval_jhmdb: {res}, launches {eval_launches}")
     log(f"[jhmdb] eval_jhmdb on {ckpt.relative_to(ROOT)}: frame mAP "
         f"{res['mAP']:.4f}, video mAP "
@@ -2783,7 +2954,8 @@ def phase_lfb(torch, eval_cfg: Path, train: dict) -> dict:
         f"({len(still)} unchanged: {still[:3]}); launches {launches}; wall "
         f"{wall:.1f} s")
     if launches != {"stem_pool": 2 + 4, "stem_stats": 2, "stem_conv": 0,
-                    "depthwise": 0, "bottleneck": 0, "chain": 0}:
+                    "depthwise": 0, "bottleneck": 0, "chain": 0,
+                    "assign": 2 + 4}:
         raise AssertionError(f"USE_LFB train: launches {launches}, want 2 "
                              "statistics and 2 + 4 pooled")
     if not (len(steps) == 2 and all(
@@ -2991,13 +3163,16 @@ def _peak_gb(torch, window: tuple) -> float:
     return (torch.cuda.max_memory_allocated() - window[0]) / 1e9
 
 
-def _train_launches(steps: int, stats_per_step: int, val: int) -> dict:
+def _train_launches(steps: int, stats_per_step: int, val: int,
+                    microbatches: int = 1) -> dict:
     """The launches of a train run of ``steps`` steps with the frozen stem
     (TUNE_POINT 4), ``stats_per_step`` two-phase stems a step, and ``val``
-    validation forwards."""
+    validation forwards: an assignment for each microbatch's losses and
+    each validation forward's (VAL.COMPUTE_LOSSES)."""
     n = steps * stats_per_step
     return {"stem_pool": n + val, "stem_stats": n, "stem_conv": 0,
-            "depthwise": 0, "bottleneck": 0, "chain": 0}
+            "depthwise": 0, "bottleneck": 0, "chain": 0,
+            "assign": steps * microbatches + val}
 
 
 def _frozen_still(torch, r: dict, start: dict) -> int:
@@ -3146,7 +3321,7 @@ def phase_accum(torch, train: dict, smi: str) -> dict:
     r = _train_run(torch, train, "chip_smoke_accum", lambda c: (
         c["DATA"].update(SYNTHETIC_SIZE=8),
         c["TRAIN"].update(BATCH_SIZE=4, ACCUM_STEPS=2)))
-    want = _train_launches(len(r["steps"]), 2, 8)
+    want = _train_launches(len(r["steps"]), 2, 8, microbatches=2)
     if len(r["steps"]) != 2 or r["launches"] != want:
         raise AssertionError(f"accum: launches {r['launches']}, want {want}")
     frozen = _frozen_still(torch, r, train["start"])
@@ -3311,9 +3486,9 @@ def phase_remat(torch, train: dict, smi: str) -> dict:
         f"{diff[worst]:.3g} ({worst}; limit {limit:.3g}); running "
         f"statistics bit-equal: remat {not stats_moved}, plain twice "
         f"{plain_stats}; {smi}")
-    if not (plain["launches"] == again["launches"] == dict(want,
-                                                           depthwise=3)
-            and remat["launches"] == dict(want, depthwise=6)
+    if not (plain["launches"] == again["launches"] == dict(
+            want, depthwise=3, assign=1)
+            and remat["launches"] == dict(want, depthwise=6, assign=1)
             and diff[worst] <= limit and not stats_moved
             and remat["peak_gb"] < plain["peak_gb"]
             and np.isfinite(remat["total"])):
@@ -3322,6 +3497,7 @@ def phase_remat(torch, train: dict, smi: str) -> dict:
     del model, runs, saved
     return {"launches_plain": plain["launches"]["depthwise"],
             "launches": remat["launches"]["depthwise"],
+            "launches_assign": remat["launches"]["assign"],
             "peak_gb": {"plain": plain["peak_gb"],
                         "remat": remat["peak_gb"]},
             "ms": {"plain": plain["ms"], "remat": remat["ms"]}}
@@ -4102,7 +4278,7 @@ def _torchrun_start(nproc: int, module: str, argv: list, log_name: str,
         env={**os.environ, "PYTHONPATH": str(ROOT)},
         start_new_session=True)
     return {"proc": proc, "file": f, "path": path, "name": log_name,
-            "nproc": nproc, "t0": time.perf_counter()}
+            "nproc": nproc, "t0": time.perf_counter(), "start": time.time()}
 
 
 def _torchrun_wait(job: dict) -> str:
@@ -4128,7 +4304,8 @@ def _torchrun_wait(job: dict) -> str:
         raise AssertionError(f"{job['name']}: exit {rc}:\n{head}\n...\n"
                              f"{text[-3000:]}")
     log(f"[time] torchrun {job['name']} ({job['nproc']} processes): "
-        f"{job['wall']:.1f} s; rank 0's marks: "
+        f"{job['wall']:.1f} s, from {job['start']:.3f} to {time.time():.3f} "
+        f"on the wall clock; the ranks' marks: "
         f"{[x[7:] for x in text.splitlines() if x.startswith('[time] ')]}")
     return text
 
@@ -5450,6 +5627,7 @@ def main() -> int:
     bn = phase_bottleneck_kernel(torch)["layer2_256px"]
     chains = phase_stage_kernel(torch)
     stem_conv, stem_conv_launches = phase_stem_conv_kernel(torch, stem)
+    assign_cases = phase_assign_kernel(torch)
     phase_small_reference(torch, stem)
     phase_small_train_reference(torch, stem)
     det, stream_launches, steady_ms = phase_main_path(
@@ -5575,15 +5753,19 @@ def main() -> int:
     # paths' count of the pooled kernel beside it), the depthwise and the
     # bottleneck on the kernel path (the train step's depthwise beside it),
     # the chain on the stage path; the unpooled stem, which no model path
-    # runs, in its checks of phase 3. The option phases' counts stand
-    # beside them (launches_<path>); the remat step's depthwise count holds
-    # the backward's recompute: each of layer1's 3 convs launches twice
+    # runs, in its checks of phase 3; the assignment on the train path
+    # (each train step and each validation forward with its losses). The
+    # option phases' counts stand beside them (launches_<path>); the remat
+    # step's depthwise count holds the backward's recompute: each of
+    # layer1's 3 convs launches twice
     def entry(name, source, replaces, launches, measured, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms")
+        if "/" not in replaces:
+            replaces = f"ops/pallas/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"tubelet_transformer_tpu_torch/csrc/{source}",
-                "replaces": f"tubelet_transformer_tpu/ops/pallas/{replaces}",
+                "replaces": f"tubelet_transformer_tpu/{replaces}",
                 "launches": launches, **{k: measured[k] for k in keys},
                 **extra}
 
@@ -5742,7 +5924,26 @@ def main() -> int:
               reached_by="no model path (nor in the JAX package): the "
                          "launches are phase 3's checks",
               variant="pool=False, via stem_conv_bn_relu (stem.py:580)",
-              library_call="F.conv3d, conv only")]}))
+              library_call="F.conv3d, conv only"),
+        entry("assign", "assign.cu", "ops/matcher.py:37",
+              train["launches"]["assign"], assign_cases["ava_train"],
+              also_replaces="tubelet_transformer_tpu/ops/matcher.py:117",
+              tpu_kernel="none: JAX's on-device loop (lax.fori_loop and "
+                         "lax.while_loop), vmapped, outside Pallas",
+              library_call="the port's former match: the costs copied to "
+                           "the host, scipy's linear_sum_assignment",
+              launches_per_train_step=train_kernel_launches["assign"],
+              launches_per_eval_forward=evaluated["launches"]["assign"]
+              / VAL_FORWARDS,
+              launches_eval_ava=evaluated["launches"]["assign"],
+              launches_jhmdb=jhmdb["launches"]["assign"],
+              launches_eval_jhmdb=jhmdb["eval_launches"]["assign"],
+              launches_lfb_train=lfb["train_launches"]["assign"],
+              launches_frozen_chunk=frozen_chunk["launches"]["assign"],
+              launches_accum=accum["launches"]["assign"],
+              launches_moe_train=moe["train_launches"]["assign"],
+              launches_remat_step=remat["launches_assign"],
+              cases=assign_cases)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -229,10 +229,85 @@ def test_accum_refuses_indivisible_batch():
              cfg.loss.dice_cof)
 
 
+def _snapshot(model, state):
+    """Copies of everything a train step may change: the parameters and
+    BN statistics, the AdamW moments and step counts, the update count
+    and each group's learning rate."""
+    return {"model": {k: v.clone() for k, v in model.state_dict().items()},
+            "adamw": [{k: v.clone() for k, v in st.items()}
+                      for st in state.optimizer.state.values()],
+            "updates": state.updates.clone(),
+            "lr": [torch.as_tensor(g["lr"]).clone()
+                   for g in state.optimizer.param_groups]}
+
+
+def _assert_bit_equal(got, want, keys=("model", "adamw", "updates", "lr")):
+    for key in keys:
+        a, b = got[key], want[key]
+        if key == "model":
+            assert a.keys() == b.keys()
+            a, b = list(a.values()), list(b.values())
+        elif key == "adamw":
+            assert len(a) == len(b) and all(x.keys() == y.keys()
+                                            for x, y in zip(a, b))
+            a = [t for st in a for t in st.values()]
+            b = [t for st in b for t in st.values()]
+        elif key == "updates":
+            a, b = [a], [b]
+        assert len(a) == len(b), key
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), key
+
+
+def nan_guard_case(cfg, before: int, bad_rows) -> None:
+    """``before`` finite steps, a step whose ``bad_rows`` clips are NaN,
+    then a finite step, against the same steps without the non-finite
+    one: the non-finite step leaves the parameters, the BN statistics, the
+    AdamW moments and step counts, the update count and the learning rate
+    bit for bit as they were, and the finite step after it equals the
+    finite step from the untouched state, bit for bit."""
+    cpu = torch.device("cpu")
+    batch = engine.device_batch(batch4(cfg), cpu)
+    host_bad = batch4(cfg)
+    host_bad["clips"][bad_rows] = np.nan
+    bad = engine.device_batch(host_bad, cpu)
+    runs = []
+    for _ in range(2):
+        model = port_only_model(cfg)
+        state = engine.create_train_state(cfg, model, steps_per_epoch=10)
+        runs.append((model, state, engine.make_train_step(cfg, state)))
+    (model, state, step), (ref, ref_state, ref_step) = runs
+    for _ in range(before):
+        step(batch, cfg.loss.dice_cof)
+        ref_step(batch, cfg.loss.dice_cof)
+    kept = _snapshot(model, state)
+    metrics = step(bad, cfg.loss.dice_cof)
+    assert metrics["finite"] == 0.0 and state.step == before + 1
+    assert int(state.updates) == before
+    after = _snapshot(model, state)
+    if before:
+        _assert_bit_equal(after, kept, ("model", "adamw", "updates"))
+    else:
+        # the skipped first step set up AdamW's state, all of it zero
+        assert not kept["adamw"] and all(
+            not t.any() for st in after["adamw"] for t in st.values())
+        _assert_bit_equal(after, kept, ("model", "updates"))
+    # the skipped step's count, so that both draw from the same seed
+    ref_state.step += 1
+    ref_step(batch, cfg.loss.dice_cof)
+    # the rate the skipped step set is the one the reference's next
+    # update used
+    _assert_bit_equal(_snapshot(model, state), _snapshot(ref, ref_state),
+                      ("lr",))
+    step(batch, cfg.loss.dice_cof)
+    _assert_bit_equal(_snapshot(model, state), _snapshot(ref, ref_state))
+
+
 def test_accum_nan_guard_restores_the_first_microbatch_state():
     """A non-finite second microbatch: the step is skipped whole, and the
     BN statistics are those before the first microbatch, though it was
-    finite and updated them."""
+    finite and updated them; so are the AdamW state, the update count and
+    the rate, and the next finite step is the untouched state's."""
     cfg = accum_cfg()
     batch = batch4(cfg)
     model = port_only_model(cfg)
@@ -245,3 +320,15 @@ def test_accum_nan_guard_restores_the_first_microbatch_state():
     assert metrics["finite"] == 0.0 and (state.step, state.updates) == (1, 0)
     for k, v in model.state_dict().items():
         assert torch.equal(v, kept[k]), k
+    nan_guard_case(cfg, before=0, bad_rows=[3])
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_nan_guard_after_an_update_then_a_finite_step(accum):
+    """After a finite step (AdamW's moments and counts set), a step with a
+    non-finite clip in its second half, then a finite step: the skip and
+    the next step bit-equal to the run without the skipped step, with and
+    without ACCUM_STEPS 2 (then the first microbatch was finite)."""
+    cfg = accum_cfg()
+    cfg.train.accum_steps = accum
+    nan_guard_case(cfg, before=1, bad_rows=[3])

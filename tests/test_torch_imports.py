@@ -3,7 +3,7 @@ module of the package, its serving loop, its trainer and its CLIs load in a
 fresh interpreter that then holds no jax, flax, optax or orbax module and
 no ``tubelet_transformer_tpu`` module; and no import statement of the port
 or of ``chip_smoke.py``, at any depth of the code, names the JAX
-package."""
+package. The train path loads without scipy."""
 
 import ast
 import pkgutil
@@ -57,12 +57,29 @@ def test_port_imports_no_jax():
             "tubelet_transformer_tpu_torch.parallel.zero",
             "tubelet_transformer_tpu_torch.tools.dp_check",
             "tubelet_transformer_tpu_torch.tools.tp_check",
-            "tubelet_transformer_tpu_torch.tools.mesh_checks"} <= set(modules)
+            "tubelet_transformer_tpu_torch.tools.mesh_checks",
+            "tubelet_transformer_tpu_torch.ops.cuda.assign"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"('jax', 'flax', 'optax', 'orbax', {JAX_PACKAGE!r}))\n"
             "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_train_path_imports_no_scipy():
+    """The train CLIs, the step and the matcher load without scipy: the
+    assignment is solved by the port's own kernel and plain version."""
+    code = ("import sys\n"
+            "import tubelet_transformer_tpu_torch.cli.train_ava\n"
+            "import tubelet_transformer_tpu_torch.cli.train_jhmdb\n"
+            "import tubelet_transformer_tpu_torch.train.engine\n"
+            "import tubelet_transformer_tpu_torch.ops.matcher\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
+            "'scipy')\n"
+            "assert not bad, bad[:5]\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

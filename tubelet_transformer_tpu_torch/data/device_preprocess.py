@@ -84,6 +84,14 @@ def hsv_jitter(clips: torch.Tensor, generator: Optional[torch.Generator],
     return hsv_shift(clips, sh, ss, sv)
 
 
+def _per_channel(values, device: torch.device) -> torch.Tensor:
+    """(3,) float32 of the three ``values``, made on ``device`` with no
+    upload from the host (a train step waits for none)."""
+    a, b, c = (float(v) for v in values)
+    ch = torch.arange(3, device=device)
+    return torch.where(ch == 0, a, torch.where(ch == 1, b, c))
+
+
 def device_preprocess(clips: torch.Tensor, dtype: torch.dtype = torch.float32,
                       pad_mask: Optional[torch.Tensor] = None,
                       jitter: bool = False,
@@ -99,10 +107,8 @@ def device_preprocess(clips: torch.Tensor, dtype: torch.dtype = torch.float32,
     x = clips.float()
     if jitter:
         x = hsv_jitter(x, generator)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=clips.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                       device=clips.device) * 255.0
+    mean = _per_channel(IMAGENET_MEAN, clips.device) * 255.0
+    std = _per_channel(IMAGENET_STD, clips.device) * 255.0
     out = (x - mean) / std
     if pad_mask is not None:
         out = out.masked_fill(pad_mask[:, None, :, :, None], 0.0)

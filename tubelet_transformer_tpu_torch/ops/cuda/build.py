@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # the port's one kernel library and its sources
 LIBRARY = "tuber_kernels"
-SOURCES = ("stem.cu", "stem_stats.cu", "depthwise.cu", "stage.cu")
+SOURCES = ("stem.cu", "stem_stats.cu", "depthwise.cu", "stage.cu",
+           "assign.cu")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

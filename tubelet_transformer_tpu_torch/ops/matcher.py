@@ -2,23 +2,21 @@
 
 Port of ``tubelet_transformer_tpu/ops/matcher.py``. The cost matrix is built
 on the device, as there (``compute_cost_matrix``, invalid target columns at
-``PAD_COST``). The assignment is solved on the host with scipy's
-``linear_sum_assignment`` over each sample's valid target columns, after one
-device-to-host copy of the whole stacked (N, Q, M) cost; the JAX package
-solves the same rectangular problem on the device (Jonker-Volgenant). Both
-give an optimal assignment; on ties they may pick different ones of equal
-cost.
+``PAD_COST``), and the assignment is solved there too: on a CUDA tensor by
+the kernel of ``ops/cuda/assign.py`` (the counterpart of JAX's on-device
+``_solve_rect``), with no host round trip; on a CPU tensor by its plain
+version. Each sample's valid target columns are solved exactly, as scipy's
+``linear_sum_assignment`` solves them (JAX squares the problem with
+``PAD_COST`` columns instead); on ties the two may pick different
+assignments of equal cost.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 from tubelet_transformer_tpu_torch.ops import box_ops
-
-PAD_COST = 1.0e6
+from tubelet_transformer_tpu_torch.ops.cuda.assign import PAD_COST, assign
 
 
 def compute_cost_matrix(pred_boxes: torch.Tensor, class_cost: torch.Tensor,
@@ -46,18 +44,7 @@ def match(cost: torch.Tensor, tgt_valid: torch.Tensor
       unmatched query.
     query_for_tgt: (B, M) int64, the query matched to each target, -1 for a
       padded or overflow target (more valid targets than queries)."""
-    b, q, m = cost.shape
     # non-finite costs (outputs of a diverged step) get an arbitrary but
     # valid assignment; the loss is not finite then, and the step skips
-    cost_h = np.nan_to_num(cost.detach().to("cpu", torch.float64).numpy(),
-                           nan=PAD_COST, posinf=PAD_COST, neginf=-PAD_COST)
-    valid_h = tgt_valid.cpu().numpy()
-    tfq = np.full((b, q), -1, np.int64)
-    qft = np.full((b, m), -1, np.int64)
-    for i in range(b):
-        cols = np.flatnonzero(valid_h[i])
-        rows, sel = linear_sum_assignment(cost_h[i][:, cols])
-        tfq[i, rows] = cols[sel]
-        qft[i, cols[sel]] = rows
-    return (torch.from_numpy(tfq).to(cost.device),
-            torch.from_numpy(qft).to(cost.device))
+    return assign(cost.detach().float().contiguous(),
+                  tgt_valid.bool().contiguous())

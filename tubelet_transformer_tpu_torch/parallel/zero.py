@@ -24,7 +24,9 @@ every owned slice into one flat buffer and makes ONE
 ``all_gather_into_tensor`` over the data group (the ranks of this model
 and pipe index, the whole world without those axes; NCCL, or gloo, which
 carries it for CUDA tensors), then unpacks the data shards' slices into
-the parameters.
+the parameters. The inner AdamW is fused, so that a step skips on a flag
+on the device (``train/optimizer.py:skip_unless``): the slices then stay
+as they were, and the all-gather returns every parameter unchanged.
 
 The axis sizes of a port tensor are a permutation of its JAX leaf's
 (torch's (out, in) against flax's (in, out), and so on), so the same
@@ -133,7 +135,7 @@ class ZeroAdamW:
                 self.slots.append((p, axis, leaf))
                 leaves.append(leaf)
             inner_groups.append({**g, "params": leaves})
-        self.inner = torch.optim.AdamW(inner_groups, **defaults)
+        self.inner = torch.optim.AdamW(inner_groups, fused=True, **defaults)
         self.param_groups = [{**gi, "params": list(g["params"])}
                              for g, gi in zip(groups, self.inner.param_groups)]
         # the state dict's index of each sharded parameter -> its slot

@@ -7,6 +7,12 @@ kernels built from that tree's sources) and measures one of two things:
   detector (``configuration/tuber_csn152_ava22.yaml``, random weights from
   seed 0) on synthetic 240x320 frames at 8 fps, a detection every 8 frames;
   its steady median latency, the first two keyframes excluded;
+- with ``--train-steps N``, the flagship fine-tune step (TUNE_POINT 4,
+  bf16, batch 2, random weights from seed 0, the synthetic set's first
+  batch): the median of N steady steps, each ending in a synchronise,
+  and from one more step under ``torch.profiler`` its device kernel time,
+  its kernel launches and the busy share (device time over the steady
+  step);
 - with ``--calls FILE:FUNC[,FUNC...]``, wrapper calls: each FUNC of FILE
   (a Python file read from this tree, so both trees run the same calls;
   ``tools/kernel_calls.py`` holds the kernels at their main-path shapes)
@@ -27,6 +33,7 @@ there (``git archive <commit> | tar -x -C build/parent``):
   python -m tubelet_transformer_tpu_torch.tools.ab build/parent . \\
       [--pairs 10] [--keyframes 12] \\
       [--calls tubelet_transformer_tpu_torch/tools/kernel_calls.py:bottleneck]
+      [--train-steps 8]
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -76,6 +84,53 @@ def stream(tree: str, keyframes: int) -> dict:
             "latency_ms": [round(v, 3) for v in lat]}
 
 
+def train(tree: str, steps: int) -> dict:
+    """The flagship fine-tune step of the port found under ``tree``: its
+    steady median ms over ``steps`` steps after two, then one profiled
+    step's device time, launches and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tubelet_transformer_tpu_torch.cli import runner
+    from tubelet_transformer_tpu_torch.config import load_config
+    from tubelet_transformer_tpu_torch.models.tuber import build_model
+    from tubelet_transformer_tpu_torch.train import engine
+
+    cfg = load_config(os.path.join(tree, "configuration",
+                                   "tuber_csn152_ava22.yaml"))
+    cfg.data.dataset_name, cfg.data.synthetic_size = "synthetic", 8
+    cfg.data.label_path = ""
+    cfg.model.pretrained = True      # the recipe's freezing; random weights
+    batches = iter(runner.make_loaders(cfg)[0])
+    batch = engine.device_batch(next(batches), torch.device("cuda"))
+    batches.close()
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    step = engine.make_train_step(cfg, engine.create_train_state(
+        cfg, model, steps_per_epoch=steps + 3))
+    ms = []
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, cfg.loss.dice_cof)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    device_ms = sum(ev.device_time_total for ev in prof.events()
+                    if ev.device_type == cuda) / 1e3
+    steady = statistics.median(ms)
+    return {"train_step_ms": steady, "device_ms": device_ms,
+            "busy": device_ms / steady,
+            "launches": sum(ev.count for ev in prof.key_averages()
+                            if ev.device_type == cuda),
+            "finite": float(metrics["finite"]),
+            "step_ms": [round(v, 3) for v in ms]}
+
+
 def calls(spec: str) -> dict:
     """Both times of every call that the functions named in ``spec``
     (``FILE:FUNC[,FUNC...]``) return."""
@@ -98,11 +153,15 @@ def main() -> None:
     parser.add_argument("--calls", default=None,
                         help="FILE:FUNC[,FUNC...]: time these calls, not "
                              "the streaming latency")
+    parser.add_argument("--train-steps", type=int, default=0,
+                        help="time this many fine-tune steps, not the "
+                             "streaming latency")
     parser.add_argument("--one", default=None,
                         help="run once, in this process, from this tree")
     args = parser.parse_args()
     if args.one:
         run = (calls(args.calls) if args.calls
+               else train(args.one, args.train_steps) if args.train_steps
                else stream(args.one, args.keyframes))
         print(json.dumps({"tree": args.one, **run}), flush=True)
         return
@@ -113,7 +172,8 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     trees = [os.path.abspath(t) for t in args.trees]
-    extra = ["--keyframes", str(args.keyframes)]
+    extra = ["--keyframes", str(args.keyframes), "--train-steps",
+             str(args.train_steps)]
     if args.calls:
         extra += ["--calls", os.path.abspath(args.calls)]
     runs = {t: [] for t in trees}

@@ -15,7 +15,8 @@ tool's own arguments, as its command line takes them:
 
 The first check joins the process group with its ``--device`` and
 ``--dist-backend``; each writes its ``--out`` as it would alone, and
-returns its cached device memory before the next. The
+returns its cached device memory before the next; every rank marks the
+wall-clock time at which it left the group. The
 checks run in the order given, so settings one makes for the process
 (``--float32`` and ``--dtypes float32`` turn TF32 off) hold for the
 later ones.
@@ -24,6 +25,7 @@ later ones.
 from __future__ import annotations
 
 import sys
+import time
 from typing import List, Optional
 
 import torch
@@ -60,6 +62,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             torch.cuda.empty_cache()
     finally:
         mesh_lib.shutdown()
+    # every rank's end of work on the wall clock, which the launcher's own
+    # (``chip_smoke.py:_torchrun_wait``) sets beside the launch's end
+    dp_check.log_time(f"mesh_checks: the process group left at "
+                      f"{time.time():.3f} (wall clock)", any_rank=True)
 
 
 if __name__ == "__main__":

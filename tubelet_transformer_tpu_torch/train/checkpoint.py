@@ -87,7 +87,8 @@ def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState,
                       max_accuracy: float, keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": model, "optimizer": optimizer,
-               "step": state.step, "updates": state.updates, "epoch": epoch,
+               "step": state.step, "updates": int(state.updates),
+               "epoch": epoch,
                "max_accuracy": float(max_accuracy),
                "pipe": _pipe_of(state.model)}
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -128,7 +129,9 @@ def load_checkpoint(path: str, state: TrainState
     sharding_rules.load_full_state(state.model, payload["model"])
     state.optimizer.load_state_dict(sharding_rules.shard_optimizer_state(
         state.model, state.optimizer, payload["optimizer"]))
-    state.step, state.updates = payload["step"], payload["updates"]
+    state.step = payload["step"]
+    state.updates = torch.tensor(payload["updates"], dtype=torch.long,
+                                 device=device)
     return state, payload["epoch"], payload["max_accuracy"]
 
 

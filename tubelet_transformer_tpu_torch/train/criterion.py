@@ -48,7 +48,15 @@ def _global_mean(x: torch.Tensor, dims: tuple, reduce: Reduce
     n = 1
     for d in dims:
         n *= x.shape[d]
-    return x.sum(dims) / reduce(x.new_tensor(float(n)))
+    return x.sum(dims) / reduce(x.new_full((), float(n)))
+
+
+def _class_weights(n: int, eos_coef: float, device: torch.device
+                   ) -> torch.Tensor:
+    """(n,) float32 class weights, 1 but the last (no object) at
+    ``eos_coef``; made on ``device``, with no upload from the host."""
+    return torch.where(torch.arange(n, device=device) < n - 1, 1.0,
+                       eos_coef)
 
 
 def _class_error(correct: torch.Tensor, mf: torch.Tensor, dims: tuple,
@@ -149,7 +157,7 @@ def ava_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     red = tuple(range(1, matched.dim()))                         # (B, Q)
 
     # actorness CE: target 1 matched / 2 unmatched, weights [1, 1, eos]
-    cw = torch.tensor([1.0, 1.0, eos_coef], device=pred_logits.device)
+    cw = _class_weights(3, eos_coef, pred_logits.device)
     loss_ce_b = _weighted_ce(pred_logits_b, torch.where(matched, 1, 2), cw,
                              red, reduce)
 
@@ -256,8 +264,7 @@ def ucf_layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     tgt_ids = _gather_matched(labels[..., None], tfq)[..., 0].reshape(
         matched.shape)
     tgt_full = torch.where(matched, tgt_ids, num_classes)
-    cw = torch.ones(num_classes + 1, device=pred_logits.device)
-    cw[-1] = eos_coef
+    cw = _class_weights(num_classes + 1, eos_coef, pred_logits.device)
     loss_ce = _weighted_ce(pred_logits, tgt_full, cw, red, reduce)
 
     # box losses over the matched pairs, 0 when the batch has no box

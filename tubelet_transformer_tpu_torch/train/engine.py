@@ -2,8 +2,8 @@
 
 Port of ``tubelet_transformer_tpu/train/engine.py`` for one device. A step
 is eager PyTorch: preprocess (with the HSV jitter for uint8 clips), the
-train forward, the matched losses (the assignment on the host, one
-device-to-host copy of the costs), the weighted total, backward, the global
+train forward, the matched losses (the assignment solved on the device),
+the weighted total, backward, the global
 norm clip over the trainable gradients, and AdamW at the scheduled rate.
 With MoE encoder FFNs the model's ``moe_aux`` joins the total, weighted by
 ``LOSS_COFS.MOE_AUX_COF``, and is reported as ``loss_moe_aux``.
@@ -16,10 +16,16 @@ take one update per microbatch. The summed gradients, the total and every
 loss term are then scaled by 1/ACCUM_STEPS, as the JAX step does
 (engine.py:127-213 there), before the clip and the update.
 
-The NaN guard skips the whole update when the total loss is not finite:
-the parameters and the Adam moments (no ``optimizer.step()``) and the BN
-running statistics, which the forward has already updated in place and are
-put back from a copy taken before it.
+The NaN guard skips the whole update when the total loss is not finite,
+decided on the device, as the JAX step decides it (engine.py:218-236
+there): the fused AdamW step (``train/optimizer.py:skip_unless``) leaves
+the parameters, the moments and the step counts as they were, the BN
+running statistics, which the forward has already updated in place, are
+selected back from a copy taken before it, and the update count, which
+indexes the table of the schedule's rates on the device, does not move.
+Nothing of the step waits for the device on one process: the assignment
+is solved there too (``ops/cuda/assign.py``), and the metrics stay 0-dim
+device tensors.
 
 Randomness is a ``torch.Generator`` on the model's device, reseeded at each
 step from ``TRAIN.SEED``, the step number and the data index, so that a
@@ -85,7 +91,7 @@ MESH.PIPE alone.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -104,8 +110,7 @@ from tubelet_transformer_tpu_torch.parallel.sharding_rules import (
 from tubelet_transformer_tpu_torch.parallel.zero import ZeroAdamW
 from tubelet_transformer_tpu_torch.train import criterion as crit
 from tubelet_transformer_tpu_torch.train.optimizer import (
-    build_optimizer, clip_by_global_norm, set_learning_rate,
-    trainable_params)
+    build_optimizer, clip_by_global_norm, skip_unless, trainable_params)
 from tubelet_transformer_tpu_torch.train.postprocess import (
     postprocess_ava, postprocess_softmax)
 from tubelet_transformer_tpu_torch.train.schedule import build_schedule
@@ -124,7 +129,12 @@ class TrainState:
     schedule: Callable[[int], float]
     seed: int
     step: int = 0        # train steps taken, skipped ones included
-    updates: int = 0     # optimizer updates applied: the schedule's count
+    # optimizer updates applied, the schedule's count: a 0-dim int64 tensor
+    # on the model's device, which the train step advances there
+    updates: torch.Tensor = field(
+        default_factory=lambda: torch.zeros((), dtype=torch.long))
+    # the update count from which the schedule's rate no longer changes
+    horizon: int = 0
 
 
 def create_train_state(cfg: Config, model: TubeR, steps_per_epoch: int,
@@ -132,10 +142,14 @@ def create_train_state(cfg: Config, model: TubeR, steps_per_epoch: int,
     """AdamW and the schedule for ``model`` (the train build), which gets
     its frozen parameters frozen; with ``MESH.ZERO1`` and a ``mesh`` of
     more than one rank, the ZeRO-1 AdamW over that mesh."""
+    device = next(model.parameters()).device
     return TrainState(model=model,
                       optimizer=build_optimizer(cfg, model, mesh),
                       schedule=build_schedule(cfg, steps_per_epoch),
-                      seed=cfg.train.seed)
+                      seed=cfg.train.seed,
+                      updates=torch.zeros((), dtype=torch.long,
+                                          device=device),
+                      horizon=cfg.train.epoch_num * steps_per_epoch)
 
 
 def device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -326,7 +340,13 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
     trunk = frozenset(id(p) for n, p in model.named_parameters()
                       if spatial_partial(n))
     stats = _bn_stats(model)
-    saved = [torch.empty_like(t) for t in stats]
+    sizes = [t.numel() for t in stats]
+    # each group's rate at every update count up to the horizon, on the
+    # device: the step indexes it by the device count
+    groups = state.optimizer.param_groups
+    rates = torch.tensor([[state.schedule(k) * g["lr_scale"]
+                           for k in range(state.horizon + 1)]
+                          for g in groups], dtype=torch.float32).to(device)
     accum = max(1, cfg.train.accum_steps)
 
     def microbatch(batch: Dict[str, torch.Tensor], clips: torch.Tensor,
@@ -356,7 +376,7 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
         if b % accum:
             raise ValueError(f"batch {b} not divisible by "
                              f"TRAIN.ACCUM_STEPS={accum}")
-        torch._foreach_copy_(saved, stats)
+        saved = torch.cat([t.reshape(-1) for t in stats])
         state.optimizer.zero_grad(set_to_none=True)
         mb = b // accum
         for i in range(accum):
@@ -380,17 +400,23 @@ def make_train_step(cfg: Config, state: TrainState, mesh: Mesh = Mesh()):
             loss_dict = {k: v * inv for k, v in loss_dict.items()}
         grad_norm = clip_by_global_norm(params, cfg.loss.clips_max_norm,
                                         mesh)
-        finite = bool(torch.isfinite(total))
-        if finite:
-            set_learning_rate(state.optimizer, state.schedule(state.updates))
-            state.optimizer.step()
-            state.updates += 1
-        else:
-            torch._foreach_copy_(stats, saved)
+        finite = torch.isfinite(total)
+        lrs = rates.index_select(
+            1, state.updates.clamp(max=state.horizon).view(1))[:, 0]
+        for g, lr in zip(groups, lrs.unbind()):
+            g["lr"] = lr
+        skip_unless(state.optimizer, finite)
+        state.optimizer.step()
+        state.updates += finite
+        # a true select: a non-finite statistic times 0 would stay NaN
+        kept = torch.where(finite, torch.cat([t.reshape(-1) for t in stats]),
+                           saved)
+        torch._foreach_copy_(stats, [k.view_as(t) for k, t in zip(
+            kept.split(sizes), stats)])
         state.step += 1
         metrics = dict(loss_dict)
         metrics["total_loss"] = total
-        metrics["finite"] = torch.tensor(float(finite))
+        metrics["finite"] = finite.float()
         metrics["grad_norm"] = grad_norm
         return metrics
 

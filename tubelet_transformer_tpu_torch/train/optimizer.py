@@ -7,8 +7,9 @@ labelled 'frozen', 'backbone' (the CSN trunk, ``backbone.body.*``, at
 decoder are 'main' as in the JAX package, where they sit outside its
 backbone). Frozen parameters get ``requires_grad_(False)`` and no optimizer
 state; their BN statistics still update in train mode. ``torch.optim.AdamW``
-couples weight decay to the group's rate and decays every parameter, as the
-JAX chain does; the clip runs over the trainable gradients before Adam
+(fused: one kernel over the parameters, which can skip on a flag on the
+device) couples weight decay to the group's rate and decays every
+parameter, as the JAX chain does; the clip runs over the trainable gradients before Adam
 (over the model peers' slices too under ``MESH.MODEL``, and the pipe
 stages' encoder layers under ``MESH.PIPE``).
 With ``MESH.ZERO1`` on a 'data' axis of more than one rank the same AdamW
@@ -79,7 +80,7 @@ def build_optimizer(cfg, model: nn.Module, mesh: Mesh = Mesh()
                  weight_decay=cfg.train.w_decay)
     if cfg.mesh.zero1 and mesh.data > 1:
         return ZeroAdamW(groups, mesh, **hyper)
-    return torch.optim.AdamW(groups, **hyper)
+    return torch.optim.AdamW(groups, fused=True, **hyper)
 
 
 def trainable_params(optimizer: torch.optim.Optimizer
@@ -128,3 +129,12 @@ def clip_by_global_norm(params: Iterable[nn.Parameter],
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for g in optimizer.param_groups:
         g["lr"] = lr * g["lr_scale"]
+
+
+def skip_unless(optimizer, finite: torch.Tensor) -> None:
+    """Make the next ``step()`` of ``optimizer`` (``build_optimizer``'s
+    fused AdamW, or ``ZeroAdamW`` around one) leave the parameters, the
+    moments and the step counts bit for bit as they are unless ``finite``
+    (a 0-dim bool tensor on the parameters' device) holds: the fused
+    kernel's ``found_inf``, read on the device."""
+    getattr(optimizer, "inner", optimizer).found_inf = (~finite).float()
